@@ -1,0 +1,74 @@
+"""Carry a solver's state from the JAX package into the port.
+
+The JAX ``MultigridSolver`` and this package's build the same set-up
+independently; the only parts that can differ are those made by a run
+(the Lanczos eigenvalue estimates, which see a different summation order)
+and data a caller may want to pin.  :func:`load_state` installs, from plain
+numpy arrays and floats (so this module never imports JAX):
+
+* ``"rhs"``: per level, the f64 right-hand side ``[Z, Y, X]``;
+* ``"u_bc"``: per level, the six Dirichlet face slabs (axis d of extent 1,
+  ordered ``[(d, side) for d for side in (0, 1)]``);
+* ``"chebyshev"``: per level, ``(theta, delta, degree, max_eig, min_eig)``
+  with ``degree`` counting preconditioner applications, as both packages
+  store it;
+* ``"element_matrix"``: per level, the ``[(p+1)^3, (p+1)^3]`` element
+  stiffness; the CUDA kernel builds it from its 1-D tables, so a matrix
+  that differs from :func:`~.ops.laplace_dense.element_matrix` is refused.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.laplace import make_diag_coef
+from .ops.laplace_dense import element_matrix
+
+
+def _validate(solver, state: dict) -> None:
+    L = len(solver.grids)
+    for key in ("rhs", "u_bc", "chebyshev", "element_matrix"):
+        if key in state and len(state[key]) != L:
+            raise ValueError(f"state[{key!r}] has {len(state[key])} levels, "
+                             f"the solver {L}")
+    for l, g in enumerate(solver.grids):
+        if "rhs" in state and np.shape(state["rhs"][l]) != g.shape:
+            raise ValueError(f"rhs[{l}]: shape {np.shape(state['rhs'][l])} "
+                             f"!= {g.shape}")
+        for i, f in enumerate(state.get("u_bc", [[]] * L)[l]):
+            want = list(g.shape)
+            want[i // 2] = 1
+            if list(np.shape(f)) != want:
+                raise ValueError(f"u_bc[{l}][{i}]: shape {np.shape(f)} != {want}")
+        if "element_matrix" in state:
+            K = np.asarray(state["element_matrix"][l], np.float64)
+            want = element_matrix(g, make_diag_coef(g, solver.coefficient))
+            if K.shape != want.shape or not np.allclose(K, want, rtol=1e-13,
+                                                        atol=0):
+                raise ValueError(f"element_matrix[{l}] differs from the "
+                                 "brick element matrix the kernels apply")
+
+
+def load_state(solver, state: dict) -> None:
+    """Install ``state`` into ``solver`` (a
+    :class:`~.solvers.multigrid.MultigridSolver`) in place; the whole state
+    is checked before anything is installed."""
+    _validate(solver, state)
+    dev, f_dtype = solver.device, solver.f_dtype
+    t = lambda a, dtype: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                                      device=dev)
+    for l in range(len(solver.grids)):
+        if "rhs" in state:
+            solver.rhs[l] = t(state["rhs"][l], f_dtype)
+        if "u_bc" in state:
+            solver.u_bc[l] = [t(f, f_dtype) for f in state["u_bc"][l]]
+        if "chebyshev" in state:
+            theta, delta, degree, max_eig, min_eig = state["chebyshev"][l]
+            sm = solver.smoothers[l]
+            sm.theta, sm.delta = float(theta), float(delta)
+            sm.degree = int(degree)
+            sm.max_eig, sm.min_eig = float(max_eig), float(min_eig)
+        if "element_matrix" in state:
+            for op in (solver.dp_ops[l], solver.sp_ops[l]):
+                op.K = t(state["element_matrix"][l], op.dtype)

@@ -39,3 +39,9 @@ try:
     jax.config.update("jax_persistent_cache_enable_xla_caches", "none")
 except Exception:
     pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA "
+        "kernels); skipped without one")
