@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface, loaded with ``ctypes``.  The library lives
+The sources are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc``
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library lives
 in ``build/multigrid_tpu_torch/`` beside the package, under a name keyed by
 a hash of the sources and flags, so a changed source rebuilds and an
 unchanged one loads at once.  Nothing is built when this module is
@@ -26,10 +27,11 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = [PACKAGE_DIR / "csrc" / "brick_apply.cu",
-           PACKAGE_DIR / "csrc" / "cg_vec.cu"]
+           PACKAGE_DIR / "csrc" / "cg_vec.cu",
+           PACKAGE_DIR / "csrc" / "dg_apply.cu"]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "multigrid_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _D = ctypes.c_double
@@ -53,6 +55,13 @@ SIGNATURES = {
     "cg_dot": [_P, _P, _LL, _P, _P, _P, _N],
     # p, z, beta, n, stream
     "cg_xpay": [_P, _P, _D, _LL, _P, _N],
+    # x, tables, y, C0, C1, C2, n, collocation, stream
+    "dg_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
+    "dg_apply_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
+    # b, x, x_old, inv_diag, tables, out, f1, f2, C0, C1, C2, n,
+    # collocation, stream
+    "dg_cheb_f32": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I, _P,
+                    _N],
 }
 # partial-sum slots the reductions of cg_vec.cu use (its kMaxBlocks)
 REDUCTION_BLOCKS = 1024
@@ -85,22 +94,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources into the hashed library unless it exists."""
+    """Compile the sources into the hashed library unless it exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + build_log)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(work / (src.stem + ".o")),
+             str(src)] for src in SOURCES]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / "lib.so"),
+            *(c[c.index("-o") + 1] for c in cmds)]
+    failed = [" ".join(c) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(" ".join(link))
+    build_log = "\n".join(" ".join(c) + "\n" + log
+                           for c, log in zip([*cmds, link], logs))
+    (BUILD_DIR / "build.log").write_text(build_log)
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed: {failed}\n{build_log}")
+    os.replace(work / "lib.so", out)   # atomic: a loader never sees half a file
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 

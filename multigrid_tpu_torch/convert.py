@@ -15,6 +15,14 @@ numpy arrays and floats (so this module never imports JAX):
 * ``"element_matrix"``: per level, the ``[(p+1)^3, (p+1)^3]`` element
   stiffness; the CUDA kernel builds it from its 1-D tables, so a matrix
   that differs from :func:`~.ops.laplace_dense.element_matrix` is refused.
+
+For a :class:`~.solvers.multigrid_dg.MultigridSolverDG` the state is
+
+* ``"rhs"``: the f64 DG right-hand side ``[C0, C1, C2, n, n, n]``;
+* ``"chebyshev"``: the DG smoother's ``(theta, delta, degree, max_eig,
+  min_eig)``;
+* ``"inv_diag"``: the transformed-Jacobi inverse diagonal, DG block;
+* ``"cg"``: the FE_Q hierarchy's state, in the form above.
 """
 
 from __future__ import annotations
@@ -50,10 +58,42 @@ def _validate(solver, state: dict) -> None:
                                  "brick element matrix the kernels apply")
 
 
+def _install_chebyshev(sm, values) -> None:
+    theta, delta, degree, max_eig, min_eig = values
+    sm.theta, sm.delta = float(theta), float(delta)
+    sm.degree = int(degree)
+    sm.max_eig, sm.min_eig = float(max_eig), float(min_eig)
+
+
+def _load_dg_state(solver, state: dict) -> None:
+    shape = solver.dg_grid.shape
+    for key in ("rhs", "inv_diag"):
+        if key in state and np.shape(state[key]) != shape:
+            raise ValueError(f"{key}: shape {np.shape(state[key])} != {shape}")
+    if "cg" in state:
+        _validate(solver.cg, state["cg"])
+    dev = solver.device
+    if "rhs" in state:
+        solver.rhs = torch.tensor(np.asarray(state["rhs"], np.float64),
+                                  dtype=solver.f_dtype, device=dev)
+    if "inv_diag" in state:
+        jac = solver.jacobi
+        jac.inv_diag = torch.tensor(np.asarray(state["inv_diag"], np.float64),
+                                    dtype=jac.dtype, device=dev)
+    if "chebyshev" in state:
+        _install_chebyshev(solver.smooth_dg, state["chebyshev"])
+    if "cg" in state:
+        load_state(solver.cg, state["cg"])
+
+
 def load_state(solver, state: dict) -> None:
     """Install ``state`` into ``solver`` (a
-    :class:`~.solvers.multigrid.MultigridSolver`) in place; the whole state
-    is checked before anything is installed."""
+    :class:`~.solvers.multigrid.MultigridSolver` or a
+    :class:`~.solvers.multigrid_dg.MultigridSolverDG`) in place; the whole
+    state is checked before anything is installed."""
+    if hasattr(solver, "dg_grid"):
+        _load_dg_state(solver, state)
+        return
     _validate(solver, state)
     dev, f_dtype = solver.device, solver.f_dtype
     t = lambda a, dtype: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -64,11 +104,7 @@ def load_state(solver, state: dict) -> None:
         if "u_bc" in state:
             solver.u_bc[l] = [t(f, f_dtype) for f in state["u_bc"][l]]
         if "chebyshev" in state:
-            theta, delta, degree, max_eig, min_eig = state["chebyshev"][l]
-            sm = solver.smoothers[l]
-            sm.theta, sm.delta = float(theta), float(delta)
-            sm.degree = int(degree)
-            sm.max_eig, sm.min_eig = float(max_eig), float(min_eig)
+            _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
         if "element_matrix" in state:
             for op in (solver.dp_ops[l], solver.sp_ops[l]):
                 op.K = t(state["element_matrix"][l], op.dtype)

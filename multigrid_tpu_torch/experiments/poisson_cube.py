@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..mesh.brick import BrickMesh, doubling_mesh, poisson_cube_mesh
 from ..solvers.multigrid import MultigridSolver
 from ..utils.tables import print_convergence_table
@@ -59,7 +60,7 @@ rhs_fn.separable_1d = _rhs_separable_1d
 
 def build_solver(mesh: BrickMesh, degree: int, n_pre: int = 2,
                  n_post: int = 2, n_cycles: int = 2,
-                 device="cpu") -> MultigridSolver:
+                 device="cuda") -> MultigridSolver:
     return MultigridSolver(mesh, degree, exact_fn, rhs_fn, n_pre=n_pre,
                            n_post=n_post, n_cycles=n_cycles, device=device)
 
@@ -75,12 +76,12 @@ def _phase(msg):
 
 
 def run_cycle(mesh: BrickMesh, degree: int, n_cycles: int, n_pre: int,
-              n_post: int, device="cpu", n_fmg_repeat: int = 3,
+              n_post: int, device="cuda", n_fmg_repeat: int = 3,
               n_cg_repeat: int = 3, n_matvec: int = 50,
               verbose: bool = True) -> dict:
     """One row of the reference convergence table
     (reference poisson_cube/program.cc:255-401)."""
-    device = torch.device(device)
+    device = resolve(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     _phase("setup...")

@@ -1,10 +1,14 @@
-"""Where the device time of the poisson_cube solves goes, on one CUDA device.
+"""Where the device time of the poisson_cube and poisson_dg solves goes, on
+one CUDA device.
 
     python -m multigrid_tpu_torch.experiments.profile_solve 64 128 \\
         --out chiprun_out/profile_solve.json
+    python -m multigrid_tpu_torch.experiments.profile_solve 48 64 --dg
 
 For each cube size (``poisson_cube_mesh(size)``, FE_Q(degree)) and each of
-FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``): one warm-up
+FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
+``--dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9) -- one
+warm-up
 run, the best of ``--repeat`` runs without the profiler (host clock around
 ``torch.cuda.synchronize``), then one run under ``torch.profiler``.  From
 that run's trace: the device-busy time (union of kernel, memcpy and memset
@@ -28,7 +32,8 @@ import torch
 
 from ..mesh.brick import poisson_cube_mesh
 from ..solvers.multigrid import set_full_precision_matmul
-from .poisson_cube import build_solver
+from ..solvers.multigrid_dg import MultigridSolverDG
+from .poisson_cube import build_solver, exact_fn, rhs_fn
 
 # class -> substrings of the demangled kernel name (first match wins; the
 # port's own kernels sit in an anonymous namespace)
@@ -39,6 +44,12 @@ CLASSES = (
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",
                     "xpay_kernel", "finish_sum_kernel")),
+    ("dg_apply<double>", tuple(f"dg_kernel<double, {n}, false>"
+                               for n in range(2, 9))),
+    ("dg_apply<float>", tuple(f"dg_kernel<float, {n}, false>"
+                              for n in range(2, 9))),
+    ("dg_cheb<float>", tuple(f"dg_kernel<float, {n}, true>"
+                             for n in range(2, 9))),
     ("matmul", ("gemm", "cutlass")),
     ("fill/copy", ("fill", "copy")),
 )
@@ -114,6 +125,8 @@ def main(argv=None) -> list:
     ap.add_argument("--degree", type=int, default=4)
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
+    ap.add_argument("--dg", action="store_true",
+                    help="profile the poisson_dg solve at these sizes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -125,10 +138,18 @@ def main(argv=None) -> list:
     trace.parent.mkdir(parents=True, exist_ok=True)
     cells = []
     for size in args.sizes:
-        solver = build_solver(poisson_cube_mesh(size), args.degree,
-                              device=dev)
-        dofs = solver.grids[solver.maxlevel].n_dofs
-        for phase, fn in (("fmg", solver.solve), ("cg", solver.solve_cg)):
+        if args.dg:
+            solver = MultigridSolverDG(poisson_cube_mesh(size), args.degree,
+                                       exact_fn, rhs_fn, n_pre=3, n_post=3,
+                                       device=dev)
+            dofs = solver.dg_grid.n_dofs
+            phases = (("dg cg", lambda: solver.solve_cg(tolerance=1e-9)),)
+        else:
+            solver = build_solver(poisson_cube_mesh(size), args.degree,
+                                  device=dev)
+            dofs = solver.grids[solver.maxlevel].n_dofs
+            phases = (("fmg", solver.solve), ("cg", solver.solve_cg))
+        for phase, fn in phases:
             fn()
             torch.cuda.synchronize()
             walls = []

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..mesh.brick import DofGrid
 from .masks import interior_mask
 from .windows import gather_cells, scatter_cells
@@ -84,10 +85,10 @@ class LaplaceOperator:
     """A·u for -div(c grad u) with FE_Q(p) on one brick level."""
 
     def __init__(self, grid: DofGrid, dtype=torch.float32,
-                 coef: Optional[DiagCoef] = None, device=None):
+                 coef: Optional[DiagCoef] = None, device="cuda"):
         self.grid = grid
         self.dtype = dtype
-        self.device = device
+        self.device = device = resolve(device)
         b = grid.basis
         self.n = b.n
         self.dim = grid.dim

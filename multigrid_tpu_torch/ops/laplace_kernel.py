@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..devices import resolve
 from ..mesh.brick import DofGrid
 from .laplace import diag_lines, make_diag_coef
 from .laplace_dense import dense_apply, element_matrix
@@ -152,13 +153,13 @@ class BrickLaplace:
     kernels read (1-D tables, coefficients, diagonal lines) and the element
     matrix their plain versions read."""
 
-    def __init__(self, grid: DofGrid, dtype=torch.float32, device=None,
+    def __init__(self, grid: DofGrid, dtype=torch.float32, device="cuda",
                  coefficient: float = 1.0):
         assert grid.dim == 3, "the brick kernels are 3-D"
         self.grid = grid
         self.shape = tuple(grid.shape)
         self.dtype = dtype
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve(device)
         self.n = grid.basis.n
         coef = make_diag_coef(grid, coefficient)
         self.coef_values = tuple(float(v) for v in coef.values)
@@ -188,6 +189,8 @@ class BrickLaplace:
         """rhs - A lhs; Dirichlet rows give rhs - lhs."""
         return cheb_epilogue(rhs, self.apply(lhs), x=lhs, residual_only=True)
 
-    def cheb(self, b, y, x, x_old, f1: float, f2: float, out=None):
-        """One Chebyshev update ``x + f1 (x - x_old) + f2 D^-1 (b - y)``."""
+    def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
+        """``x + f1 (x - x_old) + f2 D^-1 (b - A x)``: A x by
+        ``brick_apply`` (skipped for ``x = None``), then the epilogue."""
+        y = None if x is None else self.apply(x)
         return cheb_epilogue(b, y, x, x_old, self.lines, f1, f2, out=out)

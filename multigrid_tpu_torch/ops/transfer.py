@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..mesh.brick import DofGrid
 from .laplace import apply_1d
 from .masks import zero_boundary_
@@ -28,9 +29,10 @@ from .windows import gather_cells, scatter_cells
 
 class Transfer:
     def __init__(self, fine: DofGrid, coarse: DofGrid, dtype=torch.float32,
-                 device=None, constrained: bool = True):
+                 device="cuda", constrained: bool = True):
         assert fine.level == coarse.level + 1
         assert fine.degree == coarse.degree
+        device = resolve(device)
         self.fine = fine
         self.coarse = coarse
         self.constrained = constrained

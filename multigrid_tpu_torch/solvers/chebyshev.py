@@ -14,10 +14,21 @@ common/multigrid_solver.h:268-291):
 * ``degree = n_pre`` literally: ``vmult`` makes ``degree + 1`` diagonal
   scalings and ``degree`` operator applications.
 
-Each iteration of the first-kind recurrence is one ``brick_apply`` and one
-``cheb_epilogue`` of the level's :class:`BrickLaplace`; the update writes
-into the dead ``x_old`` buffer (in place, one vector saved per step).
-The fourth kind is not ported yet.
+The smoother takes either kind of level operator through one method,
+``op.cheb_step(b, x, x_old, f1, f2, out)`` = ``x + f1 (x - x_old) +
+f2 P^-1 (b - A x)`` (``x``/``x_old`` None read as zero):
+
+* :class:`~..ops.laplace_kernel.BrickLaplace` (FE_Q V-cycle): one
+  ``brick_apply`` and one ``cheb_epilogue``, P the point Jacobi diagonal
+  (a node's A x is complete only after all its cells, so the two cannot
+  fuse);
+* :class:`~..ops.dg_kernel.DGOperator` (DG smoother): one ``dg_cheb``
+  kernel, A x and the transformed-Jacobi P fused into the pass.
+
+The update writes into the dead ``x_old`` buffer (in place, one vector
+saved per step).  The Lanczos estimate takes the preconditioner as a
+callable (``precond``: the brick's ``inv_diag.mul``, the DG smoother's
+``JacobiTransformed.vmult``).  The fourth kind is not ported yet.
 """
 
 from __future__ import annotations
@@ -123,7 +134,7 @@ def interval_from_spectrum(max_eig: float, min_eig: float,
 @dataclass
 class Chebyshev:
     """First-kind Chebyshev smoother bound to one level's operator (a
-    :class:`~multigrid_tpu_torch.ops.laplace_kernel.BrickLaplace`)."""
+    ``BrickLaplace`` or a ``DGOperator``: ``vmult`` and ``cheb_step``)."""
 
     op: object
     theta: float
@@ -133,14 +144,14 @@ class Chebyshev:
     min_eig: float
 
     @staticmethod
-    def create(op, inv_diag: torch.Tensor, smoothing_range: float,
-               degree: Optional[int], eig_cg_n_iterations: int) -> "Chebyshev":
-        """Estimate the spectrum of ``diag^-1 A`` (``inv_diag`` as in the
-        JAX twin: the sum-factorized operator's separable inverse diagonal)
-        and fix the interval and degree."""
+    def create(op, precond: Callable, smoothing_range: float,
+               degree: Optional[int],
+               eig_cg_n_iterations: int) -> "Chebyshev":
+        """Estimate the spectrum of ``P^-1 A`` and fix the interval and
+        degree; ``P^-1 r`` is ``precond(r)``."""
         rhs0 = eig_estimate_start_vector(op.shape, op.dtype, op.device)
         max_eig, min_eig = estimate_eigenvalues(
-            op.vmult, lambda r: inv_diag * r, eig_cg_n_iterations, rhs0)
+            op.vmult, precond, eig_cg_n_iterations, rhs0)
         theta, delta, n_apps = interval_from_spectrum(
             max_eig, min_eig, smoothing_range, degree)
         return Chebyshev(op, theta, delta, n_apps, max_eig, min_eig)
@@ -152,20 +163,19 @@ class Chebyshev:
             rho_new = 1.0 / (2.0 * th / de - rho)
             f1 = rho_new * rho
             f2 = 2.0 * rho_new / de
-            y = self.op.apply(x)
             out = x_old if x_old_owned else None
-            x, x_old = self.op.cheb(b, y, x, x_old, f1, f2, out=out), x
+            x, x_old = self.op.cheb_step(b, x, x_old, f1, f2, out=out), x
             x_old_owned = True
             rho = rho_new
         return x
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
         """dst = Cheb(A, P) b with zero initial guess."""
-        x = self.op.cheb(b, None, None, None, 0.0, 1.0 / self.theta)
+        x = self.op.cheb_step(b, None, None, 0.0, 1.0 / self.theta)
         return self._loop(x, None, b, x_old_owned=False)
 
     def step(self, x0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One smoothing pass starting from ``x0`` (deal.II ``step``);
         ``x0`` is not modified."""
-        x = self.op.cheb(b, self.op.apply(x0), x0, None, 0.0, 1.0 / self.theta)
+        x = self.op.cheb_step(b, x0, None, 0.0, 1.0 / self.theta)
         return self._loop(x, x0, b, x_old_owned=False)

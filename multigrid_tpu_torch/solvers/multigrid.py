@@ -24,6 +24,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..devices import resolve
 from ..mesh.brick import BrickMesh, DofGrid
 from ..ops.laplace import (LaplaceOperator, compute_bc_slab_correction_host,
                            compute_rhs_host, l2_error_host, make_diag_coef,
@@ -82,19 +83,24 @@ class MultigridSolver:
     Parameters mirror the reference constructor
     (common/multigrid_solver.h:100-106): analytic solution (Dirichlet data),
     right-hand side, constant coefficient, pre/post smoothing degree, number
-    of V-cycles per FMG level; ``device`` holds every level's tensors.
+    of V-cycles per FMG level; ``device`` holds every level's tensors (the
+    card unless the caller passes ``"cpu"``).  ``finest_degree`` replaces
+    ``n_pre`` as the finest level's smoothing degree (the DG solver's FE_Q
+    hierarchy uses ``max(1, n_pre - 1)``, reference
+    common/multigrid_solver_dg.h:266-304).
     """
 
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn: Callable,
                  rhs_fn: Callable, coefficient: float = 1.0, n_pre: int = 2,
-                 n_post: int = 2, n_cycles: int = 1, device="cpu",
+                 n_post: int = 2, n_cycles: int = 1, device="cuda",
                  v_dtype=torch.float32, f_dtype=torch.float64,
-                 coarse_smoothing_range: float = 1e-3):
+                 coarse_smoothing_range: float = 1e-3,
+                 finest_degree: Optional[int] = None):
         if n_pre != n_post:
             raise ValueError("the reference requires equal pre/post degree")
         if mesh.dim != 3:
             raise ValueError("the port solves 3-D bricks")
-        self.device = torch.device(device)
+        self.device = resolve(device)
         if self.device.type == "cuda":
             set_full_precision_matmul()
         self.mesh = mesh
@@ -147,20 +153,23 @@ class MultigridSolver:
         # Chebyshev smoothers (multigrid_solver.h:268-291)
         self.smoothers = []
         for l in range(L):
-            inv_diag = LaplaceOperator(self.grids[l], v_dtype, coefs[l],
-                                       dev).inverse_diagonal()
+            precond = LaplaceOperator(self.grids[l], v_dtype, coefs[l],
+                                      dev).inverse_diagonal().mul
             if l > self.minlevel:
                 # deal.II: smoother_data.degree = n_pre literally
-                sm = Chebyshev.create(self.sp_ops[l], inv_diag,
-                                      smoothing_range=20.0, degree=n_pre,
+                deg = n_pre
+                if finest_degree is not None and l == self.maxlevel:
+                    deg = finest_degree
+                sm = Chebyshev.create(self.sp_ops[l], precond,
+                                      smoothing_range=20.0, degree=deg,
                                       eig_cg_n_iterations=15)
             else:
-                sm = Chebyshev.create(self.sp_ops[l], inv_diag,
+                sm = Chebyshev.create(self.sp_ops[l], precond,
                                       smoothing_range=coarse_smoothing_range,
                                       degree=None,
                                       eig_cg_n_iterations=self.grids[l].n_dofs)
             self.smoothers.append(sm)
-            del inv_diag
+            del precond
 
     # ------------------------------------------------------------- set-up
     def _impose_bc(self, faces, x: torch.Tensor,

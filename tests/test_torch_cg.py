@@ -99,7 +99,7 @@ def test_cg_solve_matches_jax(size):
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
 
     sj = j_build(j_cube(size), 4, n_cycles=2)
-    st = build_solver(poisson_cube_mesh(size), 4)
+    st = build_solver(poisson_cube_mesh(size), 4, device="cpu")
     L = sj.maxlevel
     res_j = jax.jit(lambda bb: j_cg_solve(
         sj.dp_ops[L].vmult, bb, precond=sj._precond, rtol=1e-9))(sj.rhs[L])
@@ -115,8 +115,8 @@ def test_cg_solve_matches_jax(size):
 
 def test_cg_solve_leaves_rhs_and_stops_at_tolerance():
     gt, b = _problem((2, 2, 2))
-    op = BrickLaplace(gt, torch.float64)
-    inv = LaplaceOperator(gt, torch.float64).inverse_diagonal()
+    op = BrickLaplace(gt, torch.float64, "cpu")
+    inv = LaplaceOperator(gt, torch.float64, device="cpu").inverse_diagonal()
     bt = torch.tensor(b)
     res = cg_solve(op.vmult, bt, precond=lambda r: inv * r, rtol=1e-9)
     assert torch.equal(bt, torch.tensor(b))

@@ -54,7 +54,7 @@ def test_brick_vmult_matches_laplace_operator(cells, prec):
     gj, gt = grids(cells)
     x = rand(gt.shape, 0)
     ref = jl.LaplaceOperator(gj, jdt, jl.make_diag_coef(gj))
-    op = lk.BrickLaplace(gt, tdt)
+    op = lk.BrickLaplace(gt, tdt, "cpu")
     y_ref = np.asarray(ref.vmult(jnp.asarray(x, jdt)))
     y = op.vmult(torch.as_tensor(x, dtype=tdt)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=0, atol=tol * np.abs(y_ref).max())
@@ -73,7 +73,7 @@ def test_brick_apply_plain_zero_boundary(prec):
     tdt, jdt, tol = DTYPES[prec]
     gj, gt = grids((2, 3, 4))
     x = rand(gt.shape, 2)
-    op = lk.BrickLaplace(gt, tdt)
+    op = lk.BrickLaplace(gt, tdt, "cpu")
     y = lk.brick_apply(torch.as_tensor(x, dtype=tdt), op).numpy()
     m = np.broadcast_to(op.interior.numpy(), y.shape)
     assert np.all(y[~m] == 0)
@@ -88,7 +88,7 @@ def test_sum_factorized_operator_matches_jax(cells):
     gj, gt = grids(cells)
     x = rand(gt.shape, 3)
     y_ref = np.asarray(jl.LaplaceOperator(gj, jnp.float64).vmult(jnp.asarray(x)))
-    y = tl.LaplaceOperator(gt, torch.float64).vmult(torch.as_tensor(x)).numpy()
+    y = tl.LaplaceOperator(gt, torch.float64, device="cpu").vmult(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-13 * np.abs(y_ref).max())
 
 
@@ -98,7 +98,7 @@ def test_brick_matches_pallas_windowed_dp():
     x = rand(gt.shape, 0)
     y_ref = np.asarray(PallasWindowedOzaki(gj, cy_chunk=4, interpret=True)
                        .vmult(jnp.asarray(x)))
-    y = lk.BrickLaplace(gt, torch.float64).vmult(torch.as_tensor(x)).numpy()
+    y = lk.BrickLaplace(gt, torch.float64, "cpu").vmult(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=0, atol=1e-13 * np.abs(y_ref).max())
 
 
@@ -108,8 +108,28 @@ def test_brick_matches_pallas_windowed_sp():
     x = rand(gt.shape, 0).astype(np.float32)
     y_ref = np.asarray(PallasWindowedSP(gj, cy_chunk=4, interpret=True)
                        .vmult(jnp.asarray(x)))
-    y = lk.BrickLaplace(gt, torch.float32).vmult(torch.as_tensor(x)).numpy()
+    y = lk.BrickLaplace(gt, torch.float32, "cpu").vmult(torch.as_tensor(x)).numpy()
     np.testing.assert_allclose(y, y_ref, rtol=0, atol=2e-6 * np.abs(y_ref).max())
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_brick_matches_older_dp_kernels(kernel):
+    """K5 (``PallasFusedOzaki``) and K6 (``PallasOzakiLaplace``) compute the
+    same f64 FE_Q(4) A·u as K1 in older TPU layouts: the port's plain
+    brick_apply against each in interpret mode, at the bar of
+    tests/test_pallas_matvec.py:24 (relative 2-norm 5e-11)."""
+    from multigrid_tpu.mesh.brick import poisson_cube_mesh as j_cube
+    from multigrid_tpu.ops.pallas_fused import PallasFusedOzaki
+    from multigrid_tpu.ops.pallas_matvec import PallasOzakiLaplace
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+
+    cls = {"K5": PallasFusedOzaki, "K6": PallasOzakiLaplace}[kernel]
+    mj, mt = j_cube(8), poisson_cube_mesh(8)
+    gj, gt = JDofGrid(mj, mj.max_level, 4), DofGrid(mt, mt.max_level, 4)
+    x = rand(gt.shape, 0)
+    y_ref = np.asarray(cls(gj, interpret=True).vmult(jnp.asarray(x)))
+    y = lk.BrickLaplace(gt, torch.float64, "cpu").vmult(torch.as_tensor(x)).numpy()
+    assert np.linalg.norm(y - y_ref) / np.linalg.norm(y_ref) < 5e-11
 
 
 @pytest.mark.parametrize("f1,f2", [(0.37, 0.81), (0.0, 1.3)])
@@ -123,7 +143,7 @@ def test_cheb_epilogue_matches_pallas_cheb_fused(f1, f2):
     opw = PallasWindowedSP(gj, cy_chunk=2, interpret=True)
     lap = jl.LaplaceOperator(gj, jnp.float32, jl.make_diag_coef(gj))
     opw.install_diag_factors(lap)
-    op = lk.BrickLaplace(gt, torch.float32)
+    op = lk.BrickLaplace(gt, torch.float32, "cpu")
     vecs = [np.where(np.asarray(opw.interior), rand(gt.shape, s), 0.0)
             .astype(np.float32) for s in (1, 2, 3)]
     x, x_old, b = vecs
@@ -131,7 +151,7 @@ def test_cheb_epilogue_matches_pallas_cheb_fused(f1, f2):
         *(opw.to_windowed(jnp.asarray(v)) for v in (x, x_old, b)), f1, f2)))
     xt, xot, bt = (torch.as_tensor(v) for v in vecs)
     y = torch.tensor(np.asarray(opw.vmult(jnp.asarray(x))))
-    got = op.cheb(bt, y, xt, xot, f1, f2).numpy()
+    got = lk.cheb_epilogue(bt, y, xt, xot, op.lines, f1, f2).numpy()
     m = np.asarray(opw.interior)
     np.testing.assert_allclose(got[m], want[m], rtol=0,
                                atol=3e-6 * np.abs(want).max())
@@ -147,9 +167,9 @@ def test_cheb_epilogue_matches_node_chebyshev_step():
     f1, f2 = 0.21, 0.66
     r = np.asarray(b) - np.asarray(lap.vmult(jnp.asarray(x)))
     want = x + f1 * (x - x_old) + f2 * np.asarray(lap.inverse_diagonal()) * r
-    op = lk.BrickLaplace(gt, torch.float64)
+    op = lk.BrickLaplace(gt, torch.float64, "cpu")
     xt, xot, bt = (torch.as_tensor(v) for v in (x, x_old, b))
-    got = op.cheb(bt, op.apply(xt), xt, xot, f1, f2).numpy()
+    got = op.cheb_step(bt, xt, xot, f1, f2).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
     res = lk.cheb_epilogue(bt, op.apply(xt), x=xt, residual_only=True).numpy()
     np.testing.assert_allclose(res, r, rtol=0, atol=1e-13 * np.abs(r).max())
@@ -159,7 +179,7 @@ def test_cheb_epilogue_matches_node_chebyshev_step():
 def test_inverse_diagonal_matches_jax(cells):
     gj, gt = grids(cells)
     want = np.asarray(jl.LaplaceOperator(gj, jnp.float64).inverse_diagonal())
-    got = tl.LaplaceOperator(gt, torch.float64).inverse_diagonal().numpy()
+    got = tl.LaplaceOperator(gt, torch.float64, device="cpu").inverse_diagonal().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-13, atol=0)
 
 
@@ -209,7 +229,7 @@ def test_device_rhs_and_l2_error_match_jax():
     fq_j = _rhs(gj.quad_coords_interleaved())
     fq_t = _rhs(tl.quad_coords_blocked(gt))
     opj = jl.LaplaceOperator(gj, jnp.float64)
-    opt = tl.LaplaceOperator(gt, torch.float64)
+    opt = tl.LaplaceOperator(gt, torch.float64, device="cpu")
     want = np.asarray(opj.compute_rhs(jnp.asarray(fq_j), jnp.asarray(ubc)))
     got = opt.compute_rhs(torch.as_tensor(fq_t), torch.as_tensor(ubc)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-13 * np.abs(want).max())
@@ -228,7 +248,7 @@ def test_wrappers_refuse_other_devices():
     """A wrapper runs the plain version only for CPU tensors; for any other
     device it launches a kernel or raises -- never falls back."""
     _, gt = grids((2, 2, 2))
-    op = lk.BrickLaplace(gt, torch.float64)
+    op = lk.BrickLaplace(gt, torch.float64, "cpu")
     x = torch.zeros(gt.shape, dtype=torch.float64, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         lk.brick_apply(x, op)

@@ -41,7 +41,7 @@ def _one_torch_thread():
 @pytest.mark.parametrize("size", sorted(REFERENCE_ROWS))
 def test_reference_rows(size):
     ref_red, ref_fmg, ref_its, ref_cgred, ref_cgerr = REFERENCE_ROWS[size]
-    s = build_solver(poisson_cube_mesh(size), 4, n_cycles=2)
+    s = build_solver(poisson_cube_mesh(size), 4, n_cycles=2, device="cpu")
     sol, report, red = s.solve_analyze()
     assert red == pytest.approx(ref_red, rel=0.02)
     assert len(report) == s.maxlevel
@@ -66,7 +66,7 @@ def jax_and_port_size4():
                       for s in sj.smoothers],
         "element_matrix": [np.asarray(op.K) for op in sj.sp_ops],
     }
-    st = build_solver(poisson_cube_mesh(4), 4, n_cycles=2)
+    st = build_solver(poisson_cube_mesh(4), 4, n_cycles=2, device="cpu")
     convert.load_state(st, state)
     return sj, st, state
 
@@ -159,10 +159,24 @@ def test_profile_breakdown_of_a_trace():
     assert kernel_class("void dot_kernel<double, 128, 0>") == "other torch"
 
 
+def test_profile_classes_of_dg_kernels():
+    from multigrid_tpu_torch.experiments.profile_solve import kernel_class
+
+    pre = "void (anonymous namespace)::dg_kernel"
+    args = "(float const*, float const*, float*, int, int, int, int)"
+    assert kernel_class(f"{pre}<double, 5, false>{args}") == "dg_apply<double>"
+    assert kernel_class(f"{pre}<float, 5, false>{args}") == "dg_apply<float>"
+    assert kernel_class(f"{pre}<float, 8, true>{args}") == "dg_cheb<float>"
+
+
 def test_import_loads_no_jax():
     code = ("import sys, multigrid_tpu_torch.solvers.multigrid, "
             "multigrid_tpu_torch.experiments.poisson_cube, "
             "multigrid_tpu_torch.experiments.profile_solve, "
+            "multigrid_tpu_torch.experiments.poisson_dg, "
+            "multigrid_tpu_torch.solvers.multigrid_dg, "
+            "multigrid_tpu_torch.ops.dg_kernel, "
+            "multigrid_tpu_torch.utils.perf_model, "
             "multigrid_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multigrid_tpu')]; "

@@ -81,7 +81,7 @@ def transfer_matrices(fine, coarse, constrained):
 def test_f64_transfer_matches_numpy_oracle(mesh, constrained):
     _, (ft, ct) = level_pair(MESHES[mesh], 1)
     Tz, Ty, Tx = transfer_matrices(ft, ct, constrained)
-    tt = Transfer(ft, ct, torch.float64, constrained=constrained)
+    tt = Transfer(ft, ct, torch.float64, "cpu", constrained=constrained)
     rng = np.random.default_rng(4)
     uc = rng.standard_normal(ct.shape)
     uf = rng.standard_normal(ft.shape)
@@ -101,7 +101,7 @@ def test_transfer_matches_jax(mesh, prec, constrained):
     tdt, jdt, tol = PREC[prec]
     (fj, cj), (ft, ct) = level_pair(MESHES[mesh], 1)
     jt = JTransfer(fj, cj, jdt, constrained=constrained)
-    tt = Transfer(ft, ct, tdt, constrained=constrained)
+    tt = Transfer(ft, ct, tdt, "cpu", constrained=constrained)
     rng = np.random.default_rng(3)
     uc = rng.standard_normal(ct.shape)
     uf = rng.standard_normal(ft.shape)
@@ -117,7 +117,7 @@ def test_transfer_matches_jax(mesh, prec, constrained):
 
 def test_transfer_restrict_is_adjoint():
     _, (ft, ct) = level_pair(MESHES["aniso"], 1)
-    tt = Transfer(ft, ct, torch.float64, constrained=True)
+    tt = Transfer(ft, ct, torch.float64, "cpu", constrained=True)
     rng = np.random.default_rng(5)
     uc = torch.as_tensor(rng.standard_normal(ct.shape))
     uf = torch.as_tensor(rng.standard_normal(ft.shape))
@@ -137,8 +137,8 @@ def _jax_smoother(g, smoothing_range, degree, n_it):
 
 
 def _torch_smoother(g, smoothing_range, degree, n_it):
-    inv = tl.LaplaceOperator(g, torch.float32).inverse_diagonal()
-    return Chebyshev.create(BrickLaplace(g, torch.float32), inv,
+    inv = tl.LaplaceOperator(g, torch.float32, device="cpu").inverse_diagonal()
+    return Chebyshev.create(BrickLaplace(g, torch.float32, "cpu"), inv.mul,
                             smoothing_range, degree, n_it)
 
 
@@ -194,7 +194,7 @@ def test_chebyshev_matches_jax_recurrence():
 def test_single_level_coarse_solver():
     """size 3 is one level: CG preconditioned by the Chebyshev coarse
     solver; reference row: 3 its, reduction 3.157e-4."""
-    s = build_solver(poisson_cube_mesh(3), 4, n_cycles=2)
+    s = build_solver(poisson_cube_mesh(3), 4, n_cycles=2, device="cpu")
     _, its, red = s.solve_cg()
     assert its == 3
     assert red == pytest.approx(3.157e-4, rel=0.05)
