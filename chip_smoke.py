@@ -17,8 +17,11 @@ Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the two solves, as a trace
-counts them: one brick_apply call is 8 parity-class launches, one CG
-reduction 2, one DG kernel call 1; max error against the plain version;
+counts them: one f64 brick_apply call is 8 parity-class launches, one
+brick_kron call 1, one CG reduction 2, one DG kernel call 1; the row
+``brick_kron<float>`` counts the kernel's A·x modes (apply, vmult,
+residual) and times apply, with the residual mode's numbers beside them
+under ``residual_*``; max error against the plain version;
 time of kernel, plain version and, where one PyTorch call computes the same
 function, that call; the least time the card could take, from the bytes
 and operations the function needs), the card line again and, last,
@@ -61,8 +64,10 @@ KERNELS = {
     # name: (source, TPU kernel it replaces)
     "brick_apply<double>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
                             "multigrid_tpu/ops/pallas_windowed.py:340"),
-    "brick_apply<float>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
-                           "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
+    "brick_kron<float>": ("multigrid_tpu_torch/csrc/brick_kron.cu",
+                          "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
+    "brick_kron_cheb<float>": ("multigrid_tpu_torch/csrc/brick_kron.cu",
+                               "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
     "cheb_epilogue<float>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
                              "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
     "cheb_epilogue<double>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
@@ -81,10 +86,12 @@ KERNELS = {
                        "multigrid_tpu/ops/pallas_dg.py:490"),
 }
 # kernels each path must launch
-CUBE_KERNELS = list(KERNELS)[:7]
+CUBE_KERNELS = ["brick_apply<double>", "brick_kron<float>",
+                "brick_kron_cheb<float>", "cheb_epilogue<float>",
+                "cheb_epilogue<double>", "cg_update", "cg_dot", "cg_xpay"]
 DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
-              "brick_apply<float>", "cheb_epilogue<float>", "cg_update",
-              "cg_dot", "cg_xpay"]
+              "brick_kron<float>", "brick_kron_cheb<float>",
+              "cheb_epilogue<float>", "cg_update", "cg_dot", "cg_xpay"]
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -133,6 +140,7 @@ class KernelChecks:
         self.plain_ms = {}
         self.bound = {}                      # name -> (ms, "bytes"/"operations")
         self.library_ms = {k: None for k in KERNELS}
+        self.residual = {}                   # brick_kron's residual mode
 
     def note(self, name, got, want, scale, tol):
         err = float((got - want).abs().max())
@@ -146,48 +154,125 @@ class KernelChecks:
         return torch.as_tensor(a, dtype=dtype, device=self.dev)
 
     def operator_checks(self, grid, timed: bool):
+        """The f64 brick (brick_apply<double> at 1e-13·max|y|, its residual
+        epilogue at 1e-14), cheb_epilogue<float> on a given y (the x = 0
+        step's kernel) at 3e-6·max|out|, and brick_kron (:meth:`kron_checks`)."""
         from multigrid_tpu_torch.ops import laplace_kernel as lk
 
-        for dtype, cname, tol in ((torch.float64, "double", 1e-13),
-                                  (torch.float32, "float", 2e-6)):
-            op = lk.BrickLaplace(grid, dtype, self.dev)
-            x = self.rand(grid.shape, dtype, 1)
-            y = lk.brick_apply(x, op)
-            y_ref = lk.brick_apply_plain(x, op.K)
-            self.note(f"brick_apply<{cname}>", y, y_ref,
-                      float(y_ref.abs().max()), tol)
-            b = self.rand(grid.shape, dtype, 2)
-            x_old = self.rand(grid.shape, dtype, 3)
-            if dtype == torch.float32:
-                args = dict(x=x, x_old=x_old, lines=op.lines, f1=0.37, f2=0.81)
-                etol = 3e-6
-            else:
-                args = dict(x=x, residual_only=True)
-                etol = 1e-14
-            got = lk.cheb_epilogue(b, y_ref, **args)
-            want = lk.cheb_epilogue_plain(b, y_ref, **args)
-            self.note(f"cheb_epilogue<{cname}>", got, want,
-                      float(want.abs().max()), etol)
-            if timed:
-                self.ms[f"brick_apply<{cname}>"] = time_ms(
-                    lambda: lk.brick_apply(x, op))
-                self.plain_ms[f"brick_apply<{cname}>"] = time_ms(
-                    lambda: lk.brick_apply_plain(x, op.K))
-                self.ms[f"cheb_epilogue<{cname}>"] = time_ms(
-                    lambda: lk.cheb_epilogue(b, y_ref, **args))
-                self.plain_ms[f"cheb_epilogue<{cname}>"] = time_ms(
-                    lambda: lk.cheb_epilogue_plain(b, y_ref, **args))
-                # brick: x in, y out; sum factorization, (14 n + 5) n^3
-                # flops a cell.  Epilogue: b, y, x, x_old in, out (f32
-                # update, ~15 flops a node); b, y in, out (f64 residual).
-                nodes, n = grid.n_dofs, grid.basis.n
-                cells = int(np.prod(grid.cells))
-                size = x.element_size()
-                self.bound[f"brick_apply<{cname}>"] = bound(
-                    2 * size * nodes, cells * (14 * n + 5) * n**3, dtype)
-                streams, flops = (5, 15) if dtype == torch.float32 else (3, 1)
-                self.bound[f"cheb_epilogue<{cname}>"] = bound(
-                    streams * size * nodes, flops * nodes, dtype)
+        f32, f64 = torch.float32, torch.float64
+        op = lk.BrickLaplace(grid, f64, self.dev)
+        x = self.rand(grid.shape, f64, 1)
+        y = lk.brick_apply(x, op)
+        y_ref = lk.brick_apply_plain(x, op.K)
+        self.note("brick_apply<double>", y, y_ref, float(y_ref.abs().max()),
+                  1e-13)
+        b = self.rand(grid.shape, f64, 2)
+        args = dict(x=x, residual_only=True)
+        got = lk.cheb_epilogue(b, y_ref, **args)
+        want = lk.cheb_epilogue_plain(b, y_ref, **args)
+        self.note("cheb_epilogue<double>", got, want, float(want.abs().max()),
+                  1e-14)
+        op32 = lk.BrickLaplace(grid, f32, self.dev)
+        x32, b32, xo32, y32 = (t.float() for t in (x, b, self.rand(
+            grid.shape, f64, 3), y_ref))
+        args32 = dict(x=x32, x_old=xo32, lines=op32.lines, f1=0.37, f2=0.81)
+        got = lk.cheb_epilogue(b32, y32, **args32)
+        want = lk.cheb_epilogue_plain(b32, y32, **args32)
+        self.note("cheb_epilogue<float>", got, want, float(want.abs().max()),
+                  3e-6)
+        if timed:
+            size = x.element_size()
+            nodes, n = grid.n_dofs, grid.basis.n
+            cells = int(np.prod(grid.cells))
+            self.ms["brick_apply<double>"] = time_ms(lambda: lk.brick_apply(x, op))
+            self.plain_ms["brick_apply<double>"] = time_ms(
+                lambda: lk.brick_apply_plain(x, op.K))
+            self.ms["cheb_epilogue<double>"] = time_ms(
+                lambda: lk.cheb_epilogue(b, y_ref, **args))
+            self.plain_ms["cheb_epilogue<double>"] = time_ms(
+                lambda: lk.cheb_epilogue_plain(b, y_ref, **args))
+            self.ms["cheb_epilogue<float>"] = time_ms(
+                lambda: lk.cheb_epilogue(b32, y32, **args32))
+            self.plain_ms["cheb_epilogue<float>"] = time_ms(
+                lambda: lk.cheb_epilogue_plain(b32, y32, **args32))
+            # brick: x in, y out; sum factorization, (14 n + 5) n^3 flops a
+            # cell.  Epilogue: b, y in, out (f64 residual); b, y, x, x_old
+            # in, out (f32 update, ~15 flops a node)
+            self.bound["brick_apply<double>"] = bound(
+                2 * size * nodes, cells * (14 * n + 5) * n**3, f64)
+            self.bound["cheb_epilogue<double>"] = bound(3 * size * nodes,
+                                                        nodes, f64)
+            self.bound["cheb_epilogue<float>"] = bound(5 * 4 * nodes,
+                                                       15 * nodes, f32)
+        del op, x, y, y_ref, b, got, want
+        self.kron_checks(grid, timed)
+
+    def kron_checks(self, grid, timed: bool, seed: int = 4):
+        """brick_kron against the dense plain path in f64 on the same
+        inputs: apply on random x and vmult at 2e-6·max|y|; residual at
+        2e-6·max|A x| and the Chebyshev step at 3e-6·max|out| on the
+        smoother's iterates (random b, x = D^-1 z, x_old = D^-1 z'), with
+        x_old, with x_old = None and in place into x_old (bit for bit).
+        Timed: the kernel, and its plain version in float32."""
+        from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+        f32, f64 = torch.float32, torch.float64
+        op, op64 = (lk.BrickLaplace(grid, t, self.dev) for t in (f32, f64))
+        x = self.rand(grid.shape, f32, seed)
+        y = lk.brick_apply_plain(x.double(), op64.K)
+        scale = float(y.abs().max())
+        self.note("brick_kron<float>", lk.brick_kron(x, op, "apply").double(),
+                  y, scale, 2e-6)
+        self.note("brick_kron<float>", lk.brick_kron(x, op, "vmult").double(),
+                  torch.where(op64.interior, y, x.double()),
+                  max(scale, float(x.abs().max())), 2e-6)
+        b, xc, xo = lk.smoother_iterates(op64, seed)
+        b32, xc32, xo32 = (t.float() for t in (b, xc, xo))
+        y = lk.brick_apply_plain(xc, op64.K)
+        want = lk.cheb_epilogue_plain(b, y, x=xc, residual_only=True)
+        self.note("brick_kron<float>",
+                  lk.brick_kron(xc32, op, "residual", b=b32).double(), want,
+                  float(y.abs().max()), 2e-6)
+        f1, f2 = 0.37, 0.81
+        for xold, xold32 in ((xo, xo32), (None, None)):
+            want = lk.cheb_epilogue_plain(b, y, xc, xold, op64.lines, f1, f2)
+            got = lk.brick_kron(xc32, op, "cheb", b=b32, x_old=xold32, f1=f1,
+                                f2=f2)
+            self.note("brick_kron_cheb<float>", got.double(), want,
+                      float(want.abs().max()), 3e-6)
+        alias = xo32.clone()
+        lk.brick_kron(xc32, op, "cheb", b=b32, x_old=alias, f1=f1, f2=f2,
+                      out=alias)
+        require(torch.equal(alias, lk.brick_kron(xc32, op, "cheb", b=b32,
+                                                 x_old=xo32, f1=f1, f2=f2)),
+                "brick_kron_cheb<float>: in place into x_old differs")
+        del op64, y, want, got, b, xc, xo
+        if not timed:
+            return
+        K = op.K
+        cheb = dict(x_old=xo32, f1=f1, f2=f2)
+        self.ms["brick_kron<float>"] = time_ms(lambda: lk.brick_kron(x, op))
+        self.plain_ms["brick_kron<float>"] = time_ms(
+            lambda: lk.brick_apply_plain(x, K))
+        self.ms["brick_kron_cheb<float>"] = time_ms(
+            lambda: lk.brick_kron(xc32, op, "cheb", b=b32, **cheb))
+        self.plain_ms["brick_kron_cheb<float>"] = time_ms(
+            lambda: lk.cheb_epilogue_plain(b32, lk.brick_apply_plain(xc32, K),
+                                           xc32, xo32, op.lines, f1, f2))
+        # bytes: x in, y out (apply); x, b in, out (residual); x, x_old, b
+        # in, out (cheb).  Flops: seven banded sweeps of p + 2 taps on
+        # average a node, plus the epilogue
+        nodes, p = grid.n_dofs, grid.degree
+        flops = 14 * (p + 2) * nodes
+        self.bound["brick_kron<float>"] = bound(2 * 4 * nodes, flops, f32)
+        self.bound["brick_kron_cheb<float>"] = bound(4 * 4 * nodes,
+                                                     flops + 10 * nodes, f32)
+        self.residual = dict(
+            ms=time_ms(lambda: lk.brick_kron(xc32, op, "residual", b=b32)),
+            plain_ms=time_ms(lambda: lk.cheb_epilogue_plain(
+                b32, lk.brick_apply_plain(xc32, K), x=xc32,
+                residual_only=True)),
+            bound=bound(3 * 4 * nodes, flops + nodes, f32))
 
     def cg_checks(self, n: int, timed: bool):
         from multigrid_tpu_torch.ops import cg_kernel as ck
@@ -206,6 +291,12 @@ class KernelChecks:
         ck.cg_xpay(p1, z, beta)
         ck.cg_xpay_plain(p2, z, beta)
         self.note("cg_xpay", p1, p2, float(p2.abs().max()), 1e-14)
+        # views off a 16-byte boundary: p and z of one phase, and of two
+        for zv in (z[1:], z[:-1]):
+            pv, pw = p.clone()[1:], p.clone()[1:]
+            ck.cg_xpay(pv, zv, beta)
+            ck.cg_xpay_plain(pw, zv, beta)
+            self.note("cg_xpay", pv, pw, float(pw.abs().max()), 1e-14)
         d = ck.cg_dot(r, z)
         d_ref = ck.cg_dot_plain(r, z)
         self.note("cg_dot", d, d_ref, float((r * z).abs().sum()), 1e-14)
@@ -344,18 +435,23 @@ def dg_grid(cells, degree, kind, seed=0):
                   kind=kind)
 
 
+def brick(cells, degree):
+    """An anisotropic brick of ``cells`` at ``degree`` (one level)."""
+    from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid
+
+    return DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, degree)
+
+
 def run(dev: torch.device, card: str) -> int:
     """Phases 2 to 4 on ``dev``: kernel checks, then the two paths."""
-    from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     # phase 2: every kernel against its plain version on the card
     checks = KernelChecks(dev)
     shapes = [
         ("poisson_cube_mesh(8)", DofGrid(poisson_cube_mesh(8), 3, 4), False),
-        ("anisotropic (3,4,5)",
-         DofGrid(BrickMesh((3, 4, 5), (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, 4),
-         False),
+        ("anisotropic (3,4,5)", brick((3, 4, 5), 4), False),
         (f"poisson_cube_mesh({SIZE})",
          DofGrid(poisson_cube_mesh(SIZE), poisson_cube_mesh(SIZE).max_level, 4),
          True),
@@ -365,6 +461,20 @@ def run(dev: torch.device, card: str) -> int:
         checks.cg_checks(grid.n_dofs, timed)
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
+    # brick_kron at other degrees, a one-cell axis, node counts that do not
+    # divide its tile
+    for label, grid in (
+            ("poisson_cube_mesh(8) p=1", DofGrid(poisson_cube_mesh(8), 3, 1)),
+            ("poisson_cube_mesh(8) p=2", DofGrid(poisson_cube_mesh(8), 3, 2)),
+            ("poisson_cube_mesh(8) p=3", DofGrid(poisson_cube_mesh(8), 3, 3)),
+            ("poisson_cube_mesh(4) p=7", DofGrid(poisson_cube_mesh(4), 2, 7)),
+            ("one-cell axis (1,4,3) p=4", brick((1, 4, 3), 4)),
+            ("one-cell axis (1,4,3) p=7", brick((1, 4, 3), 7)),
+            ("ragged (7,5,9) p=3", brick((7, 5, 9), 3)),
+            ("ragged (3,12,20) p=5", brick((3, 12, 20), 5))):
+        checks.kron_checks(grid, False)
+        torch.cuda.synchronize()
+        print(f"brick_kron checks passed at {label}: {grid.shape}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
     dg_shapes = [
         ("sheared DG (3,2,4) p=3 hermite", dg_grid((3, 2, 4), 3, "hermite"),
@@ -385,6 +495,10 @@ def run(dev: torch.device, card: str) -> int:
               f"{checks.ms[k]:.4f} ms, plain {checks.plain_ms[k]:.4f} ms, "
               f"library {'-' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{checks.bound[k][0]:.4f} ms ({checks.bound[k][1]}) [{card}]")
+    res = checks.residual
+    print(f"  brick_kron<float> residual mode: kernel {res['ms']:.4f} ms, plain "
+          f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+          f"({res['bound'][1]}) [{card}]")
 
     # phases 3 and 4: the two paths, each with the counters zeroed just
     # before it and read just after
@@ -405,6 +519,10 @@ def run(dev: torch.device, card: str) -> int:
             max_abs_err=checks.err[k], ms=checks.ms[k],
             plain_ms=checks.plain_ms[k], bound_ms=checks.bound[k][0],
             bound_by=checks.bound[k][1], library_ms=checks.library_ms[k]))
+        if k == "brick_kron<float>":
+            kernels[-1].update(residual_ms=res["ms"],
+                               residual_plain_ms=res["plain_ms"],
+                               residual_bound_ms=res["bound"][0])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

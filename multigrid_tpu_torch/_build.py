@@ -27,6 +27,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = [PACKAGE_DIR / "csrc" / "brick_apply.cu",
+           PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
            PACKAGE_DIR / "csrc" / "dg_apply.cu"]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "multigrid_tpu_torch"
@@ -43,7 +44,8 @@ _N = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # x, y, lm, c0, c1, c2, Z, Y, X, n, stream
     "brick_apply_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _I, _P, _N],
-    "brick_apply_f32": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _I, _P, _N],
+    # mode, x, b, x_old, out, taps (host), f1, f2, Z, Y, X, p, stream
+    "brick_kron_f32": [_I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _N],
     # b, y, x, x_old, lines, out, f1, f2, Z, Y, X, residual_only, stream
     "cheb_epilogue_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
                           _N],

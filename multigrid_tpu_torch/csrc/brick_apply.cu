@@ -1,13 +1,13 @@
-// Brick operator kernels for Hopper (sm_90a): y = A x on the FE_Q(p) node
-// grid, and the Chebyshev / residual epilogue that follows it.
+// Brick operator kernels for Hopper (sm_90a): the f64 y = A x on the FE_Q(p)
+// node grid, and the Chebyshev / residual epilogue that follows an A x.
 //
-// brick_apply<T> replaces the TPU kernels
+// brick_apply<double> replaces the TPU kernel
 //   K1  multigrid_tpu/ops/pallas_windowed.py    PallasWindowedOzaki._kernel
-//       (dp A x on f32 hi/lo pairs, Ozaki bf16 limbs), T = double here;
-//   K2  multigrid_tpu/ops/pallas_windowed_sp.py PallasWindowedSP._kernel
-//       (sp A x, 3 x 8-bit limbs), T = float here.
+//       (dp A x on f32 hi/lo pairs, Ozaki bf16 limbs).
 // The H100 has native fp64, so there are no limbs and no pairs, and the
 // node grid [Z, Y, X] (contiguous, x fastest) replaces the TPU x-window.
+// The f32 operator of the V-cycle (K2) is brick_kron.cu: one node-centric
+// pass with its epilogue fused.
 //
 // What A is: for the affine brick with a constant coefficient the element
 // matrix is K = sum_d c_d (A_z (x) A_y (x) A_x), A_e = L (1-D stiffness) on
@@ -26,22 +26,23 @@
 //
 // What bounds it: at p = 4 and one cell per block, the per-cell gather of
 // 125 scattered values and the read-modify-write of 125 outputs, plus four
-// block barriers per cell; the flops are small for the card.  Later work:
-// several cells per block along x for coalesced rows, and a node-centric
-// form that can fuse the epilogue below.
+// block barriers per cell; the flops are small for the card.  The
+// node-centric form of brick_kron.cu, with f64 taps and the residual
+// epilogue fused, is the later design for this kernel too.
 //
 // Every entry point writes the number of kernels it launched to *launched
 // (brick_apply: one per non-empty parity class, at most 8; cheb_epilogue: 1),
 // so a caller's launch count matches what a trace of the device shows.
 //
-// cheb_epilogue<T> is the second half of K2 (PallasWindowedSP._kernel_resid
-// and _kernel_cheb): one elementwise pass over (x, x_old, b, y = A x) giving
+// cheb_epilogue<T> is the epilogue of an A x given as y: one elementwise
+// pass over (x, x_old, b, y) giving
 //   residual_only: r = b - y on interior nodes, b - x on Dirichlet nodes;
 //   otherwise:     x + f1 (x - x_old) + f2 r / diag, diag rebuilt in the
 //                  kernel from the separable 1-D lines (1 on Dirichlet).
-// It cannot fuse into brick_apply's cell scatter: a node's y is complete
-// only after all eight of its cells.  A null x, x_old or y reads as zero.
-// Bound: bandwidth, 4-5 streams of T per node.
+// It serves the f64 residual after brick_apply<double> (whose cell scatter
+// completes a node only after all eight of its cells), and in f32 the
+// Chebyshev step with x = 0, which needs no A x.  A null x, x_old or y
+// reads as zero.  Bound: bandwidth, 4-5 streams of T per node.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -214,13 +215,6 @@ int brick_apply_f64(const double* x, double* y, const double* lm, double c0,
                     void* stream, int* launched) {
   return brick_apply<double>(x, y, lm, c0, c1, c2, Z, Y, X, n,
                              (cudaStream_t)stream, launched);
-}
-
-int brick_apply_f32(const float* x, float* y, const float* lm, double c0,
-                    double c1, double c2, int Z, int Y, int X, int n,
-                    void* stream, int* launched) {
-  return brick_apply<float>(x, y, lm, c0, c1, c2, Z, Y, X, n,
-                            (cudaStream_t)stream, launched);
 }
 
 int cheb_epilogue_f64(const double* b, const double* y, const double* x,

@@ -5,7 +5,14 @@
 //   pass does x += alpha p and r -= alpha q and writes per-block partial
 //   sums of |r|^2; the reference's merged CG update
 //   (SURVEY: laplace_operator.h:638-719).
-// cg_xpay is the other use of K3 in CG: p = z + beta p in place.
+// cg_xpay is the other use of K3 in CG: p = z + beta p in place, with
+//   16-byte double2 accesses, one a thread over a grid that covers the
+//   vector (about 33,000 blocks at 17M doubles); a scalar head and tail take
+//   a start off a 16-byte boundary and an odd n, and p and z of different
+//   16-byte phase take one element a thread.  On the H100 this one-shot
+//   grid came out faster than grid-stride loops over one wave of blocks
+//   with 2-4 vectors in flight per thread, which lost to torch.add: the
+//   block scheduler keeps the SMs full and the addresses advance in order.
 // cg_dot replaces K3' multigrid_tpu/ops/pallas_pairvec.py _dot_kernel
 //   (pair_dot_kernel: sum w a b with 0/1 duplicate-slot weights,
 //   compensated): a . b.  On the node grid every dof appears once, so the
@@ -72,12 +79,30 @@ __global__ void dot_kernel(const double* __restrict__ a,
   if (threadIdx.x == 0) partial[blockIdx.x] = acc;
 }
 
-__global__ void xpay_kernel(double* __restrict__ p,
-                            const double* __restrict__ z, double beta,
-                            int64_t n) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x)
-    p[i] = z[i] + beta * p[i];
+// p = z + beta p on n elements.  VEC: p + head and z + head are 16-byte
+// aligned, and thread t updates double2 t of the body; thread 0 also takes
+// the scalar head and the odd tail element.  Otherwise one element a thread.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    xpay_kernel(double* __restrict__ p, const double* __restrict__ z,
+                double beta, int64_t n, int head) {
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (!VEC) {
+    if (t < n) p[t] = z[t] + beta * p[t];
+    return;
+  }
+  const int64_t nv = (n - head) / 2;
+  if (t < nv) {
+    double2* pv = reinterpret_cast<double2*>(p + head);
+    const double2 a = reinterpret_cast<const double2*>(z + head)[t];
+    const double2 c = pv[t];
+    pv[t] = make_double2(a.x + beta * c.x, a.y + beta * c.y);
+  }
+  if (t == 0) {
+    if (head) p[0] = z[0] + beta * p[0];
+    const int64_t tail = head + 2 * nv;
+    if (tail < n) p[tail] = z[tail] + beta * p[tail];
+  }
 }
 
 __global__ void finish_sum_kernel(const double* __restrict__ partial, int nb,
@@ -128,9 +153,18 @@ int cg_dot(const double* a, const double* b, long long n, double* partial,
 
 int cg_xpay(double* p, const double* z, double beta, long long n,
             void* stream, int* launched) {
+  const uintptr_t pa = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t za = reinterpret_cast<uintptr_t>(z);
+  const int head = (pa % 16) ? 1 : 0;  // doubles are 8-byte aligned
+  const bool vec = (pa % 16) == (za % 16) && n > head;
+  const int64_t work = vec ? (n - head) / 2 : n;
+  const int64_t nb = work > 0 ? (work + kThreads - 1) / kThreads : 1;
+  const cudaStream_t s = (cudaStream_t)stream;
   *launched = 1;
-  xpay_kernel<<<num_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(p, z, beta,
-                                                                   n);
+  if (vec)
+    xpay_kernel<true><<<(unsigned)nb, kThreads, 0, s>>>(p, z, beta, n, head);
+  else
+    xpay_kernel<false><<<(unsigned)nb, kThreads, 0, s>>>(p, z, beta, n, 0);
   return (int)cudaGetLastError();
 }
 

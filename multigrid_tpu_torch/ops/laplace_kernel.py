@@ -3,21 +3,32 @@ PyTorch versions and launch counters.
 
 Replaces ``multigrid_tpu/ops/pallas_windowed.py`` (K1, dp A·u) and
 ``multigrid_tpu/ops/pallas_windowed_sp.py`` (K2, sp A·u with its residual
-and Chebyshev epilogues).  Two kernels from ``csrc/brick_apply.cu``:
+and Chebyshev epilogues).  Three kernels:
 
-* ``brick_apply``: y = A x on the node grid, Dirichlet nodes read as zero
-  and written as zero (float64 for the outer solve, float32 for the
-  V-cycle);
-* ``cheb_epilogue``: the residual ``b - y`` or the Chebyshev update
-  ``x + f1 (x - x_old) + f2 (b - y) / diag`` with the separable diagonal
-  rebuilt in the kernel; Dirichlet rows follow the node-path semantics
-  (identity rows of A, diagonal 1).
+* ``brick_kron`` (``csrc/brick_kron.cu``, float32, K2): one node-centric
+  pass of seven banded sweeps that writes each node once, so the epilogue
+  fuses -- ``apply`` (y = A x, 0 on Dirichlet rows), ``vmult`` (x on
+  Dirichlet rows), ``residual`` (b - A x; b - x on Dirichlet rows) and
+  ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag), one launch each;
+* ``brick_apply`` (``csrc/brick_apply.cu``, float64, K1): y = A x by cell
+  scatter, Dirichlet nodes read as zero and written as zero;
+* ``cheb_epilogue`` (``csrc/brick_apply.cu``): the residual ``b - y`` or
+  the Chebyshev update ``x + f1 (x - x_old) + f2 (b - y) / diag`` with the
+  separable diagonal rebuilt in the kernel, for a given y: after the f64
+  brick_apply, and for the f32 step with x = 0, which needs no A x.
+  Dirichlet rows follow the node-path semantics (identity rows of A,
+  diagonal 1).
 
 Each wrapper runs the plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor (or raises); there is no fallback.
-``LAUNCHES[name]`` counts the device kernels launched, as a trace shows
-them: one ``brick_apply`` call launches one kernel per non-empty cell
-parity class (8 on any grid of at least two cells per axis).
+:class:`BrickLaplace` routes float32 CUDA tensors through ``brick_kron``
+and everything else through ``brick_apply`` + ``cheb_epilogue`` (on the
+CPU their plain versions, the dense element path).  ``LAUNCHES[name]``
+counts the device kernels launched, as a trace shows them: one per
+``brick_kron`` call (``brick_kron<float>`` for the A·x modes,
+``brick_kron_cheb<float>`` for the fused step), one per ``cheb_epilogue``,
+and one per non-empty cell parity class per ``brick_apply`` call (8 on any
+grid of at least two cells per axis).
 """
 
 from __future__ import annotations
@@ -30,10 +41,14 @@ from ..devices import resolve
 from ..mesh.brick import DofGrid
 from .laplace import diag_lines, make_diag_coef
 from .laplace_dense import dense_apply, element_matrix
+from .laplace_kron import brick_kron_plain, kron_taps
 from .masks import interior_mask
 
-LAUNCHES = {"brick_apply<double>": 0, "brick_apply<float>": 0,
-            "cheb_epilogue<double>": 0, "cheb_epilogue<float>": 0}
+LAUNCHES = {"brick_apply<double>": 0, "brick_kron<float>": 0,
+            "brick_kron_cheb<float>": 0, "cheb_epilogue<double>": 0,
+            "cheb_epilogue<float>": 0}
+KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
+MAX_DEGREE = 7     # brick_kron's largest instantiation
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 
 
@@ -42,7 +57,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _check_grid_tensor(t: torch.Tensor, like: torch.Tensor, what: str):
+def _check_grid_tensor(t: torch.Tensor, like, what: str):
+    """``t`` must have the shape, dtype and device of ``like`` (a tensor or
+    an operator) and be contiguous."""
     if t.shape != like.shape or t.dtype != like.dtype or t.device != like.device:
         raise ValueError(f"{what}: expected {tuple(like.shape)} {like.dtype} on "
                          f"{like.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
@@ -58,29 +75,42 @@ def brick_apply_plain(x: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 
 def brick_apply(x: torch.Tensor, op: "BrickLaplace") -> torch.Tensor:
-    """y = A x (Dirichlet nodes of x read as 0, of y written as 0)."""
+    """y = A x (Dirichlet nodes of x read as 0, of y written as 0); on the
+    card float64 only (float32 runs :func:`brick_kron`)."""
     if x.device.type == "cpu":
         return brick_apply_plain(x, op.K)
     if x.device.type != "cuda":
         raise RuntimeError(f"brick_apply: no kernel for device {x.device}")
-    if x.dtype not in _SUFFIX or x.dim() != 3 or x.shape != op.shape:
-        raise ValueError(f"brick_apply: need a {op.shape} float32/float64 "
-                         f"grid, got {tuple(x.shape)} {x.dtype}")
+    if x.dtype != torch.float64 or x.dim() != 3 or x.shape != op.shape:
+        raise ValueError(f"brick_apply: need a {op.shape} float64 grid, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("brick_apply: x must be contiguous")
     if op.lm.dtype != x.dtype or op.lm.device != x.device:
         raise ValueError("brick_apply: operator tables differ in dtype/device")
-    suffix, cname = _SUFFIX[x.dtype]
     y = torch.zeros_like(x)
     c0, c1, c2 = op.coef_values
     Z, Y, X = x.shape
-    LAUNCHES[f"brick_apply<{cname}>"] += _build.launch(
-        f"brick_apply_{suffix}", x.data_ptr(), y.data_ptr(), op.lm.data_ptr(),
+    LAUNCHES["brick_apply<double>"] += _build.launch(
+        "brick_apply_f64", x.data_ptr(), y.data_ptr(), op.lm.data_ptr(),
         c0, c1, c2, Z, Y, X, op.n, _build.stream_handle(x.device))
     return y
 
 
 # ----------------------------------------------------------- cheb_epilogue
+def diagonal(lines: torch.Tensor, shape) -> torch.Tensor:
+    """The diagonal of A from the separable ``lines`` ``[3, Z + Y + X]``,
+    1 on Dirichlet rows."""
+    Z, Y, X = shape
+    diag = None
+    for e in range(3):
+        term = (lines[e, :Z].reshape(-1, 1, 1)
+                * lines[e, Z:Z + Y].reshape(1, -1, 1)
+                * lines[e, Z + Y:].reshape(1, 1, -1))
+        diag = term if diag is None else diag + term
+    return torch.where(interior_mask(shape, lines.device), diag, 1.0)
+
+
 def cheb_epilogue_plain(b, y=None, x=None, x_old=None, lines=None, f1=0.0,
                         f2=0.0, residual_only=False, out=None):
     """Plain version of :func:`cheb_epilogue` (same arguments)."""
@@ -93,15 +123,7 @@ def cheb_epilogue_plain(b, y=None, x=None, x_old=None, lines=None, f1=0.0,
         res = r
     else:
         xo = zero if x_old is None else x_old
-        Z, Y, X = b.shape
-        diag = None
-        for e in range(3):
-            term = (lines[e, :Z].reshape(-1, 1, 1)
-                    * lines[e, Z:Z + Y].reshape(1, -1, 1)
-                    * lines[e, Z + Y:].reshape(1, 1, -1))
-            diag = term if diag is None else diag + term
-        diag = torch.where(m, diag, 1.0)
-        res = xv + f1 * (xv - xo) + f2 * r / diag
+        res = xv + f1 * (xv - xo) + f2 * r / diagonal(lines, b.shape)
     if out is None:
         return res
     return out.copy_(res)
@@ -147,11 +169,84 @@ def cheb_epilogue(b: torch.Tensor, y=None, x=None, x_old=None, lines=None,
     return out
 
 
+# ------------------------------------------------------------- brick_kron
+def brick_kron_reference(x, op: "BrickLaplace", mode: str = "apply", b=None,
+                         x_old=None, f1: float = 0.0, f2: float = 0.0,
+                         out=None) -> torch.Tensor:
+    """Plain version of :func:`brick_kron` (same arguments): the kernel's
+    separable arithmetic and tap tables (``laplace_kron.brick_kron_plain``)
+    followed by the plain epilogue."""
+    y = brick_kron_plain(x, op.taps)
+    if mode == "apply":
+        res = y
+    elif mode == "vmult":
+        res = torch.where(interior_mask(x.shape, x.device), y, x)
+    elif mode == "residual":
+        res = cheb_epilogue_plain(b, y, x=x, residual_only=True)
+    else:
+        res = cheb_epilogue_plain(b, y, x, x_old, op.lines, f1, f2)
+    return res if out is None else out.copy_(res)
+
+
+def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
+               b=None, x_old=None, f1: float = 0.0, f2: float = 0.0,
+               out=None) -> torch.Tensor:
+    """One float32 pass of A x with its epilogue (``mode`` in
+    :data:`KRON_MODES`, see the module note).  ``b`` is read by
+    ``residual`` and ``cheb``, ``x_old`` (None: zero) and ``f1``, ``f2`` by
+    ``cheb``; ``out`` may alias ``x_old`` or ``b``, never ``x``."""
+    if mode not in KRON_MODES:
+        raise ValueError(f"brick_kron: mode must be one of {list(KRON_MODES)}")
+    if x.device.type == "cpu":
+        return brick_kron_reference(x, op, mode, b, x_old, f1, f2, out)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"brick_kron: no kernel for device {x.device}")
+    if op.dtype != torch.float32 or not 1 <= op.grid.degree <= MAX_DEGREE:
+        raise ValueError(f"brick_kron: float32 operators of degree 1.."
+                         f"{MAX_DEGREE} only")
+    if mode in ("residual", "cheb") and b is None:
+        raise ValueError(f"brick_kron: {mode} needs b")
+    for t, what in ((x, "x"), (b, "b"), (x_old, "x_old"), (out, "out")):
+        if t is not None:
+            _check_grid_tensor(t, op, f"brick_kron: {what}")
+    if out is not None and out.data_ptr() == x.data_ptr():
+        raise ValueError("brick_kron: out must not alias x")
+    Z, Y, X = x.shape
+    if Y * X >= 2**31:
+        raise ValueError("brick_kron: planes too large for 32-bit offsets")
+    if out is None:
+        out = torch.empty_like(x)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    name = "brick_kron_cheb<float>" if mode == "cheb" else "brick_kron<float>"
+    LAUNCHES[name] += _build.launch(
+        "brick_kron_f32", KRON_MODES[mode], x.data_ptr(), ptr(b),
+        ptr(x_old if mode == "cheb" else None), out.data_ptr(),
+        op.taps_f32.ctypes.data, float(f1), float(f2), Z, Y, X,
+        op.grid.degree, _build.stream_handle(x.device))
+    return out
+
+
+def smoother_iterates(op: "BrickLaplace", seed: int):
+    """Inputs ``(b, x, x_old)`` in the operator's dtype for holding the
+    Chebyshev step against its plain version: a random ``b`` and iterates
+    ``x = D^-1 z``, ``x_old = D^-1 z'`` (random ``z``, ``z'``, ``D`` the
+    diagonal of A; 1 on Dirichlet rows) as the smoother makes them.  Each
+    term of the step is then of the output's scale; with a random ``x``,
+    ``D^-1 b`` outweighs ``D^-1 A x`` by the inverse mesh size."""
+    rng = np.random.default_rng(seed)
+    z = [torch.as_tensor(rng.standard_normal(op.shape), dtype=torch.float64,
+                         device=op.device) for _ in range(3)]
+    d = diagonal(op.lines.double(), op.shape)
+    return tuple(t.to(op.dtype) for t in (z[0], z[1] / d, z[2] / d))
+
+
 # ---------------------------------------------------------------- operator
 class BrickLaplace:
-    """A·u of one level in one dtype on one device: the tensors the two
-    kernels read (1-D tables, coefficients, diagonal lines) and the element
-    matrix their plain versions read."""
+    """A·u of one level in one dtype on one device: the tables the kernels
+    read (1-D element tables and coefficients for ``brick_apply``, the tap
+    table for ``brick_kron``, the diagonal lines) and the element matrix
+    their plain versions read.  A float32 operator on a CUDA device runs
+    ``brick_kron`` (one launch per apply, residual or Chebyshev step)."""
 
     def __init__(self, grid: DofGrid, dtype=torch.float32, device="cuda",
                  coefficient: float = 1.0):
@@ -173,12 +268,19 @@ class BrickLaplace:
             np.concatenate([lines[d][0] * coef.values[d], lines[d][1],
                             lines[d][2]]) for d in range(3)]))
         self.interior = interior_mask(grid.shape, self.device)
+        self.taps = kron_taps(grid, coef.values)
+        self.taps_f32 = np.ascontiguousarray(self.taps, dtype=np.float32)
+        self.kron = dtype == torch.float32 and self.device.type == "cuda"
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kron:
+            return brick_kron(x, self, "apply")
         return brick_apply(x, self)
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
         """dst = A src with identity rows on Dirichlet nodes."""
+        if self.kron:
+            return brick_kron(src, self, "vmult")
         y = self.apply(src)
         for d in range(3):
             for i in (0, -1):
@@ -187,10 +289,16 @@ class BrickLaplace:
 
     def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
         """rhs - A lhs; Dirichlet rows give rhs - lhs."""
+        if self.kron:
+            return brick_kron(lhs, self, "residual", b=rhs)
         return cheb_epilogue(rhs, self.apply(lhs), x=lhs, residual_only=True)
 
     def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
-        """``x + f1 (x - x_old) + f2 D^-1 (b - A x)``: A x by
-        ``brick_apply`` (skipped for ``x = None``), then the epilogue."""
+        """``x + f1 (x - x_old) + f2 D^-1 (b - A x)``: one ``brick_kron``
+        pass in float32 on the card; else A x by ``brick_apply``, then the
+        epilogue.  ``x = None`` needs no A x: the epilogue alone."""
+        if x is not None and self.kron:
+            return brick_kron(x, self, "cheb", b=b, x_old=x_old, f1=f1, f2=f2,
+                              out=out)
         y = None if x is None else self.apply(x)
         return cheb_epilogue(b, y, x, x_old, self.lines, f1, f2, out=out)

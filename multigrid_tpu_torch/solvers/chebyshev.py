@@ -18,10 +18,11 @@ The smoother takes either kind of level operator through one method,
 ``op.cheb_step(b, x, x_old, f1, f2, out)`` = ``x + f1 (x - x_old) +
 f2 P^-1 (b - A x)`` (``x``/``x_old`` None read as zero):
 
-* :class:`~..ops.laplace_kernel.BrickLaplace` (FE_Q V-cycle): one
-  ``brick_apply`` and one ``cheb_epilogue``, P the point Jacobi diagonal
-  (a node's A x is complete only after all its cells, so the two cannot
-  fuse);
+* :class:`~..ops.laplace_kernel.BrickLaplace` (FE_Q V-cycle): P the point
+  Jacobi diagonal; in float32 on the card one ``brick_kron`` pass, A x
+  and the update fused (each node's A x is complete inside one block of
+  the node-centric kernel); in float64, or with ``x = None``,
+  ``brick_apply`` (skipped for ``x = None``) and one ``cheb_epilogue``;
 * :class:`~..ops.dg_kernel.DGOperator` (DG smoother): one ``dg_cheb``
   kernel, A x and the transformed-Jacobi P fused into the pass.
 

@@ -1,0 +1,167 @@
+"""Port vs JAX twin: the tap tables and the separable arithmetic of the
+``brick_kron`` kernel (``multigrid_tpu_torch/ops/laplace_kron.py``).
+
+The kernel itself runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``); here its tables and its plain version are held to the
+JAX package: ``assembled_1d`` and the per-residue taps equal
+``multigrid_tpu/ops/laplace_kron.py``'s ``assembled_1d`` / ``_diagonals``
+exactly in f64; ``brick_kron_plain`` in f32 agrees with ``KronLaplaceF32``
+at 2e-6·max|y| (f32 roundoff of the banded sweeps, the bar of
+tests/test_kron.py) and in f64 with the dense element path at 1e-13·max|y|
+(summation order only).  The Chebyshev inputs of the card checks are shown
+to expose every term of the step."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multigrid_tpu.mesh.brick import BrickMesh as JBrickMesh
+from multigrid_tpu.mesh.brick import DofGrid as JDofGrid
+from multigrid_tpu.ops import laplace_kron as jk
+from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid, poisson_cube_mesh
+from multigrid_tpu_torch.ops import laplace_kernel as lk
+from multigrid_tpu_torch.ops import laplace_kron as tk
+from multigrid_tpu_torch.ops.laplace import make_diag_coef
+
+DEGREES = range(1, 8)
+CELLS = [(2, 3, 5), (1, 4, 3)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def grids(cells, degree):
+    args = (cells, (-0.9,) * 3, (1.9, 1.3, 1.1), 1)
+    return (JDofGrid(JBrickMesh(*args), 0, degree),
+            DofGrid(BrickMesh(*args), 0, degree))
+
+
+def rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape)
+
+
+@pytest.mark.parametrize("p", DEGREES)
+def test_assembled_1d_equals_jax(p):
+    gj, gt = grids((2, 3, 5), p)
+    for axis in range(3):
+        for a, b in zip(tk.assembled_1d(gt, axis), jk.assembled_1d(gj, axis)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("cells", CELLS)
+@pytest.mark.parametrize("p", DEGREES)
+def test_residue_taps_equal_jax_diagonals(p, cells):
+    """Every interior row i of the JAX banded diagonals carries the taps of
+    residue i mod p (mass, and c_d times stiffness per axis), exactly."""
+    gj, gt = grids(cells, p)
+    coef = make_diag_coef(gt).values
+    taps = tk.kron_taps(gt, coef)
+    assert taps.shape == (4, p, 2 * p + 1)
+    for axis in range(3):
+        M, L = jk.assembled_1d(gj, axis)
+        DM, DL = jk._diagonals(M, p), jk._diagonals(L, p)
+        rows = range(1, M.shape[0] - 1)
+        assert len(rows) > 0 or p == 1
+        for i in rows:
+            for k in range(2 * p + 1):
+                assert taps[0, i % p, k] == DM[k][i]
+                assert taps[1 + axis, i % p, k] == coef[axis] * DL[k][i]
+
+
+@pytest.mark.parametrize("p", DEGREES)
+def test_brick_kron_plain_f32_matches_kron_laplace_f32(p):
+    gj, gt = grids((3, 2, 4), p)
+    x = rand(gt.shape, 0).astype(np.float32)
+    b = rand(gt.shape, 1).astype(np.float32)
+    ref = jk.KronLaplaceF32(gj)
+    want = np.asarray(ref.vmult(jnp.asarray(x)))
+    want_r = np.asarray(ref.vmult_residual(jnp.asarray(b), jnp.asarray(x)))
+    op = lk.BrickLaplace(gt, torch.float32, "cpu")
+    xt, bt = torch.as_tensor(x), torch.as_tensor(b)
+    y = tk.brick_kron_plain(xt, op.taps)
+    got = torch.where(op.interior, y, xt).numpy()
+    got_r = lk.cheb_epilogue_plain(bt, y, x=xt, residual_only=True).numpy()
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * scale)
+    np.testing.assert_allclose(got_r, want_r, rtol=0, atol=2e-6 * scale)
+
+
+@pytest.mark.parametrize("cells", CELLS)
+@pytest.mark.parametrize("p", DEGREES)
+def test_brick_kron_plain_f64_matches_dense(p, cells):
+    """The separable arithmetic with the kernel's taps against the dense
+    element path, on an anisotropic grid and one with a one-cell axis."""
+    _, gt = grids(cells, p)
+    op = lk.BrickLaplace(gt, torch.float64, "cpu")
+    x = torch.as_tensor(rand(gt.shape, 2))
+    want = lk.brick_apply_plain(x, op.K).numpy()
+    got = tk.brick_kron_plain(x, op.taps).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-13 * np.abs(want).max())
+    assert np.all(got[~np.broadcast_to(op.interior.numpy(), got.shape)] == 0)
+
+
+@pytest.mark.parametrize("mode", sorted(lk.KRON_MODES))
+def test_brick_kron_on_the_cpu_is_its_plain_version(mode):
+    """On CPU tensors the wrapper runs brick_kron_reference, which agrees
+    with the operator's dense path in every mode (f64, 1e-13), also into
+    ``out`` aliasing ``x_old``; nothing is launched."""
+    _, gt = grids((2, 3, 4), 3)
+    op = lk.BrickLaplace(gt, torch.float64, "cpu")
+    b, x, xo = lk.smoother_iterates(op, 5)
+    want = {"apply": lambda: op.apply(x), "vmult": lambda: op.vmult(x),
+            "residual": lambda: op.vmult_residual(b, x),
+            "cheb": lambda: op.cheb_step(b, x, xo, 0.37, 0.81)}[mode]()
+    lk.reset_launches()
+    alias = xo.clone()
+    got = lk.brick_kron(x, op, mode, b=b, x_old=alias, f1=0.37, f2=0.81,
+                        out=alias)
+    assert got is alias
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-13 * float(want.abs().max()))
+    assert all(v == 0 for v in lk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("grid", ["cube8", "aniso", "cube4_p7"])
+def test_brick_kron_cheb_check_sees_every_term(grid):
+    """The Chebyshev inputs the card checks use (``smoother_iterates``:
+    random b, x = D^-1 z, x_old = D^-1 z') put every term of the step at
+    the output's scale: the f32 separable step meets the 3e-6·max|out| bar
+    against the f64 dense step, and leaving out A x, x or x_old misses it
+    more than a thousandfold."""
+    g = {"cube8": lambda: DofGrid(poisson_cube_mesh(8), 3, 4),
+         "aniso": lambda: grids((3, 4, 5), 4)[1],
+         "cube4_p7": lambda: DofGrid(poisson_cube_mesh(4), 2, 7)}[grid]()
+    op, op32 = (lk.BrickLaplace(g, t, "cpu")
+                for t in (torch.float64, torch.float32))
+    b, x, xo = lk.smoother_iterates(op, 3)
+    f1, f2 = 0.37, 0.81
+    y = lk.brick_apply_plain(x, op.K)
+    want = lk.cheb_epilogue_plain(b, y, x, xo, op.lines, f1, f2)
+    bar = 3e-6 * float(want.abs().max())
+    got = lk.brick_kron(x.float(), op32, "cheb", b=b.float(), x_old=xo.float(),
+                        f1=f1, f2=f2)
+    assert float((got.double() - want).abs().max()) <= bar
+    for miss in (lk.cheb_epilogue_plain(b, torch.zeros_like(y), x, xo,
+                                        op.lines, f1, f2),
+                 lk.cheb_epilogue_plain(b, y, None, xo, op.lines, f1, f2),
+                 lk.cheb_epilogue_plain(b, y, x, None, op.lines, f1, f2)):
+        assert float((miss - want).abs().max()) > 1e3 * bar
+
+
+def test_brick_kron_refuses_other_devices():
+    _, gt = grids((2, 2, 2), 2)
+    op = lk.BrickLaplace(gt, torch.float32, "cpu")
+    x = torch.zeros(gt.shape, dtype=torch.float32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        lk.brick_kron(x, op)
+    with pytest.raises(ValueError, match="mode"):
+        lk.brick_kron(torch.zeros(gt.shape), op, "resid")
+    assert not op.kron
+    assert all(v == 0 for v in lk.LAUNCHES.values())

@@ -3,15 +3,17 @@
 Marked ``cuda``: these need an NVIDIA GPU (and ``nvcc`` to build
 ``multigrid_tpu_torch/csrc``), and skip without one.  Run them on the card
 with ``python -m pytest tests/test_torch_cuda.py -q``.  Bars as in
-chip_smoke.py: brick_apply 1e-13 (f64) / 2e-6 (f32) of max|y|, the
-Chebyshev epilogue 3e-6 of max|out|, the CG vector kernels 1e-14; the DG
-kernels against the plain f64 operator at 1e-13 (dg_apply<double>), 3e-6
+chip_smoke.py: the brick operator 1e-13 (f64 brick_apply) / 2e-6 (f32
+brick_kron apply and residual) of max|y|, the fused Chebyshev step and the
+epilogue 3e-6 of max|out| (brick_kron against the plain f64 dense path, on
+the smoother's iterates), the CG vector kernels 1e-14; the DG kernels
+against the plain f64 operator at 1e-13 (dg_apply<double>), 3e-6
 (dg_apply<float>) of max|y| and 1e-5 of max|out| (dg_cheb<float>, on the
-smoother's iterates; 1e-6 of max|x| with f2 = 0).  The
-launch counters count device kernels: 8 parity classes per brick_apply on
-grids of two or more cells per axis, 2 per reduction, 1 per xpay, 1 per DG
-kernel call.  The size-4 FE_Q and DG solves on the card agree with the CPU
-to 1e-5 of max|u|."""
+smoother's iterates; 1e-6 of max|x| with f2 = 0).  The launch counters
+count device kernels: 8 parity classes per f64 brick_apply on grids of two
+or more cells per axis, 1 per brick_kron call, 2 per reduction, 1 per
+xpay, 1 per DG kernel call.  The size-4 FE_Q and DG solves on the card
+agree with the CPU to 1e-5 of max|u|."""
 
 import numpy as np
 import pytest
@@ -37,28 +39,91 @@ def rand(shape, dtype, dev, seed):
     return torch.as_tensor(a, dtype=dtype, device=dev)
 
 
+def brick(cells, p):
+    return DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, p)
+
+
 GRIDS = {"cube8": lambda: DofGrid(poisson_cube_mesh(8), 3, 4),
-         "aniso": lambda: DofGrid(BrickMesh((3, 4, 5), (-0.9,) * 3,
-                                            (1.9, 1.3, 1.1)), 0, 4),
+         "aniso": lambda: brick((3, 4, 5), 4),
          "p2": lambda: DofGrid(poisson_cube_mesh(4), 2, 2)}
+# brick_kron's cases: degrees 1, 2, 3, 7, a one-cell axis, node counts
+# that do not divide the tile, several tiles in x and y
+KRON_GRIDS = dict(GRIDS, **{
+    "cube8_p1": lambda: DofGrid(poisson_cube_mesh(8), 3, 1),
+    "cube8_p3": lambda: DofGrid(poisson_cube_mesh(8), 3, 3),
+    "cube4_p7": lambda: DofGrid(poisson_cube_mesh(4), 2, 7),
+    "one_cell_axis": lambda: brick((1, 4, 3), 4),
+    "one_cell_axis_p1": lambda: brick((1, 4, 3), 1),
+    "ragged_p3": lambda: brick((7, 5, 9), 3),
+    "tiles_p4": lambda: brick((3, 12, 20), 4),
+    "tiles_p5": lambda: brick((2, 9, 11), 5)})
 
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
                                        (torch.float32, 2e-6)])
 def test_brick_apply_matches_plain(dev, grid, dtype, tol):
+    """op.apply against the dense plain version: the f64 cell scatter (8
+    parity launches), the f32 brick_kron (one launch)."""
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
     g = GRIDS[grid]()
     op = lk.BrickLaplace(g, dtype, dev)
     x = rand(g.shape, dtype, dev, 1)
-    name = "brick_apply<double>" if dtype == torch.float64 else "brick_apply<float>"
+    name, count = (("brick_apply<double>", 8) if dtype == torch.float64
+                   else ("brick_kron<float>", 1))
     before = lk.LAUNCHES[name]
-    y = lk.brick_apply(x, op)
-    assert lk.LAUNCHES[name] - before == 8
+    y = op.apply(x)
+    assert lk.LAUNCHES[name] - before == count
     want = lk.brick_apply_plain(x, op.K)
     torch.cuda.synchronize()
     assert float((y - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("grid", sorted(KRON_GRIDS))
+def test_brick_kron_modes_match_plain(dev, grid):
+    """brick_kron in its four modes against the dense plain path in f64:
+    apply, vmult and residual at 2e-6 of the largest output (max|y| for
+    apply; at least that for the others), the Chebyshev step on the
+    smoother's iterates at 3e-6·max|out|, with x_old, with x_old = None
+    and in place into x_old; one launch per call, bit-for-bit repeatable."""
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    g = KRON_GRIDS[grid]()
+    op = lk.BrickLaplace(g, torch.float32, dev)
+    op64 = lk.BrickLaplace(g, torch.float64, dev)
+    x = rand(g.shape, torch.float32, dev, 1)
+    x64 = x.double()
+    y = lk.brick_apply_plain(x64, op64.K)
+    b = rand(g.shape, torch.float32, dev, 2)
+    wants = {"apply": y, "vmult": torch.where(op64.interior, y, x64),
+             "residual": lk.cheb_epilogue_plain(b.double(), y, x=x64,
+                                                residual_only=True)}
+    lk.reset_launches()
+    for mode, want in wants.items():
+        got = lk.brick_kron(x, op, mode, b=b)
+        torch.cuda.synchronize()
+        assert float((got.double() - want).abs().max()) \
+            <= 2e-6 * float(want.abs().max()), mode
+    assert torch.equal(lk.brick_kron(x, op, "apply"), op.apply(x))
+
+    b, xc, xo = lk.smoother_iterates(op64, 3)
+    b32, xc32, xo32 = (t.float() for t in (b, xc, xo))
+    y = lk.brick_apply_plain(xc, op64.K)
+    for xold in (xo, None):
+        want = lk.cheb_epilogue_plain(b, y, xc, xold, op64.lines, 0.37, 0.81)
+        got = lk.brick_kron(xc32, op, "cheb", b=b32,
+                            x_old=None if xold is None else xo32,
+                            f1=0.37, f2=0.81)
+        torch.cuda.synchronize()
+        assert float((got.double() - want).abs().max()) \
+            <= 3e-6 * float(want.abs().max())
+    first = lk.brick_kron(xc32, op, "cheb", b=b32, x_old=xo32, f1=0.37, f2=0.81)
+    alias = xo32.clone()
+    assert op.cheb_step(b32, xc32, alias, 0.37, 0.81, out=alias) is alias
+    assert torch.equal(alias, first)
+    assert lk.LAUNCHES["brick_kron<float>"] == 5
+    assert lk.LAUNCHES["brick_kron_cheb<float>"] == 4
 
 
 @pytest.mark.parametrize("residual_only", [True, False])
@@ -97,6 +162,27 @@ def test_cg_kernels_match_plain(dev):
     d_ref = ck.cg_dot_plain(x, q)
     assert abs(float(d) - float(d_ref)) <= 1e-14 * float((x * q).abs().sum())
     assert ck.LAUNCHES == {"cg_update": 2, "cg_dot": 2, "cg_xpay": 1}
+
+
+@pytest.mark.parametrize("n,p_off,z_off", [(100_003, 0, 0), (100_003, 1, 1),
+                                           (100_004, 1, 0), (1, 0, 0),
+                                           (2, 1, 1), (7, 0, 1)])
+def test_cg_xpay_ragged(dev, n, p_off, z_off):
+    """cg_xpay on odd n and on views that start off a 16-byte boundary
+    (the same phase for p and z: the double2 body with a scalar head; a
+    different phase: the scalar loop), bit for bit against the plain
+    version, which rounds alike (one multiply, one add)."""
+    from multigrid_tpu_torch.ops import cg_kernel as ck
+
+    p = rand((n + 1,), torch.float64, dev, 5)[p_off:p_off + n]
+    z = rand((n + 1,), torch.float64, dev, 6)[z_off:z_off + n]
+    assert p.data_ptr() % 16 == 8 * p_off and z.data_ptr() % 16 == 8 * z_off
+    want = ck.cg_xpay_plain(p.clone(), z, 0.3)
+    before = ck.LAUNCHES["cg_xpay"]
+    assert ck.cg_xpay(p, z, 0.3) is p
+    assert ck.LAUNCHES["cg_xpay"] - before == 1
+    torch.cuda.synchronize()
+    assert float((p - want).abs().max()) <= 1e-14 * float(want.abs().max())
 
 
 def test_solver_on_card_matches_cpu(dev):

@@ -135,7 +135,7 @@ def test_profile_breakdown_of_a_trace():
     k = lambda name, ts, dur: {"ph": "X", "cat": "kernel", "name": name,
                                "ts": ts, "dur": dur}
     events = [
-        k("void (anonymous namespace)::brick_apply_kernel<float>(float const*)",
+        k("void (anonymous namespace)::brick_kron_kernel<4, 3>(float const*)",
           0.0, 40.0),
         k("void (anonymous namespace)::brick_apply_kernel<double>(double const*)",
           30.0, 20.0),     # overlaps the first: busy 0..50
@@ -151,9 +151,9 @@ def test_profile_breakdown_of_a_trace():
     assert got["idle_share"] == pytest.approx(0.91)
     assert got["device_events"] == 5
     assert got["share"] == pytest.approx({
-        "brick_apply<float>": 0.4, "brick_apply<double>": 0.2,
+        "brick_kron<float>": 0.4, "brick_apply<double>": 0.2,
         "fill/copy": 0.2, "cg kernels": 0.1, "matmul": 0.1})
-    assert list(got["share"])[0] == "brick_apply<float>"
+    assert list(got["share"])[0] == "brick_kron<float>"
     assert kernel_class("void at::native::vectorized_elementwise_kernel<4>"
                         ) == "other torch"
     assert kernel_class("void dot_kernel<double, 128, 0>") == "other torch"
