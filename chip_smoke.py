@@ -13,6 +13,10 @@ convergence rows:
   Chebyshev smoothing around the FE_Q V-cycle) at size 48, 13,824,000 DG
   dofs, rtol 1e-9.
 
+``dg_cheb<float>`` is held at every compiled degree (p = 1..7), on x axes
+that do not fill its pencils or have one cell, against the plain step and
+the step through the face-based operator (``ops/dg_face.py``).
+
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
@@ -82,7 +86,7 @@ KERNELS = {
                          "multigrid_tpu/ops/pallas_dg.py:639"),
     "dg_apply<float>": ("multigrid_tpu_torch/csrc/dg_apply.cu",
                         "multigrid_tpu/ops/pallas_dg.py:438"),
-    "dg_cheb<float>": ("multigrid_tpu_torch/csrc/dg_apply.cu",
+    "dg_cheb<float>": ("multigrid_tpu_torch/csrc/dg_cheb.cu",
                        "multigrid_tpu/ops/pallas_dg.py:490"),
 }
 # kernels each path must launch
@@ -319,21 +323,61 @@ class KernelChecks:
                                          ("cg_xpay", 3, 2)):
                 self.bound[name] = bound(streams * 8 * n, flops * n, f64)
 
-    def dg_checks(self, grid, timed: bool):
-        """The DG kernels against the plain f64 operator: dg_apply<double>
-        at 1e-13·max|y|, dg_apply<float> at 3e-6·max|y|, dg_cheb<float> at
-        1e-5·max|out| on the smoother's iterates (every term of the step at
-        the output's scale), and with f2 = 0 at 1e-6·max|x|; the timed
-        plain versions run in the kernel's dtype."""
+    def cheb_checks(self, ops, face: bool, seed: int = 22):
+        """dg_cheb<float> on the smoother's iterates against the plain f64
+        step (and, if ``face``, the step with A from the face-based
+        operator): with x and x_old, without x, without x_old at
+        1e-5·max|out|, with f2 = 0 at 1e-6·max|x|; in place into x_old bit
+        for bit.  Returns the float32 (b, x, x_old)."""
+        import types
+
+        from multigrid_tpu_torch.ops import dg_kernel as dk
+        from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
+
+        f32, f64 = torch.float32, torch.float64
+        refs = [ops[f64]]
+        if face:
+            refs.append(types.SimpleNamespace(
+                plain=DGLaplaceFaceBased(ops[f64].grid, f64, self.dev),
+                jacobi=ops[f64].jacobi))
+        b, xc, xo = dk.smoother_iterates(ops[f64].jacobi, seed)
+        d = lambda t: None if t is None else t.double()
+        for xa, xoa, f1, f2 in ((xc, xo, 0.37, 0.81), (None, None, 0.0, 0.81),
+                                (xc, None, 0.2, 0.5), (xc, xo, 0.37, 0.0)):
+            got = d(dk.dg_cheb(b, xa, xoa, ops[f32], f1, f2))
+            for ref in refs:
+                want = dk.dg_cheb_plain(d(b), d(xa), d(xoa), ref, f1, f2)
+                scale, tol = ((float(want.abs().max()), 1e-5) if f2
+                              else (float(xc.abs().max()), 1e-6))
+                self.note("dg_cheb<float>", got, want, scale, tol)
+        alias = xo.clone()
+        dk.dg_cheb(b, xc, alias, ops[f32], 0.37, 0.81, out=alias)
+        require(torch.equal(alias, dk.dg_cheb(b, xc, xo, ops[f32], 0.37, 0.81)),
+                "dg_cheb<float>: in place into x_old differs")
+        return b, xc, xo
+
+    def dg_ops(self, grid):
+        """Float32 and float64 DGOperators of ``grid`` with the transformed
+        Jacobi installed."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+        ops = {}
+        for dtype in (torch.float32, torch.float64):
+            ops[dtype] = dk.DGOperator(grid, dtype, self.dev)
+            ops[dtype].install_jacobi(JacobiTransformed(grid, dtype, self.dev))
+        return ops
+
+    def dg_checks(self, grid, timed: bool):
+        """The DG kernels against the plain f64 operator: dg_apply<double>
+        at 1e-13·max|y|, dg_apply<float> at 3e-6·max|y|, dg_cheb<float> by
+        :meth:`cheb_checks` (against the face-based step too on the small
+        grids); the timed plain versions run in the kernel's dtype."""
+        from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
 
         f32, f64 = torch.float32, torch.float64
-        ops = {}
-        for dtype in (f32, f64):
-            ops[dtype] = dk.DGOperator(grid, dtype, self.dev)
-            ops[dtype].install_jacobi(JacobiTransformed(grid, dtype, self.dev))
+        ops = self.dg_ops(grid)
         x = self.rand(grid.shape, f32, 21)
         x64 = x.double()
         want = dk.dg_apply_plain(x64, ops[f64])
@@ -343,18 +387,7 @@ class KernelChecks:
         self.note("dg_apply<float>", dk.dg_apply(x, ops[f32]).double(), want,
                   scale, 3e-6)
         del want
-        b, xc, xo = dk.smoother_iterates(ops[f64].jacobi, 22)
-        b64, xc64, xo64 = (t.double() for t in (b, xc, xo))
-        for xa, xoa, f1, f2 in ((xc, xo, 0.37, 0.81), (None, None, 0.0, 0.81),
-                                (xc, xo, 0.37, 0.0)):
-            got = dk.dg_cheb(b, xa, xoa, ops[f32], f1, f2).double()
-            want = dk.dg_cheb_plain(b64, None if xa is None else xc64,
-                                    None if xoa is None else xo64, ops[f64],
-                                    f1, f2)
-            scale, tol = ((float(want.abs().max()), 1e-5) if f2
-                          else (float(xc64.abs().max()), 1e-6))
-            self.note("dg_cheb<float>", got, want, scale, tol)
-        del got, want
+        b, xc, xo = self.cheb_checks(ops, face=not timed)
         if not timed:
             return
         for name, fn, plain in (
@@ -488,6 +521,15 @@ def run(dev: torch.device, card: str) -> int:
         checks.dg_checks(grid, timed)
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
+    # dg_cheb at every compiled degree, on x axes that are not a multiple of
+    # its pencil or have one cell
+    for p in range(1, 8):
+        for cells, kind in (((3, 2, 5), "hermite"), ((2, 3, 1), "gll"),
+                            ((5, 4, 9), "gauss" if p % 2 else "hermite")):
+            checks.cheb_checks(checks.dg_ops(dg_grid(cells, p, kind)),
+                               face=True)
+        torch.cuda.synchronize()
+        print(f"dg_cheb checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9)")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "

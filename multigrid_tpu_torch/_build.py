@@ -29,7 +29,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = [PACKAGE_DIR / "csrc" / "brick_apply.cu",
            PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
-           PACKAGE_DIR / "csrc" / "dg_apply.cu"]
+           PACKAGE_DIR / "csrc" / "dg_apply.cu",
+           PACKAGE_DIR / "csrc" / "dg_cheb.cu"]
+HEADERS = [PACKAGE_DIR / "csrc" / "dg_tab.cuh"]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "multigrid_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -60,8 +62,8 @@ SIGNATURES = {
     # x, tables, y, C0, C1, C2, n, collocation, stream
     "dg_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
     "dg_apply_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
-    # b, x, x_old, inv_diag, tables, out, f1, f2, C0, C1, C2, n,
-    # collocation, stream
+    # b, x, x_old, inv_diag, tables (host, float32), out, f1, f2, C0, C1,
+    # C2, n, collocation, stream
     "dg_cheb_f32": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I, _P,
                     _N],
 }
@@ -84,7 +86,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

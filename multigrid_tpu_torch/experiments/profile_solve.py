@@ -44,12 +44,9 @@ CLASSES = (
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",
                     "xpay_kernel", "finish_sum_kernel")),
-    ("dg_apply<double>", tuple(f"dg_kernel<double, {n}, false>"
-                               for n in range(2, 9))),
-    ("dg_apply<float>", tuple(f"dg_kernel<float, {n}, false>"
-                              for n in range(2, 9))),
-    ("dg_cheb<float>", tuple(f"dg_kernel<float, {n}, true>"
-                             for n in range(2, 9))),
+    ("dg_apply<double>", ("dg_kernel<double,",)),
+    ("dg_apply<float>", ("dg_kernel<float,",)),
+    ("dg_cheb<float>", ("dg_cheb_kernel<",)),
     ("matmul", ("gemm", "cutlass")),
     ("fill/copy", ("fill", "copy")),
 )

@@ -4,13 +4,15 @@ PyTorch versions and launch counters.
 Replaces ``multigrid_tpu/ops/pallas_dg.py``: K9 ``PallasDGOzaki`` (f64 A·u),
 K7 ``PallasDGSP._call`` (f32 A·u) and K8 ``PallasDGSP.cheb_fused`` (one
 Chebyshev step with A·x, the transformed-Jacobi preconditioner and the
-update in one pass).  Three kernels from ``csrc/dg_apply.cu``:
+update in one pass).  Three kernels:
 
-* ``dg_apply``: y = A x on the DG block ``[C0, C1, C2, n, n, n]``
-  (float64 for the outer CG, float32 for the smoother);
-* ``dg_cheb``: ``x + f1 (x - x_old) + f2 T3 diag^-1 T3^T (b - A x)``
-  (float32); ``x = None`` reads as zero and skips A·x, ``out`` may be
-  ``x_old`` itself.
+* ``dg_apply`` (``csrc/dg_apply.cu``): y = A x on the DG block
+  ``[C0, C1, C2, n, n, n]`` (float64 for the outer CG, float32 for the
+  smoother);
+* ``dg_cheb`` (``csrc/dg_cheb.cu``): ``x + f1 (x - x_old) + f2 T3 diag^-1
+  T3^T (b - A x)`` (float32), a pencil of cells per block with each face
+  inside it evaluated once (the algebra of :mod:`.dg_face`); ``x = None``
+  reads as zero and skips A·x, ``out`` may be ``x_old`` itself.
 
 The plain versions are :class:`~.dg.DGLaplace` in the kernel's dtype and,
 for ``dg_cheb``, that operator composed with
@@ -42,10 +44,11 @@ def reset_launches() -> None:
 
 
 def dg_tables(grid: DGGrid) -> np.ndarray:
-    """The kernel's constant table (fp64), in the order of ``Tab`` in
-    ``csrc/dg_apply.cu``: S, D, D S, T (n x n each); f0, f1; their rows
+    """The kernels' constant table (fp64), in the order of ``Tab`` in
+    ``csrc/dg_tab.cuh``: S, D, D S, T (n x n each); f0, f1; their rows
     f S and f D S; quadrature weights; Gsym (3 x 3), gvec (3 x 3, one row
-    per face direction), sigma (3), jxw (3)."""
+    per face direction), sigma (3), jxw (3); S T and D S T (n x n each,
+    the back end of ``dg_cheb`` folded into T3^T)."""
     b = grid.basis
     S, D = np.asarray(b.S, np.float64), np.asarray(b.D_col, np.float64)
     f = [np.asarray(b.f0), np.asarray(b.f1)]
@@ -54,7 +57,7 @@ def dg_tables(grid: DGGrid) -> np.ndarray:
              b.quad_weights, np.asarray(geo["Gsym"]),
              np.asarray([fd["gvec"] for fd in geo["face"]]),
              [fd["sigma"] for fd in geo["face"]],
-             [fd["jxw"] for fd in geo["face"]]]
+             [fd["jxw"] for fd in geo["face"]], S @ b.T, D @ S @ b.T]
     return np.concatenate([np.asarray(p, np.float64).ravel() for p in parts])
 
 
@@ -136,8 +139,9 @@ def dg_cheb(b: torch.Tensor, x, x_old, op: "DGOperator", f1: float,
     ptr = lambda t: None if t is None else t.data_ptr()
     LAUNCHES["dg_cheb<float>"] += _build.launch(
         "dg_cheb_f32", b.data_ptr(), ptr(x), ptr(x_old),
-        op.jacobi.inv_diag.data_ptr(), op.tables.data_ptr(), out.data_ptr(),
-        float(f1), float(f2), *_launch_args(op), _build.stream_handle(b.device))
+        op.jacobi.inv_diag.data_ptr(), op.host_tables.ctypes.data,
+        out.data_ptr(), float(f1), float(f2), *_launch_args(op),
+        _build.stream_handle(b.device))
     return out
 
 
@@ -160,8 +164,10 @@ def smoother_iterates(jacobi, seed: int):
 # ---------------------------------------------------------------- operator
 class DGOperator:
     """A·u of one DG level in one dtype on one device: the kernels' table
-    and the plain operator; ``install_jacobi`` adds the preconditioner the
-    fused Chebyshev step applies."""
+    (on the device for ``dg_apply``, in host memory as float32 for
+    ``dg_cheb``, which passes it as a kernel parameter) and the plain
+    operator; ``install_jacobi`` adds the preconditioner the fused
+    Chebyshev step applies."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):
         self.grid = grid
@@ -169,8 +175,9 @@ class DGOperator:
         self.dtype = dtype
         self.device = resolve(device)
         self.plain = DGLaplace(grid, dtype, self.device)
-        self.tables = torch.as_tensor(dg_tables(grid), dtype=dtype,
-                                      device=self.device)
+        tables = dg_tables(grid)
+        self.tables = torch.as_tensor(tables, dtype=dtype, device=self.device)
+        self.host_tables = tables.astype(np.float32)
         self.jacobi = None
 
     def install_jacobi(self, jacobi) -> None:

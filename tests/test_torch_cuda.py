@@ -9,7 +9,8 @@ epilogue 3e-6 of max|out| (brick_kron against the plain f64 dense path, on
 the smoother's iterates), the CG vector kernels 1e-14; the DG kernels
 against the plain f64 operator at 1e-13 (dg_apply<double>), 3e-6
 (dg_apply<float>) of max|y| and 1e-5 of max|out| (dg_cheb<float>, on the
-smoother's iterates; 1e-6 of max|x| with f2 = 0).  The launch counters
+smoother's iterates, at p = 1..7 and on ragged pencils; 1e-6 of max|x|
+with f2 = 0; also against the step with the face-based operator).  The launch counters
 count device kernels: 8 parity classes per f64 brick_apply on grids of two
 or more cells per axis, 1 per brick_kron call, 2 per reduction, 1 per
 xpay, 1 per DG kernel call.  The size-4 FE_Q and DG solves on the card
@@ -248,6 +249,49 @@ def test_dg_kernels_match_plain(dev, kind, p, cells):
     assert torch.equal(alias, out)
     assert dk.LAUNCHES == {"dg_apply<double>": 1, "dg_apply<float>": 1,
                            "dg_cheb<float>": 6}
+
+
+@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)])
+@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_cheb_every_degree(dev, kind, p, cells):
+    """dg_cheb<float> at every compiled degree, on grids whose x axis is
+    not a multiple of the kernel's pencil (5, 9 cells) or has one cell,
+    against the plain f64 step on the smoother's iterates: with x and
+    x_old, without x, without x_old at 1e-5·max|out|, with f2 = 0 at
+    1e-6·max|x|, and in place into x_old; the same step with A from the
+    face-based operator (ops/dg_face.py) at 1e-5·max|out|.  One launch
+    per call."""
+    import types
+
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = dg_grid(cells, p, kind)
+    op32 = dk.DGOperator(g, torch.float32, dev)
+    op64 = dk.DGOperator(g, torch.float64, dev)
+    for op in (op32, op64):
+        op.install_jacobi(JacobiTransformed(g, op.dtype, dev))
+    face64 = types.SimpleNamespace(
+        plain=DGLaplaceFaceBased(g, torch.float64, dev), jacobi=op64.jacobi)
+    b, x, xo = dk.smoother_iterates(op64.jacobi, 7)
+    d = lambda t: None if t is None else t.double()
+    dk.reset_launches()
+    for xa, xoa, f1, f2 in ((x, xo, 0.37, 0.81), (None, None, 0.0, 0.81),
+                            (x, None, 0.2, 0.5), (x, xo, 0.37, 0.0)):
+        got = d(dk.dg_cheb(b, xa, xoa, op32, f1, f2))
+        for ref in (op64, face64):
+            want = dk.dg_cheb_plain(d(b), d(xa), d(xoa), ref, f1, f2)
+            bar = (1e-5 * float(want.abs().max()) if f2
+                   else 1e-6 * float(x.abs().max()))
+            torch.cuda.synchronize()
+            assert float((got - want).abs().max()) <= bar, (xa is None, f2)
+    first = dk.dg_cheb(b, x, xo, op32, 0.37, 0.81)
+    alias = xo.clone()
+    assert dk.dg_cheb(b, x, alias, op32, 0.37, 0.81, out=alias) is alias
+    assert torch.equal(alias, first)
+    assert dk.LAUNCHES["dg_cheb<float>"] == 6
 
 
 def test_dg_solver_on_card_matches_cpu(dev):

@@ -286,13 +286,17 @@ def test_dg_matvec_model_matches_jax(kind):
 
 
 def test_dg_tables_layout():
-    """The kernel's table is the concatenation its Tab<N> struct reads."""
+    """The kernels' table is the concatenation their Tab<N> struct reads."""
     _, gt = grids((2, 2, 2), 4, "hermite")
     n = gt.n
     tab = dk.dg_tables(gt)
-    assert tab.shape == (4 * n * n + 7 * n + 24,)
+    assert tab.shape == (6 * n * n + 7 * n + 24,)
     b = gt.basis
     np.testing.assert_array_equal(tab[:n * n], b.S.ravel())
     np.testing.assert_array_equal(tab[3 * n * n:4 * n * n], b.T.ravel())
     geo = t_dg.dg_geometry(gt)
-    assert tab[-6:-3].tolist() == [f["sigma"] for f in geo["face"]]
+    m = 4 * n * n + 7 * n + 18     # sigma, then jxw, then S T and D S T
+    assert tab[m:m + 3].tolist() == [f["sigma"] for f in geo["face"]]
+    S, D, T = b.S, b.D_col, b.T
+    np.testing.assert_array_equal(tab[m + 6:m + 6 + n * n], (S @ T).ravel())
+    np.testing.assert_array_equal(tab[m + 6 + n * n:], (D @ S @ T).ravel())

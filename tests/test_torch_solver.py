@@ -164,9 +164,12 @@ def test_profile_classes_of_dg_kernels():
 
     pre = "void (anonymous namespace)::dg_kernel"
     args = "(float const*, float const*, float*, int, int, int, int)"
-    assert kernel_class(f"{pre}<double, 5, false>{args}") == "dg_apply<double>"
-    assert kernel_class(f"{pre}<float, 5, false>{args}") == "dg_apply<float>"
-    assert kernel_class(f"{pre}<float, 8, true>{args}") == "dg_cheb<float>"
+    assert kernel_class(f"{pre}<double, 5>{args}") == "dg_apply<double>"
+    assert kernel_class(f"{pre}<float, 5>{args}") == "dg_apply<float>"
+    cheb = ("void (anonymous namespace)::dg_cheb_kernel<8>(float const*, "
+            "float*, float const*, float const*, float const*, float, float, "
+            "int, int, int, int)")
+    assert kernel_class(cheb) == "dg_cheb<float>"
 
 
 def test_import_loads_no_jax():
@@ -176,6 +179,8 @@ def test_import_loads_no_jax():
             "multigrid_tpu_torch.experiments.poisson_dg, "
             "multigrid_tpu_torch.solvers.multigrid_dg, "
             "multigrid_tpu_torch.ops.dg_kernel, "
+            "multigrid_tpu_torch.ops.dg_face, "
+            "multigrid_tpu_torch.experiments.time_dg_cheb, "
             "multigrid_tpu_torch.utils.perf_model, "
             "multigrid_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
