@@ -13,19 +13,21 @@ convergence rows:
   Chebyshev smoothing around the FE_Q V-cycle) at size 48, 13,824,000 DG
   dofs, rtol 1e-9.
 
-``dg_cheb<float>`` is held at every compiled degree (p = 1..7), on x axes
-that do not fill its pencils or have one cell, against the plain step and
-the step through the face-based operator (``ops/dg_face.py``).
+``brick_kron`` (float and double, every mode) and ``dg_apply``
+(float and double) are held at every compiled degree (p = 1..7);
+``dg_cheb<float>`` too, on x axes that do not fill its pencils or have
+one cell, against the plain step and the step through the face-based
+operator (``ops/dg_face.py``).
 
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the two solves, as a trace
-counts them: one f64 brick_apply call is 8 parity-class launches, one
-brick_kron call 1, one CG reduction 2, one DG kernel call 1; the row
-``brick_kron<float>`` counts the kernel's A·x modes (apply, vmult,
-residual) and times apply, with the residual mode's numbers beside them
-under ``residual_*``; max error against the plain version;
+counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
+call 1; the rows ``brick_kron<float>`` and ``brick_kron<double>`` count
+the kernel's A·x modes (apply, vmult, residual) and time apply, with the
+residual mode's numbers beside them under ``residual_*``; max error
+against the plain version;
 time of kernel, plain version and, where one PyTorch call computes the same
 function, that call; the least time the card could take, from the bytes
 and operations the function needs), the card line again and, last,
@@ -63,18 +65,25 @@ DG_ITS = (5.2, 6.2)
 # (67 TFLOP/s, twice the 34 of the fp64 units), the higher of the two
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+# brick_kron's bars against the dense plain f64 path, of max|y| (apply,
+# vmult, residual) and of max|out| (the Chebyshev step, where f2 / diag
+# amplifies the rounding of A x), and the value type's name
+KRON_BARS = {torch.float32: ("float", 2e-6, 3e-6),
+             torch.float64: ("double", 1e-13, 1e-12)}
 
+BRICK = "multigrid_tpu_torch/csrc/brick_kron.cuh"
+EPILOGUE = "multigrid_tpu_torch/csrc/cheb_epilogue.cu"
 KERNELS = {
     # name: (source, TPU kernel it replaces)
-    "brick_apply<double>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
-                            "multigrid_tpu/ops/pallas_windowed.py:340"),
-    "brick_kron<float>": ("multigrid_tpu_torch/csrc/brick_kron.cu",
-                          "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
-    "brick_kron_cheb<float>": ("multigrid_tpu_torch/csrc/brick_kron.cu",
+    "brick_kron<double>": (BRICK, "multigrid_tpu/ops/pallas_windowed.py:340"),
+    "brick_kron_cheb<double>": (BRICK,
+                                "multigrid_tpu/ops/pallas_windowed.py:340"),
+    "brick_kron<float>": (BRICK, "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
+    "brick_kron_cheb<float>": (BRICK,
                                "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
-    "cheb_epilogue<float>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
+    "cheb_epilogue<float>": (EPILOGUE,
                              "multigrid_tpu/ops/pallas_windowed_sp.py:408"),
-    "cheb_epilogue<double>": ("multigrid_tpu_torch/csrc/brick_apply.cu",
+    "cheb_epilogue<double>": (EPILOGUE,
                               "multigrid_tpu/ops/pallas_windowed.py:340"),
     "cg_update": ("multigrid_tpu_torch/csrc/cg_vec.cu",
                   "multigrid_tpu/ops/pallas_pairvec.py:149"),
@@ -89,10 +98,11 @@ KERNELS = {
     "dg_cheb<float>": ("multigrid_tpu_torch/csrc/dg_cheb.cu",
                        "multigrid_tpu/ops/pallas_dg.py:490"),
 }
-# kernels each path must launch
-CUBE_KERNELS = ["brick_apply<double>", "brick_kron<float>",
+# kernels each path must launch (brick_kron_cheb<double> and
+# cheb_epilogue<double> are on no path: checked and timed only)
+CUBE_KERNELS = ["brick_kron<double>", "brick_kron<float>",
                 "brick_kron_cheb<float>", "cheb_epilogue<float>",
-                "cheb_epilogue<double>", "cg_update", "cg_dot", "cg_xpay"]
+                "cg_update", "cg_dot", "cg_xpay"]
 DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
               "brick_kron<float>", "brick_kron_cheb<float>",
               "cheb_epilogue<float>", "cg_update", "cg_dot", "cg_xpay"]
@@ -144,7 +154,7 @@ class KernelChecks:
         self.plain_ms = {}
         self.bound = {}                      # name -> (ms, "bytes"/"operations")
         self.library_ms = {k: None for k in KERNELS}
-        self.residual = {}                   # brick_kron's residual mode
+        self.residual = {}                   # brick_kron's residual mode, by name
 
     def note(self, name, got, want, scale, tol):
         err = float((got - want).abs().max())
@@ -158,18 +168,16 @@ class KernelChecks:
         return torch.as_tensor(a, dtype=dtype, device=self.dev)
 
     def operator_checks(self, grid, timed: bool):
-        """The f64 brick (brick_apply<double> at 1e-13·max|y|, its residual
-        epilogue at 1e-14), cheb_epilogue<float> on a given y (the x = 0
-        step's kernel) at 3e-6·max|out|, and brick_kron (:meth:`kron_checks`)."""
+        """cheb_epilogue on a given y: in double the residual at
+        1e-14·max|out| (on no path), in float the Chebyshev update (the
+        x = 0 step's kernel) at 3e-6·max|out|; then brick_kron in both
+        dtypes (:meth:`kron_checks`)."""
         from multigrid_tpu_torch.ops import laplace_kernel as lk
 
         f32, f64 = torch.float32, torch.float64
         op = lk.BrickLaplace(grid, f64, self.dev)
         x = self.rand(grid.shape, f64, 1)
-        y = lk.brick_apply(x, op)
         y_ref = lk.brick_apply_plain(x, op.K)
-        self.note("brick_apply<double>", y, y_ref, float(y_ref.abs().max()),
-                  1e-13)
         b = self.rand(grid.shape, f64, 2)
         args = dict(x=x, residual_only=True)
         got = lk.cheb_epilogue(b, y_ref, **args)
@@ -185,12 +193,7 @@ class KernelChecks:
         self.note("cheb_epilogue<float>", got, want, float(want.abs().max()),
                   3e-6)
         if timed:
-            size = x.element_size()
-            nodes, n = grid.n_dofs, grid.basis.n
-            cells = int(np.prod(grid.cells))
-            self.ms["brick_apply<double>"] = time_ms(lambda: lk.brick_apply(x, op))
-            self.plain_ms["brick_apply<double>"] = time_ms(
-                lambda: lk.brick_apply_plain(x, op.K))
+            nodes = grid.n_dofs
             self.ms["cheb_epilogue<double>"] = time_ms(
                 lambda: lk.cheb_epilogue(b, y_ref, **args))
             self.plain_ms["cheb_epilogue<double>"] = time_ms(
@@ -199,84 +202,87 @@ class KernelChecks:
                 lambda: lk.cheb_epilogue(b32, y32, **args32))
             self.plain_ms["cheb_epilogue<float>"] = time_ms(
                 lambda: lk.cheb_epilogue_plain(b32, y32, **args32))
-            # brick: x in, y out; sum factorization, (14 n + 5) n^3 flops a
-            # cell.  Epilogue: b, y in, out (f64 residual); b, y, x, x_old
-            # in, out (f32 update, ~15 flops a node)
-            self.bound["brick_apply<double>"] = bound(
-                2 * size * nodes, cells * (14 * n + 5) * n**3, f64)
-            self.bound["cheb_epilogue<double>"] = bound(3 * size * nodes,
+            # b, y in, out (f64 residual); b, y, x, x_old in, out (f32
+            # update, ~15 flops a node)
+            self.bound["cheb_epilogue<double>"] = bound(3 * 8 * nodes,
                                                         nodes, f64)
             self.bound["cheb_epilogue<float>"] = bound(5 * 4 * nodes,
                                                        15 * nodes, f32)
-        del op, x, y, y_ref, b, got, want
-        self.kron_checks(grid, timed)
+        del op, x, y_ref, b, got, want
+        for dtype in (f32, f64):
+            self.kron_checks(grid, timed, dtype)
 
-    def kron_checks(self, grid, timed: bool, seed: int = 4):
-        """brick_kron against the dense plain path in f64 on the same
-        inputs: apply on random x and vmult at 2e-6·max|y|; residual at
-        2e-6·max|A x| and the Chebyshev step at 3e-6·max|out| on the
-        smoother's iterates (random b, x = D^-1 z, x_old = D^-1 z'), with
-        x_old, with x_old = None and in place into x_old (bit for bit).
-        Timed: the kernel, and its plain version in float32."""
+    def kron_checks(self, grid, timed: bool, dtype, seed: int = 4):
+        """brick_kron in ``dtype`` against the dense plain path in f64 on
+        the same inputs, at the bars of KRON_BARS: apply on random x and
+        vmult at the bar of max|y|; residual at the bar of max|A x| and the
+        Chebyshev step at its bar of max|out| on the smoother's iterates
+        (random b, x = D^-1 z, x_old = D^-1 z'), with x_old, with x_old =
+        None and in place into x_old (bit for bit); one launch a call, a
+        repeated apply bit for bit.  Timed: the kernel, and its plain
+        version in ``dtype``."""
         from multigrid_tpu_torch.ops import laplace_kernel as lk
 
-        f32, f64 = torch.float32, torch.float64
-        op, op64 = (lk.BrickLaplace(grid, t, self.dev) for t in (f32, f64))
-        x = self.rand(grid.shape, f32, seed)
+        cname, tol, tol_cheb = KRON_BARS[dtype]
+        name, cheb = f"brick_kron<{cname}>", f"brick_kron_cheb<{cname}>"
+        op, op64 = (lk.BrickLaplace(grid, t, self.dev)
+                    for t in (dtype, torch.float64))
+        x = self.rand(grid.shape, dtype, seed)
         y = lk.brick_apply_plain(x.double(), op64.K)
         scale = float(y.abs().max())
-        self.note("brick_kron<float>", lk.brick_kron(x, op, "apply").double(),
-                  y, scale, 2e-6)
-        self.note("brick_kron<float>", lk.brick_kron(x, op, "vmult").double(),
+        before = lk.LAUNCHES[name]
+        first = lk.brick_kron(x, op, "apply")
+        require(lk.LAUNCHES[name] - before == 1, f"{name}: not one launch")
+        self.note(name, first.double(), y, scale, tol)
+        require(torch.equal(first, lk.brick_kron(x, op, "apply")),
+                f"{name}: a repeated apply differs")
+        self.note(name, lk.brick_kron(x, op, "vmult").double(),
                   torch.where(op64.interior, y, x.double()),
-                  max(scale, float(x.abs().max())), 2e-6)
+                  max(scale, float(x.abs().max())), tol)
         b, xc, xo = lk.smoother_iterates(op64, seed)
-        b32, xc32, xo32 = (t.float() for t in (b, xc, xo))
+        bt, xct, xot = (t.to(dtype) for t in (b, xc, xo))
         y = lk.brick_apply_plain(xc, op64.K)
         want = lk.cheb_epilogue_plain(b, y, x=xc, residual_only=True)
-        self.note("brick_kron<float>",
-                  lk.brick_kron(xc32, op, "residual", b=b32).double(), want,
-                  float(y.abs().max()), 2e-6)
+        self.note(name, lk.brick_kron(xct, op, "residual", b=bt).double(),
+                  want, float(y.abs().max()), tol)
         f1, f2 = 0.37, 0.81
-        for xold, xold32 in ((xo, xo32), (None, None)):
+        for xold, xoldt in ((xo, xot), (None, None)):
             want = lk.cheb_epilogue_plain(b, y, xc, xold, op64.lines, f1, f2)
-            got = lk.brick_kron(xc32, op, "cheb", b=b32, x_old=xold32, f1=f1,
+            got = lk.brick_kron(xct, op, "cheb", b=bt, x_old=xoldt, f1=f1,
                                 f2=f2)
-            self.note("brick_kron_cheb<float>", got.double(), want,
-                      float(want.abs().max()), 3e-6)
-        alias = xo32.clone()
-        lk.brick_kron(xc32, op, "cheb", b=b32, x_old=alias, f1=f1, f2=f2,
+            self.note(cheb, got.double(), want, float(want.abs().max()),
+                      tol_cheb)
+        alias = xot.clone()
+        lk.brick_kron(xct, op, "cheb", b=bt, x_old=alias, f1=f1, f2=f2,
                       out=alias)
-        require(torch.equal(alias, lk.brick_kron(xc32, op, "cheb", b=b32,
-                                                 x_old=xo32, f1=f1, f2=f2)),
-                "brick_kron_cheb<float>: in place into x_old differs")
+        require(torch.equal(alias, lk.brick_kron(xct, op, "cheb", b=bt,
+                                                 x_old=xot, f1=f1, f2=f2)),
+                f"{cheb}: in place into x_old differs")
         del op64, y, want, got, b, xc, xo
         if not timed:
             return
         K = op.K
-        cheb = dict(x_old=xo32, f1=f1, f2=f2)
-        self.ms["brick_kron<float>"] = time_ms(lambda: lk.brick_kron(x, op))
-        self.plain_ms["brick_kron<float>"] = time_ms(
-            lambda: lk.brick_apply_plain(x, K))
-        self.ms["brick_kron_cheb<float>"] = time_ms(
-            lambda: lk.brick_kron(xc32, op, "cheb", b=b32, **cheb))
-        self.plain_ms["brick_kron_cheb<float>"] = time_ms(
-            lambda: lk.cheb_epilogue_plain(b32, lk.brick_apply_plain(xc32, K),
-                                           xc32, xo32, op.lines, f1, f2))
+        self.ms[name] = time_ms(lambda: lk.brick_kron(x, op))
+        self.plain_ms[name] = time_ms(lambda: lk.brick_apply_plain(x, K))
+        self.ms[cheb] = time_ms(
+            lambda: lk.brick_kron(xct, op, "cheb", b=bt, x_old=xot, f1=f1,
+                                  f2=f2))
+        self.plain_ms[cheb] = time_ms(
+            lambda: lk.cheb_epilogue_plain(bt, lk.brick_apply_plain(xct, K),
+                                           xct, xot, op.lines, f1, f2))
         # bytes: x in, y out (apply); x, b in, out (residual); x, x_old, b
         # in, out (cheb).  Flops: seven banded sweeps of p + 2 taps on
         # average a node, plus the epilogue
-        nodes, p = grid.n_dofs, grid.degree
+        nodes, p, size = grid.n_dofs, grid.degree, x.element_size()
         flops = 14 * (p + 2) * nodes
-        self.bound["brick_kron<float>"] = bound(2 * 4 * nodes, flops, f32)
-        self.bound["brick_kron_cheb<float>"] = bound(4 * 4 * nodes,
-                                                     flops + 10 * nodes, f32)
-        self.residual = dict(
-            ms=time_ms(lambda: lk.brick_kron(xc32, op, "residual", b=b32)),
+        self.bound[name] = bound(2 * size * nodes, flops, dtype)
+        self.bound[cheb] = bound(4 * size * nodes, flops + 10 * nodes, dtype)
+        self.residual[name] = dict(
+            ms=time_ms(lambda: lk.brick_kron(xct, op, "residual", b=bt)),
             plain_ms=time_ms(lambda: lk.cheb_epilogue_plain(
-                b32, lk.brick_apply_plain(xc32, K), x=xc32,
+                bt, lk.brick_apply_plain(xct, K), x=xct,
                 residual_only=True)),
-            bound=bound(3 * 4 * nodes, flops + nodes, f32))
+            bound=bound(3 * size * nodes, flops + nodes, dtype))
 
     def cg_checks(self, n: int, timed: bool):
         from multigrid_tpu_torch.ops import cg_kernel as ck
@@ -368,6 +374,23 @@ class KernelChecks:
             ops[dtype].install_jacobi(JacobiTransformed(grid, dtype, self.dev))
         return ops
 
+    def apply_checks(self, ops, seed: int = 21):
+        """dg_apply<double> at 1e-13·max|y| and dg_apply<float> at
+        3e-6·max|y| against the plain f64 operator; returns the float32
+        and float64 inputs."""
+        from multigrid_tpu_torch.ops import dg_kernel as dk
+
+        f32, f64 = torch.float32, torch.float64
+        x = self.rand(ops[f32].grid.shape, f32, seed)
+        x64 = x.double()
+        want = dk.dg_apply_plain(x64, ops[f64])
+        scale = float(want.abs().max())
+        self.note("dg_apply<double>", dk.dg_apply(x64, ops[f64]), want, scale,
+                  1e-13)
+        self.note("dg_apply<float>", dk.dg_apply(x, ops[f32]).double(), want,
+                  scale, 3e-6)
+        return x, x64
+
     def dg_checks(self, grid, timed: bool):
         """The DG kernels against the plain f64 operator: dg_apply<double>
         at 1e-13·max|y|, dg_apply<float> at 3e-6·max|y|, dg_cheb<float> by
@@ -378,15 +401,7 @@ class KernelChecks:
 
         f32, f64 = torch.float32, torch.float64
         ops = self.dg_ops(grid)
-        x = self.rand(grid.shape, f32, 21)
-        x64 = x.double()
-        want = dk.dg_apply_plain(x64, ops[f64])
-        scale = float(want.abs().max())
-        self.note("dg_apply<double>", dk.dg_apply(x64, ops[f64]), want, scale,
-                  1e-13)
-        self.note("dg_apply<float>", dk.dg_apply(x, ops[f32]).double(), want,
-                  scale, 3e-6)
-        del want
+        x, x64 = self.apply_checks(ops)
         b, xc, xo = self.cheb_checks(ops, face=not timed)
         if not timed:
             return
@@ -433,9 +448,21 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # registers and spills per source (ptxas -v); no double brick kernel
+    # may spill
+    report = _build.ptxas_report(_build.build_log)
+    if not report:
+        print("  ptxas: the library was built before this run; no compiler "
+              "output to read")
+    for src in dict.fromkeys(r["source"] for r in report):
+        rows = [r for r in report if r["source"] == src]
+        regs = [r["registers"] for r in rows]
+        spills = [r["kernel"] for r in rows
+                  if r["spill_stores"] or r["spill_loads"]]
+        print(f"  ptxas: {src}: {len(rows)} kernels, registers {min(regs)}-"
+              f"{max(regs)}, spilling: {spills or 'none'}")
+        require(src != "brick_kron_f64.cu" or not spills,
+                f"brick_kron<double> spills: {spills}")
 
     return run(dev, card)
 
@@ -494,18 +521,20 @@ def run(dev: torch.device, card: str) -> int:
         checks.cg_checks(grid.n_dofs, timed)
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
-    # brick_kron at other degrees, a one-cell axis, node counts that do not
-    # divide its tile
+    # brick_kron (float and double) at every other degree, a one-cell axis,
+    # node counts that do not divide its tile
     for label, grid in (
             ("poisson_cube_mesh(8) p=1", DofGrid(poisson_cube_mesh(8), 3, 1)),
             ("poisson_cube_mesh(8) p=2", DofGrid(poisson_cube_mesh(8), 3, 2)),
             ("poisson_cube_mesh(8) p=3", DofGrid(poisson_cube_mesh(8), 3, 3)),
+            ("poisson_cube_mesh(4) p=6", DofGrid(poisson_cube_mesh(4), 2, 6)),
             ("poisson_cube_mesh(4) p=7", DofGrid(poisson_cube_mesh(4), 2, 7)),
             ("one-cell axis (1,4,3) p=4", brick((1, 4, 3), 4)),
             ("one-cell axis (1,4,3) p=7", brick((1, 4, 3), 7)),
             ("ragged (7,5,9) p=3", brick((7, 5, 9), 3)),
             ("ragged (3,12,20) p=5", brick((3, 12, 20), 5))):
-        checks.kron_checks(grid, False)
+        for dtype in (torch.float32, torch.float64):
+            checks.kron_checks(grid, False, dtype)
         torch.cuda.synchronize()
         print(f"brick_kron checks passed at {label}: {grid.shape}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
@@ -521,15 +550,17 @@ def run(dev: torch.device, card: str) -> int:
         checks.dg_checks(grid, timed)
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
-    # dg_cheb at every compiled degree, on x axes that are not a multiple of
-    # its pencil or have one cell
+    # the DG applies and dg_cheb at every compiled degree, on x axes that
+    # are not a multiple of dg_cheb's pencil or have one cell
     for p in range(1, 8):
         for cells, kind in (((3, 2, 5), "hermite"), ((2, 3, 1), "gll"),
                             ((5, 4, 9), "gauss" if p % 2 else "hermite")):
-            checks.cheb_checks(checks.dg_ops(dg_grid(cells, p, kind)),
-                               face=True)
+            ops = checks.dg_ops(dg_grid(cells, p, kind))
+            checks.apply_checks(ops)
+            checks.cheb_checks(ops, face=True)
         torch.cuda.synchronize()
-        print(f"dg_cheb checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9)")
+        print(f"dg_apply and dg_cheb checks passed at p={p}: (3,2,5), "
+              f"(2,3,1), (5,4,9)")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "
@@ -537,10 +568,10 @@ def run(dev: torch.device, card: str) -> int:
               f"{checks.ms[k]:.4f} ms, plain {checks.plain_ms[k]:.4f} ms, "
               f"library {'-' if lib is None else f'{lib:.4f} ms'}, bound "
               f"{checks.bound[k][0]:.4f} ms ({checks.bound[k][1]}) [{card}]")
-    res = checks.residual
-    print(f"  brick_kron<float> residual mode: kernel {res['ms']:.4f} ms, plain "
-          f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
-          f"({res['bound'][1]}) [{card}]")
+    for k, res in checks.residual.items():
+        print(f"  {k} residual mode: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
+              f"({res['bound'][1]}) [{card}]")
 
     # phases 3 and 4: the two paths, each with the counters zeroed just
     # before it and read just after
@@ -561,7 +592,8 @@ def run(dev: torch.device, card: str) -> int:
             max_abs_err=checks.err[k], ms=checks.ms[k],
             plain_ms=checks.plain_ms[k], bound_ms=checks.bound[k][0],
             bound_by=checks.bound[k][1], library_ms=checks.library_ms[k]))
-        if k == "brick_kron<float>":
+        if k in checks.residual:
+            res = checks.residual[k]
             kernels[-1].update(residual_ms=res["ms"],
                                residual_plain_ms=res["plain_ms"],
                                residual_bound_ms=res["bound"][0])

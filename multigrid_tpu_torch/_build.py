@@ -20,18 +20,21 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
-SOURCES = [PACKAGE_DIR / "csrc" / "brick_apply.cu",
-           PACKAGE_DIR / "csrc" / "brick_kron.cu",
+SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
+           PACKAGE_DIR / "csrc" / "brick_kron_f64.cu",
+           PACKAGE_DIR / "csrc" / "cheb_epilogue.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
            PACKAGE_DIR / "csrc" / "dg_apply.cu",
            PACKAGE_DIR / "csrc" / "dg_cheb.cu"]
-HEADERS = [PACKAGE_DIR / "csrc" / "dg_tab.cuh"]
+HEADERS = [PACKAGE_DIR / "csrc" / "brick_kron.cuh",
+           PACKAGE_DIR / "csrc" / "dg_tab.cuh"]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "multigrid_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -44,10 +47,9 @@ _N = ctypes.POINTER(ctypes.c_int)
 # entry point -> argtypes (all return int = cudaError_t; the last argument
 # receives the number of kernels launched)
 SIGNATURES = {
-    # x, y, lm, c0, c1, c2, Z, Y, X, n, stream
-    "brick_apply_f64": [_P, _P, _P, _D, _D, _D, _I, _I, _I, _I, _P, _N],
     # mode, x, b, x_old, out, taps (host), f1, f2, Z, Y, X, p, stream
     "brick_kron_f32": [_I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _N],
+    "brick_kron_f64": [_I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _N],
     # b, y, x, x_old, lines, out, f1, f2, Z, Y, X, residual_only, stream
     "cheb_epilogue_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
                           _N],
@@ -154,6 +156,26 @@ def launch(entry: str, *args) -> int:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed: cudaError {err}")
     return launched.value
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """One row per kernel entry of a ``-Xptxas -v`` build log (``build_log``
+    or one nvcc's output): its source, its mangled name, registers and
+    spill bytes."""
+    rows, src, cur = [], None, None
+    for line in log.splitlines():
+        if " -c " in line and line.rstrip().endswith(".cu"):
+            src = Path(line.split()[-1]).name
+        elif m := re.search(r"Compiling entry function '(\S+)'", line):
+            cur = dict(source=src, kernel=m[1], registers=None,
+                       spill_stores=0, spill_loads=0)
+            rows.append(cur)
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                     r"spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m[1])
+    return rows
 
 
 def stream_handle(device) -> int:

@@ -1,0 +1,529 @@
+// The brick operator for Hopper (sm_90a) as one node-centric pass: A x,
+// and in the same pass its vmult, residual or Chebyshev epilogue.  One
+// template on the value type T; brick_kron.cu instantiates it in float,
+// brick_kron_f64.cu in double (two translation units, built in parallel).
+//
+// brick_kron<float> replaces the TPU kernel
+//   K2  multigrid_tpu/ops/pallas_windowed_sp.py PallasWindowedSP._kernel,
+//       _kernel_resid and _kernel_cheb (sp A x with its residual and
+//       Chebyshev epilogues, emitted in the z-slab march that computes A x);
+// brick_kron<double> replaces
+//   K1  multigrid_tpu/ops/pallas_windowed.py PallasWindowedOzaki._fused
+//       (_kernel, vmult, vmult_residual: dp A x on f32 hi/lo pairs with
+//       Ozaki bf16 limbs).  The H100 has native fp64: no limbs, no pairs.
+//
+// What A is: on the affine brick with a constant coefficient every axis has
+// uniform cells, so the assembled operator factorises exactly
+// (multigrid_tpu/ops/laplace_kron.py):
+//   A = c_z G_L (x) G_M (x) G_M + c_y G_M (x) G_L (x) G_M + c_x G_M (x) G_M (x) G_L
+// with the assembled 1-D mass / stiffness matrices G_M, G_L of half-bandwidth
+// p.  On an interior row i the taps G[i, i + k - p] (k = 0..2p) depend only
+// on i mod p: a vertex row (residue 0) has 2p + 1 taps, the other residues
+// p + 1.  So the kernel needs p rows of taps per matrix and axis; they are
+// kernel parameters (Taps below, built on the host by ops/laplace_kron.py;
+// 3,360 bytes in double at p = 7), read with static indices.  Seven banded
+// sweeps:
+//   v1 = Mx u, v2 = Lx u;  w1 = My v1, w23 = Ly v1 + My v2;
+//   y = Lz w1 + Mz w23     (c_d folded into the L taps).
+// Every output node is complete inside one block, so the epilogue fuses.
+// Dirichlet nodes of x read as 0 (the staging masks them).
+//
+// Modes (one launch each):
+//   apply     y = A x, 0 on Dirichlet rows
+//   vmult     y = A x, x on Dirichlet rows
+//   residual  b - A x, b - x on Dirichlet rows
+//   cheb      x + f1 (x - x_old) + f2 (b - A x) / diag, with the diagonal
+//             rebuilt from the taps (1 on Dirichlet rows, where A x := x);
+//             x_old = NULL reads as 0; out may alias x_old (or b), never x.
+//
+// Design: one block of 256 threads owns an x-y tile of output columns (TX
+// x TY nodes, whole cells, x a multiple of 32 nodes at p = 4) and marches
+// along z through a slab of planes.  Per input plane it stages the tile
+// with its halo (p nodes before, 1 after: a cell's outputs read up to the
+// next vertex) by cp.async with zero fill (double-buffered, so the next
+// plane's load overlaps this plane's sweeps); runs the x sweeps (one thread
+// per row and cell: 2p + 1 loads give p outputs of both fields, static
+// residues) and the y sweeps (one thread per column and cell) out of shared
+// memory; then each thread adds the plane into a register ring of 2p + 1
+// z accumulators per owned column (the z sweep in scatter form, using the
+// symmetry of G).  A cell layer of outputs is complete once the vertex
+// plane after it is in; its outputs leave one per plane, with b, x, x_old
+// loaded at the top of the plane so that the loads overlap the sweeps.
+// Each output node is written once, by one block: no atomics, no parity
+// classes, no zero fill; results repeat bit for bit.  Blocks whose tile
+// holds no interior node only write the Dirichlet formula.  Shared memory
+// is dynamic (one struct, Smem below).
+//
+// What bounds it: HBM moves 2 values a node (apply, vmult), 3 (residual)
+// or 4 (cheb: x, x_old, b in, out): at 257^3 0.04 / 0.08 ms in float and
+// 0.08 / 0.16 ms in double.  The sweeps do about 42 FMAs a node (p = 4),
+// far below the fp32 peak and 0.05 ms of the fp64 pipe (64 FMAs a clock an
+// SM) at 257^3; they read about 2.5 shared values per output and field
+// (register-blocked over a cell).  The float kernel is bound by
+// instruction issue and the three block barriers per plane, hidden by two
+// or three blocks per SM.  So the per-plane index work is kept small: each
+// thread's column offsets and interior bits are computed once, and so is a
+// table of each staged node's offset in a plane, so that staging a plane
+// is one load of the table and one cp.async per node (a warp-per-row
+// staging with more, partly idle, cp.async instructions measured slower).
+// In double the ring of z accumulators and the shared tiles take twice the
+// room.  The tile keeps 3 columns a thread at p <= 4 (32 x 24 nodes at
+// p = 4, 48 KB of shared memory) and the launch bound asks for one block
+// an SM, so ptxas does not spill; the apply, vmult and residual modes come
+// out at 111-124 registers, so two blocks fit an SM all the same.
+// Measured at 257^3 (H100, experiments/time_brick.py --f64-variant):
+// 2 columns (32 x 16, two blocks) apply 0.205 / residual 0.251 ms, 3
+// columns 0.171 / 0.200, 4 (the float tile, 63 KB; 146 registers in the
+// residual, one block an SM) 0.162 / 0.276; a cap of 128 registers makes 3
+// and 4 spill.  Above p = 4 one column a thread: the sweeps' lines of
+// 2p + 1 values take the room (p = 7 needs more than 128 registers even
+// so; these degrees are off the main path and were not timed).
+// BRICK_KRON_F64_CPT and BRICK_KRON_F64_MIN_BLOCKS override both for
+// tuning builds.  No tensor cores: f32 A x has to hold 2e-6 of max|y|
+// (TF32 keeps about three digits), and the double pipe's flops do not
+// bind.
+//
+// The slab depth sets the number of blocks: the launch takes the largest
+// count that fits the card's block slots at once, unless that leaves more
+// than one slot an SM idle, and then the smallest count beyond them.  The
+// block scheduler filled an SM's slots before it moved to the next in
+// tuning runs on the H100, so a launch well short of the slots left whole
+// SMs idle.  The slots are read per instantiation (occupancy x SMs), so
+// the double tile, which fits fewer blocks, gets its own slab depth.
+//
+// The entry points (brick_kron_f32, brick_kron_f64) write the number of
+// kernels they launched (1) to *launched.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#ifndef BRICK_KRON_F64_CPT
+#define BRICK_KRON_F64_CPT 3
+#endif
+#ifndef BRICK_KRON_F64_MIN_BLOCKS
+#define BRICK_KRON_F64_MIN_BLOCKS 1
+#endif
+
+namespace {
+
+constexpr int kThreads = 256;
+enum { kApply = 0, kVmult = 1, kResidual = 2, kCheb = 3 };
+
+// taps[r][k] = G[i, i + k - P] for an interior row i = r (mod P)
+template <typename T, int P>
+struct Taps {
+  T m[P][2 * P + 1];     // mass (the same on every axis)
+  T l[3][P][2 * P + 1];  // c_d * stiffness, d = 0 (z), 1 (y), 2 (x)
+};
+
+template <typename T, int P>
+struct Tile {
+  static constexpr int K = 2 * P + 1;
+  static constexpr int TXC = (32 + P - 1) / P;  // cells per tile in x
+  static constexpr int TX = TXC * P;
+  // z columns per thread: float 4 at p <= 4, 2 above; double
+  // BRICK_KRON_F64_CPT at p <= 4, 1 above
+  static constexpr int CPT_AIM = sizeof(T) == 4 ? (P <= 4 ? 4 : 2)
+                                 : P <= 4       ? BRICK_KRON_F64_CPT
+                                                : 1;
+  static constexpr int TYC0 = CPT_AIM * kThreads / TX / P;
+  static constexpr int TYC = TYC0 < 1 ? 1 : TYC0;
+  static constexpr int TY = TYC * P;
+  static constexpr int RY = TY + P + 1;   // staged rows (halo P before, 1 after)
+  static constexpr int WX = TX + P + 1;   // staged row length
+  static constexpr int SU = WX;           // odd for p >= 2: rows on distinct banks
+  static constexpr int SV = TX | 1;
+  static constexpr int NCOL = TX * TY;
+  static constexpr int CPT = (NCOL + kThreads - 1) / kThreads;
+  // blocks an SM must hold (the launch bound, which caps the registers)
+  static constexpr int MIN_BLOCKS =
+      sizeof(T) == 4 ? 2 : BRICK_KRON_F64_MIN_BLOCKS;
+};
+
+template <typename T, int P>
+struct Smem {
+  using L = Tile<T, P>;
+  T su[2][L::RY * L::SU];   // staged planes of x (double-buffered)
+  T sv1[L::RY * L::SV];     // Mx u
+  T sv2[L::RY * L::SV];     // Lx u
+  T sw1[L::NCOL];           // My v1
+  T sw23[L::NCOL];          // Ly v1 + My v2
+  int soff[L::RY * L::WX];  // staged node -> offset in a plane
+};
+
+// is taps[r][k] inside the band of a row of residue r?
+template <int P>
+__host__ __device__ constexpr bool in_band(int r, int k) {
+  return r == 0 ? k < 2 * P + 1 : (k >= P - r && k <= 2 * P - r);
+}
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return fma(a, b, c);
+}
+
+// one element global -> shared; bytes = 0 fills it with zero
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async(double* dst, const double* src,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the centre tap of residue r (a dynamic r, static indices)
+template <typename T, int P>
+__device__ __forceinline__ T centre(const T (&t)[P][2 * P + 1], int r) {
+  T v = T(0);
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (i == r) v = t[i][P];
+  return v;
+}
+
+// the value of a Dirichlet row, where A x plays no part
+template <int MODE, typename T>
+__device__ __forceinline__ T dirichlet(T xv, T bv, T xo, T f1, T f2) {
+  if (MODE == kApply) return T(0);
+  if (MODE == kVmult) return xv;
+  if (MODE == kResidual) return bv - xv;
+  return xv + f1 * (xv - xo) + f2 * (bv - xv);
+}
+
+template <typename T, int P, int MODE>
+__global__ void __launch_bounds__(kThreads, Tile<T, P>::MIN_BLOCKS)
+    brick_kron_kernel(const T* __restrict__ x, const T* b, const T* x_old,
+                      T* out, const __grid_constant__ Taps<T, P> tp, T f1,
+                      T f2, int Z, int Y, int X, int S) {
+  using L = Tile<T, P>;
+  constexpr int K = L::K;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<T, P>& sm = *reinterpret_cast<Smem<T, P>*>(smem_raw);
+
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * L::TX, y0 = blockIdx.y * L::TY;
+  const int zs = blockIdx.z * S;
+  const int ze = blockIdx.z + 1 == gridDim.z ? Z : zs + S;
+  const bool need_x = MODE != kApply;
+  const bool need_b = MODE == kResidual || MODE == kCheb;
+  const bool need_xo = MODE == kCheb && x_old != nullptr;
+  const T zero = T(0);
+
+  if (x0 > X - 2 || y0 > Y - 2) {
+    // every node of this block lies on the Dirichlet boundary
+    const int nx = min(L::TX, X - x0), ny = min(L::TY, Y - y0);
+    const int count = nx * ny * (ze - zs);
+    for (int i = tid; i < count; i += kThreads) {
+      const int ix = i % nx, rest = i / nx;
+      const int64_t g =
+          ((int64_t)(zs + rest / ny) * Y + (y0 + rest % ny)) * X + x0 + ix;
+      out[g] = dirichlet<MODE>(need_x ? x[g] : zero, need_b ? b[g] : zero,
+                               need_xo ? x_old[g] : zero, f1, f2);
+    }
+    return;
+  }
+
+  // owned columns: offset in a plane (-1 outside the grid), interior bits,
+  // diagonal factors (diag = Lz_ii dg1 + Mz_ii dg23)
+  int coff[L::CPT];
+  unsigned cin = 0;
+  T dg1[L::CPT], dg23[L::CPT];
+#pragma unroll
+  for (int q = 0; q < L::CPT; ++q) {
+    const int col = tid + q * kThreads;
+    const int gx = x0 + col % L::TX, gy = y0 + col / L::TX;
+    coff[q] = col < L::NCOL && gx < X && gy < Y ? gy * X + gx : -1;
+    if (gx >= 1 && gx <= X - 2 && gy >= 1 && gy <= Y - 2) cin |= 1u << q;
+    const int rx = (col % L::TX) % P, ry = (col / L::TX) % P;
+    const T mx = centre<T, P>(tp.m, rx), lx = centre<T, P>(tp.l[2], rx);
+    const T my = centre<T, P>(tp.m, ry), ly = centre<T, P>(tp.l[1], ry);
+    dg1[q] = my * mx;
+    dg23[q] = ly * mx + my * lx;
+  }
+
+  // where each staged node comes from in a plane (-1: Dirichlet or
+  // outside, staged as 0)
+  for (int i = tid; i < L::RY * L::WX; i += kThreads) {
+    const int row = i / L::WX, c = i - row * L::WX;
+    const int gy = y0 - P + row, gx = x0 - P + c;
+    sm.soff[i] = gy >= 1 && gy <= Y - 2 && gx >= 1 && gx <= X - 2
+                     ? gy * X + gx
+                     : -1;
+  }
+  __syncthreads();
+
+  // stage plane jz of x into dst
+  auto stage = [&](int jz, T* dst) {
+    const T* plane = x + (int64_t)jz * Y * X;
+    for (int i = tid; i < L::RY * L::WX; i += kThreads) {
+      const int o = sm.soff[i];
+      cp_async(dst + i, o >= 0 ? plane + o : x, o >= 0 ? (int)sizeof(T) : 0);
+    }
+    cp_async_commit();
+  };
+
+  // acc[q][k]: output plane (c - 1) P + k of column q while the march is in
+  // cell layer c (planes c P .. c P + P - 1)
+  T acc[L::CPT][K];
+#pragma unroll
+  for (int q = 0; q < L::CPT; ++q)
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc[q][k] = zero;
+
+  // planes that carry data for outputs [zs, ze): interior planes only
+  const int jlo = max(zs - P, 1), jhi = min(ze, Z - 2);
+  if (jlo <= jhi) stage(jlo, sm.su[0]);
+  int buf = 0;
+
+  for (int j0 = zs - P; j0 - P < ze; j0 += P) {
+#pragma unroll
+    for (int rho = 0; rho < P; ++rho) {
+      const int jz = j0 + rho, iz = jz - P;
+      const bool emit = iz >= zs && iz < ze;
+      const bool zin = iz >= 1 && iz <= Z - 2;
+
+      // epilogue inputs of output plane iz, loaded ahead of the sweeps
+      const int64_t zoff = (int64_t)iz * Y * X;
+      T ex[L::CPT], eb[L::CPT], eo[L::CPT];
+#pragma unroll
+      for (int q = 0; q < L::CPT; ++q) {
+        ex[q] = eb[q] = eo[q] = zero;
+        if (emit && coff[q] >= 0) {
+          const int64_t g = zoff + coff[q];
+          const bool in = zin && (cin >> q & 1u);
+          if (MODE == kCheb || (need_x && !in)) ex[q] = x[g];
+          if (need_b) eb[q] = b[g];
+          if (need_xo) eo[q] = x_old[g];
+        }
+      }
+
+      if (jz >= jlo && jz <= jhi) {  // the same for every thread
+        if (jz + 1 <= jhi)
+          stage(jz + 1, sm.su[buf ^ 1]);
+        else
+          cp_async_commit();
+        cp_async_wait1();
+        __syncthreads();
+
+        // x sweeps: rows of the staged plane, one cell per item
+        const T* s_in = sm.su[buf];
+        for (int it = tid; it < L::RY * L::TXC; it += kThreads) {
+          const int row = it % L::RY, c = it / L::RY;
+          const T* s = s_in + row * L::SU + c * P;
+          T u[K];
+#pragma unroll
+          for (int m = 0; m < K; ++m) u[m] = s[m];
+          T* o1 = sm.sv1 + row * L::SV + c * P;
+          T* o2 = sm.sv2 + row * L::SV + c * P;
+#pragma unroll
+          for (int r = 0; r < P; ++r) {
+            T a1 = zero, a2 = zero;
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (in_band<P>(r, k) && r + k < K) {
+                a1 = fma_t(tp.m[r][k], u[r + k], a1);
+                a2 = fma_t(tp.l[2][r][k], u[r + k], a2);
+              }
+            o1[r] = a1;
+            o2[r] = a2;
+          }
+        }
+        __syncthreads();
+
+        // y sweeps: columns of the tile, one cell per item
+        for (int it = tid; it < L::TX * L::TYC; it += kThreads) {
+          const int xx = it % L::TX, c = it / L::TX;
+          const T* s1 = sm.sv1 + c * P * L::SV + xx;
+          const T* s2 = sm.sv2 + c * P * L::SV + xx;
+          T a[K], v[K];
+#pragma unroll
+          for (int m = 0; m < K; ++m) {
+            a[m] = s1[m * L::SV];
+            v[m] = s2[m * L::SV];
+          }
+#pragma unroll
+          for (int r = 0; r < P; ++r) {
+            T w1 = zero, w23 = zero;
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (in_band<P>(r, k) && r + k < K) {
+                w1 = fma_t(tp.m[r][k], a[r + k], w1);
+                w23 = fma_t(tp.l[1][r][k], a[r + k], w23);
+                w23 = fma_t(tp.m[r][k], v[r + k], w23);
+              }
+            sm.sw1[(c * P + r) * L::TX + xx] = w1;
+            sm.sw23[(c * P + r) * L::TX + xx] = w23;
+          }
+        }
+        __syncthreads();
+
+        // z sweep in scatter form: plane jz (residue rho) adds G[jz, iz] w
+        // to output iz = (c - 1) P + k, i.e. tap k - rho of row jz
+#pragma unroll
+        for (int q = 0; q < L::CPT; ++q) {
+          const int col = tid + q * kThreads;
+          if (col < L::NCOL) {
+            const T w1 = sm.sw1[col], w23 = sm.sw23[col];
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              if (k >= rho && in_band<P>(rho, k - rho)) {
+                acc[q][k] = fma_t(tp.l[0][rho][k - rho], w1, acc[q][k]);
+                acc[q][k] = fma_t(tp.m[rho][k - rho], w23, acc[q][k]);
+              }
+          }
+        }
+        buf ^= 1;
+      }
+
+      // output plane iz = (c - 1) P + rho is complete: all its planes
+      // (up to the vertex c P) are in
+      if (emit) {
+#pragma unroll
+        for (int q = 0; q < L::CPT; ++q) {
+          if (coff[q] >= 0) {
+            const int64_t g = zoff + coff[q];
+            const bool in = zin && (cin >> q & 1u);
+            const T a = acc[q][rho];
+            T val;
+            if (!in) {
+              val = dirichlet<MODE>(ex[q], eb[q], eo[q], f1, f2);
+            } else if (MODE == kApply || MODE == kVmult) {
+              val = a;
+            } else if (MODE == kResidual) {
+              val = eb[q] - a;
+            } else {
+              const T d = tp.l[0][rho][P] * dg1[q] + tp.m[rho][P] * dg23[q];
+              val = ex[q] + f1 * (ex[q] - eo[q]) + f2 * (eb[q] - a) / d;
+            }
+            out[g] = val;
+          }
+        }
+      }
+    }
+    // next cell layer: outputs c P .. (c + 1) P move to slots 0 .. P
+#pragma unroll
+    for (int q = 0; q < L::CPT; ++q)
+#pragma unroll
+      for (int k = 0; k < K; ++k) acc[q][k] = k + P < K ? acc[q][k + P] : zero;
+  }
+}
+
+template <typename T, int P, int MODE>
+int launch_mode(const T* x, const T* b, const T* x_old, T* out,
+                const T* taps, T f1, T f2, int Z, int Y, int X,
+                cudaStream_t stream) {
+  using L = Tile<T, P>;
+  constexpr int kSmem = (int)sizeof(Smem<T, P>);
+  const auto kernel = brick_kron_kernel<T, P, MODE>;
+  Taps<T, P> tp;
+  memcpy(&tp, taps, sizeof(tp));
+  // slab depth S = sc cells, from the card's block slots (occupancy x SMs):
+  // the largest launch that fits the card at once, unless it leaves more
+  // than one slot an SM idle (the block scheduler fills an SM before the
+  // next, so whole SMs would idle); then the smallest launch beyond it
+  static int sms = 0, slots = 0;
+  if (slots == 0) {
+    int dev = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (kSmem > 48 * 1024)
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  kSmem);
+    slots = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int tiles = ((X - 2) / L::TX + 1) * ((Y - 2) / L::TY + 1);
+  const int cells_z = (Z - 1) / P;
+  // candidate slab counts n with balanced slabs of sc = ceil(cz / n) cells
+  int fit = cells_z, fit_blocks = tiles, over = 0;
+  for (int n = 1; n <= cells_z; ++n) {
+    const int sc = (cells_z + n - 1) / n;
+    if ((cells_z + sc - 1) / sc != n) continue;
+    if (tiles * n > slots) {
+      over = sc;
+      break;
+    }
+    fit = sc;
+    fit_blocks = tiles * n;
+  }
+  const int S = P * (over > 0 && fit_blocks < slots - sms ? over : fit);
+  const dim3 grid((X + L::TX - 1) / L::TX, (Y + L::TY - 1) / L::TY,
+                  (Z - 1 + S - 1) / S);
+  brick_kron_kernel<T, P, MODE><<<grid, kThreads, kSmem, stream>>>(
+      x, b, x_old, out, tp, f1, f2, Z, Y, X, S);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int P>
+int launch_degree(int mode, const T* x, const T* b, const T* x_old, T* out,
+                  const T* taps, T f1, T f2, int Z, int Y, int X,
+                  cudaStream_t stream) {
+  switch (mode) {
+    case kApply:
+      return launch_mode<T, P, kApply>(x, b, x_old, out, taps, f1, f2, Z, Y,
+                                       X, stream);
+    case kVmult:
+      return launch_mode<T, P, kVmult>(x, b, x_old, out, taps, f1, f2, Z, Y,
+                                       X, stream);
+    case kResidual:
+      return launch_mode<T, P, kResidual>(x, b, x_old, out, taps, f1, f2, Z,
+                                          Y, X, stream);
+    case kCheb:
+      return launch_mode<T, P, kCheb>(x, b, x_old, out, taps, f1, f2, Z, Y, X,
+                                      stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// mode: 0 apply, 1 vmult, 2 residual, 3 cheb.  taps: host array of
+// 4 * p * (2p + 1) values of T (M, c_z L_z, c_y L_y, c_x L_x; each
+// [p][2p + 1]).
+template <typename T>
+int brick_kron_entry(int mode, const T* x, const T* b, const T* x_old,
+                     T* out, const T* taps, double f1, double f2, int Z,
+                     int Y, int X, int p, void* stream, int* launched) {
+  *launched = 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const T g1 = (T)f1, g2 = (T)f2;
+  int err;
+  switch (p) {
+#define MGT_KRON_CASE(P)                                                     \
+  case P:                                                                    \
+    err = launch_degree<T, P>(mode, x, b, x_old, out, taps, g1, g2, Z, Y, X, \
+                              s);                                            \
+    break;
+    MGT_KRON_CASE(1)
+    MGT_KRON_CASE(2)
+    MGT_KRON_CASE(3)
+    MGT_KRON_CASE(4)
+    MGT_KRON_CASE(5)
+    MGT_KRON_CASE(6)
+    MGT_KRON_CASE(7)
+#undef MGT_KRON_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err == cudaSuccess) *launched = 1;
+  return err;
+}
+
+}  // namespace

@@ -38,8 +38,8 @@ from .poisson_cube import build_solver, exact_fn, rhs_fn
 # class -> substrings of the demangled kernel name (first match wins; the
 # port's own kernels sit in an anonymous namespace)
 CLASSES = (
-    ("brick_kron<float>", ("brick_kron_kernel<",)),
-    ("brick_apply<double>", ("brick_apply_kernel<double>",)),
+    ("brick_kron<float>", ("brick_kron_kernel<float,",)),
+    ("brick_kron<double>", ("brick_kron_kernel<double,",)),
     ("cheb_epilogue<float>", ("cheb_epilogue_kernel<float>",)),
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",

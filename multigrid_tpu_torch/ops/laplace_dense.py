@@ -7,9 +7,9 @@ and ``M`` otherwise (the (p+1)-point Gauss rule integrates it exactly).
 One apply is gather -> ``[C, (p+1)^3] @ K`` -> additive scatter, in the
 dtype of the operator (float32 or float64; native fp64 replaces the JAX
 package's Ozaki limb splitting).  :func:`dense_apply` is the plain PyTorch
-version of the CUDA ``brick_apply`` kernel: ``BrickLaplace``
-(:mod:`.laplace_kernel`) runs it for CPU tensors, with the Dirichlet masks
-around it.
+version of the brick operator that the CUDA ``brick_kron`` kernel applies:
+``BrickLaplace`` (:mod:`.laplace_kernel`) runs it for CPU tensors, with
+the Dirichlet masks around it, and the card checks hold the kernel to it.
 """
 
 from __future__ import annotations

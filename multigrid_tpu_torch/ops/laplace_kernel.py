@@ -1,34 +1,32 @@
 """Hot-path brick operator: wrappers of the CUDA kernels with their plain
 PyTorch versions and launch counters.
 
-Replaces ``multigrid_tpu/ops/pallas_windowed.py`` (K1, dp A·u) and
-``multigrid_tpu/ops/pallas_windowed_sp.py`` (K2, sp A·u with its residual
-and Chebyshev epilogues).  Three kernels:
+Replaces ``multigrid_tpu/ops/pallas_windowed.py`` (K1, dp A·u and its
+residual forms) and ``multigrid_tpu/ops/pallas_windowed_sp.py`` (K2, sp
+A·u with its residual and Chebyshev epilogues).  Two kernels:
 
-* ``brick_kron`` (``csrc/brick_kron.cu``, float32, K2): one node-centric
-  pass of seven banded sweeps that writes each node once, so the epilogue
-  fuses -- ``apply`` (y = A x, 0 on Dirichlet rows), ``vmult`` (x on
-  Dirichlet rows), ``residual`` (b - A x; b - x on Dirichlet rows) and
-  ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag), one launch each;
-* ``brick_apply`` (``csrc/brick_apply.cu``, float64, K1): y = A x by cell
-  scatter, Dirichlet nodes read as zero and written as zero;
-* ``cheb_epilogue`` (``csrc/brick_apply.cu``): the residual ``b - y`` or
+* ``brick_kron`` (``csrc/brick_kron.cuh``; float32 K2 in
+  ``brick_kron.cu``, float64 K1 in ``brick_kron_f64.cu``): one
+  node-centric pass of seven banded sweeps that writes each node once, so
+  the epilogue fuses -- ``apply`` (y = A x, 0 on Dirichlet rows),
+  ``vmult`` (x on Dirichlet rows), ``residual`` (b - A x; b - x on
+  Dirichlet rows) and ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag),
+  one launch each;
+* ``cheb_epilogue`` (``csrc/cheb_epilogue.cu``): the residual ``b - y`` or
   the Chebyshev update ``x + f1 (x - x_old) + f2 (b - y) / diag`` with the
-  separable diagonal rebuilt in the kernel, for a given y: after the f64
-  brick_apply, and for the f32 step with x = 0, which needs no A x.
-  Dirichlet rows follow the node-path semantics (identity rows of A,
-  diagonal 1).
+  separable diagonal rebuilt in the kernel, for a given y: the f32 step
+  with x = 0, which needs no A x.  Dirichlet rows follow the node-path
+  semantics (identity rows of A, diagonal 1).
 
 Each wrapper runs the plain version for a tensor on the CPU and launches
 the kernel for a CUDA tensor (or raises); there is no fallback.
-:class:`BrickLaplace` routes float32 CUDA tensors through ``brick_kron``
-and everything else through ``brick_apply`` + ``cheb_epilogue`` (on the
-CPU their plain versions, the dense element path).  ``LAUNCHES[name]``
+:class:`BrickLaplace` routes every CUDA operator, float32 and float64,
+through ``brick_kron``, and on the CPU through the dense element path
+(``brick_apply_plain``) and ``cheb_epilogue_plain``.  ``LAUNCHES[name]``
 counts the device kernels launched, as a trace shows them: one per
-``brick_kron`` call (``brick_kron<float>`` for the A·x modes,
-``brick_kron_cheb<float>`` for the fused step), one per ``cheb_epilogue``,
-and one per non-empty cell parity class per ``brick_apply`` call (8 on any
-grid of at least two cells per axis).
+``brick_kron`` call (``brick_kron<float>`` / ``brick_kron<double>`` for
+the A·x modes, ``brick_kron_cheb<...>`` for the fused step) and one per
+``cheb_epilogue``.
 """
 
 from __future__ import annotations
@@ -44,9 +42,9 @@ from .laplace_dense import dense_apply, element_matrix
 from .laplace_kron import brick_kron_plain, kron_taps
 from .masks import interior_mask
 
-LAUNCHES = {"brick_apply<double>": 0, "brick_kron<float>": 0,
-            "brick_kron_cheb<float>": 0, "cheb_epilogue<double>": 0,
-            "cheb_epilogue<float>": 0}
+LAUNCHES = {"brick_kron<float>": 0, "brick_kron_cheb<float>": 0,
+            "brick_kron<double>": 0, "brick_kron_cheb<double>": 0,
+            "cheb_epilogue<double>": 0, "cheb_epilogue<float>": 0}
 KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
 MAX_DEGREE = 7     # brick_kron's largest instantiation
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
@@ -75,26 +73,13 @@ def brick_apply_plain(x: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 
 def brick_apply(x: torch.Tensor, op: "BrickLaplace") -> torch.Tensor:
-    """y = A x (Dirichlet nodes of x read as 0, of y written as 0); on the
-    card float64 only (float32 runs :func:`brick_kron`)."""
+    """y = A x (Dirichlet nodes of x read as 0, of y written as 0): the
+    plain version on the CPU, ``brick_kron(x, op, "apply")`` on the card."""
     if x.device.type == "cpu":
         return brick_apply_plain(x, op.K)
     if x.device.type != "cuda":
         raise RuntimeError(f"brick_apply: no kernel for device {x.device}")
-    if x.dtype != torch.float64 or x.dim() != 3 or x.shape != op.shape:
-        raise ValueError(f"brick_apply: need a {op.shape} float64 grid, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("brick_apply: x must be contiguous")
-    if op.lm.dtype != x.dtype or op.lm.device != x.device:
-        raise ValueError("brick_apply: operator tables differ in dtype/device")
-    y = torch.zeros_like(x)
-    c0, c1, c2 = op.coef_values
-    Z, Y, X = x.shape
-    LAUNCHES["brick_apply<double>"] += _build.launch(
-        "brick_apply_f64", x.data_ptr(), y.data_ptr(), op.lm.data_ptr(),
-        c0, c1, c2, Z, Y, X, op.n, _build.stream_handle(x.device))
-    return y
+    return brick_kron(x, op, "apply")
 
 
 # ----------------------------------------------------------- cheb_epilogue
@@ -191,8 +176,8 @@ def brick_kron_reference(x, op: "BrickLaplace", mode: str = "apply", b=None,
 def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
                b=None, x_old=None, f1: float = 0.0, f2: float = 0.0,
                out=None) -> torch.Tensor:
-    """One float32 pass of A x with its epilogue (``mode`` in
-    :data:`KRON_MODES`, see the module note).  ``b`` is read by
+    """One pass of A x with its epilogue (``mode`` in :data:`KRON_MODES`,
+    see the module note), float32 or float64.  ``b`` is read by
     ``residual`` and ``cheb``, ``x_old`` (None: zero) and ``f1``, ``f2`` by
     ``cheb``; ``out`` may alias ``x_old`` or ``b``, never ``x``."""
     if mode not in KRON_MODES:
@@ -201,9 +186,9 @@ def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
         return brick_kron_reference(x, op, mode, b, x_old, f1, f2, out)
     if x.device.type != "cuda":
         raise RuntimeError(f"brick_kron: no kernel for device {x.device}")
-    if op.dtype != torch.float32 or not 1 <= op.grid.degree <= MAX_DEGREE:
-        raise ValueError(f"brick_kron: float32 operators of degree 1.."
-                         f"{MAX_DEGREE} only")
+    if op.dtype not in _SUFFIX or not 1 <= op.grid.degree <= MAX_DEGREE:
+        raise ValueError(f"brick_kron: float32/float64 operators of degree "
+                         f"1..{MAX_DEGREE} only")
     if mode in ("residual", "cheb") and b is None:
         raise ValueError(f"brick_kron: {mode} needs b")
     for t, what in ((x, "x"), (b, "b"), (x_old, "x_old"), (out, "out")):
@@ -217,11 +202,12 @@ def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
     if out is None:
         out = torch.empty_like(x)
     ptr = lambda t: None if t is None else t.data_ptr()
-    name = "brick_kron_cheb<float>" if mode == "cheb" else "brick_kron<float>"
+    suffix, cname = _SUFFIX[op.dtype]
+    name = f"brick_kron_cheb<{cname}>" if mode == "cheb" else f"brick_kron<{cname}>"
     LAUNCHES[name] += _build.launch(
-        "brick_kron_f32", KRON_MODES[mode], x.data_ptr(), ptr(b),
+        f"brick_kron_{suffix}", KRON_MODES[mode], x.data_ptr(), ptr(b),
         ptr(x_old if mode == "cheb" else None), out.data_ptr(),
-        op.taps_f32.ctypes.data, float(f1), float(f2), Z, Y, X,
+        op.host_taps.ctypes.data, float(f1), float(f2), Z, Y, X,
         op.grid.degree, _build.stream_handle(x.device))
     return out
 
@@ -242,11 +228,12 @@ def smoother_iterates(op: "BrickLaplace", seed: int):
 
 # ---------------------------------------------------------------- operator
 class BrickLaplace:
-    """A·u of one level in one dtype on one device: the tables the kernels
-    read (1-D element tables and coefficients for ``brick_apply``, the tap
-    table for ``brick_kron``, the diagonal lines) and the element matrix
-    their plain versions read.  A float32 operator on a CUDA device runs
-    ``brick_kron`` (one launch per apply, residual or Chebyshev step)."""
+    """A·u of one level in one dtype on one device: the tables the kernel
+    reads (the tap table of ``brick_kron``, the diagonal lines) and the
+    element matrix its plain version reads.  An operator on a CUDA device
+    (``kron``), float32 or float64, runs ``brick_kron``: one launch per
+    apply, vmult, residual or Chebyshev step.  On the CPU it runs the dense
+    element path and the plain epilogue."""
 
     def __init__(self, grid: DofGrid, dtype=torch.float32, device="cuda",
                  coefficient: float = 1.0):
@@ -255,13 +242,9 @@ class BrickLaplace:
         self.shape = tuple(grid.shape)
         self.dtype = dtype
         self.device = resolve(device)
-        self.n = grid.basis.n
         coef = make_diag_coef(grid, coefficient)
-        self.coef_values = tuple(float(v) for v in coef.values)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                       device=self.device)
-        b = grid.basis
-        self.lm = t(np.concatenate([b.L.ravel(), b.M.ravel()]))
         self.K = t(element_matrix(grid, coef))
         lines = diag_lines(grid)
         self.lines = t(np.stack([
@@ -269,12 +252,12 @@ class BrickLaplace:
                             lines[d][2]]) for d in range(3)]))
         self.interior = interior_mask(grid.shape, self.device)
         self.taps = kron_taps(grid, coef.values)
-        self.taps_f32 = np.ascontiguousarray(self.taps, dtype=np.float32)
-        self.kron = dtype == torch.float32 and self.device.type == "cuda"
+        # the kernel's parameter, in the operator's dtype
+        self.host_taps = np.ascontiguousarray(
+            self.taps, dtype=np.float64 if dtype == torch.float64 else np.float32)
+        self.kron = self.device.type == "cuda"
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        if self.kron:
-            return brick_kron(x, self, "apply")
         return brick_apply(x, self)
 
     def vmult(self, src: torch.Tensor) -> torch.Tensor:
@@ -295,7 +278,7 @@ class BrickLaplace:
 
     def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
         """``x + f1 (x - x_old) + f2 D^-1 (b - A x)``: one ``brick_kron``
-        pass in float32 on the card; else A x by ``brick_apply``, then the
+        pass on the card; on the CPU the dense A x, then the plain
         epilogue.  ``x = None`` needs no A x: the epilogue alone."""
         if x is not None and self.kron:
             return brick_kron(x, self, "cheb", b=b, x_old=x_old, f1=f1, f2=f2,

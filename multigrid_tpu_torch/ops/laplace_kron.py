@@ -11,7 +11,7 @@ assembled operator factorises exactly,
 with the assembled 1-D mass and stiffness matrices of half-bandwidth p.
 An interior row i of either has the taps ``G[i, i + k - p]`` (k = 0..2p)
 of its residue ``i mod p``; :func:`kron_taps` gives the p rows of taps per
-matrix that the kernel (``csrc/brick_kron.cu``) takes as parameters, and
+matrix that the kernel (``csrc/brick_kron.cuh``) takes as parameters, and
 :func:`brick_kron_plain` applies them with the kernel's masking: Dirichlet
 nodes of x read as 0, every row uses the interior taps of its residue, and
 Dirichlet rows are written as 0.  The tests hold the tables and that

@@ -19,10 +19,10 @@ The smoother takes either kind of level operator through one method,
 f2 P^-1 (b - A x)`` (``x``/``x_old`` None read as zero):
 
 * :class:`~..ops.laplace_kernel.BrickLaplace` (FE_Q V-cycle): P the point
-  Jacobi diagonal; in float32 on the card one ``brick_kron`` pass, A x
-  and the update fused (each node's A x is complete inside one block of
-  the node-centric kernel); in float64, or with ``x = None``,
-  ``brick_apply`` (skipped for ``x = None``) and one ``cheb_epilogue``;
+  Jacobi diagonal; on the card one ``brick_kron`` pass in the operator's
+  dtype, A x and the update fused (each node's A x is complete inside one
+  block of the node-centric kernel); with ``x = None`` one
+  ``cheb_epilogue`` (no A x);
 * :class:`~..ops.dg_kernel.DGOperator` (DG smoother): one ``dg_cheb``
   kernel, A x and the transformed-Jacobi P fused into the pass.
 

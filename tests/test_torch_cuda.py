@@ -3,18 +3,19 @@
 Marked ``cuda``: these need an NVIDIA GPU (and ``nvcc`` to build
 ``multigrid_tpu_torch/csrc``), and skip without one.  Run them on the card
 with ``python -m pytest tests/test_torch_cuda.py -q``.  Bars as in
-chip_smoke.py: the brick operator 1e-13 (f64 brick_apply) / 2e-6 (f32
-brick_kron apply and residual) of max|y|, the fused Chebyshev step and the
-epilogue 3e-6 of max|out| (brick_kron against the plain f64 dense path, on
-the smoother's iterates), the CG vector kernels 1e-14; the DG kernels
-against the plain f64 operator at 1e-13 (dg_apply<double>), 3e-6
-(dg_apply<float>) of max|y| and 1e-5 of max|out| (dg_cheb<float>, on the
-smoother's iterates, at p = 1..7 and on ragged pencils; 1e-6 of max|x|
-with f2 = 0; also against the step with the face-based operator).  The launch counters
-count device kernels: 8 parity classes per f64 brick_apply on grids of two
-or more cells per axis, 1 per brick_kron call, 2 per reduction, 1 per
-xpay, 1 per DG kernel call.  The size-4 FE_Q and DG solves on the card
-agree with the CPU to 1e-5 of max|u|."""
+chip_smoke.py: brick_kron against the dense plain f64 path at 1e-13
+(double) / 2e-6 (float) of max|y| for apply, vmult and residual, the fused
+Chebyshev step on the smoother's iterates at 1e-12 (double) / 3e-6
+(float) of max|out|; the f32 epilogue 3e-6 of max|out|; the CG vector
+kernels 1e-14; the DG kernels against the plain f64 operator at 1e-13
+(dg_apply<double>), 3e-6 (dg_apply<float>) of max|y| and 1e-5 of
+max|out| (dg_cheb<float>, on the smoother's iterates, at p = 1..7 and on
+ragged pencils; 1e-6 of max|x| with f2 = 0; also against the step with
+the face-based operator).  Every compiled degree p = 1..7 of brick_kron
+and dg_apply is held.  The launch counters count device kernels: 1 per
+brick_kron call, 2 per reduction, 1 per xpay, 1 per DG kernel call.  The
+size-4 FE_Q and DG solves on the card agree with the CPU to 1e-5 of
+max|u|."""
 
 import numpy as np
 import pytest
@@ -47,11 +48,13 @@ def brick(cells, p):
 GRIDS = {"cube8": lambda: DofGrid(poisson_cube_mesh(8), 3, 4),
          "aniso": lambda: brick((3, 4, 5), 4),
          "p2": lambda: DofGrid(poisson_cube_mesh(4), 2, 2)}
-# brick_kron's cases: degrees 1, 2, 3, 7, a one-cell axis, node counts
-# that do not divide the tile, several tiles in x and y
+# brick_kron's cases: every degree 1..7 (4 and 2 in GRIDS, 5 in
+# tiles_p5), a one-cell axis, node counts that do not divide the tile,
+# several tiles in x and y
 KRON_GRIDS = dict(GRIDS, **{
     "cube8_p1": lambda: DofGrid(poisson_cube_mesh(8), 3, 1),
     "cube8_p3": lambda: DofGrid(poisson_cube_mesh(8), 3, 3),
+    "cube4_p6": lambda: DofGrid(poisson_cube_mesh(4), 2, 6),
     "cube4_p7": lambda: DofGrid(poisson_cube_mesh(4), 2, 7),
     "one_cell_axis": lambda: brick((1, 4, 3), 4),
     "one_cell_axis_p1": lambda: brick((1, 4, 3), 1),
@@ -60,43 +63,50 @@ KRON_GRIDS = dict(GRIDS, **{
     "tiles_p5": lambda: brick((2, 9, 11), 5)})
 
 
+# value type -> (name in LAUNCHES, bar of apply / vmult / residual, bar of
+# the Chebyshev step)
+KRON = {torch.float64: ("double", 1e-13, 1e-12),
+        torch.float32: ("float", 2e-6, 3e-6)}
+
+
 @pytest.mark.parametrize("grid", sorted(GRIDS))
-@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
-                                       (torch.float32, 2e-6)])
-def test_brick_apply_matches_plain(dev, grid, dtype, tol):
-    """op.apply against the dense plain version: the f64 cell scatter (8
-    parity launches), the f32 brick_kron (one launch)."""
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_brick_apply_matches_plain(dev, grid, dtype):
+    """op.apply against the dense plain version: brick_kron in the
+    operator's dtype, one launch."""
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
     g = GRIDS[grid]()
     op = lk.BrickLaplace(g, dtype, dev)
     x = rand(g.shape, dtype, dev, 1)
-    name, count = (("brick_apply<double>", 8) if dtype == torch.float64
-                   else ("brick_kron<float>", 1))
-    before = lk.LAUNCHES[name]
+    cname, tol, _ = KRON[dtype]
+    before = lk.LAUNCHES[f"brick_kron<{cname}>"]
     y = op.apply(x)
-    assert lk.LAUNCHES[name] - before == count
+    assert lk.LAUNCHES[f"brick_kron<{cname}>"] - before == 1
     want = lk.brick_apply_plain(x, op.K)
     torch.cuda.synchronize()
     assert float((y - want).abs().max()) <= tol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("grid", sorted(KRON_GRIDS))
-def test_brick_kron_modes_match_plain(dev, grid):
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_brick_kron_modes_match_plain(dev, grid, dtype):
     """brick_kron in its four modes against the dense plain path in f64:
-    apply, vmult and residual at 2e-6 of the largest output (max|y| for
-    apply; at least that for the others), the Chebyshev step on the
-    smoother's iterates at 3e-6·max|out|, with x_old, with x_old = None
-    and in place into x_old; one launch per call, bit-for-bit repeatable."""
+    apply, vmult and residual at the dtype's bar of the largest output
+    (max|y| for apply; at least that for the others), the Chebyshev step
+    on the smoother's iterates at its bar of max|out|, with x_old, with
+    x_old = None and in place into x_old; one launch per call, bit-for-bit
+    repeatable."""
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
+    cname, tol, tol_cheb = KRON[dtype]
     g = KRON_GRIDS[grid]()
-    op = lk.BrickLaplace(g, torch.float32, dev)
+    op = lk.BrickLaplace(g, dtype, dev)
     op64 = lk.BrickLaplace(g, torch.float64, dev)
-    x = rand(g.shape, torch.float32, dev, 1)
+    x = rand(g.shape, torch.float32, dev, 1).to(dtype)
     x64 = x.double()
     y = lk.brick_apply_plain(x64, op64.K)
-    b = rand(g.shape, torch.float32, dev, 2)
+    b = rand(g.shape, torch.float32, dev, 2).to(dtype)
     wants = {"apply": y, "vmult": torch.where(op64.interior, y, x64),
              "residual": lk.cheb_epilogue_plain(b.double(), y, x=x64,
                                                 residual_only=True)}
@@ -105,26 +115,27 @@ def test_brick_kron_modes_match_plain(dev, grid):
         got = lk.brick_kron(x, op, mode, b=b)
         torch.cuda.synchronize()
         assert float((got.double() - want).abs().max()) \
-            <= 2e-6 * float(want.abs().max()), mode
+            <= tol * float(want.abs().max()), mode
     assert torch.equal(lk.brick_kron(x, op, "apply"), op.apply(x))
 
     b, xc, xo = lk.smoother_iterates(op64, 3)
-    b32, xc32, xo32 = (t.float() for t in (b, xc, xo))
+    bt, xct, xot = (t.to(dtype) for t in (b, xc, xo))
     y = lk.brick_apply_plain(xc, op64.K)
     for xold in (xo, None):
         want = lk.cheb_epilogue_plain(b, y, xc, xold, op64.lines, 0.37, 0.81)
-        got = lk.brick_kron(xc32, op, "cheb", b=b32,
-                            x_old=None if xold is None else xo32,
+        got = lk.brick_kron(xct, op, "cheb", b=bt,
+                            x_old=None if xold is None else xot,
                             f1=0.37, f2=0.81)
         torch.cuda.synchronize()
         assert float((got.double() - want).abs().max()) \
-            <= 3e-6 * float(want.abs().max())
-    first = lk.brick_kron(xc32, op, "cheb", b=b32, x_old=xo32, f1=0.37, f2=0.81)
-    alias = xo32.clone()
-    assert op.cheb_step(b32, xc32, alias, 0.37, 0.81, out=alias) is alias
+            <= tol_cheb * float(want.abs().max())
+    first = lk.brick_kron(xct, op, "cheb", b=bt, x_old=xot, f1=0.37, f2=0.81)
+    alias = xot.clone()
+    assert op.cheb_step(bt, xct, alias, 0.37, 0.81, out=alias) is alias
     assert torch.equal(alias, first)
-    assert lk.LAUNCHES["brick_kron<float>"] == 5
-    assert lk.LAUNCHES["brick_kron_cheb<float>"] == 4
+    assert lk.LAUNCHES[f"brick_kron<{cname}>"] == 5
+    assert lk.LAUNCHES[f"brick_kron_cheb<{cname}>"] == 4
+    assert sum(lk.LAUNCHES.values()) == 9
 
 
 @pytest.mark.parametrize("residual_only", [True, False])
@@ -205,7 +216,7 @@ def dg_grid(cells, p, kind, seed=0):
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 4), (4, 1, 3), (1, 1, 1)])
-@pytest.mark.parametrize("p", [3, 4, 6])
+@pytest.mark.parametrize("p", range(1, 8))
 @pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
 def test_dg_kernels_match_plain(dev, kind, p, cells):
     """dg_apply<double> against the plain f64 operator at 1e-13·max|y|;

@@ -1,5 +1,6 @@
-"""Port vs JAX twin: the brick operator (plain versions of the brick_apply
-and cheb_epilogue kernels), the sum-factorized oracle and the host helpers.
+"""Port vs JAX twin: the brick operator (its dense plain version
+``brick_apply_plain``, which the brick_kron kernel is held to, and the
+plain cheb_epilogue), the sum-factorized oracle and the host helpers.
 
 Bars: float64 applies agree to 1e-13·max|y| (summation order only, the bar
 of tests/test_pallas_windowed.py:33); float32 to 2e-6·max|y| (f32 roundoff

@@ -135,10 +135,10 @@ def test_profile_breakdown_of_a_trace():
     k = lambda name, ts, dur: {"ph": "X", "cat": "kernel", "name": name,
                                "ts": ts, "dur": dur}
     events = [
-        k("void (anonymous namespace)::brick_kron_kernel<4, 3>(float const*)",
-          0.0, 40.0),
-        k("void (anonymous namespace)::brick_apply_kernel<double>(double const*)",
-          30.0, 20.0),     # overlaps the first: busy 0..50
+        k("void (anonymous namespace)::brick_kron_kernel<float, 4, 3>("
+          "float const*)", 0.0, 40.0),
+        k("void (anonymous namespace)::brick_kron_kernel<double, 4, 2>("
+          "double const*)", 30.0, 20.0),     # overlaps the first: busy 0..50
         k("void (anonymous namespace)::dot_kernel(double const*)", 100.0, 10.0),
         k("ampere_sgemm_32x32_sliced1x4_nn", 200.0, 10.0),
         {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)",
@@ -151,12 +151,28 @@ def test_profile_breakdown_of_a_trace():
     assert got["idle_share"] == pytest.approx(0.91)
     assert got["device_events"] == 5
     assert got["share"] == pytest.approx({
-        "brick_kron<float>": 0.4, "brick_apply<double>": 0.2,
+        "brick_kron<float>": 0.4, "brick_kron<double>": 0.2,
         "fill/copy": 0.2, "cg kernels": 0.1, "matmul": 0.1})
     assert list(got["share"])[0] == "brick_kron<float>"
     assert kernel_class("void at::native::vectorized_elementwise_kernel<4>"
                         ) == "other torch"
     assert kernel_class("void dot_kernel<double, 128, 0>") == "other torch"
+
+
+@pytest.mark.parametrize("mode", range(4))
+@pytest.mark.parametrize("p", [1, 4, 7])
+def test_profile_classes_of_brick_kernels(p, mode):
+    """The one brick template falls in the class of its value type: a
+    double instantiation in brick_kron<double>, a float one in
+    brick_kron<float>, whatever its degree and mode."""
+    from multigrid_tpu_torch.experiments.profile_solve import kernel_class
+
+    pre = "void (anonymous namespace)::brick_kron_kernel"
+    for t in ("float", "double"):
+        name = (f"{pre}<{t}, {p}, {mode}>({t} const*, {t} const*, {t} const*, "
+                f"{t}*, (anonymous namespace)::Taps<{t}, {p}>, {t}, {t}, int, "
+                f"int, int, int)")
+        assert kernel_class(name) == f"brick_kron<{t}>"
 
 
 def test_profile_classes_of_dg_kernels():
@@ -181,6 +197,7 @@ def test_import_loads_no_jax():
             "multigrid_tpu_torch.ops.dg_kernel, "
             "multigrid_tpu_torch.ops.dg_face, "
             "multigrid_tpu_torch.experiments.time_dg_cheb, "
+            "multigrid_tpu_torch.experiments.time_brick, "
             "multigrid_tpu_torch.utils.perf_model, "
             "multigrid_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
