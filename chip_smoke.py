@@ -13,21 +13,22 @@ convergence rows:
   Chebyshev smoothing around the FE_Q V-cycle) at size 48, 13,824,000 DG
   dofs, rtol 1e-9.
 
-``brick_kron`` (float and double, every mode) and ``dg_apply``
-(float and double) are held at every compiled degree (p = 1..7);
-``dg_cheb<float>`` too, on x axes that do not fill its pencils or have
-one cell, against the plain step and the step through the face-based
-operator (``ops/dg_face.py``).
+``brick_kron`` (float and double, every mode) and the DG pencil kernels
+(``dg_apply`` and ``dg_residual`` in float and double, ``dg_cheb<float>``)
+are held at every compiled degree (p = 1..7), the DG kernels on x axes
+that do not fill a pencil or have one cell, against the plain operator
+and the face-based one (``ops/dg_face.py``).
 
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the two solves, as a trace
 counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
-call 1; the rows ``brick_kron<float>`` and ``brick_kron<double>`` count
-the kernel's A·x modes (apply, vmult, residual) and time apply, with the
-residual mode's numbers beside them under ``residual_*``; max error
-against the plain version;
+call 1; the rows ``brick_kron<float>``, ``brick_kron<double>``,
+``dg_apply<float>`` and ``dg_apply<double>`` count the kernel's A·x modes
+(apply, the brick's vmult, residual) and time apply, with the residual
+mode's numbers beside them under ``residual_*``; max error against the
+plain version;
 time of kernel, plain version and, where one PyTorch call computes the same
 function, that call; the least time the card could take, from the bytes
 and operations the function needs), the card line again and, last,
@@ -62,7 +63,9 @@ DG_ITS = (5.2, 6.2)
 
 # the card's peak rates for the bound (H100 SXM, NVIDIA data sheet):
 # HBM3 bandwidth; fp32 outside the tensor cores; fp64 on the tensor cores
-# (67 TFLOP/s, twice the 34 of the fp64 units), the higher of the two
+# (67 TFLOP/s, twice the 34 of the fp64 units), the higher of the two: a
+# bound is the least time the card could take, whatever units a kernel
+# of the port happens to use
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # brick_kron's bars against the dense plain f64 path, of max|y| (apply,
@@ -72,6 +75,7 @@ KRON_BARS = {torch.float32: ("float", 2e-6, 3e-6),
              torch.float64: ("double", 1e-13, 1e-12)}
 
 BRICK = "multigrid_tpu_torch/csrc/brick_kron.cuh"
+PENCIL = "multigrid_tpu_torch/csrc/dg_pencil.cuh"
 EPILOGUE = "multigrid_tpu_torch/csrc/cheb_epilogue.cu"
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -91,12 +95,9 @@ KERNELS = {
                "multigrid_tpu/ops/pallas_pairvec.py:212"),
     "cg_xpay": ("multigrid_tpu_torch/csrc/cg_vec.cu",
                 "multigrid_tpu/ops/pallas_pairvec.py:149"),
-    "dg_apply<double>": ("multigrid_tpu_torch/csrc/dg_apply.cu",
-                         "multigrid_tpu/ops/pallas_dg.py:639"),
-    "dg_apply<float>": ("multigrid_tpu_torch/csrc/dg_apply.cu",
-                        "multigrid_tpu/ops/pallas_dg.py:438"),
-    "dg_cheb<float>": ("multigrid_tpu_torch/csrc/dg_cheb.cu",
-                       "multigrid_tpu/ops/pallas_dg.py:490"),
+    "dg_apply<double>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:639"),
+    "dg_apply<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:438"),
+    "dg_cheb<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:490"),
 }
 # kernels each path must launch (brick_kron_cheb<double> and
 # cheb_epilogue<double> are on no path: checked and timed only)
@@ -154,7 +155,7 @@ class KernelChecks:
         self.plain_ms = {}
         self.bound = {}                      # name -> (ms, "bytes"/"operations")
         self.library_ms = {k: None for k in KERNELS}
-        self.residual = {}                   # brick_kron's residual mode, by name
+        self.residual = {}                   # residual modes, by name
 
     def note(self, name, got, want, scale, tol):
         err = float((got - want).abs().max())
@@ -374,34 +375,50 @@ class KernelChecks:
             ops[dtype].install_jacobi(JacobiTransformed(grid, dtype, self.dev))
         return ops
 
-    def apply_checks(self, ops, seed: int = 21):
-        """dg_apply<double> at 1e-13·max|y| and dg_apply<float> at
-        3e-6·max|y| against the plain f64 operator; returns the float32
-        and float64 inputs."""
+    def apply_checks(self, ops, face: bool, seed: int = 21):
+        """dg_apply and dg_residual (b - A x) against the plain f64
+        operator (and, if ``face``, the face-based one), in double at
+        1e-13·max|A x| and in float at 3e-6·max|A x|; one launch a call,
+        a repeated call bit for bit.  Returns the float32 inputs (x, b)."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
+        from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
 
         f32, f64 = torch.float32, torch.float64
-        x = self.rand(ops[f32].grid.shape, f32, seed)
-        x64 = x.double()
-        want = dk.dg_apply_plain(x64, ops[f64])
-        scale = float(want.abs().max())
-        self.note("dg_apply<double>", dk.dg_apply(x64, ops[f64]), want, scale,
-                  1e-13)
-        self.note("dg_apply<float>", dk.dg_apply(x, ops[f32]).double(), want,
-                  scale, 3e-6)
-        return x, x64
+        grid = ops[f32].grid
+        x, b = (self.rand(grid.shape, f32, seed + s) for s in (0, 1))
+        plains = [ops[f64].plain]
+        if face:
+            plains.append(DGLaplaceFaceBased(grid, f64, self.dev))
+        for dtype, tol in ((f64, 1e-13), (f32, 3e-6)):
+            name = f"dg_apply<{'double' if dtype == f64 else 'float'}>"
+            xt, bt = x.to(dtype), b.to(dtype)
+            before = dk.LAUNCHES[name]
+            y, r = dk.dg_apply(xt, ops[dtype]), dk.dg_residual(bt, xt,
+                                                               ops[dtype])
+            require(dk.LAUNCHES[name] - before == 2,
+                    f"{name}: not one launch a call")
+            require(torch.equal(y, dk.dg_apply(xt, ops[dtype])) and
+                    torch.equal(r, dk.dg_residual(bt, xt, ops[dtype])),
+                    f"{name}: a repeated call differs")
+            for plain in plains:
+                want = plain.apply(x.double())
+                scale = float(want.abs().max())
+                self.note(name, y.double(), want, scale, tol)
+                self.note(name, r.double(), b.double() - want, scale, tol)
+        return x, b
 
     def dg_checks(self, grid, timed: bool):
-        """The DG kernels against the plain f64 operator: dg_apply<double>
-        at 1e-13·max|y|, dg_apply<float> at 3e-6·max|y|, dg_cheb<float> by
-        :meth:`cheb_checks` (against the face-based step too on the small
-        grids); the timed plain versions run in the kernel's dtype."""
+        """The DG kernels against the plain f64 operator (and the
+        face-based one on the small grids): dg_apply and dg_residual by
+        :meth:`apply_checks`, dg_cheb<float> by :meth:`cheb_checks`; the
+        timed plain versions run in the kernel's dtype."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
 
         f32, f64 = torch.float32, torch.float64
         ops = self.dg_ops(grid)
-        x, x64 = self.apply_checks(ops)
+        x, br = self.apply_checks(ops, face=not timed)
+        x64, br64 = x.double(), br.double()
         b, xc, xo = self.cheb_checks(ops, face=not timed)
         if not timed:
             return
@@ -415,14 +432,22 @@ class KernelChecks:
                  lambda: dk.dg_cheb_plain(b, xc, xo, ops[f32], 0.37, 0.81))):
             self.ms[name] = time_ms(fn)
             self.plain_ms[name] = time_ms(plain)
-        # bytes: x in, y out (dg_cheb: x, b, x_old, inv_diag in, out); flops:
-        # the sum-factorized operator, plus for dg_cheb the six 1-D sweeps of
-        # the transformed Jacobi, its scaling, the residual and the update
+        # bytes: x in, y out (residual: x, b in, out; dg_cheb: x, b, x_old,
+        # inv_diag in, out); flops: the sum-factorized operator, plus one a
+        # dof for the residual and, for dg_cheb, the six 1-D sweeps of the
+        # transformed Jacobi, its scaling, the residual and the update
         n_dofs, n = grid.n_dofs, grid.n
         flops = dg_matvec_ops(3, grid.degree, int(np.prod(grid.cells)),
                               grid.kind)
-        self.bound["dg_apply<double>"] = bound(2 * 8 * n_dofs, flops, f64)
-        self.bound["dg_apply<float>"] = bound(2 * 4 * n_dofs, flops, f32)
+        for name, xt, bt, dtype in (("dg_apply<double>", x64, br64, f64),
+                                    ("dg_apply<float>", x, br, f32)):
+            size = xt.element_size()
+            self.bound[name] = bound(2 * size * n_dofs, flops, dtype)
+            self.residual[name] = dict(
+                ms=time_ms(lambda: dk.dg_residual(bt, xt, ops[dtype])),
+                plain_ms=time_ms(
+                    lambda: dk.dg_residual_plain(bt, xt, ops[dtype])),
+                bound=bound(3 * size * n_dofs, flops + n_dofs, dtype))
         self.bound["dg_cheb<float>"] = bound(
             5 * 4 * n_dofs, flops + (12 * n + 6) * n_dofs, f32)
 
@@ -449,7 +474,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
     # registers and spills per source (ptxas -v); no double brick kernel
-    # may spill
+    # may spill, nor a DG pencil kernel at p = 4 (n = 5, the path's degree)
     report = _build.ptxas_report(_build.build_log)
     if not report:
         print("  ptxas: the library was built before this run; no compiler "
@@ -463,6 +488,20 @@ def main() -> int:
               f"{max(regs)}, spilling: {spills or 'none'}")
         require(src != "brick_kron_f64.cu" or not spills,
                 f"brick_kron<double> spills: {spills}")
+        if src in ("dg_pencil.cu", "dg_pencil_f64.cu"):
+            for r in rows:
+                print(f"    {r['kernel']}: {r['registers']} registers, spill "
+                      f"stores {r['spill_stores']} B, loads "
+                      f"{r['spill_loads']} B")
+            require(not [k for k in spills if "Li5E" in k],
+                    f"a DG pencil kernel spills at p = 4: {spills}")
+    if report:
+        names = [r["kernel"] for r in report]
+        require(not [k for k in names if "9dg_kernelI" in k],
+                "the cell-per-block dg_kernel is still in the library")
+        require(sum("15dg_apply_kernelI" in k for k in names) == 28
+                and sum("14dg_cheb_kernelI" in k for k in names) == 7,
+                "the DG pencil kernels are not all in the library")
 
     return run(dev, card)
 
@@ -550,17 +589,17 @@ def run(dev: torch.device, card: str) -> int:
         checks.dg_checks(grid, timed)
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
-    # the DG applies and dg_cheb at every compiled degree, on x axes that
-    # are not a multiple of dg_cheb's pencil or have one cell
+    # the DG pencil kernels at every compiled degree, on x axes that are
+    # not a multiple of the pencil or have one cell
     for p in range(1, 8):
         for cells, kind in (((3, 2, 5), "hermite"), ((2, 3, 1), "gll"),
                             ((5, 4, 9), "gauss" if p % 2 else "hermite")):
             ops = checks.dg_ops(dg_grid(cells, p, kind))
-            checks.apply_checks(ops)
+            checks.apply_checks(ops, face=True)
             checks.cheb_checks(ops, face=True)
         torch.cuda.synchronize()
-        print(f"dg_apply and dg_cheb checks passed at p={p}: (3,2,5), "
-              f"(2,3,1), (5,4,9)")
+        print(f"dg_apply, dg_residual and dg_cheb checks passed at p={p}: "
+              f"(3,2,5), (2,3,1), (5,4,9)")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "

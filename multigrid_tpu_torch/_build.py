@@ -31,9 +31,10 @@ SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "brick_kron_f64.cu",
            PACKAGE_DIR / "csrc" / "cheb_epilogue.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
-           PACKAGE_DIR / "csrc" / "dg_apply.cu",
-           PACKAGE_DIR / "csrc" / "dg_cheb.cu"]
+           PACKAGE_DIR / "csrc" / "dg_pencil.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_f64.cu"]
 HEADERS = [PACKAGE_DIR / "csrc" / "brick_kron.cuh",
+           PACKAGE_DIR / "csrc" / "dg_pencil.cuh",
            PACKAGE_DIR / "csrc" / "dg_tab.cuh"]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "multigrid_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,9 +62,9 @@ SIGNATURES = {
     "cg_dot": [_P, _P, _LL, _P, _P, _P, _N],
     # p, z, beta, n, stream
     "cg_xpay": [_P, _P, _D, _LL, _P, _N],
-    # x, tables, y, C0, C1, C2, n, collocation, stream
-    "dg_apply_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
-    "dg_apply_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
+    # mode, x, b, tables (host), out, C0, C1, C2, n, collocation, stream
+    "dg_apply_f64": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
+    "dg_apply_f32": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _N],
     # b, x, x_old, inv_diag, tables (host, float32), out, f1, f2, C0, C1,
     # C2, n, collocation, stream
     "dg_cheb_f32": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I, _P,

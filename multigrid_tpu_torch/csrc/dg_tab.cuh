@@ -1,6 +1,6 @@
 // The SIP-DG kernels' constant table (type T, n = N points per axis), in
-// the order ops/dg_kernel.py:dg_tables writes it.  Included by dg_apply.cu
-// and dg_cheb.cu.
+// the order ops/dg_kernel.py:dg_tables writes it.  Included by
+// dg_pencil.cuh.
 #pragma once
 
 template <int N>

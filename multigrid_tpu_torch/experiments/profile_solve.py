@@ -44,8 +44,8 @@ CLASSES = (
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",
                     "xpay_kernel", "finish_sum_kernel")),
-    ("dg_apply<double>", ("dg_kernel<double,",)),
-    ("dg_apply<float>", ("dg_kernel<float,",)),
+    ("dg_apply<double>", ("dg_apply_kernel<double,",)),
+    ("dg_apply<float>", ("dg_apply_kernel<float,",)),
     ("dg_cheb<float>", ("dg_cheb_kernel<",)),
     ("matmul", ("gemm", "cutlass")),
     ("fill/copy", ("fill", "copy")),

@@ -1,27 +1,43 @@
-"""Time one DG Chebyshev step (``dg_kernel.dg_cheb``) on the card.
+"""Time the DG kernels (``ops/dg_kernel.py``) on the card.
 
-    python -m multigrid_tpu_torch.experiments.time_dg_cheb [size] [degree]
-        [--pencil K ...]
+    python -m multigrid_tpu_torch.experiments.time_dg_cheb [size ...]
+        [--degree P] [--pencil TYPE:K ...]
 
-The poisson_dg grid of ``size``^3 cells (default 48, hermite, degree 4:
-13,824,000 DG dofs) with the smoother's iterates; CUDA events over 50
-calls after 3 warm-ups, three rounds of (step, step with x = 0, f32 A·x).
-``--pencil K`` also builds ``csrc/dg_cheb.cu`` alone with K cells per
-block (``-DDG_CHEB_PENCIL=K``) and times that step beside the library's,
-after checking that it agrees with it to 1e-5·max|out| (K moves x faces
-between the in-pencil and the neighbour path, which round apart).  Run
-it with another tree's package on ``PYTHONPATH`` to time that tree in the
-same call.  Prints the card line and one JSON line.  Needs a CUDA device.
+The poisson_dg grid of each ``size``^3 cells (default 48, hermite, degree
+4: 13,824,000 DG dofs); CUDA events over 50 calls after 3 warm-ups, three
+rounds of: the float32 Chebyshev step (``dg_cheb``, on the smoother's
+iterates), the step with x = 0, and A·x and ``b - A x``
+(``DGOperator.vmult`` and ``vmult_residual``, on random inputs) in
+float32 and float64.
+Prints the sha256 of the step's output at each size, so that two trees'
+steps can be shown equal bit for bit, and the registers and spills of the
+DG kernels at the degree when this process built the library.
+
+``--pencil f32:K`` builds ``csrc/dg_pencil.cu`` alone with K cells per
+block for apply and residual (``-DDG_PENCIL=K``) and times them beside
+the library's; ``f64:K`` does the same for
+``csrc/dg_pencil_f64.cu``; ``cheb:K`` builds ``dg_pencil.cu`` with K cells
+per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step.  Each
+variant is first checked against the library's output (1e-5·max|out|,
+1e-12 in double: K moves x faces between the in-pencil and the neighbour
+path, which round apart), and its registers and spills at the degree are
+printed.
+
+Run it with another tree's package on ``PYTHONPATH`` to time that tree in
+the same call (``--pencil`` needs this tree's sources).  Prints the card
+line and one JSON line.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 
@@ -38,35 +54,129 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def pencil_entry(k: int):
-    """``dg_cheb_f32`` of ``csrc/dg_cheb.cu`` built alone with ``k`` cells
-    per block."""
+def degree_rows(log: str, n: int) -> list[dict]:
+    """ptxas rows of the DG kernels at ``n`` points an axis in ``log``."""
     from multigrid_tpu_torch import _build
 
-    src = _build.PACKAGE_DIR / "csrc" / "dg_cheb.cu"
-    out = _build.BUILD_DIR / f"dg_cheb_pencil{k}_{_build._digest()}.so"
-    if not out.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                        f"-DDG_CHEB_PENCIL={k}", "-o", str(out), str(src)],
-                       check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out)).dg_cheb_f32
-    fn.argtypes = _build.SIGNATURES["dg_cheb_f32"]
-    fn.restype = ctypes.c_int
-    return fn
+    return [dict(kernel=r["kernel"], registers=r["registers"],
+                 spill_stores=r["spill_stores"], spill_loads=r["spill_loads"])
+            for r in _build.ptxas_report(log)
+            if "dg_" in r["kernel"] and f"Li{n}E" in r["kernel"]]
 
 
-def main(argv: list[str]) -> int:
+def variants(specs: list[str], n: int) -> dict:
+    """For each pencil spec (``TYPE:K``): the C entry it times, of
+    ``csrc/dg_pencil.cu`` (``f32``, ``cheb``) or ``dg_pencil_f64.cu``
+    (``f64``) built alone with it (one nvcc a spec, all started together),
+    and the ptxas rows of its kernels at ``n``."""
+    from multigrid_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for spec in specs:
+        what, k = spec.split(":")
+        src = "dg_pencil_f64.cu" if what == "f64" else "dg_pencil.cu"
+        defs = [f"-D{'DG_CHEB_PENCIL' if what == 'cheb' else 'DG_PENCIL'}="
+                f"{int(k)}"]
+        out = _build.BUILD_DIR / (f"dg_pencil_{spec.replace(':', '_')}_"
+                                  f"{_build._digest()}.so")
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-o",
+               str(out), str(_build.PACKAGE_DIR / "csrc" / src)]
+        procs[spec] = (out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for spec, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
+        name = {"f32": "dg_apply_f32", "f64": "dg_apply_f64",
+                "cheb": "dg_cheb_f32"}[spec.split(":")[0]]
+        fn = getattr(ctypes.CDLL(str(out)), name)
+        fn.argtypes = _build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        built[spec] = (fn, degree_rows(log, n))
+    return built
+
+
+def call(fn, *args) -> None:
+    launched = ctypes.c_int(0)
+    err = fn(*args, ctypes.byref(launched))
+    if err:
+        raise RuntimeError(f"cudaError {err}")
+
+
+def size_run(size: int, degree: int, specs: dict, dev) -> dict:
     from multigrid_tpu_torch import _build
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.ops import dg_kernel as dk
     from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
+    mesh = poisson_cube_mesh(size)
+    grid = dg_grid_from_mesh(mesh, mesh.max_level, degree, "hermite")
+    op = dk.DGOperator(grid, torch.float32, dev)
+    op.install_jacobi(JacobiTransformed(grid, torch.float32, dev))
+    op64 = dk.DGOperator(grid, torch.float64, dev)
+    b, x, xo = dk.smoother_iterates(
+        JacobiTransformed(grid, torch.float64, dev), 22)
+    # random inputs for A x and b - A x: on the smooth iterates A x cancels
+    # some 1e5-fold, and no bar on it could tell two pencils apart
+    rng = np.random.default_rng(23)
+    xr, br = (torch.as_tensor(rng.standard_normal(grid.shape),
+                              dtype=torch.float32, device=dev)
+              for _ in range(2))
+    xr64, br64 = xr.double(), br.double()
+    fns = dict(cheb=lambda: dk.dg_cheb(b, x, xo, op, 0.37, 0.81),
+               cheb_x0=lambda: dk.dg_cheb(b, None, None, op, 0.0, 0.81),
+               apply_f32=lambda: op.vmult(xr),
+               residual_f32=lambda: op.vmult_residual(br, xr),
+               apply_f64=lambda: op64.vmult(xr64),
+               residual_f64=lambda: op64.vmult_residual(br64, xr64))
+    want = {k: fns[k]() for k in fns if k != "cheb_x0"}
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(want["cheb"].cpu().numpy().tobytes()).hexdigest()
+    args = (*grid.cells, grid.n, 0, _build.stream_handle(dev))
+    for spec, (entry, _) in specs.items():
+        what = spec.split(":")[0]
+        outs, new = {}, {}
+        if what == "cheb":
+            outs["cheb"] = torch.empty_like(b)
+            new["cheb"] = lambda o=outs["cheb"], entry=entry: call(
+                entry, b.data_ptr(), x.data_ptr(), xo.data_ptr(),
+                op.jacobi.inv_diag.data_ptr(), op.host_tables.ctypes.data,
+                o.data_ptr(), 0.37, 0.81, *args)
+        else:
+            ops, xs, bs = ((op64, xr64, br64) if what == "f64"
+                           else (op, xr, br))
+            for mode, key in enumerate((f"apply_{what}", f"residual_{what}")):
+                outs[key] = torch.empty_like(xs)
+                new[key] = (lambda o=outs[key], mode=mode, ops=ops, xs=xs,
+                            bs=bs, entry=entry:
+                            call(entry, mode, xs.data_ptr(), bs.data_ptr(),
+                                 ops.host_tables.ctypes.data, o.data_ptr(),
+                                 *args))
+        for key, fn in new.items():
+            fn()
+            torch.cuda.synchronize()
+            diff = float((outs[key] - want[key]).abs().max())
+            bar = (1e-12 if what == "f64" else 1e-5) * float(
+                want[key].abs().max())
+            if diff > bar:
+                raise AssertionError(f"{spec} {key}: differs by {diff:.3e}")
+            fns[f"{key}@{spec}"] = fn
+    rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
+    return dict(dofs=grid.n_dofs, sha256_cheb=digest, rounds=rounds,
+                best={k: min(r[k] for r in rounds) for k in fns})
+
+
+def main(argv: list[str]) -> int:
+    from multigrid_tpu_torch import _build
+
     ap = argparse.ArgumentParser()
-    ap.add_argument("size", type=int, nargs="?", default=48)
-    ap.add_argument("degree", type=int, nargs="?", default=4)
-    ap.add_argument("--pencil", type=int, nargs="*", default=[])
+    ap.add_argument("sizes", type=int, nargs="*", default=[48])
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--pencil", nargs="*", default=[],
+                    help="TYPE:K, TYPE f32, f64 or cheb")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_dg_cheb: needs a CUDA device")
@@ -74,40 +184,20 @@ def main(argv: list[str]) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    mesh = poisson_cube_mesh(args.size)
-    grid = dg_grid_from_mesh(mesh, mesh.max_level, args.degree, "hermite")
-    op = dk.DGOperator(grid, torch.float32, dev)
-    op.install_jacobi(JacobiTransformed(grid, torch.float32, dev))
-    b, x, xo = dk.smoother_iterates(
-        JacobiTransformed(grid, torch.float64, dev), 22)
-    fns = dict(cheb=lambda: dk.dg_cheb(b, x, xo, op, 0.37, 0.81),
-               cheb_x0=lambda: dk.dg_cheb(b, None, None, op, 0.0, 0.81),
-               apply=lambda: dk.dg_apply(x, op))
-    want = fns["cheb"]()
-    for k in args.pencil:
-        entry, out = pencil_entry(k), torch.empty_like(b)
-        launched = ctypes.c_int(0)
-
-        def step(entry=entry, out=out, launched=launched):
-            err = entry(b.data_ptr(), x.data_ptr(), xo.data_ptr(),
-                        op.jacobi.inv_diag.data_ptr(),
-                        op.host_tables.ctypes.data, out.data_ptr(), 0.37,
-                        0.81, *grid.cells, grid.n, 0,
-                        _build.stream_handle(dev), ctypes.byref(launched))
-            if err:
-                raise RuntimeError(f"pencil {k}: cudaError {err}")
-
-        step()
-        torch.cuda.synchronize()
-        diff = float((out - want).abs().max())
-        if diff > 1e-5 * float(want.abs().max()):
-            raise AssertionError(f"pencil {k}: the step differs by {diff}")
-        fns[f"cheb_pencil{k}"] = step
-    rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
+    n = args.degree + 1
+    _build.library()
+    specs = variants(args.pencil, n)
+    result = dict(card=card, degree=args.degree,
+                  library_ptxas=degree_rows(_build.build_log, n),
+                  variant_ptxas={s: rows for s, (_, rows) in specs.items()},
+                  sizes={})
+    for size in args.sizes:
+        result["sizes"][size] = size_run(size, args.degree, specs, dev)
+        torch.cuda.empty_cache()
+        print(f"size {size}: sha256 of the f32 step "
+              f"{result['sizes'][size]['sha256_cheb']}")
     print(card)
-    print(json.dumps(dict(size=args.size, degree=args.degree,
-                          dofs=grid.n_dofs, card=card, rounds=rounds,
-                          best={k: min(r[k] for r in rounds) for k in fns})))
+    print(json.dumps(result))
     return 0
 
 

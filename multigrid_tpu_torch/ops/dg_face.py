@@ -7,7 +7,7 @@ common/laplace_operator_dg_face.h:19-166): a separate cell term, then a
 loop over the faces in which each face, interior or boundary, is evaluated
 ONCE and its flux lifted into both cells beside it.  The fused operator of
 :mod:`.dg` visits every interior face twice, once from each cell, so the
-two share no face algebra.  ``csrc/dg_cheb.cu`` evaluates the faces inside
+two share no face algebra.  ``csrc/dg_pencil.cuh`` evaluates the faces inside
 a block's pencil of cells once, as here; this module is the CPU mirror of
 that algebra.
 

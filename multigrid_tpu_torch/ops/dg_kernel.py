@@ -4,24 +4,30 @@ PyTorch versions and launch counters.
 Replaces ``multigrid_tpu/ops/pallas_dg.py``: K9 ``PallasDGOzaki`` (f64 A·u),
 K7 ``PallasDGSP._call`` (f32 A·u) and K8 ``PallasDGSP.cheb_fused`` (one
 Chebyshev step with A·x, the transformed-Jacobi preconditioner and the
-update in one pass).  Three kernels:
+update in one pass).  All three are pencil kernels, one phase body in
+``csrc/dg_pencil.cuh`` (a pencil of cells along x a block, lines of nodes
+in registers, each face inside the pencil evaluated once: the algebra of
+:mod:`.dg_face`), built in float (``dg_pencil.cu``) and double
+(``dg_pencil_f64.cu``):
 
-* ``dg_apply`` (``csrc/dg_apply.cu``): y = A x on the DG block
-  ``[C0, C1, C2, n, n, n]`` (float64 for the outer CG, float32 for the
-  smoother);
-* ``dg_cheb`` (``csrc/dg_cheb.cu``): ``x + f1 (x - x_old) + f2 T3 diag^-1
-  T3^T (b - A x)`` (float32), a pencil of cells per block with each face
-  inside it evaluated once (the algebra of :mod:`.dg_face`); ``x = None``
-  reads as zero and skips A·x, ``out`` may be ``x_old`` itself.
+* ``dg_apply`` / ``dg_residual``: y = A x, or ``b - A x`` in the same
+  launch, on the DG block ``[C0, C1, C2, n, n, n]`` (float64 for the outer
+  CG, float32 for the smoother's residual).  On an H100 apply is bound by
+  the FMA rate (about 201 flop a dof at p = 4), the residual by HBM
+  bytes;
+* ``dg_cheb``: ``x + f1 (x - x_old) + f2 T3 diag^-1 T3^T (b - A x)``
+  (float32); ``x = None`` reads as zero and skips A·x, ``out`` may be
+  ``x_old`` itself.
 
 The plain versions are :class:`~.dg.DGLaplace` in the kernel's dtype and,
 for ``dg_cheb``, that operator composed with
 :meth:`~.dg_precond.JacobiTransformed.vmult`.  Each wrapper runs the plain
 version for a tensor on the CPU and launches the kernel for a CUDA tensor
 (or raises); there is no fallback.  ``LAUNCHES[name]`` counts device
-kernels launched: one per call.  The TPU kernels' persistent lane layout,
-bf16 limb stacks and (hi, lo) pairs have no counterpart: the H100 has
-fp64, and the vectors stay in the natural block layout end to end.
+kernels launched: one per call (a residual counts under ``dg_apply<T>``).
+The TPU kernels' persistent lane layout, bf16 limb stacks and (hi, lo)
+pairs have no counterpart: the H100 has fp64, and the vectors stay in the
+natural block layout end to end.
 """
 
 from __future__ import annotations
@@ -86,23 +92,47 @@ def _kernel_device(t: torch.Tensor, op: "DGOperator", name: str) -> None:
         raise ValueError(f"{name}: vector too large for 32-bit indexing")
 
 
-# -------------------------------------------------------------- dg_apply
+# ----------------------------------------------------- dg_apply, dg_residual
+_APPLY, _RESIDUAL = 0, 1     # the modes of the C entries dg_apply_f32/_f64
+
+
 def dg_apply_plain(x: torch.Tensor, op: "DGOperator") -> torch.Tensor:
     return op.plain.apply(x)
+
+
+def dg_residual_plain(b: torch.Tensor, x: torch.Tensor,
+                      op: "DGOperator") -> torch.Tensor:
+    return b - op.plain.apply(x)
+
+
+def _launch_apply(mode: int, x: torch.Tensor, b, op: "DGOperator",
+                  name: str) -> torch.Tensor:
+    _kernel_device(x, op, name)
+    _check(x, op, f"{name}: x")
+    if b is not None:
+        _check(b, op, f"{name}: b")
+    suffix, cname = _SUFFIX[x.dtype]
+    out = torch.empty_like(x)
+    LAUNCHES[f"dg_apply<{cname}>"] += _build.launch(
+        f"dg_apply_{suffix}", mode, x.data_ptr(),
+        None if b is None else b.data_ptr(), op.host_tables.ctypes.data,
+        out.data_ptr(), *_launch_args(op), _build.stream_handle(x.device))
+    return out
 
 
 def dg_apply(x: torch.Tensor, op: "DGOperator") -> torch.Tensor:
     """y = A x (SIP-DG, Dirichlet mirror at the domain boundary)."""
     if x.device.type == "cpu":
         return dg_apply_plain(x, op)
-    _kernel_device(x, op, "dg_apply")
-    _check(x, op, "dg_apply: x")
-    suffix, cname = _SUFFIX[x.dtype]
-    y = torch.empty_like(x)
-    LAUNCHES[f"dg_apply<{cname}>"] += _build.launch(
-        f"dg_apply_{suffix}", x.data_ptr(), op.tables.data_ptr(), y.data_ptr(),
-        *_launch_args(op), _build.stream_handle(x.device))
-    return y
+    return _launch_apply(_APPLY, x, None, op, "dg_apply")
+
+
+def dg_residual(b: torch.Tensor, x: torch.Tensor,
+                op: "DGOperator") -> torch.Tensor:
+    """``b - A x`` in one pass (a new tensor)."""
+    if b.device.type == "cpu":
+        return dg_residual_plain(b, x, op)
+    return _launch_apply(_RESIDUAL, x, b, op, "dg_residual")
 
 
 # --------------------------------------------------------------- dg_cheb
@@ -164,10 +194,9 @@ def smoother_iterates(jacobi, seed: int):
 # ---------------------------------------------------------------- operator
 class DGOperator:
     """A·u of one DG level in one dtype on one device: the kernels' table
-    (on the device for ``dg_apply``, in host memory as float32 for
-    ``dg_cheb``, which passes it as a kernel parameter) and the plain
-    operator; ``install_jacobi`` adds the preconditioner the fused
-    Chebyshev step applies."""
+    (in host memory in the operator's dtype; every kernel takes it as a
+    kernel parameter) and the plain operator; ``install_jacobi`` adds the
+    preconditioner the fused Chebyshev step applies."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):
         self.grid = grid
@@ -175,9 +204,8 @@ class DGOperator:
         self.dtype = dtype
         self.device = resolve(device)
         self.plain = DGLaplace(grid, dtype, self.device)
-        tables = dg_tables(grid)
-        self.tables = torch.as_tensor(tables, dtype=dtype, device=self.device)
-        self.host_tables = tables.astype(np.float32)
+        self.host_tables = dg_tables(grid).astype(
+            np.float64 if dtype == torch.float64 else np.float32)
         self.jacobi = None
 
     def install_jacobi(self, jacobi) -> None:
@@ -191,7 +219,7 @@ class DGOperator:
         return dg_apply(x, self)
 
     def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
-        return rhs - dg_apply(lhs, self)
+        return dg_residual(rhs, lhs, self)
 
     def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
         """``x + f1 (x - x_old) + f2 P^-1 (b - A x)`` in one kernel pass."""

@@ -15,11 +15,13 @@ ReductionControl(100, 1e-16, tolerance) and reports fractional iterations
 ``log(tol) / log(rate)`` (multigrid_solver_dg.h:410-424).
 
 The device picks the kernels: on the card the outer CG's A·p is
-``dg_apply<double>`` (K9), the smoother's A·x ``dg_apply<float>`` (K7) and
-each Chebyshev step ``dg_cheb<float>`` (K8), with the FE_Q V-cycle on the
-brick kernels and the CG on the CG vector kernels; on the CPU every call
-runs its plain PyTorch version.  ``MultigridSolverDGPlain`` (pure DG
-h-multigrid) is not ported yet.
+``dg_apply<double>`` (K9), the V-cycle's residual ``dg_apply<float>`` (K7,
+``b - A x`` in one launch) and each Chebyshev step ``dg_cheb<float>`` (K8),
+all three pencil kernels of ``csrc/dg_pencil.cuh`` (apply bound by the
+card's FMA rate, the residual and the step by HBM bytes), with the FE_Q
+V-cycle on the brick kernels and the CG on the CG vector kernels; on the
+CPU every call runs its plain PyTorch version.  ``MultigridSolverDGPlain``
+(pure DG h-multigrid) is not ported yet.
 """
 
 from __future__ import annotations

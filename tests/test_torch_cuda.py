@@ -7,12 +7,12 @@ chip_smoke.py: brick_kron against the dense plain f64 path at 1e-13
 (double) / 2e-6 (float) of max|y| for apply, vmult and residual, the fused
 Chebyshev step on the smoother's iterates at 1e-12 (double) / 3e-6
 (float) of max|out|; the f32 epilogue 3e-6 of max|out|; the CG vector
-kernels 1e-14; the DG kernels against the plain f64 operator at 1e-13
-(dg_apply<double>), 3e-6 (dg_apply<float>) of max|y| and 1e-5 of
-max|out| (dg_cheb<float>, on the smoother's iterates, at p = 1..7 and on
-ragged pencils; 1e-6 of max|x| with f2 = 0; also against the step with
-the face-based operator).  Every compiled degree p = 1..7 of brick_kron
-and dg_apply is held.  The launch counters count device kernels: 1 per
+kernels 1e-14; the DG kernels against the plain f64 operator (and the
+face-based one) at 1e-13 (dg_apply<double>, apply and residual), 3e-6
+(dg_apply<float>) of max|A x| and 1e-5 of max|out| (dg_cheb<float>, on
+the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..7 and on
+ragged pencils.  Every compiled degree p = 1..7 of brick_kron and of the
+DG kernels is held.  The launch counters count device kernels: 1 per
 brick_kron call, 2 per reduction, 1 per xpay, 1 per DG kernel call.  The
 size-4 FE_Q and DG solves on the card agree with the CPU to 1e-5 of
 max|u|."""
@@ -260,6 +260,41 @@ def test_dg_kernels_match_plain(dev, kind, p, cells):
     assert torch.equal(alias, out)
     assert dk.LAUNCHES == {"dg_apply<double>": 1, "dg_apply<float>": 1,
                            "dg_cheb<float>": 6}
+
+
+@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9),
+                                   (3, 2, 4)])
+@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_apply_residual_every_degree(dev, kind, p, cells):
+    """dg_apply and dg_residual (b - A x) in double and float at every
+    compiled degree, on grids whose x axis does not fill a pencil or has
+    one cell, against the plain f64 operator and the face-based one
+    (ops/dg_face.py): double at 1e-13·max|A x|, float at 3e-6·max|A x|.
+    One launch per call; a repeated call is equal bit for bit."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
+
+    g = dg_grid(cells, p, kind)
+    # inputs that float32 holds exactly: one oracle for both types
+    x, b = (rand(g.shape, torch.float32, dev, s).double() for s in (11, 12))
+    wants = [op.apply(x) for op in (dk.DGOperator(g, torch.float64, dev).plain,
+                                    DGLaplaceFaceBased(g, torch.float64, dev))]
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 3e-6)):
+        op = dk.DGOperator(g, dtype, dev)
+        xt, bt = x.to(dtype), b.to(dtype)
+        dk.reset_launches()
+        y, r = dk.dg_apply(xt, op), op.vmult_residual(bt, xt)
+        cname = "double" if dtype == torch.float64 else "float"
+        assert dk.LAUNCHES[f"dg_apply<{cname}>"] == 2
+        assert sum(dk.LAUNCHES.values()) == 2
+        torch.cuda.synchronize()
+        for want in wants:
+            bar = tol * float(want.abs().max())
+            assert float((y.double() - want).abs().max()) <= bar
+            assert float((r.double() - (b - want)).abs().max()) <= bar
+        assert torch.equal(y, dk.dg_apply(xt, op))
+        assert torch.equal(r, dk.dg_residual(bt, xt, op))
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)])

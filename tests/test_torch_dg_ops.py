@@ -4,9 +4,11 @@
 * ``DGLaplace``: f64 to 1e-13·max|y|, f32 to 2e-6·max|y|, on the sheared
   grids and the five ``CASES`` of tests/test_pallas_dg.py:28-34.
 * The kernels' plain versions (``ops/dg_kernel.py``) against the JAX Pallas
-  kernels in interpret mode, at the JAX bars: ``dg_apply`` f32 and the
-  ``PallasDGSP`` kernel both within 3e-6 of the f64 oracle, ``dg_apply`` f64
-  and ``PallasDGOzaki`` within 5e-11 of each other; one ``dg_cheb`` step
+  kernels in interpret mode, at the JAX bars: ``dg_apply`` / ``dg_residual``
+  f32 and the ``PallasDGSP`` kernel both within 3e-6 of the f64 oracle,
+  ``dg_apply`` / ``dg_residual`` f64 and ``PallasDGOzaki`` within 5e-11 of
+  each other; the pencil kernels' per-axis back end (S^T, (D S)^T) against
+  S3^T (vacc + sum_e D_e^T acc_e) at 1e-13; one ``dg_cheb`` step
   against ``FusedChebyshevDG``'s fused pass at 1e-5·max|out|; the
   smoother's iterates, on which the card checks ``dg_cheb``, show every
   term of the step above that bar.
@@ -130,6 +132,91 @@ def test_dg_apply_f64_matches_pallas_dgozaki():
     op = dk.DGOperator(gt, torch.float64, "cpu")
     y_t = dk.dg_apply(torch.as_tensor(u), op).numpy()
     assert rel_err(y_t, y_j) < 5e-11
+
+
+@pytest.mark.parametrize("kind,cells,p", [("hermite", (3, 2, 4), 3),
+                                          ("gauss", (1, 2, 1), 4)])
+def test_dg_residual_f32_matches_pallas_dgsp(kind, cells, p):
+    """The residual mode's plain version (``b - A x`` in float32) and the
+    JAX kernel's ``vmult_residual`` (interpret) both sit within 3e-6 of
+    max|A x| of the f64 oracle ``b - A x``."""
+    from multigrid_tpu.ops.pallas_dg import PallasDGSP
+
+    gj, gt = grids(cells, p, kind)
+    u, b = rand(gt.shape, 2, np.float32), rand(gt.shape, 5, np.float32)
+    y0 = np.asarray(j_dg.DGLaplace(gj, jnp.float64).vmult(
+        jnp.asarray(u, jnp.float64)))
+    r0 = b.astype(np.float64) - y0
+    r_j = np.asarray(PallasDGSP(gj, interpret=True).vmult_residual(
+        jnp.asarray(b), jnp.asarray(u)))
+    op = dk.DGOperator(gt, torch.float32, "cpu")
+    r_t = dk.dg_residual(torch.as_tensor(b), torch.as_tensor(u), op).numpy()
+    bar = 3e-6 * np.abs(y0).max()
+    assert np.abs(r_j - r0).max() < bar
+    assert np.abs(r_t - r0).max() < bar
+
+
+def test_dg_residual_f64_matches_pallas_dgozaki():
+    """The residual mode's plain version in float64 against the JAX
+    kernel's ``vmult_residual`` (interpret) at the JAX bar of
+    tests/test_pallas_dg.py:96."""
+    from multigrid_tpu.ops.pallas_dg import PallasDGOzaki
+
+    gj, gt = grids((1, 2, 1), 4, "gll")
+    u, b = rand(gt.shape, 3), rand(gt.shape, 6)
+    r_j = np.asarray(PallasDGOzaki(gj, interpret=True).vmult_residual(
+        jnp.asarray(b), jnp.asarray(u)))
+    op = dk.DGOperator(gt, torch.float64, "cpu")
+    r_t = dk.dg_residual(torch.as_tensor(b), torch.as_tensor(u), op).numpy()
+    assert rel_err(r_t, r_j) < 5e-11
+
+
+@pytest.mark.parametrize("degree", range(1, 8))
+@pytest.mark.parametrize("kind", KINDS)
+def test_dg_back_end_factorisation(kind, degree):
+    """The back end of the apply and residual modes (csrc/dg_pencil.cuh,
+    phases T4-T6): S3^T (vacc + sum_e D_e^T acc_e) equals the per-axis
+    chain with the table's S^T and (D S)^T, axis 2 (T4), then 1 (T5), then
+    0 (T6), each axis taking (D S)^T for its own acc_e and S^T for the
+    rest."""
+    _, gt = grids((1, 1, 1), degree, kind)
+    n = gt.n
+    tab = dk.dg_tables(gt)
+    S_t = tab[:n * n].reshape(n, n)
+    DS_t = tab[2 * n * n:3 * n * n].reshape(n, n)
+    S, D = gt.basis.S, gt.basis.D_col
+    rng = np.random.default_rng(degree)
+    vacc, a0, a1, a2 = (rng.standard_normal((n, n, n)) for _ in range(4))
+
+    def along(M, u, axis):         # (M^T)_axis u
+        return np.moveaxis(np.tensordot(M.T, u, axes=([1], [axis])), 0, axis)
+
+    inner = (vacc + along(D, a0, 0) + along(D, a1, 1) + along(D, a2, 2))
+    want = along(S, along(S, along(S, inner, 0), 1), 2)
+    # T4 (axis 2): V0 = S^T vacc + (DS)^T acc_2, V1 = S^T acc_1,
+    # V2 = S^T acc_0; T5 (axis 1): V4 = S^T V0 + (DS)^T V1, V5 = S^T V2;
+    # T6 (axis 0): y = S^T V4 + (DS)^T V5
+    v0 = along(S_t, vacc, 2) + along(DS_t, a2, 2)
+    v1, v2 = along(S_t, a1, 2), along(S_t, a0, 2)
+    v4 = along(S_t, v0, 1) + along(DS_t, v1, 1)
+    v5 = along(S_t, v2, 1)
+    got = along(S_t, v4, 0) + along(DS_t, v5, 0)
+    assert rel_err(got, want) < 1e-13
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dg_operator_residual_on_cpu_is_rhs_minus_apply(dtype):
+    """``DGOperator.vmult_residual`` on the CPU (now through
+    ``dg_residual``) is ``rhs - vmult`` bit for bit, and the operator keeps
+    its kernels' table in its own dtype."""
+    _, gt = grids((2, 3, 2), 3, "hermite")
+    op = dk.DGOperator(gt, dtype, "cpu")
+    assert op.host_tables.dtype == torch.empty((), dtype=dtype).numpy().dtype
+    np.testing.assert_array_equal(op.host_tables, dk.dg_tables(gt).astype(
+        op.host_tables.dtype))
+    u, b = (torch.as_tensor(rand(gt.shape, s), dtype=dtype) for s in (1, 2))
+    torch.testing.assert_close(op.vmult_residual(b, u), b - op.vmult(u),
+                               rtol=0, atol=0)
 
 
 def test_dg_cheb_matches_fused_chebyshev_pass():
@@ -263,6 +350,8 @@ def test_dg_wrappers_refuse_other_devices():
     x = torch.zeros(gt.shape, dtype=torch.float32, device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         dk.dg_apply(x, op)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        dk.dg_residual(x, x, op)
     with pytest.raises(RuntimeError, match="no kernel"):
         dk.dg_cheb(x, None, None, op, 0.0, 1.0)
     with pytest.raises(ValueError, match="install_jacobi"):

@@ -175,16 +175,25 @@ def test_profile_classes_of_brick_kernels(p, mode):
         assert kernel_class(name) == f"brick_kron<{t}>"
 
 
-def test_profile_classes_of_dg_kernels():
+@pytest.mark.parametrize("resid", ["false", "true"])
+@pytest.mark.parametrize("p", [1, 4, 7])
+def test_profile_classes_of_dg_kernels(p, resid):
+    """The DG pencil kernels fall in the class of their function and value
+    type, whatever the degree and mode: dg_apply_kernel<double, ...> in
+    dg_apply<double>, dg_apply_kernel<float, ...> in dg_apply<float>,
+    dg_cheb_kernel<...> in dg_cheb<float>."""
     from multigrid_tpu_torch.experiments.profile_solve import kernel_class
 
-    pre = "void (anonymous namespace)::dg_kernel"
-    args = "(float const*, float const*, float*, int, int, int, int)"
-    assert kernel_class(f"{pre}<double, 5>{args}") == "dg_apply<double>"
-    assert kernel_class(f"{pre}<float, 5>{args}") == "dg_apply<float>"
-    cheb = ("void (anonymous namespace)::dg_cheb_kernel<8>(float const*, "
-            "float*, float const*, float const*, float const*, float, float, "
-            "int, int, int, int)")
+    pre = "void (anonymous namespace)::dg_apply_kernel"
+    n = p + 1
+    for t in ("float", "double"):
+        name = (f"{pre}<{t}, {n}, {resid}>((anonymous namespace)::TabArg<{t}, "
+                f"{n}>, {t} const*, {t}*, {t} const*, int, int, int, int)")
+        assert kernel_class(name) == f"dg_apply<{t}>"
+    cheb = (f"void (anonymous namespace)::dg_cheb_kernel<{n}>((anonymous "
+            f"namespace)::TabArg<float, {n}>, float const*, float*, float "
+            "const*, float const*, float const*, float, float, int, int, "
+            "int, int)")
     assert kernel_class(cheb) == "dg_cheb<float>"
 
 
