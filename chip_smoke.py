@@ -4,14 +4,23 @@
 
 Builds the hand-written kernels of ``multigrid_tpu_torch/csrc`` from the
 sources, holds every kernel against its plain PyTorch version on the card,
-then drives the port's two paths and checks each against the reference's
+then drives the port's three paths and checks each against the reference's
 convergence rows:
 
 * poisson_cube (FE_Q(4), 3-D brick, f32 V-cycle inside f64 FMG and
   V-cycle-preconditioned CG) at size 64, 16,974,593 dofs;
 * poisson_dg (SIP-DG, hermite p = 4, outer f64 CG preconditioned by DG
   Chebyshev smoothing around the FE_Q V-cycle) at size 48, 13,824,000 DG
-  dofs, rtol 1e-9.
+  dofs, rtol 1e-9;
+* poisson_dg_plain (the same SIP-DG system, hermite p = 4, solved by
+  pure-DG h-multigrid: every level's Chebyshev step ``dg_cheb<float>``,
+  every V-cycle residual ``dg_apply<float>``, the outer CG's A·p
+  ``dg_apply<double>``) at size 48, five DG levels 3^3 -> 48^3 cells,
+  rtol 1e-9: its L2 error and solution against poisson_dg's, the pinned
+  3-D anchors of tests/test_dg_multigrid.py:80-82, the
+  variable-coefficient operator's L2 order at sizes 12 and 24, and one
+  small row of each DG benchmark driver (``matvec_dg``,
+  ``matvec_dg_cheby``, ``solver_dg``).
 
 ``brick_kron`` (float and double, every mode) and the DG pencil kernels
 (``dg_apply`` and ``dg_residual`` in float and double, ``dg_cheb<float>``)
@@ -22,9 +31,10 @@ and the face-based one (``ops/dg_face.py``).
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
-with the kernels (device kernels launched during the two solves, as a trace
+with the kernels (device kernels launched during the three paths' solves,
+as a trace
 counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
-call 1; the rows ``brick_kron<float>``, ``brick_kron<double>``,
+call 1; ``launches`` sums the paths, ``launches_by_path`` gives each; the rows ``brick_kron<float>``, ``brick_kron<double>``,
 ``dg_apply<float>`` and ``dg_apply<double>`` count the kernel's A·x modes
 (apply, the brick's vmult, residual) and time apply, with the residual
 mode's numbers beside them under ``residual_*``; max error against the
@@ -60,6 +70,20 @@ DG_RTOL = 1e-9
 DG_L2, DG_L2_TOL = 0.10069, 1e-3
 DG_RATE = (0.018, 0.032)
 DG_ITS = (5.2, 6.2)
+# poisson_dg_plain: the size-48 solve holds the poisson_dg solution of the
+# same discrete system (both at rtol 1e-9): L2 error to 1e-5 relative, the
+# solution to 1e-5 of max|u|; rate below the JAX tests' bar
+# (tests/test_dg_multigrid.py:47)
+PLAIN_AGREE = 1e-5
+PLAIN_RATE = 0.35
+# pinned 3-D anchors, cube(2, 0, 1, n_ref), p = 3, hermite, tol 1e-10
+# (tests/test_dg_multigrid.py:80-82): n_ref -> (frac its, rate, L2)
+PLAIN_ANCHORS = {1: (10.449, 0.1104, 2.785766e-3),
+                 2: (10.793, 0.1184, 2.622445e-4)}
+PLAIN_ANCHOR_TOL = (0.02, 0.05, 1e-4)
+# variable coefficient, p = 3 at sizes 12 and 24: the bars of
+# tests/test_dg_varcoeff.py:130,164 (rate < 0.5, L2 order > p + 0.6)
+VC_SIZES, VC_DEGREE, VC_RATE = (12, 24), 3, 0.5
 
 # the card's peak rates for the bound (H100 SXM, NVIDIA data sheet):
 # HBM3 bandwidth; fp32 outside the tensor cores; fp64 on the tensor cores
@@ -107,6 +131,8 @@ CUBE_KERNELS = ["brick_kron<double>", "brick_kron<float>",
 DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
               "brick_kron<float>", "brick_kron_cheb<float>",
               "cheb_epilogue<float>", "cg_update", "cg_dot", "cg_xpay"]
+DG_PLAIN_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
+                    "cg_update", "cg_dot", "cg_xpay"]
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -542,7 +568,7 @@ def brick(cells, degree):
 
 
 def run(dev: torch.device, card: str) -> int:
-    """Phases 2 to 4 on ``dev``: kernel checks, then the two paths."""
+    """Phases 2 to 5 on ``dev``: kernel checks, then the three paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
@@ -612,12 +638,18 @@ def run(dev: torch.device, card: str) -> int:
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
 
-    # phases 3 and 4: the two paths, each with the counters zeroed just
+    # phases 3 to 5: the three paths, each with the counters zeroed just
     # before it and read just after
-    launches = {"poisson_cube": cube_path(dev, card, checks),
-                "poisson_dg": dg_path(dev, card, checks)}
+    launches = {"poisson_cube": cube_path(dev, card, checks)}
+    launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
+    launches["poisson_dg_plain"] = dg_plain_path(dev, card, dg_sol, dg_err)
+    del dg_sol
+    off_path = {k: v for k, v in launches["poisson_dg_plain"].items()
+                if k.startswith(("brick_kron", "cheb_epilogue")) and v}
+    require(not off_path, f"the poisson_dg_plain solves launched {off_path}")
     for path, names in (("poisson_cube", CUBE_KERNELS),
-                        ("poisson_dg", DG_KERNELS)):
+                        ("poisson_dg", DG_KERNELS),
+                        ("poisson_dg_plain", DG_PLAIN_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
@@ -628,6 +660,7 @@ def run(dev: torch.device, card: str) -> int:
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
             launches=sum(launches[p][k] for p in launches),
+            launches_by_path={p: launches[p][k] for p in launches},
             max_abs_err=checks.err[k], ms=checks.ms[k],
             plain_ms=checks.plain_ms[k], bound_ms=checks.bound[k][0],
             bound_by=checks.bound[k][1], library_ms=checks.library_ms[k]))
@@ -717,7 +750,7 @@ def cube_path(dev, card, checks) -> dict:
 def dg_path(dev, card, checks) -> dict:
     """poisson_dg at size 48 (hermite p = 4, n_pre = n_post = 3, rtol
     1e-9): CG best of 3 after set-up; returns the device kernels launched
-    by the solves."""
+    by the solves, the solution and its L2 error."""
     from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDG
@@ -772,6 +805,115 @@ def dg_path(dev, card, checks) -> dict:
     require(abs(err - DG_L2) <= DG_L2_TOL, f"DG L2 error {err:.6e} vs {DG_L2}")
     require(DG_RATE[0] <= rate <= DG_RATE[1], f"DG rate {rate:.4e}")
     require(DG_ITS[0] <= frac_its <= DG_ITS[1], f"DG frac its {frac_its:.4f}")
+    return launches, sol, err
+
+
+def anchor_exact(coords):
+    """prod sin(3 pi x_d), zero on the boundary of [0, 1]^3."""
+    out = 1.0
+    for c in coords:
+        out = out * np.sin(3.0 * np.pi * c)
+    return out
+
+
+def anchor_rhs(coords):
+    return len(coords) * (3.0 * np.pi) ** 2 * anchor_exact(coords)
+
+
+def dg_plain_path(dev, card, dg_sol, dg_err) -> dict:
+    """poisson_dg_plain: the size-4 solve on the card against the CPU, the
+    pinned 3-D anchors, the size-48 solve (best of 3 after set-up) against
+    poisson_dg's solution ``dg_sol`` and L2 error ``dg_err``, the
+    variable-coefficient L2 order and one row of each DG benchmark driver;
+    returns the device kernels launched by the size-48 solves."""
+    from multigrid_tpu_torch.experiments import (matvec_dg, matvec_dg_cheby,
+                                                 solver_dg)
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.experiments.poisson_dg_plain import (
+        varcoeff_coeff, varcoeff_exact, varcoeff_rhs)
+    from multigrid_tpu_torch.mesh.brick import cube, poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    def build(mesh, where, degree=4, fns=(exact_fn, rhs_fn), **kw):
+        return MultigridSolverDGPlain(mesh, degree, *fns, kind="hermite",
+                                      n_pre=3, n_post=3, device=where, **kw)
+
+    # a small solve on the card against the same solve on the CPU
+    u_gpu, u_cpu = (build(poisson_cube_mesh(4), where).solve_cg(DG_RTOL)[0].cpu()
+                    for where in (dev, "cpu"))
+    diff = float((u_gpu - u_cpu).abs().max())
+    require(diff <= 1e-5 * float(u_cpu.abs().max()),
+            f"size-4 DGPlain solve on the card vs CPU: max diff {diff:.3e}")
+    print(f"size-4 DGPlain solve card vs CPU: max diff {diff:.3e}")
+
+    # the pinned anchors, on the card
+    for n_ref, want in PLAIN_ANCHORS.items():
+        s = build(cube(2, 0.0, 1.0, n_ref, dim=3), dev, 3,
+                  (anchor_exact, anchor_rhs))
+        sol, frac_its, rate = s.solve_cg(tolerance=1e-10)
+        got = (frac_its, rate, s.l2_error(sol, s.exact_quad))
+        print(f"DGPlain anchor n_ref {n_ref}: its {got[0]:.4f}, rate "
+              f"{got[1]:.4e}, L2 {got[2]:.6e} (pinned {want})")
+        for g, w, tol, what in zip(got, want, PLAIN_ANCHOR_TOL,
+                                   ("its", "rate", "L2")):
+            require(abs(g / w - 1) <= tol,
+                    f"DGPlain anchor n_ref {n_ref}: {what} {g:.6e} vs {w}")
+
+    # size 48 at full width
+    t0 = time.perf_counter()
+    solver = build(poisson_cube_mesh(DG_SIZE), dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"DGPlain setup: {setup_s:.2f} s for {solver.grids[-1].n_dofs} DG "
+          f"dofs, levels {[g.cells[0] for g in solver.grids]} cells per axis, "
+          f"coarse Chebyshev degree {solver.smoothers[0].degree} [{card}]")
+    reset_launches()
+    cg_s = []
+    sol = None
+    for _ in range(3):
+        sol = None
+        t0 = time.perf_counter()
+        sol, frac_its, rate = solver.solve_cg(tolerance=DG_RTOL)
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    err = solver.l2_error(sol, solver.exact_quad)
+    diff = float((sol - dg_sol).abs().max()) / float(dg_sol.abs().max())
+    print(f"dg-plain cg: {min(cg_s):.4f} s (runs "
+          f"{', '.join(f'{s:.4f}' for s in cg_s)}), frac its {frac_its:.4f}, "
+          f"rate {rate:.4e}, L2 {err:.6e} (poisson_dg {dg_err:.6e}), "
+          f"max|u - u_dg| / max|u_dg| {diff:.3e} [{card}]")
+    require(sol.shape == solver.grids[-1].shape
+            and bool(torch.isfinite(sol).all()), "DGPlain solution not finite")
+    require(abs(err / dg_err - 1) <= PLAIN_AGREE,
+            f"DGPlain L2 {err:.6e} vs poisson_dg {dg_err:.6e}")
+    require(diff <= PLAIN_AGREE, f"DGPlain solution vs poisson_dg: {diff:.3e}")
+    require(rate < PLAIN_RATE, f"DGPlain rate {rate:.4e}")
+    del solver, sol
+
+    # variable coefficient (plain PyTorch on the card)
+    errs = []
+    for size in VC_SIZES:
+        t0 = time.perf_counter()
+        s = build(poisson_cube_mesh(size), dev, VC_DEGREE,
+                  (varcoeff_exact, varcoeff_rhs), coeff_fn=varcoeff_coeff)
+        sol, frac_its, rate = s.solve_cg(tolerance=1e-10)
+        errs.append(s.l2_error(sol, s.exact_quad))
+        print(f"var-coeff size {size}: its {frac_its:.4f}, rate {rate:.4e}, "
+              f"L2 {errs[-1]:.6e}, {time.perf_counter() - t0:.2f} s with "
+              f"set-up [{card}]")
+        require(rate < VC_RATE, f"var-coeff size {size}: rate {rate:.4e}")
+        del s, sol
+    order = float(np.log2(errs[0] / errs[1]))
+    print(f"var-coeff L2 order {order:.3f} (bar > {VC_DEGREE + 0.6})")
+    require(order > VC_DEGREE + 0.6, f"var-coeff L2 order {order:.3f}")
+
+    # one small row of each DG benchmark driver; each holds its result
+    # against the plain version at its bar and raises on a miss
+    for dtype in (torch.float64, torch.float32):
+        matvec_dg.run(4, "hermite", 6, dtype, dev)
+    matvec_dg_cheby.run(4, "gauss", 6, dev)
+    solver_dg.run(3, "gauss", 6, 50, dev)
     return launches
 
 

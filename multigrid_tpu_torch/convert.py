@@ -23,6 +23,13 @@ For a :class:`~.solvers.multigrid_dg.MultigridSolverDG` the state is
   min_eig)``;
 * ``"inv_diag"``: the transformed-Jacobi inverse diagonal, DG block;
 * ``"cg"``: the FE_Q hierarchy's state, in the form above.
+
+For a :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain` it is
+
+* ``"rhs"``: the f64 DG right-hand side of the finest level;
+* ``"chebyshev"``: per level, the smoother's ``(theta, delta, degree,
+  max_eig, min_eig)``;
+* ``"inv_diag"``: per level, the transformed-Jacobi inverse diagonal.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import torch
 
 from .ops.laplace import make_diag_coef
 from .ops.laplace_dense import element_matrix
+from .solvers.multigrid_dg import MultigridSolverDGPlain
 
 
 def _validate(solver, state: dict) -> None:
@@ -49,6 +57,8 @@ def _validate(solver, state: dict) -> None:
             want[i // 2] = 1
             if list(np.shape(f)) != want:
                 raise ValueError(f"u_bc[{l}][{i}]: shape {np.shape(f)} != {want}")
+        if "chebyshev" in state:
+            _check_chebyshev(f"chebyshev[{l}]", state["chebyshev"][l])
         if "element_matrix" in state:
             K = np.asarray(state["element_matrix"][l], np.float64)
             want = element_matrix(g, make_diag_coef(g, solver.coefficient))
@@ -56,6 +66,14 @@ def _validate(solver, state: dict) -> None:
                                                         atol=0):
                 raise ValueError(f"element_matrix[{l}] differs from the "
                                  "brick element matrix the kernels apply")
+
+
+def _check_chebyshev(name: str, values) -> None:
+    if len(values) != 5:
+        raise ValueError(f"{name}: {len(values)} values, not (theta, delta, "
+                         "degree, max_eig, min_eig)")
+    if int(values[2]) < 1:
+        raise ValueError(f"{name}: degree {values[2]} < 1")
 
 
 def _install_chebyshev(sm, values) -> None:
@@ -70,6 +88,8 @@ def _load_dg_state(solver, state: dict) -> None:
     for key in ("rhs", "inv_diag"):
         if key in state and np.shape(state[key]) != shape:
             raise ValueError(f"{key}: shape {np.shape(state[key])} != {shape}")
+    if "chebyshev" in state:
+        _check_chebyshev("chebyshev", state["chebyshev"])
     if "cg" in state:
         _validate(solver.cg, state["cg"])
     dev = solver.device
@@ -86,13 +106,45 @@ def _load_dg_state(solver, state: dict) -> None:
         load_state(solver.cg, state["cg"])
 
 
+def _load_dg_plain_state(solver, state: dict) -> None:
+    L = len(solver.grids)
+    for key in ("chebyshev", "inv_diag"):
+        if key in state and len(state[key]) != L:
+            raise ValueError(f"state[{key!r}] has {len(state[key])} levels, "
+                             f"the solver {L}")
+    if "rhs" in state and np.shape(state["rhs"]) != solver.grids[-1].shape:
+        raise ValueError(f"rhs: shape {np.shape(state['rhs'])} != "
+                         f"{solver.grids[-1].shape}")
+    for l, g in enumerate(solver.grids):
+        if "inv_diag" in state and np.shape(state["inv_diag"][l]) != g.shape:
+            raise ValueError(f"inv_diag[{l}]: shape "
+                             f"{np.shape(state['inv_diag'][l])} != {g.shape}")
+        if "chebyshev" in state:
+            _check_chebyshev(f"chebyshev[{l}]", state["chebyshev"][l])
+    dev = solver.device
+    if "rhs" in state:
+        solver.rhs = torch.tensor(np.asarray(state["rhs"], np.float64),
+                                  dtype=solver.f_dtype, device=dev)
+    for l, jac in enumerate(solver.jacobis):
+        if "inv_diag" in state:
+            jac.inv_diag = torch.tensor(
+                np.asarray(state["inv_diag"][l], np.float64),
+                dtype=jac.dtype, device=dev)
+        if "chebyshev" in state:
+            _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
+
+
 def load_state(solver, state: dict) -> None:
     """Install ``state`` into ``solver`` (a
-    :class:`~.solvers.multigrid.MultigridSolver` or a
-    :class:`~.solvers.multigrid_dg.MultigridSolverDG`) in place; the whole
-    state is checked before anything is installed."""
+    :class:`~.solvers.multigrid.MultigridSolver`, a
+    :class:`~.solvers.multigrid_dg.MultigridSolverDG` or a
+    :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain`) in place; the
+    whole state is checked before anything is installed."""
     if hasattr(solver, "dg_grid"):
         _load_dg_state(solver, state)
+        return
+    if isinstance(solver, MultigridSolverDGPlain):
+        _load_dg_plain_state(solver, state)
         return
     _validate(solver, state)
     dev, f_dtype = solver.device, solver.f_dtype

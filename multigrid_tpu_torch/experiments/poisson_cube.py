@@ -23,7 +23,7 @@ import time
 import numpy as np
 import torch
 
-from ..devices import resolve
+from ..devices import driver_device, resolve
 from ..mesh.brick import BrickMesh, doubling_mesh, poisson_cube_mesh
 from ..solvers.multigrid import MultigridSolver
 from ..utils.tables import print_convergence_table
@@ -176,12 +176,7 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch operators)")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device; pass --device cpu to run on "
-                               "the CPU")
-        print(f"# device: {torch.cuda.get_device_name(device)}")
+    device = driver_device(args.device)
 
     rows = []
     for cycle, size in enumerate(SIZES):

@@ -28,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from ..devices import resolve
+from ..devices import driver_device
 from ..mesh.brick import poisson_cube_mesh
 from ..solvers.multigrid_dg import MultigridSolverDG
 from ..utils.perf_model import dg_matvec_model, print_matvec_details
@@ -52,12 +52,7 @@ def main(argv=None):
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch operators)")
     args = ap.parse_args(argv)
-    try:
-        device = resolve(args.device)
-    except RuntimeError as e:
-        raise RuntimeError(f"{e}; pass --device cpu to run on the CPU") from e
-    if device.type == "cuda":
-        print(f"# device: {torch.cuda.get_device_name(device)}")
+    device = driver_device(args.device)
 
     rows = []
     for size in SIZES:

@@ -1,0 +1,135 @@
+"""poisson_dg_plain experiment: SIP-DG Poisson solved by pure-DG
+h-multigrid, looping over the three DG element types per mesh.
+
+Twin of ``experiments/poisson_dg_plain.py`` (the reference program
+poisson_dg_plain/program.cc).  Run as
+
+    python -m multigrid_tpu_torch.experiments.poisson_dg_plain degree \\
+        minsize maxsize n_pre tolerance [--dim 3] [--var-coeff]
+
+(positional arguments as the JAX experiment; sizes count DG dofs; sizes
+with an odd cell count are skipped, since h-multigrid needs one
+refinement).  For each of hermite, gll and gauss: the set-up time, the
+best of three outer-CG solves, fractional iterations, rate and L2 error,
+then the convergence table.  ``--dim`` defaults to 3, not 2 as in the JAX
+driver: the DG kernels on the card are 3-D only, and a 2-D grid on the card
+raises in their check; ``--dim 2 --device cpu`` runs the plain operators.
+Solves run on the CUDA device, and the driver stops with an error when
+there is none; ``--device cpu`` runs the plain PyTorch operators on the CPU.
+``--var-coeff`` solves -div(c grad u) = f (plain PyTorch on every device);
+``--deform`` (curved geometry) belongs to slice C of the port and raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+
+from ..devices import driver_device
+from ..mesh.brick import poisson_cube_mesh
+from ..solvers.multigrid_dg import MultigridSolverDGPlain
+from ..utils.tables import print_convergence_table
+from .poisson_cube import SIZES, _sync, exact_fn, rhs_fn
+
+KINDS = ("hermite", "gll", "gauss")
+# manufactured solution of --var-coeff, zero on the [-0.9, 1]^dim boundary:
+# u = prod sin(w (x_d + 0.9)), c = 1 + u / 2, so grad c = grad u / 2 and
+# f = -(|grad u|^2 / 2 + c lap u)
+_W = np.pi / 1.9
+
+
+def varcoeff_exact(q):
+    u = 1.0
+    for qd in q:
+        u = u * np.sin(_W * (qd + 0.9))
+    return u
+
+
+def varcoeff_coeff(q):
+    return 1.0 + 0.5 * varcoeff_exact(q)
+
+
+def varcoeff_rhs(q):
+    u = varcoeff_exact(q)
+    grad_dot = 0.0
+    for d in range(len(q)):
+        du = _W
+        for e, qd in enumerate(q):
+            du = du * (np.cos(_W * (qd + 0.9)) if e == d
+                       else np.sin(_W * (qd + 0.9)))
+        grad_dot = grad_dot + 0.5 * du * du
+    return -(grad_dot + varcoeff_coeff(q) * (-len(q) * _W**2 * u))
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("degree", type=int, nargs="?", default=3)
+    ap.add_argument("minsize", type=int, nargs="?", default=0)
+    ap.add_argument("maxsize", type=int, nargs="?", default=1_000_000)
+    ap.add_argument("n_pre_smooth", type=int, nargs="?", default=3)
+    ap.add_argument("tolerance", type=float, nargs="?", default=1e-3)
+    ap.add_argument("--dim", type=int, default=3)
+    ap.add_argument("--var-coeff", action="store_true",
+                    help="solve -div(c grad u) with c = 1 + u / 2 (plain "
+                         "PyTorch operators on every device)")
+    ap.add_argument("--deform", type=float, nargs="?", const=0.05,
+                    default=None, metavar="FACTOR",
+                    help="curved geometry: slice C of the port, not ported")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; 'cpu' runs the plain "
+                         "PyTorch operators)")
+    args = ap.parse_args(argv)
+    if args.deform is not None:
+        raise NotImplementedError(
+            "--deform: the curved DG operator (ops/dg_curved.py) belongs to "
+            "slice C of the port and is not ported yet")
+    device = driver_device(args.device)
+    coeff, exact, rhs = None, exact_fn, rhs_fn
+    if args.var_coeff:
+        coeff, exact, rhs = varcoeff_coeff, varcoeff_exact, varcoeff_rhs
+
+    tables = {}
+    for kind in KINDS:
+        rows = []
+        for size in SIZES:
+            if size % 2:
+                continue   # pure-DG h-multigrid needs one refinement
+            mesh = poisson_cube_mesh(size, args.dim)
+            n_dofs = (mesh.n_cells(mesh.max_level)
+                      * (args.degree + 1) ** args.dim)
+            if n_dofs < args.minsize:
+                continue
+            if n_dofs > args.maxsize:
+                break
+            t0 = time.perf_counter()
+            s = MultigridSolverDGPlain(mesh, args.degree, exact, rhs,
+                                       kind=kind, n_pre=args.n_pre_smooth,
+                                       n_post=args.n_pre_smooth,
+                                       device=device, coeff_fn=coeff)
+            _sync(device)
+            setup = time.perf_counter() - t0
+            best = np.inf
+            sol = None
+            for _ in range(3):
+                sol = None
+                t0 = time.perf_counter()
+                sol, frac_its, rate = s.solve_cg(tolerance=args.tolerance)
+                _sync(device)
+                best = min(best, time.perf_counter() - t0)
+            row = dict(cells=mesh.n_cells(mesh.max_level), dofs=n_dofs,
+                       setup_time=setup, cg_time=best, cg_its=frac_its,
+                       cg_reduction=rate,
+                       cg_L2error=s.l2_error(sol, s.exact_quad))
+            print(kind, row, flush=True)
+            rows.append(row)
+            del s, sol
+        print(f"=== element type: {kind}")
+        print_convergence_table(rows, dim=args.dim)
+        tables[kind] = rows
+    return tables
+
+
+if __name__ == "__main__":
+    main()

@@ -3,12 +3,14 @@ one CUDA device.
 
     python -m multigrid_tpu_torch.experiments.profile_solve 64 128 \\
         --out chiprun_out/profile_solve.json
-    python -m multigrid_tpu_torch.experiments.profile_solve 48 64 --dg
+    python -m multigrid_tpu_torch.experiments.profile_solve 48 64 --path dg
+    python -m multigrid_tpu_torch.experiments.profile_solve 48 --path dg-plain
 
 For each cube size (``poisson_cube_mesh(size)``, FE_Q(degree)) and each of
 FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
-``--dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9) -- one
-warm-up
+``--path dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9);
+with ``--path dg-plain``, the poisson_dg_plain CG (pure-DG h-multigrid, the
+same settings) -- one warm-up
 run, the best of ``--repeat`` runs without the profiler (host clock around
 ``torch.cuda.synchronize``), then one run under ``torch.profiler``.  From
 that run's trace: the device-busy time (union of kernel, memcpy and memset
@@ -23,16 +25,16 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import subprocess
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
 
+from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
 from ..solvers.multigrid import set_full_precision_matmul
-from ..solvers.multigrid_dg import MultigridSolverDG
+from ..solvers.multigrid_dg import MultigridSolverDG, MultigridSolverDGPlain
 from .poisson_cube import build_solver, exact_fn, rhs_fn
 
 # class -> substrings of the demangled kernel name (first match wins; the
@@ -108,13 +110,6 @@ def profile_call(fn, trace: Path) -> dict:
     return breakdown(events, wall)
 
 
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
@@ -122,8 +117,10 @@ def main(argv=None) -> list:
     ap.add_argument("--degree", type=int, default=4)
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
-    ap.add_argument("--dg", action="store_true",
-                    help="profile the poisson_dg solve at these sizes")
+    ap.add_argument("--path", default="cube",
+                    choices=["cube", "dg", "dg-plain"],
+                    help="the solve to profile: poisson_cube (FMG and CG), "
+                         "poisson_dg or poisson_dg_plain (CG)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -135,12 +132,19 @@ def main(argv=None) -> list:
     trace.parent.mkdir(parents=True, exist_ok=True)
     cells = []
     for size in args.sizes:
-        if args.dg:
+        if args.path == "dg":
             solver = MultigridSolverDG(poisson_cube_mesh(size), args.degree,
                                        exact_fn, rhs_fn, n_pre=3, n_post=3,
                                        device=dev)
             dofs = solver.dg_grid.n_dofs
             phases = (("dg cg", lambda: solver.solve_cg(tolerance=1e-9)),)
+        elif args.path == "dg-plain":
+            solver = MultigridSolverDGPlain(
+                poisson_cube_mesh(size), args.degree, exact_fn, rhs_fn,
+                kind="hermite", n_pre=3, n_post=3, device=dev)
+            dofs = solver.grids[-1].n_dofs
+            phases = (("dg-plain cg",
+                       lambda: solver.solve_cg(tolerance=1e-9)),)
         else:
             solver = build_solver(poisson_cube_mesh(size), args.degree,
                                   device=dev)

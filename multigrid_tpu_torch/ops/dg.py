@@ -17,12 +17,15 @@ common/laplace_operator_dg.h:1469-1485); penalty ``sigma = (p+1)^2 |n J^-1|``.
 This is the sum-factorized XLA-style form of the JAX package, written with
 PyTorch contractions.  It is the oracle of ``ops/dg_kernel.py`` (the CUDA
 kernels for K7, K8, K9), assembles the right-hand side and measures L2
-errors.  Not ported yet, for want of a caller: the weak Dirichlet data of
-``compute_rhs``, ``DGLaplaceVarCoeff`` and the multi-device trace wire.
+errors.  :class:`DGLaplaceVarCoeff` adds a coefficient per quadrature
+point (-div(c grad u)); it is plain PyTorch on every device, as its XLA
+twin is on the TPU.  Not ported yet, for want of a caller: the weak
+Dirichlet data of ``compute_rhs`` and the multi-device trace wire.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from functools import cached_property
 
@@ -121,8 +124,9 @@ class DGLaplace:
             w3 = w3 * qw.reshape(s)
         self.w3d = t(w3)
         # perpendicular weight products of the faces of each direction
-        self.wperp = [t(np.outer(*[qw for e in range(self.dim) if e != d]))
-                      for d in range(self.dim)]
+        self.wperp = [t(functools.reduce(np.multiply.outer, [
+            qw for e in range(self.dim) if e != d], np.ones(())))
+            for d in range(self.dim)]
 
     # ------------------------------------------------------------- helpers
     def _node_axis(self, d: int) -> int:
@@ -163,7 +167,7 @@ class DGLaplace:
             for f_ in range(dim):
                 term = self.Gsym[e][f_] * g[f_]
                 t = term if t is None else t + term
-            acc.append(t * self.w3d)
+            acc.append(t * self.w_vol)
         vacc = torch.zeros_like(v)
         for d in range(dim):
             fd = self.face[d]
@@ -183,9 +187,7 @@ class DGLaplace:
                 u_p = self._shift(tr_u[1 - s], -u_m, d, s)
                 gn_p = sign * self._shift(tr_gn[1 - s], tr_gn[s], d, s)
                 # the jump first: sigma u- and sigma u+ cancel on smooth u
-                jump = u_m - u_p
-                t_val = fd["sigma"] * jump - 0.5 * (gn_m + gn_p)
-                t_gr = -0.5 * jump
+                t_val, t_gr = self._flux(d, s, u_m - u_p, gn_m, gn_p)
                 vacc = vacc + self._lift(t_val * wf, d, s)
                 for e in range(dim):
                     acc[e] = acc[e] + self._lift(
@@ -195,11 +197,27 @@ class DGLaplace:
             y = y + apply_1d(acc[e], self.Dt, self._node_axis(e))
         return y if self.is_collocation else sweep(y, self.St, dim)
 
+    @property
+    def w_vol(self) -> torch.Tensor:
+        """Weights of the volume term at the quadrature points."""
+        return self.w3d
+
+    def _flux(self, d, s, jump, gn_m, gn_p):
+        """SIP flux on the faces (d, s): the value and gradient terms."""
+        return (self.face[d]["sigma"] * jump - 0.5 * (gn_m + gn_p),
+                -0.5 * jump)
+
     def vmult(self, u: torch.Tensor) -> torch.Tensor:
         return self.apply(u)
 
     def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
         return rhs - self.apply(lhs)
+
+    def astype(self, dtype) -> "DGLaplace":
+        """The same operator in another dtype (the exact per-cell
+        ``JacobiTransformed`` probes in float64)."""
+        return self if dtype == self.dtype else type(self)(self.grid, dtype,
+                                                           self.device)
 
     # ----------------------------------------------------------------- rhs
     def compute_rhs(self, f_quad: torch.Tensor) -> torch.Tensor:
@@ -219,3 +237,52 @@ class DGLaplace:
         err = torch.sum((uq - exact_quad) ** 2 * jxw)
         vol = torch.sum(torch.broadcast_to(jxw, uq.shape))
         return torch.sqrt(err / vol)
+
+
+class DGLaplaceVarCoeff(DGLaplace):
+    """SIP-DG A·u of -div(c grad u), ``c > 0`` given at the quadrature
+    points (block layout ``[C..., q...]``; twin of the JAX
+    ``DGLaplaceVarCoeff``).  The face terms take arithmetic means::
+
+        a(u,v) = sum_K (c grad u, grad v)_K
+               - sum_F ( <{c du/dn}, [v]> + <{c dv/dn}, [u]>
+                         - sigma_F <{c} [u], [v]> )
+
+    with the Dirichlet mirror ``u+ = -u-``, ``c+ = c-``.  ``c`` is kept in
+    the operator's dtype (``astype`` converts that copy, as the JAX twin
+    does).  ``has_cell_data`` sends :class:`~.dg_precond.JacobiTransformed`
+    to its exact per-cell path."""
+
+    has_cell_data = True
+
+    def __init__(self, grid: DGGrid, c_quad, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__(grid, dtype, device)
+        c = torch.as_tensor(c_quad if isinstance(c_quad, torch.Tensor)
+                            else np.array(c_quad), dtype=dtype,
+                            device=self.device)
+        if tuple(c.shape) != grid.shape:
+            raise ValueError(f"coefficient shape {tuple(c.shape)} != "
+                             f"{grid.shape}")
+        self.c = c
+        self._c_w = c * self.w3d
+        # per face (d, s): own and neighbour coefficient traces, the
+        # neighbour's replicated across the boundary (c+ = c-)
+        self._c_face = []
+        for d in range(grid.dim):
+            tr = [self._trace(c, d, s) for s in (0, 1)]
+            self._c_face.append([(tr[s], self._shift(tr[1 - s], tr[s], d, s))
+                                 for s in (0, 1)])
+
+    def astype(self, dtype) -> "DGLaplaceVarCoeff":
+        return self if dtype == self.dtype else DGLaplaceVarCoeff(
+            self.grid, self.c.to(dtype), dtype, self.device)
+
+    @property
+    def w_vol(self) -> torch.Tensor:
+        return self._c_w
+
+    def _flux(self, d, s, jump, gn_m, gn_p):
+        c_m, c_p = self._c_face[d][s]
+        return (self.face[d]["sigma"] * 0.5 * (c_m + c_p) * jump
+                - 0.5 * (c_m * gn_m + c_p * gn_p), -0.5 * c_m * jump)

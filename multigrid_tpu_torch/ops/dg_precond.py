@@ -6,15 +6,17 @@ Twin of ``multigrid_tpu/ops/dg_precond.py`` ``JacobiTransformed``
 eigenbasis (``core/dg_basis``) and ``d`` the exact operator diagonal in
 that basis, the cell's own face terms included.
 
-The diagonal comes from the translation-invariance shortcut: on a uniform
-affine mesh a cell's self-coupling block depends only on its
-boundary-adjacency category (3 per axis), so a probe mesh of
-``min(cells, 3)`` cells per axis yields every category.  On the probe,
-each eigenvector is placed in every cell of one checkerboard parity (face
-couplings join opposite parities only) and the f64 operator is applied
-once per vector: ``2 n^3`` applies in one batch, on the CPU, at set-up.
-Only the full ``inv_diag`` block tensor goes to the device; the
-fused Chebyshev kernel (``ops/dg_kernel.dg_cheb``) reads it there.
+The diagonal ``d[c][i] = t_i^T A_cc t_i`` comes from checkerboard probes:
+each eigenvector is placed in every cell of one parity (face couplings
+join opposite parities only) and the f64 operator is applied once per
+vector, ``2 n^dim`` applies in all.  On a uniform affine mesh with a
+cell-independent operator a cell's self-coupling block depends only on its
+boundary-adjacency category (3 per axis), so the probe runs on a mesh of
+``min(cells, 3)`` cells per axis, on the CPU, at set-up.  An operator with
+per-cell data (``has_cell_data``: :class:`~.dg.DGLaplaceVarCoeff`) takes
+the exact general path instead, probing the real mesh on its device.
+The fused Chebyshev kernel (``ops/dg_kernel.dg_cheb``) reads ``inv_diag``
+on the device.
 """
 
 from __future__ import annotations
@@ -25,34 +27,48 @@ import torch
 from ..devices import resolve
 from .dg import DGGrid, DGLaplace, sweep
 
+# elements of one probe batch (eigenvectors x dofs), bounding the memory of
+# the general path's applies
+_PROBE_ELEMENTS = 1 << 24
 
-def _transformed_diagonals(op: DGLaplace, T3: np.ndarray) -> np.ndarray:
-    """d[ci][i] = t_i^T A_{ci,ci} t_i on ``op``'s mesh, without assembling
-    any matrix: checkerboard Rayleigh quotients (JAX twin)."""
+
+def _transformed_diagonals(op: DGLaplace, T3: np.ndarray) -> torch.Tensor:
+    """d[c..., i] = t_i^T A_{c,c} t_i on ``op``'s mesh and device (fp64
+    ``[C..., n^dim]``), without assembling any matrix: checkerboard
+    Rayleigh quotients (JAX twin), the eigenvectors in batches."""
     grid = op.grid
     dim, n = grid.dim, grid.n
     Nc = n**dim
-    cells = grid.cells
-    d = np.zeros(cells + (Nc,))
-    vecs = T3.T.reshape((Nc,) + (n,) * dim)      # eigenvector i as a block
-    for parity in (0, 1):
-        sel = [ci for ci in np.ndindex(*cells) if sum(ci) % 2 == parity]
-        if not sel:
+    f64, dev = torch.float64, op.device
+    vecs = torch.as_tensor(T3.T.reshape((Nc,) + (n,) * dim), dtype=f64,
+                           device=dev)       # eigenvector i as a block
+    parity = sum(torch.arange(c, device=dev).reshape(
+        [c if e == d else 1 for e in range(dim)])
+        for d, c in enumerate(grid.cells)) % 2
+    d = torch.zeros(grid.cells + (Nc,), dtype=f64, device=dev)
+    batch = max(1, min(Nc, _PROBE_ELEMENTS // grid.n_dofs))
+    spread = (1,) * dim
+    for par in (0, 1):
+        mask = (parity == par).to(f64)
+        if not bool(mask.any()):
             continue
-        base = np.zeros((Nc,) + cells + (n,) * dim)
-        for ci in sel:
-            base[(slice(None),) + ci] = vecs
-        ys = op.apply(torch.as_tensor(base, dtype=torch.float64)).numpy()
-        for ci in sel:
-            blk = ys[(slice(None),) + ci].reshape(Nc, Nc)
-            d[ci] = np.einsum("ia,ia->i", blk, vecs.reshape(Nc, Nc))
+        for i0 in range(0, Nc, batch):
+            v = vecs[i0:i0 + batch]
+            v = v.reshape((v.shape[0],) + spread + v.shape[1:])
+            ys = op.apply(mask.reshape(mask.shape + spread) * v)
+            q = (ys * v).sum(dim=tuple(range(-dim, 0)))   # [B, C...]
+            d[..., i0:i0 + v.shape[0]] += (q * mask).movedim(0, -1)
     return d
 
 
 class JacobiTransformed:
-    """P^-1 = T3 diag^-1 T3^T of one uniform affine DG level."""
+    """P^-1 = T3 diag^-1 T3^T of one DG level.  ``op``: the level's
+    operator, if it is not the constant-coefficient ``DGLaplace`` of
+    ``grid``; one with per-cell data (``has_cell_data``) is probed exactly
+    on its own mesh, any other by boundary-adjacency category."""
 
-    def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):
+    def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda",
+                 op=None):
         self.grid = grid
         self.dtype = dtype
         self.device = resolve(device)
@@ -65,23 +81,26 @@ class JacobiTransformed:
         T3 = np.array([[1.0]])
         for _ in range(dim):
             T3 = np.kron(T3, b.T)
+        if op is not None and op.grid != grid:
+            raise ValueError("JacobiTransformed: op is of another grid")
+        if getattr(op, "has_cell_data", False):
+            full = _transformed_diagonals(op.astype(torch.float64), T3)
+            self.inv_diag = (1.0 / full).to(dtype).reshape(
+                grid.shape).to(self.device).contiguous()
+            return
         probe_cells = tuple(min(c, 3) for c in grid.cells)
         probe = DGGrid(cells=probe_cells, jacobian=grid.jacobian,
                        degree=grid.degree, kind=grid.kind)
-        inv_cat = 1.0 / _transformed_diagonals(
-            DGLaplace(probe, torch.float64, "cpu"), T3)
+        d_cat = _transformed_diagonals(DGLaplace(probe, torch.float64, "cpu"),
+                                       T3).numpy()
         # category of each cell along each axis: first, interior, last
         idx = []
-        for d in range(dim):
-            C, P = grid.cells[d], probe_cells[d]
+        for C, P in zip(grid.cells, probe_cells):
             m = np.full(C, min(1, P - 1))
             m[0] = 0
             m[-1] = P - 1
-            idx.append(torch.as_tensor(m, device=self.device))
-        cat = t(inv_cat)
-        self.inv_diag = cat[idx[0][:, None, None], idx[1][None, :, None],
-                            idx[2][None, None, :]].reshape(
-                                grid.cells + (n,) * dim).contiguous()
+            idx.append(m)
+        self.inv_diag = t((1.0 / d_cat)[np.ix_(*idx)].reshape(grid.shape))
 
     def vmult(self, u: torch.Tensor) -> torch.Tensor:
         """P^-1 u = T3 diag^-1 T3^T u (reference

@@ -1,0 +1,52 @@
+"""Fused operator-update entry points (API parity with the reference).
+
+Twin of ``multigrid_tpu/solvers/fused.py``.  The reference folds vector
+updates and reductions into its operator cell loops --
+``vmult_with_cg_update`` (reference common/laplace_operator.h:638-719) and
+``vmult_with_chebyshev_update`` (common/laplace_operator_dg.h:863-976) --
+to save memory passes on a CPU.  Here they are plain compositions over a
+``vmult`` and a ``precond``, as in the JAX twin.  On the card the fused
+passes that matter are kernels of their own (``dg_cheb``, ``brick_kron``'s
+Chebyshev mode, ``cg_update``); these compositions serve the operators
+that have no kernel, such as the variable-coefficient DG levels of
+``solvers/multigrid_dg.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.dot(a.reshape(-1), b.reshape(-1))
+
+
+def vmult_with_cg_update(vmult: Callable, alpha: float, beta: float,
+                         r: torch.Tensor, q: torch.Tensor, p: torch.Tensor,
+                         x: torch.Tensor):
+    """One fused CG round: the vector updates folded around ``q = A p``
+    plus the four reductions the reference returns
+    (laplace_operator.h:655-718): <q,p>, <r,r>, <q,r>, <q,q>.
+    ``alpha == 0`` marks the first iteration (p taken from q).  Kept for
+    API parity with the JAX twin: no solver of the port calls it (their CG
+    runs ``cg_update`` and ``cg_dot``)."""
+    first = alpha == 0.0
+    x = x if first else x + alpha * p
+    p = q if first else beta * p + q
+    q = vmult(p)
+    sums = torch.stack([_dot(q, p), _dot(r, r), _dot(q, r), _dot(q, q)])
+    return x, p, q, sums
+
+
+def vmult_with_chebyshev_update(vmult: Callable, precond: Callable,
+                                rhs: torch.Tensor, factor1: float,
+                                factor2: float, x: torch.Tensor,
+                                x_old: torch.Tensor):
+    """Chebyshev step ``x_new = factor2 P^-1 (rhs - A x) + (1 + factor1) x
+    - factor1 x_old`` (the epilogue of laplace_operator_dg.h:1839-1860);
+    returns ``(x_new, x)``."""
+    r = rhs - vmult(x)
+    x_new = factor2 * precond(r) + (1.0 + factor1) * x - factor1 * x_old
+    return x_new, x

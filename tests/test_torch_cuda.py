@@ -14,8 +14,10 @@ the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..7 and on
 ragged pencils.  Every compiled degree p = 1..7 of brick_kron and of the
 DG kernels is held.  The launch counters count device kernels: 1 per
 brick_kron call, 2 per reduction, 1 per xpay, 1 per DG kernel call.  The
-size-4 FE_Q and DG solves on the card agree with the CPU to 1e-5 of
-max|u|."""
+size-4 FE_Q, DG and pure-DG (DGPlain) solves on the card agree with the
+CPU to 1e-5 of max|u|; the f32 ``DGTransfer`` on the card agrees with the
+f64 one to 1e-6 of max; a DGPlain solve launches K7, K8, K9 and the CG
+kernels and no brick kernel."""
 
 import numpy as np
 import pytest
@@ -351,3 +353,54 @@ def test_dg_solver_on_card_matches_cpu(dev):
         sols[str(where)] = s.solve_cg(tolerance=1e-9)[0].cpu()
     u_gpu, u_cpu = sols[str(dev)], sols["cpu"]
     assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
+
+
+def _dg_plain(where):
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    return MultigridSolverDGPlain(poisson_cube_mesh(4), 4, exact_fn, rhs_fn,
+                                  kind="hermite", n_pre=3, n_post=3,
+                                  device=where)
+
+
+def test_dg_plain_solver_on_card_matches_cpu(dev):
+    u_gpu, u_cpu = (_dg_plain(where).solve_cg(tolerance=1e-9)[0].cpu()
+                    for where in (dev, "cpu"))
+    assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_transfer_f32_on_card_matches_f64(dev, kind):
+    """The float32 transfer on the card (full-precision matrix products, no
+    TF32) against the float64 one, to 1e-6 of the largest value."""
+    from multigrid_tpu_torch.ops.dg_transfer import DGTransfer
+    from multigrid_tpu_torch.solvers.multigrid import set_full_precision_matmul
+
+    set_full_precision_matmul()
+    fine, coarse = dg_grid((6, 4, 8), 4, kind), dg_grid((3, 2, 4), 4, kind)
+    t32, t64 = (DGTransfer(fine, coarse, dt, dev)
+                for dt in (torch.float32, torch.float64))
+    for fn, shape, seed in (("prolongate", coarse.shape, 1),
+                            ("restrict", fine.shape, 2)):
+        x = rand(shape, torch.float64, dev, seed)
+        want = getattr(t64, fn)(x)
+        got = getattr(t32, fn)(x.float()).double()
+        assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_dg_plain_solve_launches_the_dg_kernels(dev):
+    """A constant-coefficient 3-D DGPlain solve on the card runs K7, K8, K9
+    and the CG kernels, and no brick kernel."""
+    from multigrid_tpu_torch.ops import cg_kernel, dg_kernel, laplace_kernel
+
+    s = _dg_plain(dev)
+    for mod in (cg_kernel, dg_kernel, laplace_kernel):
+        mod.reset_launches()
+    s.solve_cg(tolerance=1e-9)
+    torch.cuda.synchronize()
+    for name in ("dg_apply<double>", "dg_apply<float>", "dg_cheb<float>"):
+        assert dg_kernel.LAUNCHES[name] > 0, name
+    for name in ("cg_update", "cg_dot", "cg_xpay"):
+        assert cg_kernel.LAUNCHES[name] > 0, name
+    assert not any(laplace_kernel.LAUNCHES.values()), laplace_kernel.LAUNCHES

@@ -23,7 +23,8 @@ from multigrid_tpu_torch.experiments import poisson_cube as cube_problem
 from multigrid_tpu_torch.experiments.poisson_dg import main
 from multigrid_tpu_torch.mesh.brick import cube, poisson_cube_mesh
 from multigrid_tpu_torch.solvers.multigrid import MultigridSolver
-from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDG
+from multigrid_tpu_torch.solvers.multigrid_dg import (MultigridSolverDG,
+                                                      MultigridSolverDGPlain)
 
 K = 3.0   # on [0, 1]^3 sin(3 pi x) vanishes on the boundary
 
@@ -148,13 +149,14 @@ def test_dg_experiment_needs_cuda_unless_told_cpu(monkeypatch):
         main(["4", "900", "1100"])
 
 
-@pytest.mark.parametrize("solver", ["fe_q", "dg"])
+@pytest.mark.parametrize("solver", ["fe_q", "dg", "dg_plain"])
 def test_solver_without_device_needs_cuda(monkeypatch, solver):
     """The entry points run on the card unless the caller passes
     ``device="cpu"``: with no CUDA device, a solver built without one
     raises at once."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mesh = poisson_cube_mesh(2)
-    cls = {"fe_q": MultigridSolver, "dg": MultigridSolverDG}[solver]
+    cls = {"fe_q": MultigridSolver, "dg": MultigridSolverDG,
+           "dg_plain": MultigridSolverDGPlain}[solver]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cls(mesh, 4, cube_problem.exact_fn, cube_problem.rhs_fn)

@@ -208,9 +208,16 @@ def test_import_loads_no_jax():
             "multigrid_tpu_torch.experiments.time_dg_cheb, "
             "multigrid_tpu_torch.experiments.time_brick, "
             "multigrid_tpu_torch.utils.perf_model, "
+            "multigrid_tpu_torch.experiments.poisson_dg_plain, "
+            "multigrid_tpu_torch.experiments.matvec_dg, "
+            "multigrid_tpu_torch.experiments.matvec_dg_cheby, "
+            "multigrid_tpu_torch.experiments.solver_dg, "
+            "multigrid_tpu_torch.solvers.fused, "
+            "multigrid_tpu_torch.ops.dg_transfer, "
+            "multigrid_tpu_torch.ops.dg_precond, "
             "multigrid_tpu_torch.convert; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'multigrid_tpu')]; "
+            "('jax', 'jaxlib', 'multigrid_tpu', 'experiments')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
