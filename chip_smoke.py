@@ -20,7 +20,19 @@ convergence rows:
   3-D anchors of tests/test_dg_multigrid.py:80-82, the
   variable-coefficient operator's L2 order at sizes 12 and 24, and one
   small row of each DG benchmark driver (``matvec_dg``,
-  ``matvec_dg_cheby``, ``solver_dg``).
+  ``matvec_dg_cheby``, ``solver_dg``);
+* the general-geometry path (``GeneralMultigridSolver``: mapped
+  multiblock meshes, plain PyTorch operators and transfers, the outer
+  f64 CG on the CG kernels): the six shell anchors of
+  tests/test_shell_anchors.py:26-33 on the card; poisson_shell's top row
+  at maxsize 2,000,000 (``--cycles 9``; FE_Q(4), 6-block shell, 5 levels,
+  1,597,570 dofs) in mixed precision, its CG iterations, FMG L2 and
+  reduction those of the JAX package's ladder, its CG solution bit for
+  bit the same in two solves, and in
+  pure double with fourth-kind Chebyshev (:data:`PD_LEVELS` levels);
+  minimal_surface (Newton, 2-D disc) at 2 levels, degree 2, against the
+  same solve on the CPU, and one degree-4 row; ``poisson_cube --deform``
+  at 2 and 3 levels, degree 3.
 
 ``brick_kron`` (float and double, every mode) and the DG pencil kernels
 (``dg_apply`` and ``dg_residual`` in float and double, ``dg_cheb<float>``)
@@ -31,7 +43,7 @@ and the face-based one (``ops/dg_face.py``).
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
-with the kernels (device kernels launched during the three paths' solves,
+with the kernels (device kernels launched during the four paths' solves,
 as a trace
 counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
 call 1; ``launches`` sums the paths, ``launches_by_path`` gives each; the rows ``brick_kron<float>``, ``brick_kron<double>``,
@@ -85,6 +97,46 @@ PLAIN_ANCHOR_TOL = (0.02, 0.05, 1e-4)
 # tests/test_dg_varcoeff.py:130,164 (rate < 0.5, L2 order > p + 0.6)
 VC_SIZES, VC_DEGREE, VC_RATE = (12, 24), 3, 0.5
 
+# the shell anchors (tests/test_shell_anchors.py:26-33; degree 3, n_pre =
+# n_post = 3): (mesh, n_levels, pure double) -> (dofs, FMG L2, cg_its, CG
+# reduction, CG L2), held as there: its exactly, reductions to 2%, FMG L2
+# to 1e-3, CG L2 to 1e-5
+SHELL_ANCHORS = {
+    ("shell6", 2, False): (1526, 2.346556e-01, 15, 0.232046, 1.823688e-01),
+    ("shell6", 2, True): (1526, 3.355221e-01, 22, 0.377363, 1.823688e-01),
+    ("shell12", 2, False): (3038, 2.150496e-01, 13, 0.191005, 1.319676e-01),
+    ("shell12", 2, True): (3038, 2.436254e-01, 20, 0.342541, 1.319676e-01),
+    ("shell6", 3, False): (11258, 7.347376e-02, 16, 0.264773, 3.525010e-02),
+    ("shell6", 3, True): (11258, 1.607104e-01, 26, 0.445591, 3.525010e-02),
+}
+SHELL_ANCHOR_TOL = (1e-3, 0.02, 1e-5)     # FMG L2, reductions, CG L2
+SHELL_LEVELS = 5       # 6-block shell, FE_Q(4): 1,597,570 dofs
+# the converged (rtol 1e-9) CG L2 error is the discretization's, whatever
+# the chip: the JAX package's ladder rows read 1.40080e-5 at 1,597,570
+# dofs and 4.00663e-4 at 202,818 (docs/tpu_r3/shell_df64_resume.log,
+# docs/tpu_r4/shell_blk.log, cycles 8 and 6)
+SHELL_CG_L2 = {5: 1.40080e-5, 4: 4.00663e-4}
+SHELL_CG_L2_TOL = 1e-3
+PD_LEVELS = 5          # the pure-double fourth-kind row (4: 202,818 dofs)
+# CG iterations of the 5-level rows, held within one: mixed, the JAX
+# package's ladder (docs/tpu_r4/shell_blk.log, cycle 8: 24 its, FMG L2
+# 1.919187e-2, reduction 0.413267, both also held at the anchors' bars);
+# pure double, which that ladder never reached at this size, the port's
+# own first card runs (34 its, PERF.md)
+SHELL_ITS = {(5, False): 24, (5, True): 34}
+SHELL_MIXED = (1.919187e-2, 0.413267)     # FMG L2, reduction
+# minimal_surface at 2 levels, degree 2, card against CPU: the same Newton
+# and CG counts, each residual norm to 1e-6 of itself or of the Newton
+# tolerance, whichever is larger (the last norm sits at rounding level)
+MS_TOL, MS_AGREE = 1e-9, 1e-6
+# the degree-4 rows: the driver's --levels 3 --degree 4 --cycles 3, Newton
+# from cold on 3 levels, then warm on 4 and 5 (1313 -> 20,609 dofs); a cold
+# start on 4 levels stalls in the JAX package as in the port
+MS_ROW = (3, 3, 4)     # (cycles, first levels, degree)
+# poisson_cube --deform, degree 3, at 2 and 3 levels: the bars of
+# tests/test_shell_minimal_surface.py:80-81
+DEFORM_ITS, DEFORM_RATE = 9, 3.2
+
 # the card's peak rates for the bound (H100 SXM, NVIDIA data sheet):
 # HBM3 bandwidth; fp32 outside the tensor cores; fp64 on the tensor cores
 # (67 TFLOP/s, twice the 34 of the fp64 units), the higher of the two: a
@@ -133,6 +185,7 @@ DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
               "cheb_epilogue<float>", "cg_update", "cg_dot", "cg_xpay"]
 DG_PLAIN_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
                     "cg_update", "cg_dot", "cg_xpay"]
+SHELL_KERNELS = ["cg_update", "cg_dot", "cg_xpay"]
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -485,6 +538,7 @@ def main() -> int:
     from multigrid_tpu_torch import _build
     from multigrid_tpu_torch.solvers.multigrid import set_full_precision_matmul
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     set_full_precision_matmul()
     card = card_line()
@@ -529,7 +583,7 @@ def main() -> int:
                 and sum("14dg_cheb_kernelI" in k for k in names) == 7,
                 "the DG pencil kernels are not all in the library")
 
-    return run(dev, card)
+    return run(dev, card, t_start)
 
 
 def _counters():
@@ -567,8 +621,8 @@ def brick(cells, degree):
     return DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, degree)
 
 
-def run(dev: torch.device, card: str) -> int:
-    """Phases 2 to 5 on ``dev``: kernel checks, then the three paths."""
+def run(dev: torch.device, card: str, t_start: float) -> int:
+    """Phases 2 to 6 on ``dev``: kernel checks, then the four paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
@@ -638,18 +692,24 @@ def run(dev: torch.device, card: str) -> int:
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
 
-    # phases 3 to 5: the three paths, each with the counters zeroed just
+    # phases 3 to 6: the four paths, each with the counters zeroed just
     # before it and read just after
     launches = {"poisson_cube": cube_path(dev, card, checks)}
     launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
     launches["poisson_dg_plain"] = dg_plain_path(dev, card, dg_sol, dg_err)
     del dg_sol
+    torch.cuda.empty_cache()
+    launches["poisson_shell"] = general_path(dev, card)
     off_path = {k: v for k, v in launches["poisson_dg_plain"].items()
                 if k.startswith(("brick_kron", "cheb_epilogue")) and v}
     require(not off_path, f"the poisson_dg_plain solves launched {off_path}")
+    off_path = {k: v for k, v in launches["poisson_shell"].items()
+                if k not in SHELL_KERNELS and v}
+    require(not off_path, f"the poisson_shell solves launched {off_path}")
     for path, names in (("poisson_cube", CUBE_KERNELS),
                         ("poisson_dg", DG_KERNELS),
-                        ("poisson_dg_plain", DG_PLAIN_KERNELS)):
+                        ("poisson_dg_plain", DG_PLAIN_KERNELS),
+                        ("poisson_shell", SHELL_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
@@ -669,6 +729,7 @@ def run(dev: torch.device, card: str) -> int:
             kernels[-1].update(residual_ms=res["ms"],
                                residual_plain_ms=res["plain_ms"],
                                residual_bound_ms=res["bound"][0])
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s with the build")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -914,6 +975,133 @@ def dg_plain_path(dev, card, dg_sol, dg_err) -> dict:
         matvec_dg.run(4, "hermite", 6, dtype, dev)
     matvec_dg_cheby.run(4, "gauss", 6, dev)
     solver_dg.run(3, "gauss", 6, 50, dev)
+    return launches
+
+
+def general_path(dev, card) -> dict:
+    """The general-geometry path: the shell anchors, the 1,597,570-dof
+    shell in mixed precision (set-up, FMG and CG best of 3, two CG
+    solutions bit for bit) and in pure double, minimal_surface and
+    ``poisson_cube --deform``; returns the device kernels launched by the
+    mixed-precision shell solves."""
+    from multigrid_tpu_torch.experiments import minimal_surface as ms
+    from multigrid_tpu_torch.experiments import poisson_shell as ps
+    from multigrid_tpu_torch.experiments.poisson_cube import (
+        exact_fn as cube_exact, rhs_fn as cube_rhs)
+    from multigrid_tpu_torch.mesh.shapes import (deformed_cube, hyper_shell,
+                                                 hyper_shell_12)
+    from multigrid_tpu_torch.solvers.multigrid_general import (
+        GeneralMultigridSolver)
+
+    t_path = time.perf_counter()
+    meshes = {"shell6": hyper_shell, "shell12": hyper_shell_12}
+    for (name, n_levels, pd), want in SHELL_ANCHORS.items():
+        s = ps.build_solver(meshes[name](0.5, 1.0, n_levels=n_levels), 3,
+                            pure_double=pd, device=dev)
+        dofs = s.grids[s.maxlevel].n_dofs
+        fmg = s.l2_error(s.maxlevel, s.solve())
+        sol, its, red = s.solve_cg()
+        cg = s.l2_error(s.maxlevel, sol)
+        print(f"shell anchor {name} {n_levels} levels "
+              f"{'pure double' if pd else 'mixed'}: {dofs} dofs, FMG L2 "
+              f"{fmg:.6e}, {its} its, reduction {red:.6f}, CG L2 {cg:.6e} "
+              f"(pinned {want})")
+        require(dofs == want[0], f"shell anchor {name}: {dofs} dofs")
+        require(its == want[2], f"shell anchor {name}: cg_its {its}")
+        for got, w, tol, what in ((fmg, want[1], SHELL_ANCHOR_TOL[0], "FMG L2"),
+                                  (red, want[3], SHELL_ANCHOR_TOL[1],
+                                   "reduction"),
+                                  (cg, want[4], SHELL_ANCHOR_TOL[2], "CG L2")):
+            require(abs(got / w - 1) <= tol,
+                    f"shell anchor {name} {n_levels} pd={pd}: {what} {got}")
+        del s
+
+    launches = None
+    for levels, pd in ((SHELL_LEVELS, False), (PD_LEVELS, True)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        s = ps.build_solver(ps.shell_mesh(2 * (levels - 1)), 4,
+                            pure_double=pd, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        label = "pure double, fourth kind" if pd else "mixed"
+        if not pd:
+            reset_launches()
+        row = ps.run_row(s, verbose=False)
+        if not pd:
+            launches = read_launches()
+            sols = [s.solve_cg()[0] for _ in range(2)]
+            require(torch.equal(*sols), "two CG solves differ")
+            del sols
+        mem = torch.cuda.max_memory_allocated(dev)
+        print(f"shell {levels} levels {label}: {row['dofs']} dofs, "
+              f"{row['cells']} cells, set-up {setup_s:.2f} s, FMG "
+              f"{row['fmg_time']:.4f} s (L2 {row['fmg_L2error']:.6e}), CG "
+              f"{row['cg_time']:.4f} s, {row['cg_its']} its, reduction "
+              f"{row['cg_reduction']:.4f}, CG L2 {row['cg_L2error']:.6e}, "
+              f"coarse Chebyshev degree {s.smoothers[0].degree}, "
+              f"max_memory_allocated {mem} bytes [{card}]")
+        if not pd:
+            print(f"  launches during the mixed shell solves (3 FMG, 3 CG): "
+                  f"{ {k: v for k, v in launches.items() if v} }; two CG "
+                  "solves agree bit for bit")
+        require(abs(row["cg_L2error"] / SHELL_CG_L2[levels] - 1)
+                <= SHELL_CG_L2_TOL,
+                f"shell {levels} levels {label}: CG L2 {row['cg_L2error']}")
+        require(np.isfinite(row["fmg_L2error"])
+                and abs(row["cg_its"] - SHELL_ITS[levels, pd]) <= 1,
+                f"shell {levels} levels {label}: {row}")
+        if not pd:
+            require(abs(row["fmg_L2error"] / SHELL_MIXED[0] - 1)
+                    <= SHELL_ANCHOR_TOL[0]
+                    and abs(row["cg_reduction"] / SHELL_MIXED[1] - 1)
+                    <= SHELL_ANCHOR_TOL[1],
+                    f"shell {levels} levels {label}: {row}")
+        del s
+        torch.cuda.empty_cache()
+
+    # minimal_surface: the card against the CPU, then one degree-4 row
+    runs = {}
+    for where in (dev, "cpu"):
+        newton = ms.MinimalSurfaceNewton(2, 2, where)
+        _, res, cg_total = newton.solve(tol=MS_TOL, max_newton=25,
+                                        verbose=False)
+        runs[str(where)] = (np.array(res), cg_total)
+    (r_gpu, cg_gpu), (r_cpu, cg_cpu) = runs[str(dev)], runs["cpu"]
+    print(f"minimal_surface 2 levels, degree 2: card {len(r_gpu) - 1} Newton "
+          f"steps, {cg_gpu} CG its, |r| {r_gpu[-1]:.3e}; CPU "
+          f"{len(r_cpu) - 1}, {cg_cpu}, {r_cpu[-1]:.3e}")
+    require(len(r_gpu) == len(r_cpu) and cg_gpu == cg_cpu,
+            "minimal_surface: the card's Newton or CG counts differ")
+    diff = np.abs(r_gpu - r_cpu) / np.maximum(r_cpu, MS_TOL)
+    print(f"  residual histories: max relative difference {diff.max():.3e}")
+    require(diff.max() <= MS_AGREE, "minimal_surface residual histories")
+    for r in ms.run_refinement_cycles(*MS_ROW, verbose=False, device=dev):
+        print(f"minimal_surface degree {MS_ROW[2]}, cycle {r['cycle']}: "
+              f"{r['dofs']} dofs, {r['newton_its']} Newton steps, "
+              f"{r['cg_its']} CG its, final |r| {r['final_residual']:.3e}, "
+              f"Newton {r['seconds']:.2f} s [{card}]")
+        require(r["final_residual"] < 1e-12,
+                f"minimal_surface degree 4 cycle {r['cycle']}: {r}")
+
+    # poisson_cube --deform, degree 3
+    errs, itss = [], []
+    for n_levels in (2, 3):
+        s = GeneralMultigridSolver(deformed_cube(2, n_levels=n_levels), 3,
+                                   cube_exact, cube_rhs, device=dev)
+        sol, its, red = s.solve_cg()
+        errs.append(s.l2_error(s.maxlevel, sol))
+        itss.append(its)
+        print(f"deformed cube {n_levels} levels, degree 3: "
+              f"{s.grids[s.maxlevel].n_dofs} dofs, {its} its, reduction "
+              f"{red:.4f}, CG L2 {errs[-1]:.6e}")
+        del s
+    rate = float(np.log2(errs[0] / errs[1]))
+    print(f"  deformed cube L2 rate {rate:.3f} (bar > {DEFORM_RATE}); "
+          f"general path {time.perf_counter() - t_path:.1f} s")
+    require(max(itss) <= DEFORM_ITS and abs(itss[0] - itss[1]) <= 1,
+            f"deformed cube its {itss}")
+    require(rate > DEFORM_RATE, f"deformed cube L2 rate {rate:.3f}")
     return launches
 
 

@@ -30,6 +30,19 @@ For a :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain` it is
 * ``"chebyshev"``: per level, the smoother's ``(theta, delta, degree,
   max_eig, min_eig)``;
 * ``"inv_diag"``: per level, the transformed-Jacobi inverse diagonal.
+
+For a :class:`~.solvers.multigrid_general.GeneralMultigridSolver` it is,
+per level (:func:`general_state` reads it off a JAX solver):
+
+* ``"C_sp"``, ``"C_dp"``: the merged coefficient ``[cells, n, .., n,
+  n_sym]`` of the V-cycle operator and of the f64 operator;
+* ``"inv_diag"``: the V-cycle operator's point-Jacobi inverse diagonal;
+* ``"chebyshev"``: ``(theta, delta, degree, max_eig, min_eig)``;
+* ``"rhs"``, ``"u_bc"``: the f64 right-hand side and boundary data
+  ``[n_dofs]``;
+* ``"cell_nodes"``, ``"boundary"``, ``"jxw"``: the grid's tables, which
+  must equal the port's (``jxw`` to 1e-13 relative): a state built on
+  another numbering or geometry is refused.
 """
 
 from __future__ import annotations
@@ -40,6 +53,10 @@ import torch
 from .ops.laplace import make_diag_coef
 from .ops.laplace_dense import element_matrix
 from .solvers.multigrid_dg import MultigridSolverDGPlain
+from .solvers.multigrid_general import GeneralMultigridSolver
+
+GENERAL_KEYS = ("C_sp", "C_dp", "inv_diag", "chebyshev", "rhs", "u_bc",
+                "cell_nodes", "boundary", "jxw")
 
 
 def _validate(solver, state: dict) -> None:
@@ -134,12 +151,79 @@ def _load_dg_plain_state(solver, state: dict) -> None:
             _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
 
 
+def general_state(solver) -> dict:
+    """The state of a JAX ``GeneralMultigridSolver`` on the flat layout
+    (its CPU configuration) as numpy arrays and floats, in the form
+    :func:`load_state` takes.  Reads attributes only, so this module still
+    imports no JAX."""
+    params = solver._params
+    return {
+        "C_sp": [np.asarray(C) for C in params["C_sp"]],
+        "C_dp": [np.asarray(C) for C in params["C_dp"]],
+        "inv_diag": [np.asarray(d) for d in params["inv_diag"]],
+        "chebyshev": [(float(sm.theta), float(sm.delta), int(sm.degree),
+                       float(sm.max_eig), float(sm.min_eig))
+                      for sm in solver.smoothers],
+        "rhs": [np.asarray(r) for r in solver.rhs],
+        "u_bc": [np.asarray(u) for u in solver.u_bc],
+        "cell_nodes": [np.asarray(g.cell_nodes) for g in solver.grids],
+        "boundary": [np.asarray(g.boundary) for g in solver.grids],
+        "jxw": [np.asarray(g.jxw) for g in solver.grids],
+    }
+
+
+def _load_general_state(solver, state: dict) -> None:
+    L = len(solver.grids)
+    for key in GENERAL_KEYS:
+        if key in state and len(state[key]) != L:
+            raise ValueError(f"state[{key!r}] has {len(state[key])} levels, "
+                             f"the solver {L}")
+    for l, (g, op) in enumerate(zip(solver.grids, solver.ops)):
+        for key in ("cell_nodes", "boundary"):
+            if key in state and not np.array_equal(state[key][l],
+                                                   getattr(g, key)):
+                raise ValueError(f"{key}[{l}] differs from the port's grid")
+        if "jxw" in state:
+            jxw = np.asarray(state["jxw"][l], np.float64)
+            if jxw.shape != g.jxw.shape or not np.allclose(
+                    jxw, g.jxw, rtol=1e-13, atol=0):
+                raise ValueError(f"jxw[{l}] differs from the port's grid")
+        for key in ("C_sp", "C_dp"):
+            if key in state and np.shape(state[key][l]) != tuple(op.C.shape):
+                raise ValueError(f"{key}[{l}]: shape {np.shape(state[key][l])}"
+                                 f" != {tuple(op.C.shape)}")
+        for key in ("inv_diag", "rhs", "u_bc"):
+            if key in state and np.shape(state[key][l]) != op.shape:
+                raise ValueError(f"{key}[{l}]: shape {np.shape(state[key][l])}"
+                                 f" != {op.shape}")
+        if "chebyshev" in state:
+            _check_chebyshev(f"chebyshev[{l}]", state["chebyshev"][l])
+    t = lambda a, dtype: torch.tensor(np.asarray(a), dtype=dtype,
+                                      device=solver.device)
+    for l, (op, dp) in enumerate(zip(solver.ops, solver.ops_dp)):
+        if "C_dp" in state:
+            dp.C = t(state["C_dp"][l], dp.dtype)
+        if "C_sp" in state and op is not dp:
+            op.C = t(state["C_sp"][l], op.dtype)
+        if "inv_diag" in state:
+            op.inv_diag = t(state["inv_diag"][l], op.dtype)
+        if "chebyshev" in state:
+            _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
+        for key in ("rhs", "u_bc"):
+            if key in state:
+                getattr(solver, key)[l] = t(state[key][l], solver.f_dtype)
+
+
 def load_state(solver, state: dict) -> None:
     """Install ``state`` into ``solver`` (a
     :class:`~.solvers.multigrid.MultigridSolver`, a
-    :class:`~.solvers.multigrid_dg.MultigridSolverDG` or a
-    :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain`) in place; the
-    whole state is checked before anything is installed."""
+    :class:`~.solvers.multigrid_dg.MultigridSolverDG`, a
+    :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain` or a
+    :class:`~.solvers.multigrid_general.GeneralMultigridSolver`) in place;
+    the whole state is checked before anything is installed."""
+    if isinstance(solver, GeneralMultigridSolver):
+        _load_general_state(solver, state)
+        return
     if hasattr(solver, "dg_grid"):
         _load_dg_state(solver, state)
         return

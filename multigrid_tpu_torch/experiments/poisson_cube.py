@@ -25,7 +25,9 @@ import torch
 
 from ..devices import driver_device, resolve
 from ..mesh.brick import BrickMesh, doubling_mesh, poisson_cube_mesh
+from ..mesh.shapes import deformed_cube
 from ..solvers.multigrid import MultigridSolver
+from ..solvers.multigrid_general import GeneralMultigridSolver
 from ..utils.tables import print_convergence_table
 from ..utils.timing import LevelTimings, time_call
 
@@ -162,6 +164,41 @@ def run_cycle(mesh: BrickMesh, degree: int, n_cycles: int, n_pre: int,
     return row
 
 
+def run_deformed(args, device) -> list:
+    """The deformed-manifold ladder on the general (mapped-mesh) path
+    (program.cc:405-484, off by default there too): FMG and CG solves with
+    their L2 errors, which converge at the optimal p+1 rate."""
+    rows = []
+    for n_levels in range(2, 9):
+        n_dofs = (2 ** n_levels * 2 * args.degree + 1) ** args.dim
+        if n_dofs < args.minsize:
+            continue
+        if n_dofs > min(args.maxsize, 3_000_000):
+            break
+        s = GeneralMultigridSolver(
+            deformed_cube(2, n_levels=n_levels, dim=args.dim), args.degree,
+            exact_fn, rhs_fn, n_pre=args.n_pre_smooth,
+            n_post=args.n_post_smooth, n_cycles=args.n_mg_cycles,
+            device=device)
+        t0 = time.perf_counter()
+        sol = s.solve()
+        _sync(device)
+        fmg_t = time.perf_counter() - t0
+        fmg_err = s.l2_error(s.maxlevel, sol)
+        t0 = time.perf_counter()
+        sol_cg, its, red = s.solve_cg()
+        _sync(device)
+        cg_t = time.perf_counter() - t0
+        row = dict(cells=s.grids[-1].n_cells, dofs=s.grids[-1].n_dofs,
+                   fmg_time=fmg_t, fmg_L2error=fmg_err, cg_time=cg_t,
+                   cg_its=its, cg_reduction=red,
+                   cg_L2error=s.l2_error(s.maxlevel, sol_cg))
+        print(row)
+        rows.append(row)
+    print_convergence_table(rows, dim=args.dim)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("degree", type=int, nargs="?", default=4)
@@ -175,8 +212,19 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch operators)")
+    ap.add_argument("--deform", action="store_true",
+                    help="sinusoidally deformed cube on the general "
+                         "(mapped-mesh) path (reference MyManifold, "
+                         "program.cc:405-484)")
+    ap.add_argument("--dim", type=int, default=3, choices=[2, 3],
+                    help="dimension of the --deform ladder (the brick "
+                         "ladder is 3-D)")
     args = ap.parse_args(argv)
+    if args.dim != 3 and not args.deform:
+        ap.error("--dim 2 needs --deform: the brick path is 3-D")
     device = driver_device(args.device)
+    if args.deform:
+        return run_deformed(args, device)
 
     rows = []
     for cycle, size in enumerate(SIZES):

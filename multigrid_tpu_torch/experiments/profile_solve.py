@@ -5,12 +5,15 @@ one CUDA device.
         --out chiprun_out/profile_solve.json
     python -m multigrid_tpu_torch.experiments.profile_solve 48 64 --path dg
     python -m multigrid_tpu_torch.experiments.profile_solve 48 --path dg-plain
+    python -m multigrid_tpu_torch.experiments.profile_solve 5 --path shell
 
 For each cube size (``poisson_cube_mesh(size)``, FE_Q(degree)) and each of
 FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
 ``--path dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9);
 with ``--path dg-plain``, the poisson_dg_plain CG (pure-DG h-multigrid, the
-same settings) -- one warm-up
+same settings); with ``--path shell``, poisson_shell's FMG and CG (mixed
+precision, FE_Q(degree), n_pre = n_post = 3) on the 6-block shell with
+``size`` levels -- one warm-up
 run, the best of ``--repeat`` runs without the profiler (host clock around
 ``torch.cuda.synchronize``), then one run under ``torch.profiler``.  From
 that run's trace: the device-busy time (union of kernel, memcpy and memset
@@ -18,11 +21,20 @@ intervals), the idle share (1 - busy / profiled wall, where the profiled
 wall is the host time of that run) and each kernel class's share of the
 summed device-event time, with its event count.  One line per cell is
 printed, and with ``--out`` all numbers go to a JSON file.
+
+The general-geometry path is plain PyTorch, so its kernels carry no name
+of their own.  For ``--path shell`` the operator's and the transfers'
+methods run inside ``torch.profiler.record_function`` ranges
+(:data:`GENERAL_RANGES`) for the profiled run only, and a device event
+launched inside one of them (found through the launch's correlation id)
+falls in that range's class: the operator's gather, scatter, 1-D
+contractions and quadrature-point product, and the transfers.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import time
@@ -33,9 +45,12 @@ import torch
 
 from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
+from ..ops.laplace_general import GeneralLaplace
+from ..ops.transfer_general import GeneralTransfer
 from ..solvers.multigrid import set_full_precision_matmul
 from ..solvers.multigrid_dg import MultigridSolverDG, MultigridSolverDGPlain
 from .poisson_cube import build_solver, exact_fn, rhs_fn
+from . import poisson_shell
 
 # class -> substrings of the demangled kernel name (first match wins; the
 # port's own kernels sit in an anonymous namespace)
@@ -53,6 +68,19 @@ CLASSES = (
     ("fill/copy", ("fill", "copy")),
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# record_function ranges of the general path: (class, method) -> class of
+# the device events launched inside
+GENERAL_RANGES = (
+    (GeneralLaplace, "gather", "op gather"),
+    (GeneralLaplace, "scatter_add", "op scatter"),
+    (GeneralLaplace, "_eval_grads", "op contraction"),
+    (GeneralLaplace, "_integrate_grads", "op contraction"),
+    (GeneralLaplace, "_quad_op", "op quad-point"),
+    (GeneralTransfer, "prolongate", "transfer"),
+    (GeneralTransfer, "restrict", "transfer"),
+)
+# the port's own kernels keep their class inside a range
+OWN_CLASSES = ("brick_kron", "cheb_epilogue", "cg kernels", "dg_")
 
 
 def kernel_class(name: str) -> str:
@@ -74,15 +102,46 @@ def union_seconds(intervals_us) -> float:
     return total / 1e6
 
 
+def launch_ranges(events: list) -> dict:
+    """Correlation id -> the innermost ``user_annotation`` range open on
+    the host when that device event was launched."""
+    points = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        if e.get("cat") == "user_annotation":
+            points.append((e["ts"], 0, e["name"]))
+            points.append((e["ts"] + e["dur"], 2, None))
+        elif (e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})):
+            points.append((e["ts"], 1, e["args"]["correlation"]))
+    out, stack = {}, []
+    for _, kind, payload in sorted(points, key=lambda p: (p[0], p[1])):
+        if kind == 0:
+            stack.append(payload)
+        elif kind == 2:
+            if stack:
+                stack.pop()
+        elif stack:
+            out[payload] = stack[-1]
+    return out
+
+
 def breakdown(events: list, wall_s: float) -> dict:
     """Device-busy seconds, idle share and per-class shares from the
-    ``traceEvents`` of a chrome trace taken over ``wall_s`` seconds."""
+    ``traceEvents`` of a chrome trace taken over ``wall_s`` seconds; a
+    device event launched inside a ``record_function`` range takes the
+    range's name as its class, unless it is one of the port's kernels."""
     dev = [e for e in events
            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     busy = union_seconds([(e["ts"], e["ts"] + e["dur"]) for e in dev])
+    ranges = launch_ranges(events)
     time_us, count = defaultdict(float), defaultdict(int)
     for e in dev:
         cls = kernel_class(e["name"]) if e["cat"] == "kernel" else "fill/copy"
+        rng = ranges.get(e.get("args", {}).get("correlation"))
+        if rng is not None and not cls.startswith(OWN_CLASSES):
+            cls = rng
         time_us[cls] += e["dur"]
         count[cls] += 1
     total = sum(time_us.values()) or 1.0
@@ -93,13 +152,38 @@ def breakdown(events: list, wall_s: float) -> dict:
             "events": {c: count[c] for c in order}}
 
 
-def profile_call(fn, trace: Path) -> dict:
-    """Run ``fn`` once under ``torch.profiler`` and break its trace down."""
+@contextlib.contextmanager
+def general_ranges():
+    """Wrap the methods of :data:`GENERAL_RANGES` in ``record_function``
+    ranges while the context is open."""
+    from torch.profiler import record_function
+
+    saved = []
+    for cls, meth, label in GENERAL_RANGES:
+        fn = getattr(cls, meth)
+        saved.append((cls, meth, fn))
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+
+        setattr(cls, meth, wrapped)
+    try:
+        yield
+    finally:
+        for cls, meth, fn in saved:
+            setattr(cls, meth, fn)
+
+
+def profile_call(fn, trace: Path, annotate: bool = False) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and break its trace down;
+    ``annotate`` opens :func:`general_ranges` for the run."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with general_ranges() if annotate else contextlib.nullcontext(), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -113,14 +197,16 @@ def profile_call(fn, trace: Path) -> dict:
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("sizes", type=int, nargs="+", help="poisson_cube sizes")
+    ap.add_argument("sizes", type=int, nargs="+",
+                    help="poisson_cube sizes (--path shell: shell levels)")
     ap.add_argument("--degree", type=int, default=4)
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
     ap.add_argument("--path", default="cube",
-                    choices=["cube", "dg", "dg-plain"],
+                    choices=["cube", "dg", "dg-plain", "shell"],
                     help="the solve to profile: poisson_cube (FMG and CG), "
-                         "poisson_dg or poisson_dg_plain (CG)")
+                         "poisson_dg or poisson_dg_plain (CG), poisson_shell "
+                         "(FMG and CG)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
@@ -145,6 +231,12 @@ def main(argv=None) -> list:
             dofs = solver.grids[-1].n_dofs
             phases = (("dg-plain cg",
                        lambda: solver.solve_cg(tolerance=1e-9)),)
+        elif args.path == "shell":
+            solver = poisson_shell.build_solver(
+                poisson_shell.shell_mesh(2 * (size - 1)), args.degree,
+                device=dev)
+            dofs = solver.grids[solver.maxlevel].n_dofs
+            phases = (("shell fmg", solver.solve), ("shell cg", solver.solve_cg))
         else:
             solver = build_solver(poisson_cube_mesh(size), args.degree,
                                   device=dev)
@@ -161,7 +253,7 @@ def main(argv=None) -> list:
                 walls.append(time.perf_counter() - t0)
             cell = {"size": size, "dofs": dofs, "phase": phase,
                     "wall_s": min(walls), "walls_s": walls, "card": card,
-                    **profile_call(fn, trace)}
+                    **profile_call(fn, trace, args.path == "shell")}
             cells.append(cell)
             shares = ", ".join(f"{c} {s:.3f}" for c, s in cell["share"].items())
             print(f"size {size} ({dofs} dofs) {phase}: wall {cell['wall_s']:.6f} s"

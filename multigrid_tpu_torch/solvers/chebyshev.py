@@ -1,6 +1,6 @@
 """Chebyshev smoother with CG-Lanczos eigenvalue estimation.
 
-Twin of ``multigrid_tpu/solvers/chebyshev.py`` (first kind), with deal.II
+Twin of ``multigrid_tpu/solvers/chebyshev.py``, with deal.II
 ``PreconditionChebyshev`` semantics (reference
 common/multigrid_solver.h:268-291):
 
@@ -11,10 +11,14 @@ common/multigrid_solver.h:268-291):
   derive from it, so the interval ratio equals ``smoothing_range``
   (smoothing, range > 1), or ``[min(0.9 max, min_est), 1.2 max]`` with an
   automatic degree (Chebyshev as coarse solver, range 1e-3);
-* ``degree = n_pre`` literally: ``vmult`` makes ``degree + 1`` diagonal
-  scalings and ``degree`` operator applications.
+* first kind (``FIRST_KIND``): ``degree = n_pre`` literally, ``vmult``
+  makes ``degree + 1`` diagonal scalings and ``degree`` operator
+  applications;
+* fourth kind (``FOURTH_KIND``, Phillips/Lottes; the pure-double solver
+  specialization, reference common/multigrid_solver.h:945-963): ``degree``
+  preconditioner applications with the bound ``rho = 1.2 max_eig``.
 
-The smoother takes either kind of level operator through one method,
+The smoother takes any kind of level operator through one method,
 ``op.cheb_step(b, x, x_old, f1, f2, out)`` = ``x + f1 (x - x_old) +
 f2 P^-1 (b - A x)`` (``x``/``x_old`` None read as zero):
 
@@ -24,12 +28,19 @@ f2 P^-1 (b - A x)`` (``x``/``x_old`` None read as zero):
   block of the node-centric kernel); with ``x = None`` one
   ``cheb_epilogue`` (no A x);
 * :class:`~..ops.dg_kernel.DGOperator` (DG smoother): one ``dg_cheb``
-  kernel, A x and the transformed-Jacobi P fused into the pass.
+  kernel, A x and the transformed-Jacobi P fused into the pass;
+* :class:`~..ops.laplace_general.GeneralLaplace` (mapped meshes): plain
+  PyTorch, P the point Jacobi diagonal.
 
-The update writes into the dead ``x_old`` buffer (in place, one vector
-saved per step).  The Lanczos estimate takes the preconditioner as a
-callable (``precond``: the brick's ``inv_diag.mul``, the DG smoother's
-``JacobiTransformed.vmult``).  The fourth kind is not ported yet.
+Both kinds are this one step with other factors.  The fourth kind's
+recurrence ``dx_k = a_k dx_{k-1} + c_k P r_{k-1}``, ``x_k = x_{k-1} +
+dx_k`` is ``cheb_step(b, x_{k-1}, x_{k-2}, a_k, c_k)``, since
+``dx_{k-1} = x_{k-1} - x_{k-2}`` and ``r_{k-1} = b - A x_{k-1}``; the JAX
+twin carries the residual by its own recurrence instead, which agrees to
+rounding.  The update writes into the dead ``x_old`` buffer (in place, one
+vector saved per step).  The Lanczos estimate takes the preconditioner as
+a callable (``precond``: the brick's ``inv_diag.mul``, the DG smoother's
+``JacobiTransformed.vmult``).
 """
 
 from __future__ import annotations
@@ -39,6 +50,9 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+FIRST_KIND = "first_kind"
+FOURTH_KIND = "fourth_kind"
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -111,9 +125,11 @@ def estimate_eigenvalues(vmult: Callable, precond: Callable,
 
 
 def interval_from_spectrum(max_eig: float, min_eig: float,
-                           smoothing_range: float, degree: Optional[int]):
+                           smoothing_range: float, degree: Optional[int],
+                           kind: str = FIRST_KIND):
     """deal.II interval + degree conventions; returns (theta, delta, n_apps)
-    with n_apps = degree + 1 preconditioner applications (first kind)."""
+    with n_apps preconditioner applications: degree + 1 for the first
+    kind, degree for the fourth."""
     max_est = 1.2 * max_eig
     if smoothing_range > 1.0:
         alpha_lb = max_est / smoothing_range
@@ -126,7 +142,7 @@ def interval_from_spectrum(max_eig: float, min_eig: float,
         eps = smoothing_range
         degree = int(1 + np.log(1.0 / eps + np.sqrt(1.0 / eps / eps - 1.0))
                      / np.log(1.0 / sigma))
-    n_apps = int(degree) + 1
+    n_apps = int(degree) + 1 if kind == FIRST_KIND else int(degree)
     theta = 0.5 * (max_est + alpha_lb)
     delta = 0.5 * (max_est - alpha_lb)
     return float(theta), float(delta), n_apps
@@ -134,8 +150,9 @@ def interval_from_spectrum(max_eig: float, min_eig: float,
 
 @dataclass
 class Chebyshev:
-    """First-kind Chebyshev smoother bound to one level's operator (a
-    ``BrickLaplace`` or a ``DGOperator``: ``vmult`` and ``cheb_step``)."""
+    """Chebyshev smoother bound to one level's operator (``vmult`` and
+    ``cheb_step``: a ``BrickLaplace``, a ``DGOperator`` or a
+    ``GeneralLaplace``)."""
 
     op: object
     theta: float
@@ -143,13 +160,14 @@ class Chebyshev:
     degree: int
     max_eig: float
     min_eig: float
+    kind: str = FIRST_KIND
 
     @staticmethod
     def create(op, precond: Callable, smoothing_range: float,
                degree: Optional[int],
                eig_cg_n_iterations: int) -> "Chebyshev":
         """Estimate the spectrum of ``P^-1 A`` and fix the interval and
-        degree; ``P^-1 r`` is ``precond(r)``."""
+        degree of a first-kind smoother; ``P^-1 r`` is ``precond(r)``."""
         rhs0 = eig_estimate_start_vector(op.shape, op.dtype, op.device)
         max_eig, min_eig = estimate_eigenvalues(
             op.vmult, precond, eig_cg_n_iterations, rhs0)
@@ -157,26 +175,40 @@ class Chebyshev:
             max_eig, min_eig, smoothing_range, degree)
         return Chebyshev(op, theta, delta, n_apps, max_eig, min_eig)
 
-    def _loop(self, x, x_old, b, x_old_owned: bool):
+    def _factors(self):
+        """(f1, f2) of each step after the first."""
+        if self.kind == FOURTH_KIND:
+            rho = 1.2 * self.max_eig
+            for k in range(2, self.degree + 1):
+                yield ((2.0 * k - 3.0) / (2.0 * k + 1.0),
+                       (8.0 * k - 4.0) / ((2.0 * k + 1.0) * rho))
+            return
         th, de = self.theta, self.delta
         rho = de / th
         for _ in range(self.degree - 1):
             rho_new = 1.0 / (2.0 * th / de - rho)
-            f1 = rho_new * rho
-            f2 = 2.0 * rho_new / de
+            yield rho_new * rho, 2.0 * rho_new / de
+            rho = rho_new
+
+    def _first_f2(self) -> float:
+        if self.kind == FOURTH_KIND:
+            return (4.0 / 3.0) / (1.2 * self.max_eig)
+        return 1.0 / self.theta
+
+    def _loop(self, x, x_old, b, x_old_owned: bool):
+        for f1, f2 in self._factors():
             out = x_old if x_old_owned else None
             x, x_old = self.op.cheb_step(b, x, x_old, f1, f2, out=out), x
             x_old_owned = True
-            rho = rho_new
         return x
 
     def vmult(self, b: torch.Tensor) -> torch.Tensor:
         """dst = Cheb(A, P) b with zero initial guess."""
-        x = self.op.cheb_step(b, None, None, 0.0, 1.0 / self.theta)
+        x = self.op.cheb_step(b, None, None, 0.0, self._first_f2())
         return self._loop(x, None, b, x_old_owned=False)
 
     def step(self, x0: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One smoothing pass starting from ``x0`` (deal.II ``step``);
         ``x0`` is not modified."""
-        x = self.op.cheb_step(b, x0, None, 0.0, 1.0 / self.theta)
+        x = self.op.cheb_step(b, x0, None, 0.0, self._first_f2())
         return self._loop(x, x0, b, x_old_owned=False)
