@@ -4,7 +4,7 @@
 
 Builds the hand-written kernels of ``multigrid_tpu_torch/csrc`` from the
 sources, holds every kernel against its plain PyTorch version on the card,
-then drives the port's three paths and checks each against the reference's
+then drives the port's six paths and checks each against the reference's
 convergence rows:
 
 * poisson_cube (FE_Q(4), 3-D brick, f32 V-cycle inside f64 FMG and
@@ -32,7 +32,25 @@ convergence rows:
   pure double with fourth-kind Chebyshev (:data:`PD_LEVELS` levels);
   minimal_surface (Newton, 2-D disc) at 2 levels, degree 2, against the
   same solve on the CPU, and one degree-4 row; ``poisson_cube --deform``
-  at 2 and 3 levels, degree 3.
+  at 2 and 3 levels, degree 3;
+* the curved DG-plain path (``poisson_dg_plain --deform 0.05``: per-point
+  geometry, plain PyTorch levels, the outer f64 CG on the CG kernels): the
+  512- and 4096-dof rows of every element type, p = 3, on the card against
+  the CPU and the JAX driver's anchors; hermite p = 4 at size 48,
+  13,824,000 DG dofs, five levels, rate < 0.35, its frac its those of
+  the first card run and its L2 the affine DG-plain row's, with its set-up
+  seconds and peak memory; one ``matvec_dg --impl curved`` row in f64 and
+  f32;
+* poisson_l (adaptive hanging-node meshes, FE_Q(2), plain PyTorch with
+  deterministic scatters, the outer f64 CG on the CG kernels): the four
+  ``--initial 5`` anchor cycles on the card, each forest also solved on
+  the CPU, and whether the card's Kelly marking parts from the CPU's; the
+  adaptive rows from ``--initial 8`` until one passes 1,000,000 dofs, each
+  row's iterations and reduction those of the first card run, the top
+  row's CG solution bit for bit the same in three solves; a ``--dim 3
+  --initial 3`` cycle pair; a ``--local-smoothing --initial 7`` row
+  (197,633 dofs).  The CG kernels are held against their plain versions
+  at the vector lengths these two paths give them.
 
 ``brick_kron`` (float and double, every mode) and the DG pencil kernels
 (``dg_apply`` and ``dg_residual`` in float and double, ``dg_cheb<float>``)
@@ -43,7 +61,7 @@ and the face-based one (``ops/dg_face.py``).
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
-with the kernels (device kernels launched during the four paths' solves,
+with the kernels (device kernels launched during the six paths' solves,
 as a trace
 counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
 call 1; ``launches`` sums the paths, ``launches_by_path`` gives each; the rows ``brick_kron<float>``, ``brick_kron<double>``,
@@ -186,6 +204,53 @@ DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
 DG_PLAIN_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
                     "cg_update", "cg_dot", "cg_xpay"]
 SHELL_KERNELS = ["cg_update", "cg_dot", "cg_xpay"]
+CG_KERNELS = SHELL_KERNELS   # the curved DG and poisson_l paths: no others
+
+# the curved DG-plain path (poisson_dg_plain --deform 0.05, hermite, n_pre
+# 3): its rows at 512 and 4096 DG dofs, p = 3, rtol 1e-10 -- the JAX
+# driver's on the CPU, kind -> ((frac its, L2) per size) -- held on the card
+# against the port on the CPU and against these: iterations within one,
+# frac its and L2 to 1%
+CURVED_FACTOR = 0.05
+CURVED_ANCHORS = {
+    "hermite": ((11.3659, 1.5964e-1), (11.1031, 1.0396e-1)),
+    "gll": ((10.8137, 1.5964e-1), (10.8945, 1.0396e-1)),
+    "gauss": ((10.4466, 1.5964e-1), (11.1137, 1.0396e-1)),
+}
+CURVED_AGREE = 0.01
+# the full-width row: hermite p = 4 at size 48 (13,824,000 DG dofs, five
+# levels), rtol 1e-9, rate below the bar of tests/test_dg_curved.py:150-174,
+# frac its within one of the first card run's (9.9819), L2 the affine
+# DG-plain row's of the same run to CURVED_L2_AGREE (the Dirichlet plateau:
+# the two agreed to 7 printed digits on the first card run); a smaller
+# even size only when the host set-up at 48 would pass CURVED_SETUP_LIMIT
+# seconds (none so far)
+CURVED_SIZE = 48
+CURVED_RATE = 0.35
+CURVED_ITS = 9.98
+CURVED_L2_AGREE = 1e-5
+CURVED_SETUP_LIMIT = 150.0
+# poisson_l (2-D, FE_Q(2), global coarsening, rtol 1e-9): the first four
+# cycles of --initial 5 (the JAX driver's rows on the CPU: dofs,
+# constraints, its, reduction, val_L2), run on the card and on the CPU on
+# the card's forest each cycle (iterations within one, val_L2 to 1%) and,
+# while the card's meshes are the JAX driver's, against these (dofs and
+# constraints exact, iterations within one, reduction and val_L2 to 1%);
+# the top rows from --initial 8 until one passes L_TOP_DOFS, below
+# poisson_l's --max-dofs ceiling L_MAX_DOFS, each row's (iterations,
+# reduction) those of the first card run (788,481 and 1,121,717 dofs):
+# iterations within one, reduction to L_TOP_AGREE; one --dim 3 --initial 3
+# cycle pair; one --local-smoothing row at --initial 7 (197,633 dofs)
+L_ANCHORS = [(12545, 0, 8, 0.06868, 1.1102e-4),
+             (17865, 288, 8, 0.06927, 4.3601e-5),
+             (24975, 1632, 8, 0.06922, 1.7189e-5),
+             (35161, 3764, 8, 0.06910, 6.7952e-6)]
+L_AGREE = 0.01
+L_TOP_INITIAL, L_TOP_DOFS, L_MAX_DOFS = 8, 1_000_000, 2_000_000
+L_TOP_ROWS = [(8, 0.06933), (8, 0.06912)]
+L_TOP_AGREE = 0.03
+L_ITS = 10              # the bar of tests/test_adaptive.py on every row
+L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -622,7 +687,7 @@ def brick(cells, degree):
 
 
 def run(dev: torch.device, card: str, t_start: float) -> int:
-    """Phases 2 to 6 on ``dev``: kernel checks, then the four paths."""
+    """Phases 2 to 8 on ``dev``: kernel checks, then the six paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
@@ -692,24 +757,33 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
 
-    # phases 3 to 6: the four paths, each with the counters zeroed just
+    # phases 3 to 8: the six paths, each with the counters zeroed just
     # before it and read just after
     launches = {"poisson_cube": cube_path(dev, card, checks)}
     launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
-    launches["poisson_dg_plain"] = dg_plain_path(dev, card, dg_sol, dg_err)
+    launches["poisson_dg_plain"], plain_err = dg_plain_path(dev, card, dg_sol,
+                                                            dg_err)
     del dg_sol
     torch.cuda.empty_cache()
     launches["poisson_shell"] = general_path(dev, card)
+    torch.cuda.empty_cache()
+    launches["poisson_dg_plain_curved"] = dg_curved_path(dev, card, checks,
+                                                         plain_err)
+    torch.cuda.empty_cache()
+    launches["poisson_l"] = l_path(dev, card, checks)
     off_path = {k: v for k, v in launches["poisson_dg_plain"].items()
                 if k.startswith(("brick_kron", "cheb_epilogue")) and v}
     require(not off_path, f"the poisson_dg_plain solves launched {off_path}")
-    off_path = {k: v for k, v in launches["poisson_shell"].items()
-                if k not in SHELL_KERNELS and v}
-    require(not off_path, f"the poisson_shell solves launched {off_path}")
+    for path in ("poisson_shell", "poisson_dg_plain_curved", "poisson_l"):
+        off_path = {k: v for k, v in launches[path].items()
+                    if k not in CG_KERNELS and v}
+        require(not off_path, f"the {path} solves launched {off_path}")
     for path, names in (("poisson_cube", CUBE_KERNELS),
                         ("poisson_dg", DG_KERNELS),
                         ("poisson_dg_plain", DG_PLAIN_KERNELS),
-                        ("poisson_shell", SHELL_KERNELS)):
+                        ("poisson_shell", SHELL_KERNELS),
+                        ("poisson_dg_plain_curved", CG_KERNELS),
+                        ("poisson_l", CG_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
@@ -886,7 +960,8 @@ def dg_plain_path(dev, card, dg_sol, dg_err) -> dict:
     pinned 3-D anchors, the size-48 solve (best of 3 after set-up) against
     poisson_dg's solution ``dg_sol`` and L2 error ``dg_err``, the
     variable-coefficient L2 order and one row of each DG benchmark driver;
-    returns the device kernels launched by the size-48 solves."""
+    returns the device kernels launched by the size-48 solves and their L2
+    error."""
     from multigrid_tpu_torch.experiments import (matvec_dg, matvec_dg_cheby,
                                                  solver_dg)
     from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
@@ -975,7 +1050,7 @@ def dg_plain_path(dev, card, dg_sol, dg_err) -> dict:
         matvec_dg.run(4, "hermite", 6, dtype, dev)
     matvec_dg_cheby.run(4, "gauss", 6, dev)
     solver_dg.run(3, "gauss", 6, 50, dev)
-    return launches
+    return launches, err
 
 
 def general_path(dev, card) -> dict:
@@ -1102,6 +1177,220 @@ def general_path(dev, card) -> dict:
     require(max(itss) <= DEFORM_ITS and abs(itss[0] - itss[1]) <= 1,
             f"deformed cube its {itss}")
     require(rate > DEFORM_RATE, f"deformed cube L2 rate {rate:.3f}")
+    return launches
+
+
+def dg_curved_path(dev, card, checks, plain_err: float) -> dict:
+    """poisson_dg_plain --deform: the small rows on the card against the
+    CPU and the JAX anchors, the full-width solve (set-up, best of 3 CG
+    solves, rate, frac its, L2 against the affine row's ``plain_err``,
+    peak memory), the CG kernels at its vector length and one matvec_dg
+    --impl curved row in each precision; returns the device kernels
+    launched by the full-width solves."""
+    from multigrid_tpu_torch.experiments import matvec_dg
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.experiments.poisson_dg_plain import deform_chart
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    t_path = time.perf_counter()
+
+    def build(size, where, degree, kind):
+        mesh = poisson_cube_mesh(size)
+        return MultigridSolverDGPlain(mesh, degree, exact_fn, rhs_fn,
+                                      kind=kind, n_pre=3, n_post=3,
+                                      device=where,
+                                      mapping=deform_chart(mesh,
+                                                           CURVED_FACTOR))
+
+    for kind, anchors in CURVED_ANCHORS.items():
+        for size, (a_its, a_l2) in zip((2, 4), anchors):
+            got = {}
+            for where in (dev, "cpu"):
+                s = build(size, where, 3, kind)
+                sol, its, rate = s.solve_cg(tolerance=1e-10)
+                got[str(where)] = (its, s.l2_error(sol, s.exact_quad))
+                del s, sol
+            (its, l2), (c_its, c_l2) = got[str(dev)], got["cpu"]
+            print(f"curved DG-plain {kind} {size ** 3 * 64} DG dofs p=3: "
+                  f"card frac its {its:.4f}, L2 {l2:.6e}; CPU {c_its:.4f}, "
+                  f"{c_l2:.6e}; JAX CPU {a_its}, {a_l2}")
+            for ref_its, ref_l2, what in ((c_its, c_l2, "CPU"),
+                                          (a_its, a_l2, "JAX anchor")):
+                require(abs(np.ceil(its) - np.ceil(ref_its)) <= 1
+                        and abs(its / ref_its - 1) <= CURVED_AGREE
+                        and abs(l2 / ref_l2 - 1) <= CURVED_AGREE,
+                        f"curved {kind} size {size}: card ({its}, {l2}) vs "
+                        f"{what} ({ref_its}, {ref_l2})")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build(CURVED_SIZE, dev, 4, "hermite")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"curved DG-plain set-up: {setup_s:.2f} s for "
+          f"{solver.grids[-1].n_dofs} DG dofs, levels "
+          f"{[g.cells[0] for g in solver.grids]} cells per axis, coarse "
+          f"Chebyshev degree {solver.smoothers[0].degree} [{card}]")
+    require(setup_s <= CURVED_SETUP_LIMIT,
+            f"curved set-up {setup_s:.1f} s at size {CURVED_SIZE}")
+    reset_launches()
+    cg_s = []
+    sol = None
+    for _ in range(3):
+        sol = None
+        t0 = time.perf_counter()
+        sol, frac_its, rate = solver.solve_cg(tolerance=DG_RTOL)
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    err = solver.l2_error(sol, solver.exact_quad)
+    mem = torch.cuda.max_memory_allocated(dev)
+    n_dofs = solver.grids[-1].n_dofs
+    print(f"curved DG-plain cg at {n_dofs} DG dofs: "
+          f"{min(cg_s):.4f} s (runs {', '.join(f'{t:.4f}' for t in cg_s)}), "
+          f"frac its {frac_its:.4f}, rate {rate:.4e}, L2 {err:.9e} (affine "
+          f"{plain_err:.9e}, relative difference "
+          f"{abs(err / plain_err - 1):.3e}), set-up {setup_s:.2f} s, "
+          f"max_memory_allocated {mem} bytes [{card}]")
+    print(f"  launches during the curved solves (3 CG): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    require(sol.shape == solver.grids[-1].shape
+            and bool(torch.isfinite(sol).all()), "curved solution not finite")
+    require(rate < CURVED_RATE, f"curved DG-plain rate {rate:.4e}")
+    require(abs(frac_its - CURVED_ITS) <= 1,
+            f"curved DG-plain frac its {frac_its:.4f} vs {CURVED_ITS}")
+    require(abs(err / plain_err - 1) <= CURVED_L2_AGREE,
+            f"curved DG-plain L2 {err:.9e} vs affine {plain_err:.9e}")
+    del solver, sol
+    torch.cuda.empty_cache()
+    # the CG kernels against their plain versions at this path's length
+    checks.cg_checks(n_dofs, False)
+    torch.cuda.synchronize()
+    print(f"  CG kernel checks passed at {n_dofs} entries")
+
+    # one matvec_dg --impl curved row in each precision (each holds its
+    # result against the face-based operator at its bar and raises)
+    for dtype in (torch.float64, torch.float32):
+        matvec_dg.run(4, "hermite", 15, dtype, dev, impl="curved")
+    print(f"  curved DG path {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def l_path(dev, card, checks) -> dict:
+    """poisson_l: the anchor cycles on the card against the CPU on the
+    card's forest, the top rows past 1,000,000 dofs (two CG solves bit for
+    bit), the 3-D cycle pair and a local-smoothing row, then the CG kernels
+    against their plain versions at every length the path gave them;
+    returns the device kernels launched by the path's solves."""
+    from multigrid_tpu_torch.experiments import poisson_l as pl
+
+    t_path = time.perf_counter()
+    reset_launches()
+
+    def show(label, row):
+        print(f"poisson_l {label}: {row['cells']} cells, {row['dofs']} dofs, "
+              f"{row['constraints']} constraints, {row['solver_its']} its, "
+              f"reduction {row['reduction']:.5f}, val_L2 {row['val_L2']:.6e}, "
+              f"grad_L2 {row['grad_L2']:.6e}, estimator "
+              f"{row['estimator']:.6e}, set-up {row['setup_time']:.2f} s, "
+              f"solve {row['solve_time']:.4f} s, max_memory_allocated "
+              f"{row.get('peak_bytes', '-')} bytes [{card}]", flush=True)
+
+    # the anchor cycles: the card's AMR loop, each forest also solved on
+    # the CPU; the CPU's own loop is followed alongside to see from which
+    # cycle the two refine different cells (Kelly ties round differently)
+    lengths = set()
+    forest = pl.l_forest(5)
+    first_diff = None
+    for cycle, want in enumerate(L_ANCHORS):
+        row, _, eta2, _ = pl.run_cycle(forest, 2, device=dev)
+        lengths.add(row["dofs"])
+        c_row, _, c_eta2, _ = pl.run_cycle(forest, 2, device="cpu")
+        show(f"--initial 5 cycle {cycle} (card)", row)
+        print(f"  CPU on the same forest: {c_row['solver_its']} its, "
+              f"reduction {c_row['reduction']:.5f}, val_L2 "
+              f"{c_row['val_L2']:.6e}; JAX anchor {want}")
+        require(abs(row["solver_its"] - c_row["solver_its"]) <= 1
+                and abs(row["val_L2"] / c_row["val_L2"] - 1) <= L_AGREE,
+                f"poisson_l cycle {cycle}: card {row} vs CPU {c_row}")
+        if first_diff is None:
+            require((row["dofs"], row["constraints"]) == want[:2]
+                    and abs(row["solver_its"] - want[2]) <= 1
+                    and abs(row["reduction"] / want[3] - 1) <= L_AGREE
+                    and abs(row["val_L2"] / want[4] - 1) <= L_AGREE,
+                    f"poisson_l cycle {cycle}: {row} vs anchor {want}")
+        nxt = pl.refine_and_coarsen_fixed_number(forest, eta2, 0.15, 0.03)
+        c_nxt = pl.refine_and_coarsen_fixed_number(forest, c_eta2, 0.15, 0.03)
+        if first_diff is None and c_nxt.active != nxt.active:
+            first_diff = cycle + 1
+        forest = nxt
+    print(f"  card and CPU Kelly marking: "
+          f"{'the same meshes through cycle ' + str(len(L_ANCHORS) - 1) if first_diff is None else f'different meshes from cycle {first_diff} on'}")
+
+    # the top rows, adaptive from --initial 8
+    forest = pl.l_forest(L_TOP_INITIAL)
+    prev = None
+    for k in range(len(L_TOP_ROWS)):
+        row, sol, eta2, s = pl.run_cycle(forest, 2, device=dev)
+        lengths.add(row["dofs"])
+        if prev is not None:
+            row["transfer_rel_diff"] = pl.transfer_rel_diff(s.grids[-1],
+                                                            *prev, sol)
+        show(f"--initial {L_TOP_INITIAL} ({len(s.grids)} levels)", row)
+        its, red = L_TOP_ROWS[k]
+        require(abs(row["solver_its"] - its) <= 1
+                and abs(row["reduction"] / red - 1) <= L_TOP_AGREE
+                and np.isfinite(row["val_L2"])
+                and bool(torch.isfinite(sol).all())
+                and row["dofs"] <= L_MAX_DOFS,
+                f"poisson_l top row {k}: {row} vs ({its}, {red})")
+        if row["dofs"] > L_TOP_DOFS:
+            sols = [s.solve_cg()[0] for _ in range(2)]
+            require(torch.equal(*sols) and torch.equal(sols[0], sol),
+                    "two poisson_l CG solves differ")
+            print(f"  three CG solves at {row['dofs']} dofs agree bit for "
+                  "bit")
+            break
+        prev = (s.grids[-1], sol)
+        del s
+        forest = pl.refine_and_coarsen_fixed_number(forest, eta2, 0.15, 0.03)
+    require(row["dofs"] > L_TOP_DOFS,
+            f"poisson_l: no row past {L_TOP_DOFS} dofs in {len(L_TOP_ROWS)}")
+    del s, sol, prev
+    torch.cuda.empty_cache()
+
+    # the 3-D extruded L, one cycle pair
+    forest = pl.l_forest(3, 3)
+    rows = []
+    for cycle in range(2):
+        row, _, eta2, _ = pl.run_cycle(forest, 2, device=dev)
+        lengths.add(row["dofs"])
+        show(f"--dim 3 --initial 3 cycle {cycle}", row)
+        rows.append(row)
+        forest = pl.refine_and_coarsen_fixed_number(forest, eta2, 0.15, 0.03)
+    require(all(r["solver_its"] <= L_ITS for r in rows)
+            and rows[1]["constraints"] > 0
+            and rows[1]["val_L2"] < rows[0]["val_L2"],
+            f"poisson_l --dim 3: {rows}")
+
+    # the reference's preconditioner: local smoothing
+    row, *_ = pl.run_cycle(pl.l_forest(L_LOCAL_INITIAL), 2,
+                           local_smoothing=True, device=dev)
+    show(f"--local-smoothing --initial {L_LOCAL_INITIAL}", row)
+    require(row["dofs"] == L_LOCAL_DOFS and row["solver_its"] <= L_ITS,
+            f"poisson_l --local-smoothing: {row}")
+    launches = read_launches()
+    lengths.add(row["dofs"])
+    print(f"  launches during the poisson_l path: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+
+    # the CG kernels against their plain versions at every solve length
+    for n in sorted(lengths):
+        checks.cg_checks(n, False)
+    torch.cuda.synchronize()
+    print(f"  CG kernel checks passed at {sorted(lengths)} entries; "
+          f"poisson_l path {time.perf_counter() - t_path:.1f} s")
     return launches
 
 

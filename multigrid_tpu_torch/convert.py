@@ -43,6 +43,28 @@ per level (:func:`general_state` reads it off a JAX solver):
 * ``"cell_nodes"``, ``"boundary"``, ``"jxw"``: the grid's tables, which
   must equal the port's (``jxw`` to 1e-13 relative): a state built on
   another numbering or geometry is refused.
+
+A curved :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain`
+(``mapping``) takes the DG-plain state as it is: its levels keep their
+transformed-Jacobi inverse diagonals in the same ``jacobis`` and their
+smoothers in ``smoothers``.
+
+For an :class:`~.solvers.multigrid_adaptive.AdaptiveMultigridSolver`
+(global coarsening; the levels are its ``grids``) or a
+:class:`~.solvers.multigrid_local.LocalSmoothingMultigrid` (the levels are
+its level meshes), :func:`adaptive_state` reads, as plain numpy:
+
+* ``"chebyshev"``: per level, ``(theta, delta, degree, max_eig, min_eig)``;
+* ``"inv_diag"``: per level, the smoother's inverse diagonal ``[n_dofs]``
+  (for local smoothing the one with the constrained rows set to 1);
+* ``"rhs"``, ``"u_bc"``: the f64 right-hand side and Dirichlet data of the
+  finest (global) grid;
+* ``"gidx"``, ``"gw"``, ``"boundary"``: per level, the grid's gather tables
+  and Dirichlet mask, which must equal the port's (``gw`` to 1e-14): a
+  state built on another numbering is refused.
+
+:func:`adaptive_forest` turns a JAX ``Forest`` into the port's, so that both
+packages can run on one mesh.
 """
 
 from __future__ import annotations
@@ -52,11 +74,14 @@ import torch
 
 from .ops.laplace import make_diag_coef
 from .ops.laplace_dense import element_matrix
+from .mesh.adaptive import Cell, Forest, OctForest, QuadForest
+from .solvers.multigrid_adaptive import AdaptiveSystem
 from .solvers.multigrid_dg import MultigridSolverDGPlain
 from .solvers.multigrid_general import GeneralMultigridSolver
 
 GENERAL_KEYS = ("C_sp", "C_dp", "inv_diag", "chebyshev", "rhs", "u_bc",
                 "cell_nodes", "boundary", "jxw")
+ADAPTIVE_LEVEL_KEYS = ("chebyshev", "inv_diag", "gidx", "gw", "boundary")
 
 
 def _validate(solver, state: dict) -> None:
@@ -214,13 +239,95 @@ def _load_general_state(solver, state: dict) -> None:
                 getattr(solver, key)[l] = t(state[key][l], solver.f_dtype)
 
 
+def adaptive_forest(forest) -> Forest:
+    """The port's forest of a JAX ``Forest``: the same root lattice and
+    active cells (attributes only, so no JAX import)."""
+    cls = OctForest if forest.dim == 3 else QuadForest
+    return cls(forest.root_cells, forest.origin, forest.extent,
+               active=[Cell(c.level, c.ix, c.iy, c.iz)
+                       for c in forest.active])
+
+
+def _adaptive_levels(solver):
+    """(grids, inverse diagonals' owners) of either adaptive solver."""
+    levels = getattr(solver, "levels", None)
+    if levels is not None:
+        return [lv.grid for lv in levels], levels
+    return solver.grids, solver.ops
+
+
+def adaptive_state(solver) -> dict:
+    """The state of a JAX ``AdaptiveMultigridSolver`` or
+    ``LocalSmoothingMultigrid`` as numpy arrays and floats, in the form
+    :func:`load_state` takes."""
+    grids, owners = _adaptive_levels(solver)
+    inv = [np.asarray(o._inv_diag if hasattr(o, "_inv_diag")
+                      else o.inv_diag_arr) for o in owners]
+    return {
+        "chebyshev": [(float(sm.theta), float(sm.delta), int(sm.degree),
+                       float(sm.max_eig), float(sm.min_eig))
+                      for sm in solver.smoothers],
+        "inv_diag": inv,
+        "rhs": np.asarray(solver.rhs),
+        "u_bc": np.asarray(solver.u_bc),
+        "gidx": [np.asarray(g.gidx) for g in grids],
+        "gw": [np.asarray(g.gw) for g in grids],
+        "boundary": [np.asarray(g.boundary) for g in grids],
+    }
+
+
+def _load_adaptive_state(solver, state: dict) -> None:
+    grids, owners = _adaptive_levels(solver)
+    L = len(grids)
+    for key in ADAPTIVE_LEVEL_KEYS:
+        if key in state and len(state[key]) != L:
+            raise ValueError(f"state[{key!r}] has {len(state[key])} levels, "
+                             f"the solver {L}")
+    for l, g in enumerate(grids):
+        for key in ("gidx", "boundary"):
+            if key in state and not np.array_equal(state[key][l],
+                                                   getattr(g, key)):
+                raise ValueError(f"{key}[{l}] differs from the port's grid")
+        if "gw" in state:
+            gw = np.asarray(state["gw"][l], np.float64)
+            if gw.shape != g.gw.shape or not np.allclose(gw, g.gw, rtol=0,
+                                                         atol=1e-14):
+                raise ValueError(f"gw[{l}] differs from the port's grid")
+        if "inv_diag" in state and np.shape(state["inv_diag"][l]) != (
+                g.n_dofs,):
+            raise ValueError(f"inv_diag[{l}]: shape "
+                             f"{np.shape(state['inv_diag'][l])} != "
+                             f"{(g.n_dofs,)}")
+        if "chebyshev" in state:
+            _check_chebyshev(f"chebyshev[{l}]", state["chebyshev"][l])
+    n = solver.op_dp.n_dofs
+    for key in ("rhs", "u_bc"):
+        if key in state and np.shape(state[key]) != (n,):
+            raise ValueError(f"{key}: shape {np.shape(state[key])} != {(n,)}")
+    t = lambda a, dtype: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                                      device=solver.device)
+    for l, o in enumerate(owners):
+        if "inv_diag" in state:
+            name = "_inv_diag" if hasattr(o, "_inv_diag") else "inv_diag"
+            setattr(o, name, t(state["inv_diag"][l], solver.v_dtype))
+        if "chebyshev" in state:
+            _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
+    for key in ("rhs", "u_bc"):
+        if key in state:
+            setattr(solver, key, t(state[key], solver.f_dtype))
+
+
 def load_state(solver, state: dict) -> None:
     """Install ``state`` into ``solver`` (a
     :class:`~.solvers.multigrid.MultigridSolver`, a
     :class:`~.solvers.multigrid_dg.MultigridSolverDG`, a
-    :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain` or a
-    :class:`~.solvers.multigrid_general.GeneralMultigridSolver`) in place;
-    the whole state is checked before anything is installed."""
+    :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain`, a
+    :class:`~.solvers.multigrid_general.GeneralMultigridSolver` or one of
+    the adaptive solvers) in place; the whole state is checked before
+    anything is installed."""
+    if isinstance(solver, AdaptiveSystem):
+        _load_adaptive_state(solver, state)
+        return
     if isinstance(solver, GeneralMultigridSolver):
         _load_general_state(solver, state)
         return

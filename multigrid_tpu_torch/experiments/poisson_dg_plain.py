@@ -10,14 +10,18 @@ poisson_dg_plain/program.cc).  Run as
 (positional arguments as the JAX experiment; sizes count DG dofs; sizes
 with an odd cell count are skipped, since h-multigrid needs one
 refinement).  For each of hermite, gll and gauss: the set-up time, the
-best of three outer-CG solves, fractional iterations, rate and L2 error,
-then the convergence table.  ``--dim`` defaults to 3, not 2 as in the JAX
-driver: the DG kernels on the card are 3-D only, and a 2-D grid on the card
-raises in their check; ``--dim 2 --device cpu`` runs the plain operators.
+best of three outer-CG solves, fractional iterations, rate and L2 error
+(on the card also the peak device memory), then the convergence table.
+``--dim`` defaults to 3, not 2 as in the JAX driver: the DG kernels on the
+card are 3-D only, and a 2-D grid on the card raises in their check;
+``--dim 2 --device cpu`` runs the plain operators.
 Solves run on the CUDA device, and the driver stops with an error when
 there is none; ``--device cpu`` runs the plain PyTorch operators on the CPU.
 ``--var-coeff`` solves -div(c grad u) = f (plain PyTorch on every device);
-``--deform`` (curved geometry) belongs to slice C of the port and raises.
+``--deform [FACTOR]`` deforms the mesh interior by ``FACTOR prod sin(pi
+p_d)`` (the chart of the JAX driver, default 0.05; the boundary stays, so
+the manufactured solution holds) and solves with the curved SIP-DG
+operator, plain PyTorch on every device; it composes with ``--var-coeff``.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..devices import driver_device
 from ..mesh.brick import poisson_cube_mesh
@@ -63,6 +68,20 @@ def varcoeff_rhs(q):
     return -(grad_dot + varcoeff_coeff(q) * (-len(q) * _W**2 * u))
 
 
+def deform_chart(mesh, fac: float):
+    """The ``--deform`` chart: the mesh's box with its interior moved by
+    ``fac prod sin(pi p_d)`` (JAX driver, experiments/poisson_dg_plain.py:
+    88-101)."""
+    org = np.asarray(mesh.origin, np.float64)
+    lng = np.asarray(mesh.lengths, np.float64)
+
+    def mapping(p):
+        s_ = fac * np.prod(np.sin(np.pi * p), axis=1)
+        return org[None, :] + lng[None, :] * p + s_[:, None]
+
+    return mapping
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("degree", type=int, nargs="?", default=3)
@@ -76,15 +95,14 @@ def main(argv=None) -> dict:
                          "PyTorch operators on every device)")
     ap.add_argument("--deform", type=float, nargs="?", const=0.05,
                     default=None, metavar="FACTOR",
-                    help="curved geometry: slice C of the port, not ported")
+                    help="curved SIP-DG: deform the mesh interior by "
+                         "FACTOR * prod sin(pi p_d) (the reference MyManifold "
+                         "chart, poisson_cube/program.cc:405-484; boundary "
+                         "unchanged); composes with --var-coeff")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; 'cpu' runs the plain "
                          "PyTorch operators)")
     args = ap.parse_args(argv)
-    if args.deform is not None:
-        raise NotImplementedError(
-            "--deform: the curved DG operator (ops/dg_curved.py) belongs to "
-            "slice C of the port and is not ported yet")
     device = driver_device(args.device)
     coeff, exact, rhs = None, exact_fn, rhs_fn
     if args.var_coeff:
@@ -103,11 +121,16 @@ def main(argv=None) -> dict:
                 continue
             if n_dofs > args.maxsize:
                 break
+            mapping = (None if args.deform is None
+                       else deform_chart(mesh, args.deform))
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
             s = MultigridSolverDGPlain(mesh, args.degree, exact, rhs,
                                        kind=kind, n_pre=args.n_pre_smooth,
                                        n_post=args.n_pre_smooth,
-                                       device=device, coeff_fn=coeff)
+                                       device=device, coeff_fn=coeff,
+                                       mapping=mapping)
             _sync(device)
             setup = time.perf_counter() - t0
             best = np.inf
@@ -122,6 +145,8 @@ def main(argv=None) -> dict:
                        setup_time=setup, cg_time=best, cg_its=frac_its,
                        cg_reduction=rate,
                        cg_L2error=s.l2_error(sol, s.exact_quad))
+            if device.type == "cuda":
+                row["peak_bytes"] = torch.cuda.max_memory_allocated(device)
             print(kind, row, flush=True)
             rows.append(row)
             del s, sol

@@ -6,14 +6,20 @@ one CUDA device.
     python -m multigrid_tpu_torch.experiments.profile_solve 48 64 --path dg
     python -m multigrid_tpu_torch.experiments.profile_solve 48 --path dg-plain
     python -m multigrid_tpu_torch.experiments.profile_solve 5 --path shell
+    python -m multigrid_tpu_torch.experiments.profile_solve 48 --path dg-curved
+    python -m multigrid_tpu_torch.experiments.profile_solve 8 --path l
 
 For each cube size (``poisson_cube_mesh(size)``, FE_Q(degree)) and each of
 FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
 ``--path dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9);
 with ``--path dg-plain``, the poisson_dg_plain CG (pure-DG h-multigrid, the
-same settings); with ``--path shell``, poisson_shell's FMG and CG (mixed
-precision, FE_Q(degree), n_pre = n_post = 3) on the 6-block shell with
-``size`` levels -- one warm-up
+same settings); with ``--path dg-curved``, the same CG on the curved
+geometry of ``poisson_dg_plain --deform`` (factor 0.05); with ``--path
+shell``, poisson_shell's FMG and CG (mixed precision, FE_Q(degree), n_pre =
+n_post = 3) on the 6-block shell with ``size`` levels; with ``--path l``,
+poisson_l's CG (global coarsening, FE_Q(2) unless ``--degree`` says
+otherwise) on the 2-D L refined uniformly ``size`` times and then
+adaptively once (poisson_l's Kelly marking) -- one warm-up
 run, the best of ``--repeat`` runs without the profiler (host clock around
 ``torch.cuda.synchronize``), then one run under ``torch.profiler``.  From
 that run's trace: the device-busy time (union of kernel, memcpy and memset
@@ -22,13 +28,22 @@ wall is the host time of that run) and each kernel class's share of the
 summed device-event time, with its event count.  One line per cell is
 printed, and with ``--out`` all numbers go to a JSON file.
 
-The general-geometry path is plain PyTorch, so its kernels carry no name
-of their own.  For ``--path shell`` the operator's and the transfers'
-methods run inside ``torch.profiler.record_function`` ranges
-(:data:`GENERAL_RANGES`) for the profiled run only, and a device event
-launched inside one of them (found through the launch's correlation id)
-falls in that range's class: the operator's gather, scatter, 1-D
-contractions and quadrature-point product, and the transfers.
+The general-geometry, curved DG and adaptive paths are plain PyTorch, so
+their kernels carry no name of their own.  For ``--path shell``,
+``dg-curved`` and ``l`` the operator's and the transfers' methods run
+inside ``torch.profiler.record_function`` ranges (:data:`RANGES`) for the
+profiled run only, and a device event launched inside one of them (found
+through the launch's correlation id) falls in the innermost range's class:
+
+* shell: the operator's gather, scatter, 1-D contractions and
+  quadrature-point product, and the transfers;
+* dg-curved: the face traces (the gather of face values), the lifts (their
+  scatter back), the operator's 1-D contractions (``apply_1d`` and
+  ``sweep``, the matmuls), the rest of the apply (the per-point geometry
+  products and the neighbour shifts), the transformed Jacobi's
+  contractions and the transfers;
+* l: the operator's weighted gather, the element matmul (the rest of
+  ``apply_cells``), the weighted scatter, and the transfers.
 """
 
 from __future__ import annotations
@@ -45,12 +60,18 @@ import torch
 
 from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
+from ..ops import dg_curved, dg_precond
+from ..ops.dg import DGLaplace
+from ..ops.dg_transfer import DGTransfer
+from ..ops.laplace_adaptive import AdaptiveLaplace
 from ..ops.laplace_general import GeneralLaplace
 from ..ops.transfer_general import GeneralTransfer
 from ..solvers.multigrid import set_full_precision_matmul
+from ..solvers.multigrid_adaptive import NestedTransfer
 from ..solvers.multigrid_dg import MultigridSolverDG, MultigridSolverDGPlain
 from .poisson_cube import build_solver, exact_fn, rhs_fn
-from . import poisson_shell
+from . import poisson_l, poisson_shell
+from .poisson_dg_plain import deform_chart
 
 # class -> substrings of the demangled kernel name (first match wins; the
 # port's own kernels sit in an anonymous namespace)
@@ -68,17 +89,36 @@ CLASSES = (
     ("fill/copy", ("fill", "copy")),
 )
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# record_function ranges of the general path: (class, method) -> class of
-# the device events launched inside
-GENERAL_RANGES = (
-    (GeneralLaplace, "gather", "op gather"),
-    (GeneralLaplace, "scatter_add", "op scatter"),
-    (GeneralLaplace, "_eval_grads", "op contraction"),
-    (GeneralLaplace, "_integrate_grads", "op contraction"),
-    (GeneralLaplace, "_quad_op", "op quad-point"),
-    (GeneralTransfer, "prolongate", "transfer"),
-    (GeneralTransfer, "restrict", "transfer"),
-)
+# record_function ranges of the plain PyTorch paths: per path, (class or
+# module, attribute) -> class of the device events launched inside
+RANGES = {
+    "shell": (
+        (GeneralLaplace, "gather", "op gather"),
+        (GeneralLaplace, "scatter_add", "op scatter"),
+        (GeneralLaplace, "_eval_grads", "op contraction"),
+        (GeneralLaplace, "_integrate_grads", "op contraction"),
+        (GeneralLaplace, "_quad_op", "op quad-point"),
+        (GeneralTransfer, "prolongate", "transfer"),
+        (GeneralTransfer, "restrict", "transfer"),
+    ),
+    "dg-curved": (
+        (dg_curved.DGLaplaceCurved, "apply", "op quad-point"),
+        (DGLaplace, "_trace", "op gather"),
+        (DGLaplace, "_lift", "op scatter"),
+        (dg_curved, "apply_1d", "op matmul"),
+        (dg_curved, "sweep", "op matmul"),
+        (dg_precond, "sweep", "jacobi"),
+        (DGTransfer, "prolongate", "transfer"),
+        (DGTransfer, "restrict", "transfer"),
+    ),
+    "l": (
+        (AdaptiveLaplace, "apply_cells", "op matmul"),
+        (AdaptiveLaplace, "gather", "op gather"),
+        (AdaptiveLaplace, "scatter", "op scatter"),
+        (NestedTransfer, "prolongate", "transfer"),
+        (NestedTransfer, "restrict", "transfer"),
+    ),
+}
 # the port's own kernels keep their class inside a range
 OWN_CLASSES = ("brick_kron", "cheb_epilogue", "cg kernels", "dg_")
 
@@ -153,13 +193,13 @@ def breakdown(events: list, wall_s: float) -> dict:
 
 
 @contextlib.contextmanager
-def general_ranges():
-    """Wrap the methods of :data:`GENERAL_RANGES` in ``record_function``
-    ranges while the context is open."""
+def path_ranges(path: str):
+    """Wrap the methods (and module functions) of ``RANGES[path]`` in
+    ``record_function`` ranges while the context is open."""
     from torch.profiler import record_function
 
     saved = []
-    for cls, meth, label in GENERAL_RANGES:
+    for cls, meth, label in RANGES.get(path, ()):
         fn = getattr(cls, meth)
         saved.append((cls, meth, fn))
 
@@ -175,13 +215,13 @@ def general_ranges():
             setattr(cls, meth, fn)
 
 
-def profile_call(fn, trace: Path, annotate: bool = False) -> dict:
-    """Run ``fn`` once under ``torch.profiler`` and break its trace down;
-    ``annotate`` opens :func:`general_ranges` for the run."""
+def profile_call(fn, trace: Path, path: str = "cube") -> dict:
+    """Run ``fn`` once under ``torch.profiler`` and break its trace down,
+    inside the ranges of ``path`` (:func:`path_ranges`)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with general_ranges() if annotate else contextlib.nullcontext(), \
+    with path_ranges(path), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -198,16 +238,21 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("sizes", type=int, nargs="+",
-                    help="poisson_cube sizes (--path shell: shell levels)")
-    ap.add_argument("--degree", type=int, default=4)
+                    help="poisson_cube sizes (--path shell: shell levels; "
+                         "--path l: uniform refinements of the L)")
+    ap.add_argument("--degree", type=int, default=None,
+                    help="element degree (default 4; 2 for --path l)")
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
     ap.add_argument("--path", default="cube",
-                    choices=["cube", "dg", "dg-plain", "shell"],
+                    choices=["cube", "dg", "dg-plain", "dg-curved", "shell",
+                             "l"],
                     help="the solve to profile: poisson_cube (FMG and CG), "
-                         "poisson_dg or poisson_dg_plain (CG), poisson_shell "
-                         "(FMG and CG)")
+                         "poisson_dg, poisson_dg_plain or its --deform (CG), "
+                         "poisson_shell (FMG and CG), poisson_l (CG)")
     args = ap.parse_args(argv)
+    if args.degree is None:
+        args.degree = 2 if args.path == "l" else 4
     if not torch.cuda.is_available():
         raise RuntimeError("profile_solve needs a CUDA device")
     set_full_precision_matmul()
@@ -224,13 +269,25 @@ def main(argv=None) -> list:
                                        device=dev)
             dofs = solver.dg_grid.n_dofs
             phases = (("dg cg", lambda: solver.solve_cg(tolerance=1e-9)),)
-        elif args.path == "dg-plain":
+        elif args.path in ("dg-plain", "dg-curved"):
+            mesh = poisson_cube_mesh(size)
             solver = MultigridSolverDGPlain(
-                poisson_cube_mesh(size), args.degree, exact_fn, rhs_fn,
-                kind="hermite", n_pre=3, n_post=3, device=dev)
+                mesh, args.degree, exact_fn, rhs_fn, kind="hermite", n_pre=3,
+                n_post=3, device=dev,
+                mapping=(deform_chart(mesh, 0.05)
+                         if args.path == "dg-curved" else None))
             dofs = solver.grids[-1].n_dofs
-            phases = (("dg-plain cg",
+            phases = ((f"{args.path} cg",
                        lambda: solver.solve_cg(tolerance=1e-9)),)
+        elif args.path == "l":
+            forest = poisson_l.l_forest(size)
+            _, _, eta2, _ = poisson_l.run_cycle(forest, args.degree,
+                                                device=dev)
+            forest = poisson_l.refine_and_coarsen_fixed_number(
+                forest, eta2, 0.15, 0.03)
+            solver = poisson_l.build_solver(forest, args.degree, device=dev)
+            dofs = solver.grids[-1].n_dofs
+            phases = (("l cg", solver.solve_cg),)
         elif args.path == "shell":
             solver = poisson_shell.build_solver(
                 poisson_shell.shell_mesh(2 * (size - 1)), args.degree,
@@ -253,7 +310,7 @@ def main(argv=None) -> list:
                 walls.append(time.perf_counter() - t0)
             cell = {"size": size, "dofs": dofs, "phase": phase,
                     "wall_s": min(walls), "walls_s": walls, "card": card,
-                    **profile_call(fn, trace, args.path == "shell")}
+                    **profile_call(fn, trace, args.path)}
             cells.append(cell)
             shares = ", ".join(f"{c} {s:.3f}" for c, s in cell["share"].items())
             print(f"size {size} ({dofs} dofs) {phase}: wall {cell['wall_s']:.6f} s"

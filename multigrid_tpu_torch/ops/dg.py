@@ -103,17 +103,8 @@ class DGLaplace:
     """SIP-DG A·u with fused cell+face evaluation, in plain PyTorch."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):
-        self.grid = grid
-        self.dtype = dtype
-        self.device = resolve(device)
+        t = self._basis_tables(grid, dtype, device)
         b = grid.basis
-        self.dim, self.n = grid.dim, grid.n
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                      device=self.device)
-        self.S, self.St = t(b.S), t(b.S.T)
-        self.D, self.Dt = t(b.D_col), t(b.D_col.T)
-        self.f = [t(b.f0), t(b.f1)]
-        self.is_collocation = grid.kind == GAUSS
         geo = dg_geometry(grid)
         self.detJ, self.Gsym, self.face = geo["detJ"], geo["Gsym"], geo["face"]
         qw = b.quad_weights
@@ -127,6 +118,22 @@ class DGLaplace:
         self.wperp = [t(functools.reduce(np.multiply.outer, [
             qw for e in range(self.dim) if e != d], np.ones(())))
             for d in range(self.dim)]
+
+    def _basis_tables(self, grid, dtype, device):
+        """The grid, dtype, device and 1-D basis tables every DG operator
+        keeps; returns the converter to this dtype and device."""
+        self.grid = grid
+        self.dtype = dtype
+        self.device = resolve(device)
+        b = grid.basis
+        self.dim, self.n = grid.dim, grid.n
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                      device=self.device)
+        self.S, self.St = t(b.S), t(b.S.T)
+        self.D, self.Dt = t(b.D_col), t(b.D_col.T)
+        self.f = [t(b.f0), t(b.f1)]
+        self.is_collocation = grid.kind == GAUSS
+        return t
 
     # ------------------------------------------------------------- helpers
     def _node_axis(self, d: int) -> int:

@@ -36,12 +36,15 @@ class NodeScatter:
     valence v) and lists, per group, each node's v entry positions in
     ascending order.  A scatter is then, per group, one gather of the
     entries and a sum over v, and one gather that puts the group sums in
-    node order: no atomics, so the result is the same on every run."""
+    node order: no atomics, so the result is the same on every run.
+    ``allow_empty``: a node with no entry gets zero (else it is refused,
+    as a table that misses a node is a fault of its caller)."""
 
-    def __init__(self, table: np.ndarray, n_nodes: int, device):
+    def __init__(self, table: np.ndarray, n_nodes: int, device,
+                 allow_empty: bool = False):
         table = np.asarray(table, np.int64).reshape(-1)
         counts = np.bincount(table, minlength=n_nodes)
-        if counts.shape[0] != n_nodes or not counts.all():
+        if counts.shape[0] != n_nodes or not (allow_empty or counts.all()):
             raise ValueError("NodeScatter: every node needs an entry")
         order = np.argsort(table, kind="stable")
         starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
@@ -50,6 +53,10 @@ class NodeScatter:
         node_order = []
         for v in np.unique(counts):
             nodes = np.nonzero(counts == v)[0]
+            if v == 0:      # nodes without entries: a group of zeros
+                self.groups.append((0, len(nodes)))
+                node_order.append(nodes)
+                continue
             pos = order[starts[nodes][:, None] + np.arange(v)[None, :]]
             self.groups.append((int(v), torch.as_tensor(
                 pos.reshape(-1), dtype=torch.int64, device=device)))
@@ -60,9 +67,27 @@ class NodeScatter:
 
     def __call__(self, flat: torch.Tensor) -> torch.Tensor:
         flat = flat.reshape(-1)
-        sums = [flat.index_select(0, pos).view(-1, v).sum(1)
+        sums = [flat.new_zeros(pos) if v == 0
+                else flat.index_select(0, pos).view(-1, v).sum(1)
                 for v, pos in self.groups]
         return torch.cat(sums).index_select(0, self.where)
+
+
+def chebyshev_step(vmult, precond, b, x, x_old, f1: float, f2: float,
+                   out=None):
+    """``x + f1 (x - x_old) + f2 P^-1 (b - A x)``, the smoother interface
+    of :mod:`..solvers.chebyshev` for the plain operators (``vmult`` is A,
+    ``precond`` P^-1); ``x``/``x_old`` None read as zero; ``out`` receives
+    the result when given."""
+    r = b if x is None else b - vmult(x)
+    res = f2 * precond(r)
+    if x is not None:
+        res += x
+        if f1 != 0.0:
+            res += f1 * (x if x_old is None else x - x_old)
+    elif x_old is not None and f1 != 0.0:
+        res -= f1 * x_old
+    return res if out is None else out.copy_(res)
 
 
 def grid_tables(grid: GeneralGrid, device: torch.device):
@@ -159,18 +184,10 @@ class GeneralLaplace:
         return torch.where(self.interior, rhs - y, rhs - lhs)
 
     def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
-        """``x + f1 (x - x_old) + f2 D^-1 (b - A x)`` (the smoother
-        interface of :mod:`..solvers.chebyshev`); ``x``/``x_old`` None
-        read as zero; ``out`` receives the result when given."""
-        r = b if x is None else b - self.vmult(x)
-        res = f2 * (self.inv_diag * r)
-        if x is not None:
-            res += x
-            if f1 != 0.0:
-                res += f1 * (x if x_old is None else x - x_old)
-        elif x_old is not None and f1 != 0.0:
-            res -= f1 * x_old
-        return res if out is None else out.copy_(res)
+        """The Chebyshev step with the point-Jacobi diagonal
+        (:func:`chebyshev_step`)."""
+        return chebyshev_step(self.vmult, self.inv_diag.mul, b, x, x_old, f1,
+                              f2, out)
 
     # ----------------------------------------------------------------- rhs
     def compute_rhs(self, f_quad: torch.Tensor,

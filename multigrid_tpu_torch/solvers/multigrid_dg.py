@@ -36,8 +36,12 @@ V-cycle ``dg_apply<float>`` (K7) and the outer CG's A·p
 ``dg_apply<double>`` (K9).  With a coefficient (``coeff_fn``) each level
 is a :class:`~..ops.dg.DGLaplaceVarCoeff`, plain PyTorch on every device as
 its XLA twin is on the TPU, with the exact per-cell transformed Jacobi;
-:class:`VarCoeffLevel` gives it the smoother's interface.  A curved
-geometry (``mapping``, ``ops/dg_curved.py``) is not ported.
+:class:`VarCoeffLevel` gives it the smoother's interface.  With a curved
+geometry (``mapping``) each level is a
+:class:`~..ops.dg_curved.DGLaplaceCurved` (per-point geometry, composing
+with ``coeff_fn``), plain PyTorch on every device in the same way: as in
+the JAX twin (``solvers/multigrid_dg.py:340``) no DG kernel runs on a
+curved level, so on the card only the outer CG's kernels launch.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 from ..devices import resolve
 from ..mesh.brick import BrickMesh
 from ..ops.dg import DGGrid, DGLaplaceVarCoeff
+from ..ops.dg_curved import DGCurvedGrid, DGLaplaceCurved
 from ..ops.dg_kernel import DGOperator
 from ..ops.dg_precond import JacobiTransformed
 from ..ops.dg_transfer import CGDGCoupling, DGTransfer
@@ -205,13 +210,10 @@ class MultigridSolverDGPlain(_DGOuterCG):
         """``coeff_fn``: an optional smooth coefficient c(x) (callable on
         the broadcastable quadrature coordinates) for -div(c grad u); each
         level's operator takes it at that level's quadrature points, in
-        f64, once.  ``mapping``: the curved geometry of the JAX twin, not
-        ported (slice C of the port)."""
-        if mapping is not None:
-            raise NotImplementedError(
-                "MultigridSolverDGPlain(mapping=...): the curved DG operator "
-                "(ops/dg_curved.py) belongs to slice C of the port and is not "
-                "ported yet")
+        f64, once.  ``mapping``: an optional smooth chart, ``[N, dim]``
+        block coordinates in ``[0, 1]^dim`` -> physical ones, which makes
+        every level a curved operator (the chart supersedes the mesh's
+        origin and lengths); it composes with ``coeff_fn``."""
         if n_pre != n_post:
             raise ValueError("the reference requires equal pre/post degree")
         self.device = dev = resolve(device)
@@ -221,10 +223,14 @@ class MultigridSolverDGPlain(_DGOuterCG):
         self.v_dtype, self.f_dtype = v_dtype, f_dtype
         L = mesh.n_levels
         self.maxlevel = L - 1
-        self.grids = [dg_grid_from_mesh(mesh, l, degree, kind)
-                      for l in range(L)]
         self.jacobis = []
-        if coeff_fn is None:
+        if mapping is None:
+            self.grids = [dg_grid_from_mesh(mesh, l, degree, kind)
+                          for l in range(L)]
+        else:
+            self.grids = [DGCurvedGrid(mesh.cells(l), mapping, degree, kind,
+                                       coeff_fn) for l in range(L)]
+        if mapping is None and coeff_fn is None:
             self.ops = [DGOperator(g, v_dtype, dev) for g in self.grids]
             for op in self.ops:
                 self.jacobis.append(JacobiTransformed(op.grid, v_dtype, dev))
@@ -232,15 +238,25 @@ class MultigridSolverDGPlain(_DGOuterCG):
             self.op_dp = DGOperator(self.grids[-1], f_dtype, dev)   # K9
             self.op_ref = self.op_dp.plain                          # rhs, errors
         else:
+            # curved or variable-coefficient levels: plain PyTorch on every
+            # device, each level's data taken at its own quadrature points
+            coeffs = {}
+
+            def plain(l, dtype):
+                g = self.grids[l]
+                if mapping is not None:
+                    return DGLaplaceCurved(g, dtype, dev)
+                if l not in coeffs:
+                    coeffs[l] = np.broadcast_to(np.asarray(coeff_fn(
+                        quad_coords_block(g, mesh, l)), np.float64), g.shape)
+                return DGLaplaceVarCoeff(g, coeffs[l], dtype, dev)
+
             self.ops = []
             for l, g in enumerate(self.grids):
-                c = np.broadcast_to(np.asarray(coeff_fn(
-                    quad_coords_block(g, mesh, l)), np.float64), g.shape)
-                op = DGLaplaceVarCoeff(g, c, v_dtype, dev)
+                op = plain(l, v_dtype)
                 self.jacobis.append(JacobiTransformed(g, v_dtype, dev, op=op))
                 self.ops.append(VarCoeffLevel(op, self.jacobis[-1].vmult))
-            self.op_dp = self.op_ref = DGLaplaceVarCoeff(self.grids[-1], c,
-                                                         f_dtype, dev)
+            self.op_dp = self.op_ref = plain(L - 1, f_dtype)
         self.transfers = [None] + [
             DGTransfer(self.grids[l], self.grids[l - 1], v_dtype, dev)
             for l in range(1, L)]
@@ -255,7 +271,8 @@ class MultigridSolverDGPlain(_DGOuterCG):
                                       degree=None,
                                       eig_cg_n_iterations=self.grids[0].n_dofs)
             self.smoothers.append(sm)
-        quads = quad_coords_block(self.grids[-1], mesh, L - 1)
+        quads = (self.grids[-1].quad_phys if mapping is not None
+                 else quad_coords_block(self.grids[-1], mesh, L - 1))
         shape = self.grids[-1].shape
         f_quad = _quad_tensor(rhs_fn, quads, shape, f_dtype, dev)
         self.rhs = self.op_ref.compute_rhs(f_quad).contiguous()

@@ -17,7 +17,10 @@ brick_kron call, 2 per reduction, 1 per xpay, 1 per DG kernel call.  The
 size-4 FE_Q, DG and pure-DG (DGPlain) solves on the card agree with the
 CPU to 1e-5 of max|u|; the f32 ``DGTransfer`` on the card agrees with the
 f64 one to 1e-6 of max; a DGPlain solve launches K7, K8, K9 and the CG
-kernels and no brick kernel."""
+kernels and no brick kernel.  The plain PyTorch operators of the curved DG
+and adaptive paths on the card agree with the CPU (1e-13 in f64, 2e-6 in
+f32); their solves launch only the CG kernels, and two adaptive CG solves
+on the card are bit for bit equal."""
 
 import numpy as np
 import pytest
@@ -486,3 +489,123 @@ def test_general_solver_on_card_matches_cpu(dev):
         its = [s[d].solve_cg()[1] for d in ("cpu", dev)]
         assert its[0] == its[1]
         assert cg_kernel.LAUNCHES["cg_update"] == 2 * its[1]   # 2 a call
+
+
+def _deform(p):
+    return p + (0.08 * np.prod(np.sin(np.pi * p), axis=1))[:, None]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 2e-6)])
+def test_curved_dg_operator_on_card_matches_cpu(dev, dtype, tol):
+    """The curved SIP-DG operator (plain PyTorch) on the card against the
+    CPU: apply, the weak-Dirichlet right-hand side and the exact per-cell
+    transformed-Jacobi diagonal, to ``tol`` of max."""
+    from multigrid_tpu_torch.ops.dg_curved import DGCurvedGrid, DGLaplaceCurved
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = DGCurvedGrid((3, 2, 4), _deform, 3, "hermite")
+    ops = {d: DGLaplaceCurved(g, dtype, d) for d in ("cpu", dev)}
+    x = rand(g.shape, dtype, "cpu", 12)
+    g_bc = {(0, 1): np.ones((1, 2, 4, 4, 4))}
+    pairs = [lambda d: ops[d].apply(x.to(d)),
+             lambda d: ops[d].compute_rhs(x.to(d), g_bc),
+             lambda d: JacobiTransformed(g, dtype, d, op=ops[d]).inv_diag]
+    for f in pairs:
+        want = f("cpu")
+        got = f(dev)
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= tol * float(
+            want.abs().max())
+
+
+def test_curved_dg_plain_solve_on_card(dev):
+    """The curved DGPlain solve on the card agrees with the CPU (1e-5 of
+    max|u|, frac its to 1%) and launches only the CG kernels."""
+    from multigrid_tpu_torch.ops import cg_kernel, dg_kernel, laplace_kernel
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.experiments.poisson_dg_plain import deform_chart
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    mesh = poisson_cube_mesh(4)
+    s = {d: MultigridSolverDGPlain(mesh, 3, exact_fn, rhs_fn, kind="hermite",
+                                   device=d, mapping=deform_chart(mesh, 0.05))
+         for d in ("cpu", dev)}
+    for mod in (cg_kernel, dg_kernel, laplace_kernel):
+        mod.reset_launches()
+    (u_gpu, its_gpu, _), (u_cpu, its_cpu, _) = (
+        s[d].solve_cg(tolerance=1e-9) for d in (dev, "cpu"))
+    assert float((u_gpu.cpu() - u_cpu).abs().max()) <= 1e-5 * float(
+        u_cpu.abs().max())
+    assert its_gpu == pytest.approx(its_cpu, rel=0.01)
+    assert cg_kernel.LAUNCHES["cg_update"] > 0
+    assert not any(dg_kernel.LAUNCHES.values()), dg_kernel.LAUNCHES
+    assert not any(laplace_kernel.LAUNCHES.values()), laplace_kernel.LAUNCHES
+
+
+def _l_forest(cycles=2):
+    from multigrid_tpu_torch.experiments.poisson_l import l_forest
+
+    f = l_forest(2)
+    for _ in range(cycles):
+        f = f.refine([c for c in f.active
+                      if max(abs(f.cell_corner(c)[0] + f.h(c.level) / 2),
+                             abs(f.cell_corner(c)[1] + f.h(c.level) / 2))
+                      < 0.3])
+    return f
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13),
+                                       (torch.float32, 2e-6)])
+def test_adaptive_operator_on_card_matches_cpu(dev, dtype, tol):
+    """AdaptiveLaplace and NestedTransfer (plain PyTorch) on the card
+    against the CPU: vmult, vmult_residual, both transfer directions, to
+    ``tol`` of max; two applies on the card agree bit for bit."""
+    from multigrid_tpu_torch.experiments.poisson_l import boundary_fn
+    from multigrid_tpu_torch.mesh.adaptive import AdaptiveGrid
+    from multigrid_tpu_torch.ops.laplace_adaptive import AdaptiveLaplace
+    from multigrid_tpu_torch.solvers.multigrid_adaptive import NestedTransfer
+
+    f = _l_forest()
+    fine = AdaptiveGrid(f, 2, boundary_fn)
+    coarse = AdaptiveGrid(f.coarsen_global(), 2, boundary_fn)
+    assert fine.n_constraints > 0
+    ops = {d: AdaptiveLaplace(fine, dtype, d) for d in ("cpu", dev)}
+    trs = {d: NestedTransfer(fine, coarse, dtype, d) for d in ("cpu", dev)}
+    x = rand(fine.n_dofs, dtype, "cpu", 13)
+    b = rand(fine.n_dofs, dtype, "cpu", 14)
+    xc = rand(coarse.n_dofs, dtype, "cpu", 15)
+    pairs = [lambda d: ops[d].vmult(x.to(d)),
+             lambda d: ops[d].vmult_residual(b.to(d), x.to(d)),
+             lambda d: trs[d].restrict(x.to(d)),
+             lambda d: trs[d].prolongate(xc.to(d))]
+    for f_ in pairs:
+        want = f_("cpu")
+        got = f_(dev).cpu()
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    xd = x.to(dev)
+    assert torch.equal(ops[dev].vmult(xd), ops[dev].vmult(xd))
+
+
+@pytest.mark.parametrize("local", [False, True])
+def test_adaptive_solves_on_card_are_deterministic(dev, local):
+    """Two adaptive CG solves on the card are bit for bit equal (the
+    scatters sum in a fixed order); the card's iterations are the CPU's,
+    its solution within 1e-7 of max; only the CG kernels launch."""
+    from multigrid_tpu_torch.experiments.poisson_l import build_solver
+    from multigrid_tpu_torch.ops import cg_kernel, dg_kernel, laplace_kernel
+
+    f = _l_forest()
+    s = {d: build_solver(f, 2, local_smoothing=local, device=d)
+         for d in ("cpu", dev)}
+    for mod in (cg_kernel, dg_kernel, laplace_kernel):
+        mod.reset_launches()
+    sols = [s[dev].solve_cg() for _ in range(2)]
+    assert torch.equal(sols[0][0], sols[1][0])
+    u_cpu, its_cpu, _ = s["cpu"].solve_cg()
+    assert sols[0][1] == its_cpu
+    assert float((sols[0][0].cpu() - u_cpu).abs().max()) <= 1e-7 * float(
+        u_cpu.abs().max())
+    assert cg_kernel.LAUNCHES["cg_dot"] > 0
+    assert not any(dg_kernel.LAUNCHES.values())
+    assert not any(laplace_kernel.LAUNCHES.values())

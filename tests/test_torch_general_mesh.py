@@ -151,6 +151,14 @@ def test_general_modules_load_no_jax():
             "multigrid_tpu_torch.experiments.poisson_cube",
             "multigrid_tpu_torch.experiments.profile_solve",
             "multigrid_tpu_torch.experiments.time_setup",
+            "multigrid_tpu_torch.ops.dg_curved",
+            "multigrid_tpu_torch.mesh.adaptive",
+            "multigrid_tpu_torch.ops.laplace_adaptive",
+            "multigrid_tpu_torch.solvers.multigrid_adaptive",
+            "multigrid_tpu_torch.solvers.multigrid_local",
+            "multigrid_tpu_torch.experiments.poisson_l",
+            "multigrid_tpu_torch.experiments.poisson_dg_plain",
+            "multigrid_tpu_torch.experiments.matvec_dg",
             "multigrid_tpu_torch.convert"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
