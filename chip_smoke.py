@@ -4,7 +4,7 @@
 
 Builds the hand-written kernels of ``multigrid_tpu_torch/csrc`` from the
 sources, holds every kernel against its plain PyTorch version on the card,
-then drives the port's six paths and checks each against the reference's
+then drives the port's paths and checks each against the reference's
 convergence rows:
 
 * poisson_cube (FE_Q(4), 3-D brick, f32 V-cycle inside f64 FMG and
@@ -50,21 +50,42 @@ convergence rows:
   row's CG solution bit for bit the same in three solves; a ``--dim 3
   --initial 3`` cycle pair; a ``--local-smoothing --initial 7`` row
   (197,633 dofs).  The CG kernels are held against their plain versions
-  at the vector lengths these two paths give them.
+  at the vector lengths these two paths give them;
+* poisson_cube at p = 8 (32^3 cells, 257^3 nodes) and p = 9 (28^3 cells,
+  253^3 nodes), brick_kron's degrees above the main path's: set-up, FMG
+  and CG, the CG its within one of the CPU's on the 4^3 mesh;
+* 2-D poisson_dg_plain, the reference program's setting (p = 3; the DG
+  kernels are 3-D, so the levels run the plain operator, "(plain)"): the
+  4096- and 16,384-dof rows of every kind on the card against the CPU,
+  then hermite at 3,211,264 and 4,194,304 DG dofs; the "(plain)"
+  ``matvec_dg`` rows at p = 8 and 16 in f64 (above the DG kernels'
+  degree), each checked against the face-based operator;
+* poisson_cube --dim 2 (the plain operator on the levels): 32^2 cells on
+  the card against the CPU, then 512^2 cells (4,198,401 dofs); poisson_dg
+  --dim 2: 16^2 cells against the CPU, then 320^2 cells (2,560,000 DG
+  dofs);
+* the single-device utils: ``poisson_cube --output`` (2-D, 16,641 nodes)
+  read back; the memory report after the set-up of poisson_cube at size
+  128 (135,005,697 dofs), its CG solution through a checkpoint file and
+  back bit for bit.
 
-``brick_kron`` (float and double, every mode) and the DG pencil kernels
-(``dg_apply`` and ``dg_residual`` in float and double, ``dg_cheb<float>``)
-are held at every compiled degree (p = 1..7), the DG kernels on x axes
-that do not fill a pencil or have one cell, against the plain operator
-and the face-based one (``ops/dg_face.py``).
+``brick_kron`` (float and double, every mode) is held at every compiled
+degree (p = 1..9) and the DG pencil kernels (``dg_apply`` and
+``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
+1..7), the DG kernels on x axes that do not fill a pencil or have one
+cell, against the plain operator and the face-based one
+(``ops/dg_face.py``).
 
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
-with the kernels (device kernels launched during the six paths' solves,
-as a trace
-counts them: one brick_kron call 1, one CG reduction 2, one DG kernel
-call 1; ``launches`` sums the paths, ``launches_by_path`` gives each; the rows ``brick_kron<float>``, ``brick_kron<double>``,
+with the kernels (device kernels launched during the paths' solves, as a
+trace counts them: one brick_kron call 1, one CG reduction 2, one DG
+kernel call 1; ``launches`` sums the paths, ``launches_by_path`` gives
+each; the ``... p=8`` and ``... p=9`` rows are brick_kron at those
+degrees, timed at their cube rows' node grids and counted on those rows'
+solves, the other brick rows count every other path; the rows
+``brick_kron<float>``, ``brick_kron<double>``,
 ``dg_apply<float>`` and ``dg_apply<double>`` count the kernel's A·x modes
 (apply, the brick's vmult, residual) and time apply, with the residual
 mode's numbers beside them under ``residual_*``; max error against the
@@ -155,6 +176,40 @@ MS_ROW = (3, 3, 4)     # (cycles, first levels, degree)
 # tests/test_shell_minimal_surface.py:80-81
 DEFORM_ITS, DEFORM_RATE = 9, 3.2
 
+# brick_kron above the main path's degree (p = 8, 9: the reference's
+# poisson_cube dispatches p = 1..9): cube size -> degree, 32^3 cells at p = 8
+# (257^3 nodes, the node grid of the size-64 p = 4 row) and 28^3 at p = 9
+# (253^3); each row's CG its within one of the CPU's on the 4^3 mesh
+HIGH_DEGREE_SIZES = {8: 32, 9: 28}
+HIGH_DEGREE_SMALL = 4
+# 2-D DG-plain (the reference program's setting, p = 3, rtol 1e-9): the
+# rows of 16^2 and 32^2 cells (sizes 2, 4) of every kind on the card
+# against the CPU (its within one, frac its and L2 to 1%); hermite at
+# 448^2 and 512^2 cells (sizes 56, 64; 3,211,264 and 4,194,304 DG dofs),
+# rate below PLAIN_RATE, frac its within one of each other
+DG2_DEGREE, DG2_SMALL, DG2_LARGE = 3, (2, 4), (56, 64)
+DG2_AGREE = 0.01
+# matvec_dg above the DG kernels' degree: the plain rows, f64, checked
+# against the face-based operator at the driver's bar (refinement steps)
+MATVEC_PLAIN = {8: 12, 16: 9}
+# the 2-D brick: size 4 (32^2 cells) card against CPU (its exact, V-cycle
+# and CG reductions to 2%), then size 64 (512^2 cells, 4,198,401 dofs):
+# cg_its 8 and the reductions within ROW_TOL of the top row of
+# ``poisson_cube 4 200000 1100000 --dim 2 --device cpu`` (1,050,625 dofs;
+# the rows from 66,049 dofs up read 8 its, 0.0678-0.0686, 0.149-0.151)
+CUBE2_SMALL, CUBE2_SIZE = 4, 64
+CUBE2_CG_REDUCTION, CUBE2_VCYCLE_REDUCTION = 6.784e-2, 0.1508
+# poisson_dg --dim 2, hermite p = 4, n_pre 3, rtol 1e-9: size 2 card against
+# CPU (frac its and rate to 2%, L2 to 1e-6), size 40 (320^2 cells,
+# 2,560,000 DG dofs) at the DG bars and the 2-D L2 plateau of the CPU rows
+# (0.136463 at 1,600 to 25,600 DG dofs)
+DG2D_SMALL, DG2D_SIZE, DG2D_L2 = 2, 40, 0.136463
+# the 135M cube (size 128): the memory report after its set-up, one CG
+# solve, its solution through a checkpoint file and back bit for bit
+MEM_SIZE = 128
+# poisson_cube --output, 2-D size 4 (16,641 nodes, under the vtk guard)
+VTK_SIZE = 4
+
 # the card's peak rates for the bound (H100 SXM, NVIDIA data sheet):
 # HBM3 bandwidth; fp32 outside the tensor cores; fp64 on the tensor cores
 # (67 TFLOP/s, twice the 34 of the fp64 units), the higher of the two: a
@@ -193,6 +248,18 @@ KERNELS = {
     "dg_apply<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:438"),
     "dg_cheb<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:490"),
 }
+# brick_kron at p = 8 and 9, timed at their cube rows' node grids and
+# counted on those rows' solves only
+for _p in HIGH_DEGREE_SIZES:
+    for _name in ("brick_kron<double>", "brick_kron_cheb<double>",
+                  "brick_kron<float>", "brick_kron_cheb<float>"):
+        KERNELS[f"{_name} p={_p}"] = KERNELS[_name]
+
+
+def degree_path(p: int) -> str:
+    return f"poisson_cube_p{p}"
+
+
 # kernels each path must launch (brick_kron_cheb<double> and
 # cheb_epilogue<double> are on no path: checked and timed only)
 CUBE_KERNELS = ["brick_kron<double>", "brick_kron<float>",
@@ -204,7 +271,11 @@ DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
 DG_PLAIN_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
                     "cg_update", "cg_dot", "cg_xpay"]
 SHELL_KERNELS = ["cg_update", "cg_dot", "cg_xpay"]
-CG_KERNELS = SHELL_KERNELS   # the curved DG and poisson_l paths: no others
+# the curved DG, poisson_l and 2-D paths: no others
+CG_KERNELS = SHELL_KERNELS
+# the paths that run no brick or DG kernel (plain levels, CG kernels)
+PLAIN_PATHS = ("poisson_shell", "poisson_dg_plain_curved", "poisson_l",
+               "poisson_dg_plain_2d", "poisson_cube_2d", "poisson_dg_2d")
 
 # the curved DG-plain path (poisson_dg_plain --deform 0.05, hermite, n_pre
 # 3): its rows at 512 and 4096 DG dofs, p = 3, rtol 1e-10 -- the JAX
@@ -357,7 +428,8 @@ class KernelChecks:
         for dtype in (f32, f64):
             self.kron_checks(grid, timed, dtype)
 
-    def kron_checks(self, grid, timed: bool, dtype, seed: int = 4):
+    def kron_checks(self, grid, timed: bool, dtype, seed: int = 4,
+                    label: str = ""):
         """brick_kron in ``dtype`` against the dense plain path in f64 on
         the same inputs, at the bars of KRON_BARS: apply on random x and
         vmult at the bar of max|y|; residual at the bar of max|A x| and the
@@ -365,19 +437,21 @@ class KernelChecks:
         (random b, x = D^-1 z, x_old = D^-1 z'), with x_old, with x_old =
         None and in place into x_old (bit for bit); one launch a call, a
         repeated apply bit for bit.  Timed: the kernel, and its plain
-        version in ``dtype``."""
+        version in ``dtype``.  The numbers go under the kernel's name plus
+        ``label`` (" p=8": the entries of the degree-8 kernels)."""
         from multigrid_tpu_torch.ops import laplace_kernel as lk
 
         cname, tol, tol_cheb = KRON_BARS[dtype]
-        name, cheb = f"brick_kron<{cname}>", f"brick_kron_cheb<{cname}>"
+        base = f"brick_kron<{cname}>"
+        name, cheb = base + label, f"brick_kron_cheb<{cname}>{label}"
         op, op64 = (lk.BrickLaplace(grid, t, self.dev)
                     for t in (dtype, torch.float64))
         x = self.rand(grid.shape, dtype, seed)
         y = lk.brick_apply_plain(x.double(), op64.K)
         scale = float(y.abs().max())
-        before = lk.LAUNCHES[name]
+        before = lk.LAUNCHES[base]
         first = lk.brick_kron(x, op, "apply")
-        require(lk.LAUNCHES[name] - before == 1, f"{name}: not one launch")
+        require(lk.LAUNCHES[base] - before == 1, f"{name}: not one launch")
         self.note(name, first.double(), y, scale, tol)
         require(torch.equal(first, lk.brick_kron(x, op, "apply")),
                 f"{name}: a repeated apply differs")
@@ -631,8 +705,15 @@ def main() -> int:
                   if r["spill_stores"] or r["spill_loads"]]
         print(f"  ptxas: {src}: {len(rows)} kernels, registers {min(regs)}-"
               f"{max(regs)}, spilling: {spills or 'none'}")
-        require(src != "brick_kron_f64.cu" or not spills,
-                f"brick_kron<double> spills: {spills}")
+        require(not src.startswith("brick_kron") or not spills,
+                f"a brick_kron kernel spills ({src}): {spills}")
+        if src.startswith("brick_kron"):
+            for r in rows:
+                if "brick_kron_kernelI" in r["kernel"] and any(
+                        f"Li{p}ELi" in r["kernel"] for p in HIGH_DEGREE_SIZES):
+                    print(f"    {r['kernel']}: {r['registers']} registers, "
+                          f"spill stores {r['spill_stores']} B, loads "
+                          f"{r['spill_loads']} B")
         if src in ("dg_pencil.cu", "dg_pencil_f64.cu"):
             for r in rows:
                 print(f"    {r['kernel']}: {r['registers']} registers, spill "
@@ -647,6 +728,9 @@ def main() -> int:
         require(sum("15dg_apply_kernelI" in k for k in names) == 28
                 and sum("14dg_cheb_kernelI" in k for k in names) == 7,
                 "the DG pencil kernels are not all in the library")
+        require(sum("17brick_kron_kernelI" in k for k in names) == 72,
+                "brick_kron is not in the library at p = 1..9, both types, "
+                "all four modes")
 
     return run(dev, card, t_start)
 
@@ -687,7 +771,7 @@ def brick(cells, degree):
 
 
 def run(dev: torch.device, card: str, t_start: float) -> int:
-    """Phases 2 to 8 on ``dev``: kernel checks, then the six paths."""
+    """Phase 2 on ``dev``: the kernel checks; then the paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
@@ -721,6 +805,21 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
             checks.kron_checks(grid, False, dtype)
         torch.cuda.synchronize()
         print(f"brick_kron checks passed at {label}: {grid.shape}")
+    # p = 8 and 9: small grids (a one-cell axis, ragged tiles), then the
+    # cube rows' node grids, timed
+    for p, size in HIGH_DEGREE_SIZES.items():
+        mesh = poisson_cube_mesh(size)
+        for label, grid, timed in (
+                ("poisson_cube_mesh(4)", DofGrid(poisson_cube_mesh(4), 2, p),
+                 False),
+                ("one-cell axis (1,4,3)", brick((1, 4, 3), p), False),
+                ("ragged (3,5,9)", brick((3, 5, 9), p), False),
+                (f"poisson_cube_mesh({size})",
+                 DofGrid(mesh, mesh.max_level, p), True)):
+            for dtype in (torch.float32, torch.float64):
+                checks.kron_checks(grid, timed, dtype, label=f" p={p}")
+            torch.cuda.synchronize()
+            print(f"brick_kron checks passed at {label} p={p}: {grid.shape}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
     dg_shapes = [
         ("sheared DG (3,2,4) p=3 hermite", dg_grid((3, 2, 4), 3, "hermite"),
@@ -757,9 +856,12 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
 
-    # phases 3 to 8: the six paths, each with the counters zeroed just
-    # before it and read just after
+    # phases 3 to 15: the paths, each with the counters zeroed just before
+    # it and read just after
     launches = {"poisson_cube": cube_path(dev, card, checks)}
+    for p, size in HIGH_DEGREE_SIZES.items():
+        launches[degree_path(p)] = cube_degree_path(dev, card, p, size)
+        torch.cuda.empty_cache()
     launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
     launches["poisson_dg_plain"], plain_err = dg_plain_path(dev, card, dg_sol,
                                                             dg_err)
@@ -771,30 +873,56 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                                                          plain_err)
     torch.cuda.empty_cache()
     launches["poisson_l"] = l_path(dev, card, checks)
+    torch.cuda.empty_cache()
+    launches["poisson_dg_plain_2d"] = dg_plain_2d_path(dev, card)
+    torch.cuda.empty_cache()
+    launches["matvec_dg_plain"] = matvec_plain_path(dev)
+    launches["poisson_cube_2d"] = cube_2d_path(dev, card)
+    torch.cuda.empty_cache()
+    launches["poisson_dg_2d"] = dg_2d_path(dev, card)
+    torch.cuda.empty_cache()
+    launches["poisson_cube_135M"] = utils_path(dev, card)
+    torch.cuda.empty_cache()
     off_path = {k: v for k, v in launches["poisson_dg_plain"].items()
                 if k.startswith(("brick_kron", "cheb_epilogue")) and v}
     require(not off_path, f"the poisson_dg_plain solves launched {off_path}")
-    for path in ("poisson_shell", "poisson_dg_plain_curved", "poisson_l"):
+    for path in PLAIN_PATHS:
         off_path = {k: v for k, v in launches[path].items()
                     if k not in CG_KERNELS and v}
         require(not off_path, f"the {path} solves launched {off_path}")
+    require(not any(launches["matvec_dg_plain"].values()),
+            f"the plain matvec_dg rows launched {launches['matvec_dg_plain']}")
     for path, names in (("poisson_cube", CUBE_KERNELS),
+                        *((degree_path(p), CUBE_KERNELS)
+                          for p in HIGH_DEGREE_SIZES),
                         ("poisson_dg", DG_KERNELS),
                         ("poisson_dg_plain", DG_PLAIN_KERNELS),
-                        ("poisson_shell", SHELL_KERNELS),
-                        ("poisson_dg_plain_curved", CG_KERNELS),
-                        ("poisson_l", CG_KERNELS)):
+                        *((path, CG_KERNELS) for path in PLAIN_PATHS),
+                        ("matvec_dg_plain", []),
+                        ("poisson_cube_135M", CUBE_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
                     f"kernel {k} was not launched by the {path} solves")
 
+    def counted(kernel: str) -> dict:
+        """Launches of ``kernel`` by path: an entry of degree p counts the
+        brick kernel on its degree's row, the unlabelled brick entries
+        every other path, and every other kernel every path."""
+        base, _, deg = kernel.partition(" p=")
+        if deg:
+            path = degree_path(int(deg))
+            return {path: launches[path][base]}
+        brick = base.startswith("brick_kron")
+        return {p: launches[p][base] for p in launches
+                if not (brick and p.startswith("poisson_cube_p"))}
+
     kernels = []
     for k, (src, rep) in KERNELS.items():
+        by_path = counted(k)
         kernels.append(dict(
             name=k, route="cuda", source=src, replaces=rep,
-            launches=sum(launches[p][k] for p in launches),
-            launches_by_path={p: launches[p][k] for p in launches},
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=checks.err[k], ms=checks.ms[k],
             plain_ms=checks.plain_ms[k], bound_ms=checks.bound[k][0],
             bound_by=checks.bound[k][1], library_ms=checks.library_ms[k]))
@@ -1391,6 +1519,326 @@ def l_path(dev, card, checks) -> dict:
     torch.cuda.synchronize()
     print(f"  CG kernel checks passed at {sorted(lengths)} entries; "
           f"poisson_l path {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def solve_rows(solver, reps: int = 2):
+    """FMG and CG of a brick solver, best of ``reps`` each, the V-cycle
+    reduction in between: (fmg s, cg s, FMG solution, CG solution, its, CG
+    reduction, V-cycle reduction)."""
+    fmg_s, cg_s = [], []
+    sol = sol_cg = None
+    for _ in range(reps):
+        sol = None
+        t0 = time.perf_counter()
+        sol = solver.solve()
+        torch.cuda.synchronize()
+        fmg_s.append(time.perf_counter() - t0)
+    _, _, reduction = solver.solve_analyze()
+    for _ in range(reps):
+        sol_cg = None
+        t0 = time.perf_counter()
+        sol_cg, its, cg_red = solver.solve_cg()
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    return min(fmg_s), min(cg_s), sol, sol_cg, its, cg_red, reduction
+
+
+def cube_degree_path(dev, card, p: int, size: int) -> dict:
+    """poisson_cube at degree ``p`` (8 or 9; brick_kron's new degrees) on
+    ``poisson_cube_mesh(size)``: set-up, FMG and CG (best of 2), its CG its
+    within one of the CPU's on the 4^3 mesh; returns the device kernels
+    launched by the solves."""
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+
+    small = build_solver(poisson_cube_mesh(HIGH_DEGREE_SMALL), p,
+                         device="cpu")
+    _, cpu_its, cpu_red = small.solve_cg()
+    del small
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build_solver(poisson_cube_mesh(size), p, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = solver.grids[solver.maxlevel]
+    reset_launches()
+    fmg_s, cg_s, sol, sol_cg, its, cg_red, reduction = solve_rows(solver)
+    launches = read_launches()
+    fmg_l2 = solver.l2_error(solver.maxlevel, sol)
+    cg_l2 = solver.l2_error(solver.maxlevel, sol_cg)
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"poisson_cube p={p} size {size}: {g.n_dofs} dofs ({g.shape} "
+          f"nodes), set-up {setup_s:.2f} s, FMG {fmg_s:.4f} s (L2 "
+          f"{fmg_l2:.4e}, V-cycle reduction {reduction:.4e}), CG {cg_s:.4f} "
+          f"s, {its} its (CPU 4^3: {cpu_its}), reduction {cg_red:.4e} (CPU "
+          f"4^3: {cpu_red:.4e}), CG L2 {cg_l2:.4e}, max_memory_allocated "
+          f"{mem} bytes [{card}]")
+    require(abs(its - cpu_its) <= 1, f"p={p}: cg_its {its} vs CPU {cpu_its}")
+    require(sol.shape == g.shape and bool(torch.isfinite(sol).all())
+            and np.isfinite(fmg_l2) and cg_l2 < L2_BOUND,
+            f"p={p}: FMG L2 {fmg_l2}, CG L2 {cg_l2}")
+    return launches
+
+
+def dg_plain_2d_path(dev, card) -> dict:
+    """2-D poisson_dg_plain (the reference program's setting, p = 3): the
+    small rows of every kind on the card against the CPU, then the two
+    full-width hermite rows; returns the device kernels launched by the
+    full-width solves (the CG kernels only: the 2-D levels are plain)."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    t_path = time.perf_counter()
+
+    def build(size, where, kind):
+        return MultigridSolverDGPlain(poisson_cube_mesh(size, 2), DG2_DEGREE,
+                                      exact_fn, rhs_fn, kind=kind, n_pre=3,
+                                      n_post=3, device=where)
+
+    for kind in ("hermite", "gll", "gauss"):
+        for size in DG2_SMALL:
+            got = {}
+            for where in (dev, "cpu"):
+                s = build(size, where, kind)
+                require(s.plain_route, "2-D DG-plain levels not plain")
+                sol, its, rate = s.solve_cg(tolerance=DG_RTOL)
+                got[str(where)] = (its, rate, s.l2_error(sol, s.exact_quad))
+                del s, sol
+            (its, rate, l2), (c_its, c_rate, c_l2) = got[str(dev)], got["cpu"]
+            print(f"2-D DG-plain (plain) {kind} {(8 * size) ** 2 * 16} DG dofs "
+                  f"p={DG2_DEGREE}: card frac its {its:.4f}, rate {rate:.4e},"
+                  f" L2 {l2:.6e}; CPU {c_its:.4f}, {c_rate:.4e}, {c_l2:.6e}")
+            require(abs(np.ceil(its) - np.ceil(c_its)) <= 1
+                    and abs(its / c_its - 1) <= DG2_AGREE
+                    and abs(l2 / c_l2 - 1) <= DG2_AGREE,
+                    f"2-D DG-plain {kind} size {size}: card ({its}, {l2}) vs "
+                    f"CPU ({c_its}, {c_l2})")
+    launches = {k: 0 for k in read_launches()}
+    its_rows = []
+    for size in DG2_LARGE:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        s = build(size, dev, "hermite")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        reset_launches()
+        cg_s = []
+        sol = None
+        for _ in range(2):
+            sol = None
+            t0 = time.perf_counter()
+            sol, its, rate = s.solve_cg(tolerance=DG_RTOL)
+            torch.cuda.synchronize()
+            cg_s.append(time.perf_counter() - t0)
+        for k, v in read_launches().items():
+            launches[k] += v
+        err = s.l2_error(sol, s.exact_quad)
+        mem = torch.cuda.max_memory_allocated(dev)
+        print(f"2-D DG-plain (plain) hermite size {size}: "
+              f"{s.grids[-1].n_dofs} DG dofs, {len(s.grids)} levels, set-up "
+              f"{setup_s:.2f} s, CG {min(cg_s):.4f} s (runs "
+              f"{', '.join(f'{t:.4f}' for t in cg_s)}), frac its {its:.4f}, "
+              f"rate {rate:.4e}, L2 {err:.6e}, max_memory_allocated {mem} "
+              f"bytes [{card}]")
+        require(sol.shape == s.grids[-1].shape
+                and bool(torch.isfinite(sol).all()) and rate < PLAIN_RATE,
+                f"2-D DG-plain size {size}: rate {rate:.4e}")
+        its_rows.append(its)
+        del s, sol
+        torch.cuda.empty_cache()
+    require(abs(its_rows[1] - its_rows[0]) <= 1,
+            f"2-D DG-plain full-width frac its {its_rows}")
+    print(f"  2-D DG-plain path {time.perf_counter() - t_path:.1f} s")
+    return launches
+
+
+def matvec_plain_path(dev) -> dict:
+    """matvec_dg above the DG kernels' degree: the "(plain)" rows in f64,
+    each verified by the driver against the face-based operator at its bar
+    (it raises on a miss); returns the device kernels they launched (none
+    of the DG kernels)."""
+    from multigrid_tpu_torch.experiments import matvec_dg
+
+    reset_launches()
+    for p, steps in MATVEC_PLAIN.items():
+        row = matvec_dg.run(p, "hermite", steps, torch.float64, dev)
+        require(row["route"] == "plain" and row["verify"]
+                < matvec_dg.VERIFY_TOL[torch.float64],
+                f"matvec_dg p={p}: {row}")
+    return read_launches()
+
+
+def cube_2d_path(dev, card) -> dict:
+    """poisson_cube --dim 2: size 4 on the card against the CPU, then size
+    64 (512^2 cells, 4,198,401 dofs): its and reductions; returns the
+    device kernels launched by the size-64 solves."""
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+
+    rows = {}
+    for where in (dev, "cpu"):
+        s = build_solver(poisson_cube_mesh(CUBE2_SMALL, 2), 4, device=where)
+        _, _, red = s.solve_analyze()
+        _, its, cg_red = s.solve_cg()
+        rows[str(where)] = (its, cg_red, red)
+    (its, cg_red, red), (c_its, c_cg_red, c_red) = rows[str(dev)], rows["cpu"]
+    print(f"2-D cube (plain) size {CUBE2_SMALL}: card {its} its, CG reduction "
+          f"{cg_red:.4e}, V-cycle {red:.4e}; CPU {c_its}, {c_cg_red:.4e}, "
+          f"{c_red:.4e}")
+    require(its == c_its and abs(cg_red / c_cg_red - 1) <= 0.02
+            and abs(red / c_red - 1) <= 0.02, "2-D cube card vs CPU")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build_solver(poisson_cube_mesh(CUBE2_SIZE, 2), 4, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = solver.grids[solver.maxlevel]
+    reset_launches()
+    fmg_s, cg_s, sol, sol_cg, its, cg_red, reduction = solve_rows(solver)
+    launches = read_launches()
+    fmg_l2 = solver.l2_error(solver.maxlevel, sol)
+    cg_l2 = solver.l2_error(solver.maxlevel, sol_cg)
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"2-D cube (plain) size {CUBE2_SIZE}: {g.n_dofs} dofs, set-up "
+          f"{setup_s:.2f} s, FMG {fmg_s:.4f} s (L2 {fmg_l2:.4e}, V-cycle "
+          f"reduction {reduction:.4e}), CG {cg_s:.4f} s, {its} its, "
+          f"reduction {cg_red:.4e}, CG L2 {cg_l2:.4e}, max_memory_allocated "
+          f"{mem} bytes [{card}]")
+    require(its == CG_ITS
+            and abs(cg_red / CUBE2_CG_REDUCTION - 1) <= ROW_TOL
+            and abs(reduction / CUBE2_VCYCLE_REDUCTION - 1) <= ROW_TOL,
+            f"2-D cube size {CUBE2_SIZE}: {its} its, {cg_red}, {reduction}")
+    require(np.isfinite(fmg_l2) and cg_l2 < L2_BOUND,
+            f"2-D cube L2 {fmg_l2}, {cg_l2}")
+    return launches
+
+
+def dg_2d_path(dev, card) -> dict:
+    """poisson_dg --dim 2 (hermite p = 4, n_pre 3, rtol 1e-9): size 2 on
+    the card against the CPU, then size 40 (2,560,000 DG dofs); returns
+    the device kernels launched by the size-40 solves."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDG
+
+    def build(size, where):
+        return MultigridSolverDG(poisson_cube_mesh(size, 2), 4, exact_fn,
+                                 rhs_fn, kind="hermite", n_pre=3, n_post=3,
+                                 device=where)
+
+    got = {}
+    for where in (dev, "cpu"):
+        s = build(DG2D_SMALL, where)
+        sol, its, rate = s.solve_cg(tolerance=DG_RTOL)
+        got[str(where)] = (its, rate, s.l2_error(sol, s.exact_quad))
+    (its, rate, l2), (c_its, c_rate, c_l2) = got[str(dev)], got["cpu"]
+    print(f"2-D DG (plain) size {DG2D_SMALL}: card frac its {its:.4f}, rate "
+          f"{rate:.4e}, L2 {l2:.6e}; CPU {c_its:.4f}, {c_rate:.4e}, "
+          f"{c_l2:.6e}")
+    require(abs(its / c_its - 1) <= 0.02 and abs(rate / c_rate - 1) <= 0.02
+            and abs(l2 / c_l2 - 1) <= 1e-6, "2-D DG card vs CPU")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    s = build(DG2D_SIZE, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    require(s.plain_route, "2-D DG level not plain")
+    reset_launches()
+    cg_s = []
+    sol = None
+    for _ in range(2):
+        sol = None
+        t0 = time.perf_counter()
+        sol, its, rate = s.solve_cg(tolerance=DG_RTOL)
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    err = s.l2_error(sol, s.exact_quad)
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"2-D DG (plain) size {DG2D_SIZE}: {s.dg_grid.n_dofs} DG dofs, "
+          f"set-up {setup_s:.2f} s, CG {min(cg_s):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in cg_s)}), frac its {its:.4f}, rate "
+          f"{rate:.4e}, L2 {err:.6e}, max_memory_allocated {mem} bytes "
+          f"[{card}]")
+    require(DG_ITS[0] <= its <= DG_ITS[1] and DG_RATE[0] <= rate <= DG_RATE[1]
+            and abs(err - DG2D_L2) <= DG_L2_TOL,
+            f"2-D DG size {DG2D_SIZE}: {its}, {rate}, {err}")
+    return launches
+
+
+def utils_path(dev, card) -> dict:
+    """The single-device utils: ``poisson_cube --output`` (2-D size 4)
+    read back; the memory report after the 135M cube's set-up; one CG
+    solve, its solution through a checkpoint file and back bit for bit;
+    returns the device kernels launched by that solve."""
+    from pathlib import Path
+
+    from multigrid_tpu_torch.experiments.poisson_cube import (build_solver,
+                                                              exact_fn,
+                                                              run_cycle)
+    from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.utils import checkpoint, memory
+
+    scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    scratch.mkdir(parents=True, exist_ok=True)
+    mesh = poisson_cube_mesh(VTK_SIZE, 2)
+    row = run_cycle(mesh, 4, 2, 2, 2, device=dev, n_fmg_repeat=1,
+                    n_cg_repeat=1, n_matvec=2, verbose=False,
+                    output_dir=str(scratch))
+    g = DofGrid(mesh, mesh.max_level, 4)
+    path = scratch / f"solution_{g.n_dofs}.vtr"
+    text = path.read_text()
+    fields = {}
+    for name in ("solution", "error"):
+        body = text.split(f'Name="{name}" format="ascii">')[1].split("<")[0]
+        fields[name] = np.array(body.split(), np.float64).reshape(g.shape)
+    exact = np.broadcast_to(exact_fn(g.node_coords()), g.shape)
+    werr = float(np.abs(fields["solution"] - exact - fields["error"]).max())
+    print(f"--output: {path.name}, {path.stat().st_size} bytes, solution - "
+          f"exact - error {werr:.2e}, max|error| "
+          f"{np.abs(fields['error']).max():.3e} (FMG L2 "
+          f"{row['fmg_L2error']:.3e})")
+    require(werr <= 1e-15 and 0 < np.abs(fields["error"]).max()
+            < 20 * row["fmg_L2error"], "poisson_cube --output read back")
+    path.unlink()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build_solver(poisson_cube_mesh(MEM_SIZE), 4, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"135M cube set-up {setup_s:.2f} s [{card}]")
+    rep = memory.print_memory_report(solver)
+    peak = rep["allocator"]["peak_bytes_in_use"]
+    print(f"  memory report: levels {rep['total_bytes']} bytes, allocator "
+          f"peak {peak} bytes, in use {rep['allocator']['bytes_in_use']}, "
+          f"limit {rep['allocator']['bytes_limit']} [{card}]")
+    require(peak >= rep["total_bytes"] > 0, "memory report: peak < levels")
+    reset_launches()
+    t0 = time.perf_counter()
+    sol, its, red = solver.solve_cg()
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(its == CG_ITS, f"135M cube: {its} its")
+    ck = scratch / "cg_solution.npz"
+    t0 = time.perf_counter()
+    checkpoint.save_state(str(ck), {"cg": {"x": sol}},
+                          {"its": its, "reduction": red})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, meta = checkpoint.load_state(str(ck))
+    back = torch.as_tensor(state["cg/x"], device=dev)
+    load_s = time.perf_counter() - t0
+    same = bool(torch.equal(back, sol))
+    print(f"  135M CG: {its} its, {cg_s:.4f} s; checkpoint "
+          f"{ck.stat().st_size} bytes, save {save_s:.2f} s, load {load_s:.2f}"
+          f" s, bit for bit {same} [{card}]")
+    require(same and meta["its"] == its, "checkpoint round trip differs")
+    ck.unlink()
+    del solver, sol, back, state
     return launches
 
 

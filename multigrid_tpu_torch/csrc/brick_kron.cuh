@@ -21,7 +21,8 @@
 // on i mod p: a vertex row (residue 0) has 2p + 1 taps, the other residues
 // p + 1.  So the kernel needs p rows of taps per matrix and axis; they are
 // kernel parameters (Taps below, built on the host by ops/laplace_kron.py;
-// 3,360 bytes in double at p = 7), read with static indices.  Seven banded
+// 5,472 bytes in double at p = 9, above the 4 KB that parameters had before
+// CUDA 12.1), read with static indices.  Seven banded
 // sweeps:
 //   v1 = Mx u, v2 = Lx u;  w1 = My v1, w23 = Ly v1 + My v2;
 //   y = Lz w1 + Mz w23     (c_d folded into the L taps).
@@ -75,13 +76,26 @@
 // 2 columns (32 x 16, two blocks) apply 0.205 / residual 0.251 ms, 3
 // columns 0.171 / 0.200, 4 (the float tile, 63 KB; 146 registers in the
 // residual, one block an SM) 0.162 / 0.276; a cap of 128 registers makes 3
-// and 4 spill.  Above p = 4 one column a thread: the sweeps' lines of
-// 2p + 1 values take the room (p = 7 needs more than 128 registers even
-// so; these degrees are off the main path and were not timed).
+// and 4 spill.  Above p = 4 the sweeps' lines of 2p + 1 values take the
+// room: double keeps one column a thread at p = 5-7 (p = 7 needs more
+// than 128 registers even so).  Degrees 5-9 are off the main path.  At
+// p = 8 and 9 one or two columns leave a tile of one or two cell rows in
+// y, so a plane's y sweep has 32-64 items for 256 threads and the x
+// sweep 68-100.  The tiles there are the fastest without a spill of
+// experiments/time_brick.py's sweep (--high-variant; H100 700 W, 257^3 /
+// 253^3 nodes, PERF.md): float 1 column at p = 8 (Chebyshev step 0.456
+// against 0.523 ms with 2) and 3 at p = 9 (0.686 against 1.081), two
+// blocks an SM; double 3 columns at p = 8 (apply 1.26 against 2.14 ms,
+// 218-252 registers) and 1 at p = 9 (2.93 ms, slower than the dense
+// plain version: 3 columns spill in the Chebyshev mode), one block an
+// SM.  HBM bytes bound them at 0.04 / 0.08 ms.
 // BRICK_KRON_F64_CPT and BRICK_KRON_F64_MIN_BLOCKS override both for
-// tuning builds.  No tensor cores: f32 A x has to hold 2e-6 of max|y|
-// (TF32 keeps about three digits), and the double pipe's flops do not
-// bind.
+// tuning builds; BRICK_KRON_HIGH_CPT (the columns a thread aimed at
+// above p = 4, in the type a source builds) and
+// BRICK_KRON_F32_MIN_BLOCKS do the same for the float tile and the higher
+// degrees (time_brick --high-variant).  No tensor cores: f32 A x has to
+// hold 2e-6 of max|y| (TF32 keeps about three digits), and the double
+// pipe's flops do not bind.
 //
 // The slab depth sets the number of blocks: the launch takes the largest
 // count that fits the card's block slots at once, unless that leaves more
@@ -106,6 +120,9 @@
 #ifndef BRICK_KRON_F64_MIN_BLOCKS
 #define BRICK_KRON_F64_MIN_BLOCKS 1
 #endif
+#ifndef BRICK_KRON_F32_MIN_BLOCKS
+#define BRICK_KRON_F32_MIN_BLOCKS 2
+#endif
 
 namespace {
 
@@ -124,11 +141,19 @@ struct Tile {
   static constexpr int K = 2 * P + 1;
   static constexpr int TXC = (32 + P - 1) / P;  // cells per tile in x
   static constexpr int TX = TXC * P;
-  // z columns per thread: float 4 at p <= 4, 2 above; double
-  // BRICK_KRON_F64_CPT at p <= 4, 1 above
-  static constexpr int CPT_AIM = sizeof(T) == 4 ? (P <= 4 ? 4 : 2)
-                                 : P <= 4       ? BRICK_KRON_F64_CPT
-                                                : 1;
+  // z columns per thread aimed at: float 4 at p <= 4, 2 at p = 5-7, 1 at
+  // p = 8, 3 at p = 9; double BRICK_KRON_F64_CPT at p <= 4, 3 at p = 8, 1
+  // at p = 5-7 and 9 (p = 8-9: the fastest tiles without a spill in
+  // time_brick's sweep, PERF.md)
+#ifdef BRICK_KRON_HIGH_CPT
+  static constexpr int CPT_HIGH = BRICK_KRON_HIGH_CPT;
+#else
+  static constexpr int CPT_HIGH =
+      sizeof(T) == 4 ? (P == 8 ? 1 : P == 9 ? 3 : 2) : (P == 8 ? 3 : 1);
+#endif
+  static constexpr int CPT_AIM = P > 4            ? CPT_HIGH
+                                 : sizeof(T) == 4 ? 4
+                                                  : BRICK_KRON_F64_CPT;
   static constexpr int TYC0 = CPT_AIM * kThreads / TX / P;
   static constexpr int TYC = TYC0 < 1 ? 1 : TYC0;
   static constexpr int TY = TYC * P;
@@ -140,7 +165,7 @@ struct Tile {
   static constexpr int CPT = (NCOL + kThreads - 1) / kThreads;
   // blocks an SM must hold (the launch bound, which caps the registers)
   static constexpr int MIN_BLOCKS =
-      sizeof(T) == 4 ? 2 : BRICK_KRON_F64_MIN_BLOCKS;
+      sizeof(T) == 4 ? BRICK_KRON_F32_MIN_BLOCKS : BRICK_KRON_F64_MIN_BLOCKS;
 };
 
 template <typename T, int P>
@@ -518,6 +543,8 @@ int brick_kron_entry(int mode, const T* x, const T* b, const T* x_old,
     MGT_KRON_CASE(5)
     MGT_KRON_CASE(6)
     MGT_KRON_CASE(7)
+    MGT_KRON_CASE(8)
+    MGT_KRON_CASE(9)
 #undef MGT_KRON_CASE
     default:
       return (int)cudaErrorInvalidValue;

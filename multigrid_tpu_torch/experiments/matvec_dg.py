@@ -10,8 +10,10 @@ program.cc:176-205).  Run as
 
 The device picks the operator: on the card ``dg_apply<double>`` (K9) for
 float64 and ``dg_apply<float>`` (K7) for float32, on the CPU their plain
-PyTorch version.  The kernels stop at p = 7 (``dg_kernel.MAX_DEGREE``):
-on the card the sweep stops there and says so.  Each row is verified
+PyTorch version.  The kernels stop at p = 7 (``dg_kernel.MAX_DEGREE``);
+above it the plain ``DGLaplace`` runs on every device, as the JAX
+driver's XLA operator does at every degree, and the row says "(plain)".
+Each row is verified
 against the face-based operator (``ops/dg_face.py``, plain PyTorch, in
 float64 on the same input) as the reference subtracts its reference
 operator (program.cc:206-207).  ``--impl curved`` times the per-point
@@ -34,7 +36,8 @@ from ..devices import driver_device
 from ..ops.dg import DGGrid
 from ..ops.dg_curved import DGCurvedGrid, DGLaplaceCurved
 from ..ops.dg_face import DGLaplaceFaceBased
-from ..ops.dg_kernel import MAX_DEGREE, DGOperator
+from ..ops.dg_kernel import has_kernel
+from ..solvers.multigrid_dg import constant_level
 from ..utils.perf_model import dg_matvec_ops
 from .poisson_cube import _sync
 
@@ -99,8 +102,9 @@ def run(degree: int, kind: str, n_cell_steps: int, dtype=torch.float64,
                              dtype, device)
         route = "curved, plain"
     else:
-        op = DGOperator(grid, dtype, device)
-        route = "kernel" if op.device.type == "cuda" else "plain"
+        op = constant_level(grid, dtype, device, kernel=has_kernel(grid))
+        route = ("kernel" if op.device.type == "cuda" and has_kernel(grid)
+                 else "plain")
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(grid.shape),
                         dtype=dtype, device=op.device)
     y = op.vmult(x)
@@ -120,7 +124,8 @@ def run(degree: int, kind: str, n_cell_steps: int, dtype=torch.float64,
         raise AssertionError(f"{kind} p={degree} {dtype}: verify {verify:.3e}"
                              f" >= {VERIFY_TOL[dtype]:g}")
     return dict(kind=kind, degree=degree, dtype=str(dtype), impl=impl,
-                seconds=best, dofs_per_s=grid.n_dofs / best, verify=verify)
+                route=route, seconds=best, dofs_per_s=grid.n_dofs / best,
+                verify=verify)
 
 
 def main(argv=None) -> list:
@@ -142,11 +147,6 @@ def main(argv=None) -> list:
     device = driver_device(args.device)
     rows = []
     for degree in range(args.min_degree, args.max_degree + 1):
-        if device.type == "cuda" and degree > MAX_DEGREE and \
-                args.impl == "fused":
-            print(f"stopping at p = {MAX_DEGREE}: the DG kernels are compiled "
-                  f"for p <= {MAX_DEGREE} (p = {degree} asked)")
-            break
         for kind in ("hermite", "gll", "gauss"):
             for name in args.dtype:
                 rows.append(run(degree, kind, args.steps,

@@ -5,16 +5,18 @@ Twin of ``experiments/poisson_dg_plain.py`` (the reference program
 poisson_dg_plain/program.cc).  Run as
 
     python -m multigrid_tpu_torch.experiments.poisson_dg_plain degree \\
-        minsize maxsize n_pre tolerance [--dim 3] [--var-coeff]
+        minsize maxsize n_pre tolerance [--dim 2] [--var-coeff]
 
 (positional arguments as the JAX experiment; sizes count DG dofs; sizes
 with an odd cell count are skipped, since h-multigrid needs one
 refinement).  For each of hermite, gll and gauss: the set-up time, the
 best of three outer-CG solves, fractional iterations, rate and L2 error
 (on the card also the peak device memory), then the convergence table.
-``--dim`` defaults to 3, not 2 as in the JAX driver: the DG kernels on the
-card are 3-D only, and a 2-D grid on the card raises in their check;
-``--dim 2 --device cpu`` runs the plain operators.
+``--dim`` defaults to 2, the reference program's setting (and the JAX
+driver's).  The DG kernels are 3-D: a 2-D level runs the plain
+``DGLaplace`` on every device, as the JAX package runs XLA there, and its
+rows say "(plain)".  They stop at p = 7, and the card refuses a 3-D level
+above it (the JAX package runs Pallas there).
 Solves run on the CUDA device, and the driver stops with an error when
 there is none; ``--device cpu`` runs the plain PyTorch operators on the CPU.
 ``--var-coeff`` solves -div(c grad u) = f (plain PyTorch on every device);
@@ -35,6 +37,7 @@ import torch
 from ..devices import driver_device
 from ..mesh.brick import poisson_cube_mesh
 from ..solvers.multigrid_dg import MultigridSolverDGPlain
+from ..utils.memory import device_memory_stats
 from ..utils.tables import print_convergence_table
 from .poisson_cube import SIZES, _sync, exact_fn, rhs_fn
 
@@ -89,7 +92,7 @@ def main(argv=None) -> dict:
     ap.add_argument("maxsize", type=int, nargs="?", default=1_000_000)
     ap.add_argument("n_pre_smooth", type=int, nargs="?", default=3)
     ap.add_argument("tolerance", type=float, nargs="?", default=1e-3)
-    ap.add_argument("--dim", type=int, default=3)
+    ap.add_argument("--dim", type=int, default=2, choices=[2, 3])
     ap.add_argument("--var-coeff", action="store_true",
                     help="solve -div(c grad u) with c = 1 + u / 2 (plain "
                          "PyTorch operators on every device)")
@@ -146,8 +149,11 @@ def main(argv=None) -> dict:
                        cg_reduction=rate,
                        cg_L2error=s.l2_error(sol, s.exact_quad))
             if device.type == "cuda":
-                row["peak_bytes"] = torch.cuda.max_memory_allocated(device)
-            print(kind, row, flush=True)
+                row["peak_bytes"] = device_memory_stats(device)[
+                    "peak_bytes_in_use"]
+            route = ("kernels" if device.type == "cuda"
+                     and not s.plain_route else "plain")
+            print(kind, f"({route})", row, flush=True)
             rows.append(row)
             del s, sol
         print(f"=== element type: {kind}")

@@ -41,6 +41,7 @@ from ..mesh.adaptive import AdaptiveGrid, OctForest, QuadForest
 from ..ops.laplace_adaptive import KellyEstimator
 from ..solvers.multigrid_adaptive import AdaptiveMultigridSolver, NestedTransfer
 from ..solvers.multigrid_local import LocalSmoothingMultigrid
+from ..utils.memory import device_memory_stats
 from .poisson_cube import _sync
 
 
@@ -183,7 +184,7 @@ def run_cycle(forest, degree, rtol=1e-9, local_smoothing=False,
                estimator=float(np.sqrt(eta2.sum())), setup_time=setup_t,
                solve_time=solve_t)
     if s.device.type == "cuda":
-        row["peak_bytes"] = torch.cuda.max_memory_allocated(s.device)
+        row["peak_bytes"] = device_memory_stats(s.device)["peak_bytes_in_use"]
     return row, sol, eta2, s
 
 

@@ -8,8 +8,10 @@ one CUDA device.
     python -m multigrid_tpu_torch.experiments.profile_solve 5 --path shell
     python -m multigrid_tpu_torch.experiments.profile_solve 48 --path dg-curved
     python -m multigrid_tpu_torch.experiments.profile_solve 8 --path l
+    python -m multigrid_tpu_torch.experiments.profile_solve 64 --path \\
+        dg-plain --dim 2 --degree 3
 
-For each cube size (``poisson_cube_mesh(size)``, FE_Q(degree)) and each of
+For each cube size (``poisson_cube_mesh(size, dim)``, FE_Q(degree)) and each of
 FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
 ``--path dg``, the poisson_dg CG (hermite, n_pre = n_post = 3, rtol 1e-9);
 with ``--path dg-plain``, the poisson_dg_plain CG (pure-DG h-multigrid, the
@@ -69,6 +71,7 @@ from ..ops.transfer_general import GeneralTransfer
 from ..solvers.multigrid import set_full_precision_matmul
 from ..solvers.multigrid_adaptive import NestedTransfer
 from ..solvers.multigrid_dg import MultigridSolverDG, MultigridSolverDGPlain
+from ..utils.profiling import device_trace, profile_fn
 from .poisson_cube import build_solver, exact_fn, rhs_fn
 from . import poisson_l, poisson_shell
 from .poisson_dg_plain import deform_chart
@@ -216,19 +219,14 @@ def path_ranges(path: str):
 
 
 def profile_call(fn, trace: Path, path: str = "cube") -> dict:
-    """Run ``fn`` once under ``torch.profiler`` and break its trace down,
+    """Run ``fn`` once under ``torch.profiler``
+    (:func:`~..utils.profiling.device_trace`) and break its trace down,
     inside the ranges of ``path`` (:func:`path_ranges`)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with path_ranges(path), \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
+    with path_ranges(path), device_trace(str(trace)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
     trace.unlink()
     return breakdown(events, wall)
@@ -242,6 +240,9 @@ def main(argv=None) -> list:
                          "--path l: uniform refinements of the L)")
     ap.add_argument("--degree", type=int, default=None,
                     help="element degree (default 4; 2 for --path l)")
+    ap.add_argument("--dim", type=int, default=3, choices=[2, 3],
+                    help="2: the 2-D ladder (cube, dg, dg-plain paths), whose "
+                         "levels run the plain operators")
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
     ap.add_argument("--path", default="cube",
@@ -264,13 +265,13 @@ def main(argv=None) -> list:
     cells = []
     for size in args.sizes:
         if args.path == "dg":
-            solver = MultigridSolverDG(poisson_cube_mesh(size), args.degree,
-                                       exact_fn, rhs_fn, n_pre=3, n_post=3,
-                                       device=dev)
+            solver = MultigridSolverDG(poisson_cube_mesh(size, args.dim),
+                                       args.degree, exact_fn, rhs_fn,
+                                       n_pre=3, n_post=3, device=dev)
             dofs = solver.dg_grid.n_dofs
             phases = (("dg cg", lambda: solver.solve_cg(tolerance=1e-9)),)
         elif args.path in ("dg-plain", "dg-curved"):
-            mesh = poisson_cube_mesh(size)
+            mesh = poisson_cube_mesh(size, args.dim)
             solver = MultigridSolverDGPlain(
                 mesh, args.degree, exact_fn, rhs_fn, kind="hermite", n_pre=3,
                 n_post=3, device=dev,
@@ -295,19 +296,13 @@ def main(argv=None) -> list:
             dofs = solver.grids[solver.maxlevel].n_dofs
             phases = (("shell fmg", solver.solve), ("shell cg", solver.solve_cg))
         else:
-            solver = build_solver(poisson_cube_mesh(size), args.degree,
-                                  device=dev)
+            solver = build_solver(poisson_cube_mesh(size, args.dim),
+                                  args.degree, device=dev)
             dofs = solver.grids[solver.maxlevel].n_dofs
             phases = (("fmg", solver.solve), ("cg", solver.solve_cg))
         for phase, fn in phases:
-            fn()
-            torch.cuda.synchronize()
             walls = []
-            for _ in range(args.repeat):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
+            profile_fn(fn, n_warmup=1, n_runs=args.repeat, walls=walls)
             cell = {"size": size, "dofs": dofs, "phase": phase,
                     "wall_s": min(walls), "walls_s": walls, "card": card,
                     **profile_call(fn, trace, args.path)}

@@ -10,7 +10,8 @@ solver_dg/program.cc, face-based against cell-based CG).  Run as
 
 Both rows run the same CG loop on the CG vector kernels (``cg_update``,
 ``cg_dot``, ``cg_xpay`` on the card).  The cell-based operator is
-``dg_apply<double>`` (K9) on the card; the face-based one
+``dg_apply<double>`` (K9) on the card, and above the kernel's degree the
+plain ``DGLaplace`` on every device ("(plain)"); the face-based one
 (``ops/dg_face.py``, "face (plain)") is plain PyTorch on every device, as
 its XLA twin is on the TPU.  The two solutions must agree to 1e-9 of their
 largest value (solver_dg/program.cc:240-241).  The JAX driver's third
@@ -31,8 +32,9 @@ import torch
 from ..devices import driver_device
 from ..ops.cg_kernel import cg_dot, cg_update, cg_xpay
 from ..ops.dg_face import DGLaplaceFaceBased
-from ..ops.dg_kernel import MAX_DEGREE, DGOperator
+from ..ops.dg_kernel import has_kernel
 from ..ops.dg_precond import JacobiTransformed
+from ..solvers.multigrid_dg import constant_level
 from .matvec_dg import bench_grid
 from .poisson_cube import _sync
 
@@ -60,13 +62,13 @@ def run(degree: int, kind: str, n_cell_steps: int, n_iterations: int = 50,
         device="cuda") -> dict:
     grid = bench_grid(degree, kind, n_cell_steps, shear=False)
     f64 = torch.float64
-    op = DGOperator(grid, f64, device)
+    op = constant_level(grid, f64, device, kernel=has_kernel(grid))
     dev = op.device
     face = DGLaplaceFaceBased(grid, f64, dev)
     jac = JacobiTransformed(grid, f64, dev)
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(grid.shape),
                         dtype=f64, device=dev)
-    route = "kernel" if dev.type == "cuda" else "plain"
+    route = "kernel" if dev.type == "cuda" and has_kernel(grid) else "plain"
     results = {}
     for name, apply in ((f"cell-based ({route})", op.vmult),
                         ("face (plain)", face.vmult)):
@@ -108,10 +110,6 @@ def main(argv=None) -> list:
     device = driver_device(args.device)
     rows = []
     for degree in args.degrees:
-        if device.type == "cuda" and degree > MAX_DEGREE:
-            print(f"skipping p = {degree}: the DG kernels are compiled for "
-                  f"p <= {MAX_DEGREE}")
-            continue
         for kind in args.kinds:
             rows.append(run(degree, kind, args.steps, device=device))
     return rows

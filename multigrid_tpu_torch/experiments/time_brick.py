@@ -1,26 +1,32 @@
-"""Time the f64 brick operator (K1's twin) on the card.
+"""Time the brick operator (K1's and K2's twin) on the card.
 
     python -m multigrid_tpu_torch.experiments.time_brick [size ...]
-        [--f64-variant CPT:BLOCKS ...]
+        [--degree P] [--plain] [--f64-variant CPT:BLOCKS ...]
+        [--high-variant TYPE:CPT:BLOCKS ...]
 
-For each poisson_cube size (default 64 and 128: 257^3 and 513^3 nodes,
-FE_Q(4)) the float64 ``BrickLaplace`` of the finest level, on random x and
-b from a seeded generator: CUDA events over 50 calls after 3 warm-ups,
-three rounds of (apply, vmult, vmult_residual, and the float32 operator's
-apply and Chebyshev step beside them), with the device kernels one call
-launches (``laplace_kernel.LAUNCHES``) and a digest of each output
-(sha256 of its bytes), so that two trees' results can be compared bit for
-bit.  ``--f64-variant C:B``
-also builds ``csrc/brick_kron_f64.cu`` alone with C z columns a thread
-at p <= 4 and a launch bound of B blocks an SM
-(``-DBRICK_KRON_F64_CPT=C -DBRICK_KRON_F64_MIN_BLOCKS=B``), prints the
-registers and spills of its p = 4 kernels, checks that its apply, vmult
-and residual equal the library's bit for bit (the tile shape moves no
-rounding: every node sums the same taps in the same order) and times
-them beside.  The
-script uses only the operator's public methods, so run as a file with
-another tree's package on ``PYTHONPATH`` it times that tree's kernels in
-the same call (``PYTHONPATH=<tree> python
+For each poisson_cube size (default 64 and 128: 257^3 and 513^3 nodes at
+the default FE_Q(4); ``--degree 8`` at size 32 and ``--degree 9`` at size
+28 give 257^3 and 253^3 nodes) the float64 ``BrickLaplace`` of the
+finest level, on random x and b from a seeded generator: CUDA events over
+50 calls after 3 warm-ups, three rounds of (apply, vmult, vmult_residual,
+and the float32 operator's apply and Chebyshev step beside them; with
+``--plain`` also both dtypes' dense plain apply), with the device kernels
+one call launches (``laplace_kernel.LAUNCHES``) and a digest of each
+output (sha256 of its bytes), so that two trees' results can be compared
+bit for bit.  ``--f64-variant C:B`` also builds
+``csrc/brick_kron_f64.cu`` alone with C z columns a thread at p <= 4 and
+a launch bound of B blocks an SM (``-DBRICK_KRON_F64_CPT=C
+-DBRICK_KRON_F64_MIN_BLOCKS=B``); ``--high-variant f32:C:B`` (or
+``f64:C:B``) builds that type's source with C columns a thread aimed at
+above p = 4 and the launch bound B (``-DBRICK_KRON_HIGH_CPT=C
+-DBRICK_KRON_F32_MIN_BLOCKS=B``, or ``..._F64_...``).  Each variant
+prints the registers and spills of its kernels at the timed degree,
+checks that its modes (apply, vmult, residual in double; apply and the
+Chebyshev step in float) equal the library's bit for bit (the tile shape
+moves no rounding: every node sums the same taps in the same order) and
+is timed beside.  The script uses only the operator's public methods, so
+run as a file with another tree's package on ``PYTHONPATH`` it times that
+tree's kernels in the same call (``PYTHONPATH=<tree> python
 <tree>/multigrid_tpu_torch/experiments/time_brick.py``).  Prints the card
 line and one JSON line.  Needs a CUDA device.
 """
@@ -50,40 +56,53 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
-def variant_entries(variants: list[str]) -> dict:
-    """``brick_kron_f64`` of ``csrc/brick_kron_f64.cu`` built alone for
-    each variant ("C:B": C z columns a thread at p <= 4, launch bound B),
-    one nvcc each, in parallel."""
+def variant_entries(variants: list[str], degree: int) -> dict:
+    """The brick entry point built alone for each variant, one nvcc each,
+    in parallel: "f64:C:B" of ``--f64-variant`` (C z columns a thread at
+    p <= 4, launch bound B) or "f32:C:B" / "f64:C:B" of ``--high-variant``
+    (``high:`` in front; C columns a thread aimed at above p = 4)."""
     from multigrid_tpu_torch import _build
 
-    src = _build.PACKAGE_DIR / "csrc" / "brick_kron_f64.cu"
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    outs, procs = {}, {}
+    outs, procs, builds = {}, {}, {}
     for v in variants:
-        cpt, blocks = v.split(":")
-        outs[v] = _build.BUILD_DIR / f"brick_kron_f64_{cpt}_{blocks}_{_build._digest()}.so"
+        high = v.startswith("high:")
+        kind, cpt, blocks = v.removeprefix("high:").split(":")
+        tag = kind.upper()
+        defines = ([f"-DBRICK_KRON_HIGH_CPT={cpt}"] if high
+                   else [f"-DBRICK_KRON_F64_CPT={cpt}"])
+        defines.append(f"-DBRICK_KRON_{tag}_MIN_BLOCKS={blocks}")
+        src = _build.PACKAGE_DIR / "csrc" / (
+            "brick_kron.cu" if kind == "f32" else "brick_kron_f64.cu")
+        name = f"brick_kron_{kind}_{'h' if high else ''}{cpt}_{blocks}"
+        builds[v] = kind
+        outs[v] = _build.BUILD_DIR / f"{name}_{_build._digest()}.so"
         if not outs[v].exists():
             procs[v] = subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                 f"-DBRICK_KRON_F64_CPT={cpt}",
-                 f"-DBRICK_KRON_F64_MIN_BLOCKS={blocks}", "-o", str(outs[v]),
-                 str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defines,
+                 "-o", str(outs[v]), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
     entries = {}
     for v in variants:
+        kind = builds[v]
+        log_path = outs[v].with_suffix(".log")
         if v in procs:
             log = procs[v].communicate()[0]
             if procs[v].returncode:
                 raise RuntimeError(f"{v}: nvcc failed\n{log}")
-            for row in _build.ptxas_report(log):
-                if "IdLi4E" in row["kernel"]:  # brick_kron_kernel<double, 4, mode>
-                    print(f"{v} mode {row['kernel'].split('IdLi4ELi')[1][0]}: "
-                          f"{row['registers']} registers, spill stores "
-                          f"{row['spill_stores']} B, loads {row['spill_loads']} B")
-        fn = ctypes.CDLL(str(outs[v])).brick_kron_f64
-        fn.argtypes = _build.SIGNATURES["brick_kron_f64"]
+            log_path.write_text(log)
+        mark = f"I{'f' if kind == 'f32' else 'd'}Li{degree}ELi"
+        log = log_path.read_text() if log_path.exists() else ""
+        for row in _build.ptxas_report(log):
+            if mark in row["kernel"]:  # brick_kron_kernel<T, P, mode>
+                print(f"{v} p={degree} mode "
+                      f"{row['kernel'].split(mark)[1][0]}: "
+                      f"{row['registers']} registers, spill stores "
+                      f"{row['spill_stores']} B, loads {row['spill_loads']} B")
+        fn = getattr(ctypes.CDLL(str(outs[v])), f"brick_kron_{kind}")
+        fn.argtypes = _build.SIGNATURES[f"brick_kron_{kind}"]
         fn.restype = ctypes.c_int
-        entries[v] = fn
+        entries[v] = (kind, fn)
     return entries
 
 
@@ -94,19 +113,27 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("sizes", type=int, nargs="*", default=[64, 128])
+    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--plain", action="store_true",
+                    help="also time the dense plain apply in both dtypes")
     ap.add_argument("--f64-variant", nargs="*", default=[])
+    ap.add_argument("--high-variant", nargs="*", default=[])
     args = ap.parse_args(argv)
+    if args.high_variant and args.degree <= 4:
+        ap.error("--high-variant tiles apply above p = 4")
     if not torch.cuda.is_available():
         raise SystemExit("time_brick: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    entries = variant_entries(args.f64_variant)
+    entries = variant_entries(
+        [f"f64:{v}" for v in args.f64_variant]
+        + [f"high:{v}" for v in args.high_variant], args.degree)
     rows = []
     for size in args.sizes:
         mesh = poisson_cube_mesh(size)
-        grid = DofGrid(mesh, mesh.max_level, 4)
+        grid = DofGrid(mesh, mesh.max_level, args.degree)
         op = lk.BrickLaplace(grid, torch.float64, dev)
         op32 = lk.BrickLaplace(grid, torch.float32, dev)
         gen = torch.Generator(dev).manual_seed(size)
@@ -117,6 +144,10 @@ def main(argv: list[str]) -> int:
                    residual=lambda: op.vmult_residual(b, x),
                    apply_f32=lambda: op32.apply(x32),
                    cheb_f32=lambda: op32.cheb_step(b32, x32, xo32, 0.37, 0.81))
+        if args.plain:
+            fns.update(apply_plain=lambda: lk.brick_apply_plain(x, op.K),
+                       apply_f32_plain=lambda: lk.brick_apply_plain(x32,
+                                                                    op32.K))
         launches, digests = {}, {}
         for name, fn in fns.items():
             lk.reset_launches()
@@ -124,15 +155,22 @@ def main(argv: list[str]) -> int:
             launches[name] = sum(lk.LAUNCHES.values())
             digests[name] = hashlib.sha256(
                 out.cpu().numpy().tobytes()).hexdigest()[:16]
-        for k, entry in entries.items():
-            for mode in ("apply", "vmult", "residual"):
-                out, launched = torch.empty_like(x), ctypes.c_int(0)
+        for k, (kind, entry) in entries.items():
+            modes = (("apply", "vmult", "residual") if kind == "f64"
+                     else ("apply_f32", "cheb_f32"))
+            for mode in modes:
+                f32 = kind == "f32"
+                xs, bs, xos = (x32, b32, xo32) if f32 else (x, b, xo)
+                host = (op32 if f32 else op).host_taps
+                out, launched = torch.empty_like(xs), ctypes.c_int(0)
+                kmode = lk.KRON_MODES[mode.removesuffix("_f32")]
 
-                def call(entry=entry, out=out, launched=launched, mode=mode):
-                    err = entry(lk.KRON_MODES[mode], x.data_ptr(),
-                                b.data_ptr(), None, out.data_ptr(),
-                                op.host_taps.ctypes.data, 0.0, 0.0,
-                                *grid.shape, grid.degree,
+                def call(entry=entry, out=out, launched=launched,
+                         kmode=kmode, xs=xs, bs=bs, xos=xos, host=host):
+                    err = entry(kmode, xs.data_ptr(), bs.data_ptr(),
+                                xos.data_ptr() if kmode == 3 else None,
+                                out.data_ptr(), host.ctypes.data, 0.37,
+                                0.81, *grid.shape, grid.degree,
                                 _build.stream_handle(dev),
                                 ctypes.byref(launched))
                     if err:

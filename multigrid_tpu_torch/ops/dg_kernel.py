@@ -81,11 +81,27 @@ def _launch_args(op: "DGOperator"):
     return C0, C1, C2, op.grid.n, int(op.plain.is_collocation)
 
 
+def covers(grid: DGGrid) -> bool:
+    """Whether a constant-coefficient DG level of ``grid`` runs the DG
+    kernels: 3-D, the JAX gate (``multigrid_tpu/solvers/multigrid_dg.py:139,
+    339``: ``dim == 3``; Pallas K7 and K8 have no degree limit).  The
+    solvers choose a level's route by this when they build it; a 2-D level
+    runs the plain operator on every device, as the JAX package runs XLA
+    there.  A covered level above :data:`MAX_DEGREE` has no kernel yet
+    (:func:`has_kernel`), so :class:`DGOperator` refuses it on the card."""
+    return grid.dim == 3
+
+
+def has_kernel(grid: DGGrid) -> bool:
+    """Whether the kernels are built for ``grid``: covered, degree
+    1..MAX_DEGREE."""
+    return covers(grid) and 1 <= grid.degree <= MAX_DEGREE
+
+
 def _kernel_device(t: torch.Tensor, op: "DGOperator", name: str) -> None:
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {t.device}")
-    if op.dtype not in _SUFFIX or op.grid.dim != 3 \
-            or not 1 <= op.grid.degree <= MAX_DEGREE:
+    if op.dtype not in _SUFFIX or not has_kernel(op.grid):
         raise ValueError(f"{name}: 3-D float32/float64 grids of degree 1.."
                          f"{MAX_DEGREE} only")
     if t.numel() >= 2**31:
@@ -203,6 +219,10 @@ class DGOperator:
         self.shape = tuple(grid.shape)
         self.dtype = dtype
         self.device = resolve(device)
+        if self.device.type == "cuda" and not has_kernel(grid):
+            raise ValueError(f"DGOperator: no DG kernel for a {grid.dim}-D "
+                             f"grid of degree {grid.degree} (3-D, 1.."
+                             f"{MAX_DEGREE} only)")
         self.plain = DGLaplace(grid, dtype, self.device)
         self.host_tables = dg_tables(grid).astype(
             np.float64 if dtype == torch.float64 else np.float32)

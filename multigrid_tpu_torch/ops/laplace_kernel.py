@@ -46,7 +46,7 @@ LAUNCHES = {"brick_kron<float>": 0, "brick_kron_cheb<float>": 0,
             "brick_kron<double>": 0, "brick_kron_cheb<double>": 0,
             "cheb_epilogue<double>": 0, "cheb_epilogue<float>": 0}
 KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
-MAX_DEGREE = 7     # brick_kron's largest instantiation
+MAX_DEGREE = 9     # brick_kron's largest instantiation (the reference's)
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 
 

@@ -8,8 +8,7 @@ to save memory passes on a CPU.  Here they are plain compositions over a
 ``vmult`` and a ``precond``, as in the JAX twin.  On the card the fused
 passes that matter are kernels of their own (``dg_cheb``, ``brick_kron``'s
 Chebyshev mode, ``cg_update``); these compositions serve the operators
-that have no kernel, such as the variable-coefficient DG levels of
-``solvers/multigrid_dg.py``.
+that have no kernel (:class:`PlainLevel`).
 """
 
 from __future__ import annotations
@@ -50,3 +49,37 @@ def vmult_with_chebyshev_update(vmult: Callable, precond: Callable,
     r = rhs - vmult(x)
     x_new = factor2 * precond(r) + (1.0 + factor1) * x - factor1 * x_old
     return x_new, x
+
+
+class PlainLevel:
+    """A multigrid level without a kernel of its own, as the smoother, the
+    V-cycle and the CG call it (``shape``, ``dtype``, ``device``,
+    ``vmult``, ``vmult_residual``, ``cheb_step``): ``op``'s own
+    ``vmult`` and ``vmult_residual``, and the Chebyshev step composed by
+    :func:`vmult_with_chebyshev_update` over ``op.vmult`` and ``precond``.
+    Plain PyTorch on every device: the 2-D DG levels and, through
+    ``VarCoeffLevel``, the variable-coefficient and curved ones
+    (``solvers/multigrid_dg.py``), and the 2-D brick levels' float32
+    smoothing (``solvers/multigrid.py``)."""
+
+    def __init__(self, op, precond: Callable):
+        self.op, self.precond = op, precond
+        self.shape = tuple(op.grid.shape)
+        self.dtype, self.device = op.dtype, op.device
+
+    def vmult(self, x: torch.Tensor) -> torch.Tensor:
+        return self.op.vmult(x)
+
+    def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
+        return self.op.vmult_residual(rhs, lhs)
+
+    def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
+        """``x + f1 (x - x_old) + f2 P^-1 (b - A x)``; ``x``/``x_old`` None
+        read as zero."""
+        xo = b.new_zeros(()) if x_old is None else x_old
+        if x is None:
+            res = f2 * self.precond(b) - f1 * xo
+        else:
+            res, _ = vmult_with_chebyshev_update(self.vmult, self.precond, b,
+                                                 f1, f2, x, xo)
+        return res if out is None else out.copy_(res)

@@ -12,9 +12,13 @@ at the reference's two points: dp residual -> sp defect
 The hot path is picked by the device: on a CUDA device every operator
 apply, residual, Chebyshev update and CG vector update launches one of the
 hand-written kernels (``ops/laplace_kernel.py``, ``ops/cg_kernel.py``); on
-the CPU the same calls run their plain PyTorch versions.  There is no
-other switch.  TF32 is turned off for float32 matrix products on the card,
-so the plain float32 code is a full-float32 oracle.
+the CPU the same calls run their plain PyTorch versions.  The brick
+kernels are 3-D: a 2-D level runs the plain ``LaplaceOperator`` on every
+device (a :class:`~.fused.PlainLevel`), chosen from the dimension when
+the level is built, as the JAX package runs XLA there; the outer CG still
+runs on the CG kernels.  There is no other switch.  TF32 is turned off for
+float32 matrix products on the card, so the plain float32 code is a
+full-float32 oracle.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..ops.masks import zero_boundary_
 from ..ops.transfer import Transfer
 from .cg import CGResult, cg_solve
 from .chebyshev import Chebyshev
+from .fused import PlainLevel
 
 # above this many dofs the rhs is assembled on the device from separable
 # factors and the L2 error is taken on the host (multigrid_solver.py twin)
@@ -78,7 +83,7 @@ def set_full_precision_matmul() -> None:
 
 
 class MultigridSolver:
-    """FE_Q(p) Poisson multigrid on a structured 3-D brick.
+    """FE_Q(p) Poisson multigrid on a structured 2-D or 3-D brick.
 
     Parameters mirror the reference constructor
     (common/multigrid_solver.h:100-106): analytic solution (Dirichlet data),
@@ -98,8 +103,6 @@ class MultigridSolver:
                  finest_degree: Optional[int] = None):
         if n_pre != n_post:
             raise ValueError("the reference requires equal pre/post degree")
-        if mesh.dim != 3:
-            raise ValueError("the port solves 3-D bricks")
         self.device = resolve(device)
         if self.device.type == "cuda":
             set_full_precision_matmul()
@@ -119,11 +122,23 @@ class MultigridSolver:
         # sum-factorized oracle: diagonal for the Lanczos estimate, L2 errors
         self.ops_dp = [LaplaceOperator(g, f_dtype, c, dev)
                        for g, c in zip(self.grids, coefs)]
-        # hot path: the brick kernels (plain versions on the CPU)
-        self.sp_ops = [BrickLaplace(g, v_dtype, dev, coefficient)
-                       for g in self.grids]
-        self.dp_ops = [BrickLaplace(g, f_dtype, dev, coefficient)
-                       for g in self.grids]
+        # the smoothers' preconditioner: the inverse diagonal in float32
+        precond = [LaplaceOperator(g, v_dtype, c, dev).inverse_diagonal().mul
+                   for g, c in zip(self.grids, coefs)]
+        # hot path: the brick kernels (plain versions on the CPU); brick_kron
+        # is 3-D, so a 2-D level runs the plain operator on every device (the
+        # JAX package runs XLA there, multigrid_tpu/solvers/multigrid.py:195,
+        # 215: ``g.dim == 3``), whose Dirichlet rows are the kernel's:
+        # identity rows of A
+        if mesh.dim == 3:
+            self.sp_ops = [BrickLaplace(g, v_dtype, dev, coefficient)
+                           for g in self.grids]
+            self.dp_ops = [BrickLaplace(g, f_dtype, dev, coefficient)
+                           for g in self.grids]
+        else:
+            self.sp_ops = [PlainLevel(LaplaceOperator(g, v_dtype, c, dev), pc)
+                           for g, c, pc in zip(self.grids, coefs, precond)]
+            self.dp_ops = self.ops_dp
         self.transfers = [None] + [
             Transfer(self.grids[l], self.grids[l - 1], v_dtype, dev,
                      constrained=True) for l in range(1, L)]
@@ -153,23 +168,20 @@ class MultigridSolver:
         # Chebyshev smoothers (multigrid_solver.h:268-291)
         self.smoothers = []
         for l in range(L):
-            precond = LaplaceOperator(self.grids[l], v_dtype, coefs[l],
-                                      dev).inverse_diagonal().mul
             if l > self.minlevel:
                 # deal.II: smoother_data.degree = n_pre literally
                 deg = n_pre
                 if finest_degree is not None and l == self.maxlevel:
                     deg = finest_degree
-                sm = Chebyshev.create(self.sp_ops[l], precond,
+                sm = Chebyshev.create(self.sp_ops[l], precond[l],
                                       smoothing_range=20.0, degree=deg,
                                       eig_cg_n_iterations=15)
             else:
-                sm = Chebyshev.create(self.sp_ops[l], precond,
+                sm = Chebyshev.create(self.sp_ops[l], precond[l],
                                       smoothing_range=coarse_smoothing_range,
                                       degree=None,
                                       eig_cg_n_iterations=self.grids[l].n_dofs)
             self.smoothers.append(sm)
-            del precond
 
     # ------------------------------------------------------------- set-up
     def _impose_bc(self, faces, x: torch.Tensor,
@@ -190,20 +202,25 @@ class MultigridSolver:
         """dp rhs ``b = M f - A u_bc`` for rank-1 separable
         f = prod_d factors[d](x_d): the mass term is an outer product of
         1-D host-assembled vectors (exact: cells and quadrature factorize
-        per axis), built on the device; only six thin node slabs of the
-        boundary correction are assembled on the host."""
+        per axis), built on the device; only ``2 dim`` thin node slabs of
+        the boundary correction are assembled on the host."""
         b = g.basis
         S = np.asarray(b.S, np.float64)
         qw = np.asarray(b.quad_weights, np.float64)
         vs = []
-        for d in range(3):
+        for d in range(g.dim):
             xq = np.asarray(g.axis_quads[d], np.float64)
             fd = np.asarray(factors[d](xq), np.float64)
             vs.append(_scatter_pair_host((fd * qw[None, :]) @ S, g.degree))
         vs[0] = vs[0] * g.jxw_scalar
         t = lambda a: torch.as_tensor(a, dtype=self.f_dtype, device=self.device)
-        r = t(vs[0])[:, None, None] * (t(vs[1])[None, :, None]
-                                       * t(vs[2])[None, None, :])
+        # r = v_0 (x) (v_1 (x) ... ), the last axes first
+        r = None
+        for d in reversed(range(g.dim)):
+            shape = [1] * g.dim
+            shape[d] = -1
+            v = t(vs[d]).reshape(shape)
+            r = v if r is None else v * r
         if any(np.any(f) for f in faces_np):
             slices, arrs = compute_bc_slab_correction_host(
                 g, faces_np, self.ops_dp[level].coef)

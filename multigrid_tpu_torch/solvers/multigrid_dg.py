@@ -42,6 +42,15 @@ geometry (``mapping``) each level is a
 with ``coeff_fn``), plain PyTorch on every device in the same way: as in
 the JAX twin (``solvers/multigrid_dg.py:340``) no DG kernel runs on a
 curved level, so on the card only the outer CG's kernels launch.
+
+A constant-coefficient level takes the DG kernels where they cover its
+grid (:func:`~..ops.dg_kernel.covers`: 3-D, the JAX gate of
+``solvers/multigrid_dg.py:139, 339``); a 2-D level is the plain
+``DGLaplace`` on every device (:func:`constant_level`), and the solver's
+``plain_route`` says so.  The route is chosen when the level is built,
+from the grid alone.  The kernels stop at p = 7
+(``dg_kernel.MAX_DEGREE``), and a 3-D level above it is refused on the
+card: the JAX package runs Pallas there.
 """
 
 from __future__ import annotations
@@ -53,14 +62,14 @@ import torch
 
 from ..devices import resolve
 from ..mesh.brick import BrickMesh
-from ..ops.dg import DGGrid, DGLaplaceVarCoeff
+from ..ops.dg import DGGrid, DGLaplace, DGLaplaceVarCoeff
 from ..ops.dg_curved import DGCurvedGrid, DGLaplaceCurved
-from ..ops.dg_kernel import DGOperator
+from ..ops.dg_kernel import DGOperator, covers
 from ..ops.dg_precond import JacobiTransformed
 from ..ops.dg_transfer import CGDGCoupling, DGTransfer
 from .cg import CGResult, cg_solve
 from .chebyshev import Chebyshev
-from .fused import vmult_with_chebyshev_update
+from .fused import PlainLevel
 from .multigrid import MultigridSolver, set_full_precision_matmul
 
 
@@ -91,6 +100,27 @@ def quad_coords_block(grid: DGGrid, mesh: BrickMesh, level: int):
 def _quad_tensor(fn: Callable, quads, shape, dtype, dev) -> torch.Tensor:
     return torch.tensor(np.broadcast_to(np.asarray(fn(quads), np.float64),
                                         shape), dtype=dtype, device=dev)
+
+
+def constant_level(grid: DGGrid, dtype, dev, jacobi=None, kernel=None):
+    """A constant-coefficient DG level, its route chosen from the grid
+    alone: a :class:`~..ops.dg_kernel.DGOperator` (the DG kernels on the
+    card, their plain versions on the CPU) where ``kernel`` holds, else
+    the plain :class:`~..ops.dg.DGLaplace` on every device, as a
+    :class:`~.fused.PlainLevel` when a smoother needs ``jacobi`` (its
+    transformed Jacobi).  Without ``jacobi`` it is the outer CG's operator
+    (``vmult``).  ``kernel`` defaults to :func:`~..ops.dg_kernel.covers`
+    (3-D, the JAX gate; the card refuses a 3-D level above the kernels'
+    degree); the benchmark drivers pass
+    :func:`~..ops.dg_kernel.has_kernel`, timing the plain operator above
+    it as the JAX drivers' default XLA operator."""
+    if covers(grid) if kernel is None else kernel:
+        op = DGOperator(grid, dtype, dev)
+        if jacobi is not None:
+            op.install_jacobi(jacobi)
+        return op
+    op = DGLaplace(grid, dtype, dev)
+    return op if jacobi is None else PlainLevel(op, jacobi.vmult)
 
 
 class _DGOuterCG:
@@ -133,11 +163,12 @@ class MultigridSolverDG(_DGOuterCG):
             coarse_smoothing_range=2e-3, finest_degree=max(1, n_pre - 1))
         L = mesh.max_level
         self.dg_grid = dg_grid_from_mesh(mesh, L, degree, kind)
-        self.op = DGOperator(self.dg_grid, v_dtype, dev)      # K7, K8
-        self.op_dp = DGOperator(self.dg_grid, f_dtype, dev)   # K9
-        self.op_ref = self.op_dp.plain                        # rhs, errors
         self.jacobi = JacobiTransformed(self.dg_grid, v_dtype, dev)
-        self.op.install_jacobi(self.jacobi)
+        self.op = constant_level(self.dg_grid, v_dtype, dev,
+                                 self.jacobi)                  # K7, K8
+        self.op_dp = constant_level(self.dg_grid, f_dtype, dev)   # K9
+        self.op_ref = getattr(self.op_dp, "plain", self.op_dp)  # rhs, errors
+        self.plain_route = not covers(self.dg_grid)
         self.coupling = CGDGCoupling(self.cg.grids[L], self.dg_grid, v_dtype,
                                      dev)
         self.smooth_dg = Chebyshev.create(
@@ -166,39 +197,19 @@ class MultigridSolverDG(_DGOuterCG):
         return self.dg_v_cycle(r.to(self.v_dtype)).to(self.f_dtype)
 
 
-class VarCoeffLevel:
-    """One variable-coefficient DG level as the smoother and the V-cycle
-    call it (``shape``, ``dtype``, ``device``, ``vmult``,
-    ``vmult_residual``, ``cheb_step``), plain PyTorch on every device: the
-    Chebyshev step is :func:`~.fused.vmult_with_chebyshev_update` over the
-    operator and ``precond``.  A constant-coefficient level on the card is
-    :class:`~..ops.dg_kernel.DGOperator`'s (kernels K7 and K8), so this
-    refuses one there."""
+class VarCoeffLevel(PlainLevel):
+    """One variable-coefficient or curved DG level
+    (:class:`~.fused.PlainLevel`).  A constant-coefficient level is
+    :func:`constant_level`'s (on the card :class:`~..ops.dg_kernel.
+    DGOperator`'s kernels K7 and K8 in 3-D), so this refuses one there."""
 
     def __init__(self, op, precond: Callable):
         if op.device.type == "cuda" and not getattr(op, "has_cell_data",
                                                     False):
             raise ValueError("VarCoeffLevel: a constant-coefficient DG level "
-                             "on the card runs DGOperator's kernels")
-        self.op, self.precond = op, precond
-        self.shape, self.dtype, self.device = op.grid.shape, op.dtype, op.device
-
-    def vmult(self, x: torch.Tensor) -> torch.Tensor:
-        return self.op.apply(x)
-
-    def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
-        return self.op.vmult_residual(rhs, lhs)
-
-    def cheb_step(self, b, x, x_old, f1: float, f2: float, out=None):
-        """``x + f1 (x - x_old) + f2 P^-1 (b - A x)``; ``x``/``x_old`` None
-        read as zero."""
-        xo = b.new_zeros(()) if x_old is None else x_old
-        if x is None:
-            res = f2 * self.precond(b) - f1 * xo
-        else:
-            res, _ = vmult_with_chebyshev_update(self.vmult, self.precond, b,
-                                                 f1, f2, x, xo)
-        return res if out is None else out.copy_(res)
+                             "runs constant_level's route (DGOperator's "
+                             "kernels in 3-D) on the card")
+        super().__init__(op, precond)
 
 
 class MultigridSolverDGPlain(_DGOuterCG):
@@ -231,12 +242,13 @@ class MultigridSolverDGPlain(_DGOuterCG):
             self.grids = [DGCurvedGrid(mesh.cells(l), mapping, degree, kind,
                                        coeff_fn) for l in range(L)]
         if mapping is None and coeff_fn is None:
-            self.ops = [DGOperator(g, v_dtype, dev) for g in self.grids]
-            for op in self.ops:
-                self.jacobis.append(JacobiTransformed(op.grid, v_dtype, dev))
-                op.install_jacobi(self.jacobis[-1])
-            self.op_dp = DGOperator(self.grids[-1], f_dtype, dev)   # K9
-            self.op_ref = self.op_dp.plain                          # rhs, errors
+            self.ops = []
+            for g in self.grids:
+                self.jacobis.append(JacobiTransformed(g, v_dtype, dev))
+                self.ops.append(constant_level(g, v_dtype, dev,
+                                               self.jacobis[-1]))
+            self.op_dp = constant_level(self.grids[-1], f_dtype, dev)  # K9
+            self.op_ref = getattr(self.op_dp, "plain", self.op_dp)
         else:
             # curved or variable-coefficient levels: plain PyTorch on every
             # device, each level's data taken at its own quadrature points
@@ -257,6 +269,8 @@ class MultigridSolverDGPlain(_DGOuterCG):
                 self.jacobis.append(JacobiTransformed(g, v_dtype, dev, op=op))
                 self.ops.append(VarCoeffLevel(op, self.jacobis[-1].vmult))
             self.op_dp = self.op_ref = plain(L - 1, f_dtype)
+        # the DG levels run no kernel (curved, var-coeff, or not covered)
+        self.plain_route = not isinstance(self.op_dp, DGOperator)
         self.transfers = [None] + [
             DGTransfer(self.grids[l], self.grids[l - 1], v_dtype, dev)
             for l in range(1, L)]

@@ -28,7 +28,7 @@ from multigrid_tpu.ops.pallas_windowed import PallasWindowedOzaki
 from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid
 from multigrid_tpu_torch.ops import laplace_kernel as lk
 
-DEGREES = range(1, 8)
+DEGREES = range(1, 10)   # every compiled degree of brick_kron
 CELLS = [(2, 3, 5), (1, 4, 3)]   # anisotropic; a one-cell axis
 
 

@@ -11,16 +11,24 @@ kernels 1e-14; the DG kernels against the plain f64 operator (and the
 face-based one) at 1e-13 (dg_apply<double>, apply and residual), 3e-6
 (dg_apply<float>) of max|A x| and 1e-5 of max|out| (dg_cheb<float>, on
 the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..7 and on
-ragged pencils.  Every compiled degree p = 1..7 of brick_kron and of the
-DG kernels is held.  The launch counters count device kernels: 1 per
-brick_kron call, 2 per reduction, 1 per xpay, 1 per DG kernel call.  The
+ragged pencils.  Every compiled degree of brick_kron (p = 1..9) and of
+the DG kernels (p = 1..7) is held.  The launch counters count device
+kernels: 1 per brick_kron call, 2 per reduction, 1 per xpay, 1 per DG
+kernel call.  The
 size-4 FE_Q, DG and pure-DG (DGPlain) solves on the card agree with the
 CPU to 1e-5 of max|u|; the f32 ``DGTransfer`` on the card agrees with the
 f64 one to 1e-6 of max; a DGPlain solve launches K7, K8, K9 and the CG
 kernels and no brick kernel.  The plain PyTorch operators of the curved DG
 and adaptive paths on the card agree with the CPU (1e-13 in f64, 2e-6 in
 f32); their solves launch only the CG kernels, and two adaptive CG solves
-on the card are bit for bit equal."""
+on the card are bit for bit equal.  The plain routes of the one-device
+configurations the kernels do not cover: 2-D DG-plain (16^2 cells, p = 3,
+every kind; its within one, frac its and L2 to 1% of the CPU's) and the
+2-D brick (FMG to 1e-5 of max|u|, CG its equal, reduction to 2%) launch
+only the CG kernels; a p = 8 ``matvec_dg`` row runs the plain operator at
+the driver's bars; a checkpoint of card tensors reads back bit for bit;
+``device_memory_stats`` reads the allocator on the card (in use <= peak
+< the card's memory, peak >= the solver's level tensors)."""
 
 import numpy as np
 import pytest
@@ -53,7 +61,7 @@ def brick(cells, p):
 GRIDS = {"cube8": lambda: DofGrid(poisson_cube_mesh(8), 3, 4),
          "aniso": lambda: brick((3, 4, 5), 4),
          "p2": lambda: DofGrid(poisson_cube_mesh(4), 2, 2)}
-# brick_kron's cases: every degree 1..7 (4 and 2 in GRIDS, 5 in
+# brick_kron's cases: every degree 1..9 (4 and 2 in GRIDS, 5 in
 # tiles_p5), a one-cell axis, node counts that do not divide the tile,
 # several tiles in x and y
 KRON_GRIDS = dict(GRIDS, **{
@@ -61,6 +69,11 @@ KRON_GRIDS = dict(GRIDS, **{
     "cube8_p3": lambda: DofGrid(poisson_cube_mesh(8), 3, 3),
     "cube4_p6": lambda: DofGrid(poisson_cube_mesh(4), 2, 6),
     "cube4_p7": lambda: DofGrid(poisson_cube_mesh(4), 2, 7),
+    "cube4_p8": lambda: DofGrid(poisson_cube_mesh(4), 2, 8),
+    "cube4_p9": lambda: DofGrid(poisson_cube_mesh(4), 2, 9),
+    "one_cell_axis_p9": lambda: brick((1, 4, 3), 9),
+    "tiles_p8": lambda: brick((2, 5, 9), 8),
+    "tiles_p9": lambda: brick((3, 6, 9), 9),
     "one_cell_axis": lambda: brick((1, 4, 3), 4),
     "one_cell_axis_p1": lambda: brick((1, 4, 3), 1),
     "ragged_p3": lambda: brick((7, 5, 9), 3),
@@ -609,3 +622,126 @@ def test_adaptive_solves_on_card_are_deterministic(dev, local):
     assert cg_kernel.LAUNCHES["cg_dot"] > 0
     assert not any(dg_kernel.LAUNCHES.values())
     assert not any(laplace_kernel.LAUNCHES.values())
+
+
+# ------------------------------------------------ one-device configurations
+def _launch_counts():
+    from multigrid_tpu_torch.ops import cg_kernel, dg_kernel, laplace_kernel
+
+    out = {}
+    for mod in (cg_kernel, dg_kernel, laplace_kernel):
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _reset_counts():
+    from multigrid_tpu_torch.ops import cg_kernel, dg_kernel, laplace_kernel
+
+    for mod in (cg_kernel, dg_kernel, laplace_kernel):
+        mod.reset_launches()
+
+
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_plain_2d_on_card_matches_cpu(dev, kind):
+    """The reference's 2-D DG-plain row (16^2 cells, p = 3, rtol 1e-10) on
+    the card's plain route against the CPU: iterations within one,
+    fractional iterations and L2 to 1%; the solve launches only the CG
+    kernels."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
+
+    got = {}
+    for where in (dev, "cpu"):
+        s = MultigridSolverDGPlain(poisson_cube_mesh(2, 2), 3, exact_fn,
+                                   rhs_fn, kind=kind, device=where)
+        assert s.plain_route
+        _reset_counts()
+        sol, its, _ = s.solve_cg(tolerance=1e-10)
+        got[str(where)] = (its, s.l2_error(sol, s.exact_quad),
+                           _launch_counts())
+    (its, l2, counts), (c_its, c_l2, _) = got[str(dev)], got["cpu"]
+    assert abs(np.ceil(its) - np.ceil(c_its)) <= 1
+    assert its == pytest.approx(c_its, rel=0.01)
+    assert l2 == pytest.approx(c_l2, rel=0.01)
+    assert {k for k, v in counts.items() if v} == {"cg_update", "cg_dot",
+                                                   "cg_xpay"}
+
+
+def test_brick_2d_solve_on_card_matches_cpu(dev):
+    """poisson_cube in 2-D (32^2 cells, FE_Q(4)) on the card: FMG against
+    the CPU to 1e-5 of max|u|, CG its equal and reduction to 2%; the
+    levels run the plain operator and the CG its kernels."""
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+
+    solvers = {str(w): build_solver(poisson_cube_mesh(4, 2), 4, device=w)
+               for w in (dev, "cpu")}
+    u_gpu, u_cpu = (solvers[k].solve().cpu() for k in (str(dev), "cpu"))
+    assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
+    _reset_counts()
+    _, its, red = solvers[str(dev)].solve_cg()
+    counts = _launch_counts()
+    _, c_its, c_red = solvers["cpu"].solve_cg()
+    assert its == c_its and red == pytest.approx(c_red, rel=0.02)
+    assert {k for k, v in counts.items() if v} == {"cg_update", "cg_dot",
+                                                   "cg_xpay"}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_matvec_dg_above_the_kernels_degree_on_card(dev, dtype):
+    """A p = 8 matvec_dg row on the card runs the plain operator, says so
+    and meets the driver's bar against the face-based operator."""
+    from multigrid_tpu_torch.experiments import matvec_dg
+
+    _reset_counts()
+    row = matvec_dg.run(8, "hermite", 3, dtype, dev)
+    assert row["route"] == "plain" and not any(_launch_counts().values())
+    assert row["verify"] < matvec_dg.VERIFY_TOL[dtype]
+
+
+def test_dg_levels_above_the_kernels_degree_refuse_the_card(dev):
+    """A 3-D constant-coefficient DG level above p = 7 has no kernel: the
+    JAX DG solvers run Pallas there, so the card refuses it rather than
+    run plain PyTorch; a 2-D one is a plain level on the card."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg import DGGrid
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+    from multigrid_tpu_torch.solvers.fused import PlainLevel
+    from multigrid_tpu_torch.solvers.multigrid_dg import constant_level
+
+    g = dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite")
+    jac = JacobiTransformed(g, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="no DG kernel"):
+        constant_level(g, torch.float32, dev, jac)
+    with pytest.raises(ValueError, match="no DG kernel"):
+        constant_level(g, torch.float64, dev)
+    g2 = DGGrid(cells=(3, 2), jacobian=((0.5, 0.0), (0.0, 0.5)), degree=3,
+                kind="hermite")
+    level = constant_level(g2, torch.float32, dev,
+                           JacobiTransformed(g2, torch.float32, dev))
+    assert type(level) is PlainLevel and level.device.type == "cuda"
+
+
+def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path):
+    from multigrid_tpu_torch.utils import checkpoint
+
+    x = rand((33, 17), torch.float64, dev, 5)
+    y = rand((9,), torch.float32, dev, 6)
+    path = str(tmp_path / "c.npz")
+    checkpoint.save_state(path, {"cg": {"x": x}, "levels": [y]}, {"its": 8})
+    got, meta = checkpoint.load_state(path)
+    assert meta == {"its": 8}
+    assert torch.equal(torch.as_tensor(got["cg/x"], device=dev), x)
+    assert torch.equal(torch.as_tensor(got["levels/0"], device=dev), y)
+
+
+def test_device_memory_stats_on_card(dev):
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+    from multigrid_tpu_torch.utils import memory
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = build_solver(poisson_cube_mesh(8), 4, device=dev)
+    stats = memory.device_memory_stats(dev)
+    assert 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"] \
+        < stats["bytes_limit"]
+    rep = memory.solver_memory_report(s)
+    assert rep["allocator"]["peak_bytes_in_use"] >= rep["total_bytes"] > 0

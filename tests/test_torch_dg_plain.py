@@ -14,7 +14,16 @@
   value and its iterations to 2%.
 * The four drivers print their tables with ``--device cpu`` and refuse to
   run without CUDA otherwise; ``VarCoeffLevel`` refuses a
-  constant-coefficient level on the card.
+  constant-coefficient level that the DG kernels cover on the card.
+* The route of a constant-coefficient level follows ``dg_kernel.covers``
+  (3-D, p <= 7, the JAX gate): the DG kernels' ``DGOperator`` where it
+  holds, the plain ``DGLaplace`` everywhere else (2-D, p > 7), on the card
+  too.  ``poisson_dg_plain`` defaults to the reference's 2-D setting: its
+  4096-dof rows print "(plain)", hermite's its and L2 those of the JAX
+  solver (2%, 1e-6).  Above p = 7 ``matvec_dg`` on the card (monkeypatched)
+  builds the plain operator and prints "(plain)" rows that meet the f64
+  bar against the face-based operator; ``matvec_dg_cheby`` and
+  ``solver_dg`` run p = 8 on the plain operator at their bars.
 """
 
 import jax
@@ -371,7 +380,7 @@ def test_dg_plain_curved_geometry_solves():
 # ---------------------------------------------------------------- drivers
 def test_dg_plain_experiment_prints_convergence_tables(capsys):
     tables = poisson_dg_plain.main(["3", "0", "600", "3", "1e-10",
-                                    "--device", "cpu"])
+                                    "--dim", "3", "--device", "cpu"])
     assert list(tables) == KINDS
     for rows in tables.values():
         assert [r["dofs"] for r in rows] == [512]
@@ -384,7 +393,8 @@ def test_dg_plain_experiment_var_coeff():
     """--var-coeff at size 2 (512 dofs, p = 3): converges, and the error of
     the manufactured solution, zero on the boundary, is small."""
     tables = poisson_dg_plain.main(["3", "0", "600", "3", "1e-10",
-                                    "--var-coeff", "--device", "cpu"])
+                                    "--var-coeff", "--dim", "3", "--device",
+                                    "cpu"])
     for rows in tables.values():
         assert rows[0]["cg_reduction"] < 0.5 and rows[0]["cg_L2error"] < 1e-2
 
@@ -418,7 +428,7 @@ def test_dg_drivers_need_cuda_unless_told_cpu(monkeypatch, driver):
 
 
 @pytest.mark.parametrize("driver,args", [
-    (poisson_dg_plain.main, ["--deform", "--device", "cpu"]),
+    (poisson_dg_plain.main, ["--deform", "--dim", "3", "--device", "cpu"]),
     (matvec_dg.main, ["--impl", "curved", "--device", "cpu"])])
 def test_dg_drivers_curved_geometry_run(driver, args, capsys):
     """``poisson_dg_plain --deform`` and ``matvec_dg --impl curved`` run on
@@ -438,11 +448,105 @@ def test_dg_drivers_curved_geometry_run(driver, args, capsys):
 
 
 
-def test_matvec_dg_stops_at_the_kernels_degree_on_the_card(monkeypatch,
-                                                           capsys):
-    """On the card the sweep stops at dg_kernel.MAX_DEGREE and says so; it
-    does not run the plain operator above it."""
+def test_matvec_dg_above_the_kernels_degree_runs_plain_on_the_card(
+        monkeypatch, capsys):
+    """On the card a row above dg_kernel.MAX_DEGREE runs the plain
+    ``DGLaplace`` (no DGOperator is built), says "(plain)" and is verified
+    against the face-based operator at the f64 bar.  The card is
+    monkeypatched: the driver sees a CUDA device, and the plain operator
+    it builds is placed on the CPU."""
     monkeypatch.setattr(matvec_dg, "driver_device",
                         lambda device: torch.device("cuda", 0))
-    assert matvec_dg.main(["--min-degree", str(dk.MAX_DEGREE + 1)]) == []
-    assert f"stopping at p = {dk.MAX_DEGREE}" in capsys.readouterr().out
+    built = []
+
+    def plain_on_cpu(grid, dtype, device):
+        built.append(torch.device(device).type)
+        return t_dg.DGLaplace(grid, dtype, "cpu")
+
+    def no_kernels(*args, **kw):
+        raise AssertionError("a DGOperator was built above its degree")
+
+    from multigrid_tpu_torch.solvers import multigrid_dg
+
+    monkeypatch.setattr(multigrid_dg, "DGLaplace", plain_on_cpu)
+    monkeypatch.setattr(multigrid_dg, "DGOperator", no_kernels)
+    p = dk.MAX_DEGREE + 1
+    rows = matvec_dg.main(["--min-degree", str(p), "--max-degree", str(p),
+                           "--steps", "0", "--dtype", "float64"])
+    assert [r["degree"] for r in rows] == [p] * 3 and built == ["cuda"] * 3
+    assert all(r["route"] == "plain" and r["verify"] < 1e-11 for r in rows)
+    out = capsys.readouterr().out
+    assert out.count(f"(plain) p={p}") == 3 and "stopping" not in out
+
+
+@pytest.mark.parametrize("cells,p,covered", [((2, 2, 2), 3, True),
+                                             ((2, 2, 2), dk.MAX_DEGREE, True),
+                                             ((3, 2), 3, False),
+                                             ((2, 1, 1), dk.MAX_DEGREE + 1,
+                                              True)])
+def test_constant_level_route_follows_dim_and_degree(cells, p, covered,
+                                                     monkeypatch):
+    """A constant-coefficient level takes the kernels' DGOperator exactly
+    when ``dg_kernel.covers`` its grid (3-D, the JAX gate); a 2-D one is
+    the plain DGLaplace in a PlainLevel (not the var-coeff class); the
+    outer CG's operator follows the same rule.  Above the kernels' degree
+    a 3-D level has no kernel, and DGOperator refuses it on the card
+    (device monkeypatched)."""
+    from multigrid_tpu_torch.solvers.fused import PlainLevel
+    from multigrid_tpu_torch.solvers.multigrid_dg import constant_level
+
+    _, gt = grids(cells, p, "hermite")
+    assert dk.covers(gt) is covered
+    assert dk.has_kernel(gt) is (covered and p <= dk.MAX_DEGREE)
+    jac = JacobiTransformed(gt, torch.float32, "cpu")
+    level = constant_level(gt, torch.float32, "cpu", jac)
+    outer = constant_level(gt, torch.float64, "cpu")
+    if covered:
+        assert isinstance(level, dk.DGOperator) and level.jacobi is jac
+        assert isinstance(outer, dk.DGOperator)
+    else:
+        assert type(level) is PlainLevel and type(level.op) is t_dg.DGLaplace
+        assert level.precond == jac.vmult and type(outer) is t_dg.DGLaplace
+    if covered and p > dk.MAX_DEGREE:
+        monkeypatch.setattr(dk, "resolve",
+                            lambda device: torch.device("cuda", 0))
+        with pytest.raises(ValueError, match="no DG kernel"):
+            constant_level(gt, torch.float32, "cuda", jac)
+
+
+def test_dg_plain_experiment_defaults_to_2d(capsys):
+    """The driver's default is the reference's 2-D setting: the 4096-dof
+    row (16^2 cells, p = 3) of every kind, on the plain route, its
+    iterations and L2 those of the JAX solver on the same mesh (its to
+    2%, L2 to 1e-6 relative)."""
+    from multigrid_tpu.mesh.brick import poisson_cube_mesh as j_pcm
+
+    from experiments.poisson_cube import exact_fn as j_exact
+    from experiments.poisson_cube import rhs_fn as j_rhs
+
+    tables = poisson_dg_plain.main(["3", "0", "5000", "3", "1e-10",
+                                    "--device", "cpu"])
+    assert list(tables) == KINDS
+    out = capsys.readouterr().out
+    assert out.count("(plain)") == 3
+    sj = JPlain(j_pcm(2, 2), 3, j_exact, j_rhs, kind="hermite")
+    u, its_j, _ = sj.solve_cg(tolerance=1e-10)
+    err_j = float(sj.l2_error(u, sj.exact_quad))
+    row, = tables["hermite"]
+    assert row["dofs"] == 4096
+    assert row["cg_its"] == pytest.approx(float(its_j), rel=0.02)
+    assert row["cg_L2error"] == pytest.approx(err_j, rel=1e-6)
+
+
+@pytest.mark.parametrize("driver", ["matvec_dg_cheby", "solver_dg"])
+def test_dg_benchmark_drivers_above_the_kernels_degree(driver, capsys):
+    """p = 8, above the DG kernels: the Chebyshev step and the cell-based
+    CG run over the plain operator ("(plain)") and meet their bars."""
+    main = {"matvec_dg_cheby": matvec_dg_cheby.main,
+            "solver_dg": solver_dg.main}[driver]
+    p = str(dk.MAX_DEGREE + 1)
+    rows = main(["--degrees", p, "--steps", "0", "--device", "cpu"])
+    tol = {"matvec_dg_cheby": matvec_dg_cheby.VERIFY_TOL,
+           "solver_dg": solver_dg.VERIFY_TOL}[driver]
+    assert len(rows) == 1 and rows[0]["verify"] < tol
+    assert "(plain)" in capsys.readouterr().out

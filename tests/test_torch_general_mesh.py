@@ -159,6 +159,10 @@ def test_general_modules_load_no_jax():
             "multigrid_tpu_torch.experiments.poisson_l",
             "multigrid_tpu_torch.experiments.poisson_dg_plain",
             "multigrid_tpu_torch.experiments.matvec_dg",
+            "multigrid_tpu_torch.utils.memory",
+            "multigrid_tpu_torch.utils.vtk",
+            "multigrid_tpu_torch.utils.checkpoint",
+            "multigrid_tpu_torch.utils.profiling",
             "multigrid_tpu_torch.convert"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
