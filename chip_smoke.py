@@ -45,21 +45,31 @@ convergence rows:
   deterministic scatters, the outer f64 CG on the CG kernels): the four
   ``--initial 5`` anchor cycles on the card, each forest also solved on
   the CPU, and whether the card's Kelly marking parts from the CPU's; the
-  adaptive rows from ``--initial 8`` until one passes 1,000,000 dofs, each
-  row's iterations and reduction those of the first card run, the top
-  row's CG solution bit for bit the same in three solves; a ``--dim 3
+  first adaptive row from ``--initial 8`` (788,481 dofs; the rows went on
+  past 1,000,000 until the DG paths at p = 8, 9 took their time), its
+  iterations and reduction those of the first card run, its CG solution
+  bit for bit the same in three solves; a ``--dim 3
   --initial 3`` cycle pair; a ``--local-smoothing --initial 7`` row
   (197,633 dofs).  The CG kernels are held against their plain versions
   at the vector lengths these two paths give them;
+* poisson_dg at p = 8 and 9 and poisson_dg_plain at p = 8 (3-D, hermite,
+  n_pre = n_post = 3, rtol 1e-9), the DG kernels' degrees above p = 7:
+  the rows of 2^3 and 4^3 cells on the card against the port on the CPU
+  and the JAX package's rows, then 24^3 cells (10,077,696 / 13,824,000 DG
+  dofs; poisson_dg over the FE_Q(8) / FE_Q(9) hierarchy on brick_kron p =
+  8 / 9, poisson_dg_plain on four DG levels 3^3 -> 24^3): frac its within
+  one of the CPU's size-12 row, the rate in a band from the CPU ladder,
+  the L2 plateau, poisson_dg_plain's solution and L2 poisson_dg's;
 * poisson_cube at p = 8 (32^3 cells, 257^3 nodes) and p = 9 (28^3 cells,
   253^3 nodes), brick_kron's degrees above the main path's: set-up, FMG
   and CG, the CG its within one of the CPU's on the 4^3 mesh;
 * 2-D poisson_dg_plain, the reference program's setting (p = 3; the DG
   kernels are 3-D, so the levels run the plain operator, "(plain)"): the
   4096- and 16,384-dof rows of every kind on the card against the CPU,
-  then hermite at 3,211,264 and 4,194,304 DG dofs; the "(plain)"
-  ``matvec_dg`` rows at p = 8 and 16 in f64 (above the DG kernels'
-  degree), each checked against the face-based operator;
+  then hermite at 3,211,264 and 4,194,304 DG dofs; ``matvec_dg`` in f64
+  at p = 8 (``dg_apply<double>``) and the "(plain)" rows at p = 10 and 16
+  (above the DG kernels' degree), each checked against the face-based
+  operator;
 * poisson_cube --dim 2 (the plain operator on the levels): 32^2 cells on
   the card against the CPU, then 512^2 cells (4,198,401 dofs); poisson_dg
   --dim 2: 16^2 cells against the CPU, then 320^2 cells (2,560,000 DG
@@ -72,7 +82,7 @@ convergence rows:
 ``brick_kron`` (float and double, every mode) is held at every compiled
 degree (p = 1..9) and the DG pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
-1..7), the DG kernels on x axes that do not fill a pencil or have one
+1..9), the DG kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
 (``ops/dg_face.py``).
 
@@ -82,9 +92,11 @@ Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the paths' solves, as a
 trace counts them: one brick_kron call 1, one CG reduction 2, one DG
 kernel call 1; ``launches`` sums the paths, ``launches_by_path`` gives
-each; the ``... p=8`` and ``... p=9`` rows are brick_kron at those
-degrees, timed at their cube rows' node grids and counted on those rows'
-solves, the other brick rows count every other path; the rows
+each; the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG
+kernels at those degrees, timed at the cube rows' node grids and the
+24^3-cell DG grids and counted on the paths of that degree (the cube and
+DG rows, the p = 8 ``matvec_dg`` row), the other rows count every other
+path; the rows
 ``brick_kron<float>``, ``brick_kron<double>``,
 ``dg_apply<float>`` and ``dg_apply<double>`` count the kernel's A·x modes
 (apply, the brick's vmult, residual) and time apply, with the residual
@@ -99,6 +111,7 @@ and operations the function needs), the card line again and, last,
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -189,9 +202,43 @@ HIGH_DEGREE_SMALL = 4
 # rate below PLAIN_RATE, frac its within one of each other
 DG2_DEGREE, DG2_SMALL, DG2_LARGE = 3, (2, 4), (56, 64)
 DG2_AGREE = 0.01
-# matvec_dg above the DG kernels' degree: the plain rows, f64, checked
-# against the face-based operator at the driver's bar (refinement steps)
-MATVEC_PLAIN = {8: 12, 16: 9}
+# matvec_dg above the DG kernels' degree (p = 10, 16): the plain rows,
+# f64, checked against the face-based operator at matvec_dg's bar
+# (degree -> refinement steps: 2,725,888 and 2,515,456 DG dofs); the p = 8
+# row (2,985,984 DG dofs) runs dg_apply<double> at the same bar
+MATVEC_PLAIN = {10: 11, 16: 9}
+MATVEC_KERNEL = {8: 12}
+# poisson_dg (DG over the FE_Q(p) hierarchy) and poisson_dg_plain at the DG
+# kernels' degrees above p = 7 (3-D, hermite, n_pre = n_post = 3, rtol
+# 1e-9): the rows of 2^3 and 4^3 cells (sizes 2, 4) on the card against the
+# port on the CPU and against the JAX package's rows (DG_HIGH_ANCHORS):
+# its within one, frac its and L2 to DG_HIGH_AGREE; then the size-24 row
+# (24^3 cells: 10,077,696 DG dofs at p = 8, 13,824,000 at p = 9): frac its
+# within one of the port's largest CPU row (size 12, DG_HIGH_CPU), the rate
+# in DG_HIGH_RATE (half the smallest to twice the largest rate of the CPU
+# ladder, sizes 2-12), the L2 error the DG plateau (DG_L2 +- DG_L2_TOL);
+# poisson_dg_plain's L2 and solution poisson_dg's of the same degree and
+# size to PLAIN_AGREE, its rate below PLAIN_RATE
+DG_HIGH_SIZE, DG_HIGH_SMALL, DG_HIGH_AGREE = 24, (2, 4), 0.01
+DG_HIGH_PATHS = (("poisson_dg", 8), ("poisson_dg", 9), ("poisson_dg_plain", 8))
+# (path, p) -> {size: (frac its, rate, L2)}: the JAX solvers on the CPU
+# (MultigridSolverDG with dp_impl="native", MultigridSolverDGPlain)
+DG_HIGH_ANCHORS = {
+    ("poisson_dg", 8): {2: (5.336294, 2.057957e-2, 1.007506877e-1),
+                        4: (5.537307, 2.369524e-2, 1.006858953e-1)},
+    ("poisson_dg", 9): {2: (5.497613, 2.306353e-2, 1.006835780e-1),
+                        4: (6.386804, 3.898023e-2, 1.006857565e-1)},
+    ("poisson_dg_plain", 8): {2: (11.620473, 1.680757e-1, 1.007506877e-1),
+                              4: (12.732016, 1.963905e-1, 1.006858953e-1)},
+}
+# the port's CPU ladder (sizes 2, 4, 6, 8, 12): frac its at size 12, and
+# the rate band; rates 0.02058-0.02982 (poisson_dg p = 8), 0.02305-0.04800
+# (p = 9), 0.1681-0.2378 (poisson_dg_plain p = 8)
+DG_HIGH_CPU = {("poisson_dg", 8): 5.899683, ("poisson_dg", 9): 6.824563,
+               ("poisson_dg_plain", 8): 14.426112}
+DG_HIGH_RATE = {("poisson_dg", 8): (0.01029, 0.05964),
+                ("poisson_dg", 9): (0.01152, 0.09600),
+                ("poisson_dg_plain", 8): (0.08404, 0.4756)}
 # the 2-D brick: size 4 (32^2 cells) card against CPU (its exact, V-cycle
 # and CG reductions to 2%), then size 64 (512^2 cells, 4,198,401 dofs):
 # cg_its 8 and the reductions within ROW_TOL of the top row of
@@ -248,16 +295,24 @@ KERNELS = {
     "dg_apply<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:438"),
     "dg_cheb<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:490"),
 }
-# brick_kron at p = 8 and 9, timed at their cube rows' node grids and
-# counted on those rows' solves only
+# brick_kron at p = 8 and 9, timed at their cube rows' node grids, and
+# the DG kernels at p = 8 and 9, timed at the size-24 DG grids; each
+# counted on the paths of its degree only
 for _p in HIGH_DEGREE_SIZES:
     for _name in ("brick_kron<double>", "brick_kron_cheb<double>",
-                  "brick_kron<float>", "brick_kron_cheb<float>"):
+                  "brick_kron<float>", "brick_kron_cheb<float>",
+                  "dg_apply<double>", "dg_apply<float>", "dg_cheb<float>"):
         KERNELS[f"{_name} p={_p}"] = KERNELS[_name]
 
 
-def degree_path(p: int) -> str:
-    return f"poisson_cube_p{p}"
+def degree_path(p: int, path: str = "poisson_cube") -> str:
+    return f"{path}_p{p}"
+
+
+def path_degree(path: str):
+    """The degree of a path named by :func:`degree_path`, else None."""
+    head, _, deg = path.rpartition("_p")
+    return int(deg) if head and deg.isdigit() else None
 
 
 # kernels each path must launch (brick_kron_cheb<double> and
@@ -309,16 +364,18 @@ CURVED_SETUP_LIMIT = 150.0
 # constraints exact, iterations within one, reduction and val_L2 to 1%);
 # the top rows from --initial 8 until one passes L_TOP_DOFS, below
 # poisson_l's --max-dofs ceiling L_MAX_DOFS, each row's (iterations,
-# reduction) those of the first card run (788,481 and 1,121,717 dofs):
-# iterations within one, reduction to L_TOP_AGREE; one --dim 3 --initial 3
-# cycle pair; one --local-smoothing row at --initial 7 (197,633 dofs)
+# reduction) those of the first card run (788,481 dofs; the next row,
+# 1,121,717 dofs at 8 its and 0.06912, was cut to keep the script near
+# half its time limit): iterations within one, reduction to L_TOP_AGREE;
+# one --dim 3 --initial 3 cycle pair; one --local-smoothing row at
+# --initial 7 (197,633 dofs)
 L_ANCHORS = [(12545, 0, 8, 0.06868, 1.1102e-4),
              (17865, 288, 8, 0.06927, 4.3601e-5),
              (24975, 1632, 8, 0.06922, 1.7189e-5),
              (35161, 3764, 8, 0.06910, 6.7952e-6)]
 L_AGREE = 0.01
-L_TOP_INITIAL, L_TOP_DOFS, L_MAX_DOFS = 8, 1_000_000, 2_000_000
-L_TOP_ROWS = [(8, 0.06933), (8, 0.06912)]
+L_TOP_INITIAL, L_TOP_DOFS, L_MAX_DOFS = 8, 700_000, 2_000_000
+L_TOP_ROWS = [(8, 0.06933)]
 L_TOP_AGREE = 0.03
 L_ITS = 10              # the bar of tests/test_adaptive.py on every row
 L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
@@ -548,12 +605,13 @@ class KernelChecks:
                                          ("cg_xpay", 3, 2)):
                 self.bound[name] = bound(streams * 8 * n, flops * n, f64)
 
-    def cheb_checks(self, ops, face: bool, seed: int = 22):
+    def cheb_checks(self, ops, face: bool, seed: int = 22, label: str = ""):
         """dg_cheb<float> on the smoother's iterates against the plain f64
         step (and, if ``face``, the step with A from the face-based
         operator): with x and x_old, without x, without x_old at
         1e-5·max|out|, with f2 = 0 at 1e-6·max|x|; in place into x_old bit
-        for bit.  Returns the float32 (b, x, x_old)."""
+        for bit.  The errors go under the kernel's name plus ``label``.
+        Returns the float32 (b, x, x_old)."""
         import types
 
         from multigrid_tpu_torch.ops import dg_kernel as dk
@@ -574,7 +632,7 @@ class KernelChecks:
                 want = dk.dg_cheb_plain(d(b), d(xa), d(xoa), ref, f1, f2)
                 scale, tol = ((float(want.abs().max()), 1e-5) if f2
                               else (float(xc.abs().max()), 1e-6))
-                self.note("dg_cheb<float>", got, want, scale, tol)
+                self.note("dg_cheb<float>" + label, got, want, scale, tol)
         alias = xo.clone()
         dk.dg_cheb(b, xc, alias, ops[f32], 0.37, 0.81, out=alias)
         require(torch.equal(alias, dk.dg_cheb(b, xc, xo, ops[f32], 0.37, 0.81)),
@@ -593,11 +651,12 @@ class KernelChecks:
             ops[dtype].install_jacobi(JacobiTransformed(grid, dtype, self.dev))
         return ops
 
-    def apply_checks(self, ops, face: bool, seed: int = 21):
+    def apply_checks(self, ops, face: bool, seed: int = 21, label: str = ""):
         """dg_apply and dg_residual (b - A x) against the plain f64
         operator (and, if ``face``, the face-based one), in double at
         1e-13·max|A x| and in float at 3e-6·max|A x|; one launch a call,
-        a repeated call bit for bit.  Returns the float32 inputs (x, b)."""
+        a repeated call bit for bit.  The errors go under the kernel's name
+        plus ``label``.  Returns the float32 inputs (x, b)."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
 
@@ -621,23 +680,26 @@ class KernelChecks:
             for plain in plains:
                 want = plain.apply(x.double())
                 scale = float(want.abs().max())
-                self.note(name, y.double(), want, scale, tol)
-                self.note(name, r.double(), b.double() - want, scale, tol)
+                self.note(name + label, y.double(), want, scale, tol)
+                self.note(name + label, r.double(), b.double() - want, scale,
+                          tol)
         return x, b
 
-    def dg_checks(self, grid, timed: bool):
+    def dg_checks(self, grid, timed: bool, label: str = ""):
         """The DG kernels against the plain f64 operator (and the
         face-based one on the small grids): dg_apply and dg_residual by
         :meth:`apply_checks`, dg_cheb<float> by :meth:`cheb_checks`; the
-        timed plain versions run in the kernel's dtype."""
+        timed plain versions run in the kernel's dtype.  The numbers go
+        under the kernels' names plus ``label`` (" p=8": the entries of the
+        degree-8 kernels)."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
 
         f32, f64 = torch.float32, torch.float64
         ops = self.dg_ops(grid)
-        x, br = self.apply_checks(ops, face=not timed)
+        x, br = self.apply_checks(ops, face=not timed, label=label)
         x64, br64 = x.double(), br.double()
-        b, xc, xo = self.cheb_checks(ops, face=not timed)
+        b, xc, xo = self.cheb_checks(ops, face=not timed, label=label)
         if not timed:
             return
         for name, fn, plain in (
@@ -648,8 +710,8 @@ class KernelChecks:
                 ("dg_cheb<float>",
                  lambda: dk.dg_cheb(b, xc, xo, ops[f32], 0.37, 0.81),
                  lambda: dk.dg_cheb_plain(b, xc, xo, ops[f32], 0.37, 0.81))):
-            self.ms[name] = time_ms(fn)
-            self.plain_ms[name] = time_ms(plain)
+            self.ms[name + label] = time_ms(fn)
+            self.plain_ms[name + label] = time_ms(plain)
         # bytes: x in, y out (residual: x, b in, out; dg_cheb: x, b, x_old,
         # inv_diag in, out); flops: the sum-factorized operator, plus one a
         # dof for the residual and, for dg_cheb, the six 1-D sweeps of the
@@ -660,13 +722,13 @@ class KernelChecks:
         for name, xt, bt, dtype in (("dg_apply<double>", x64, br64, f64),
                                     ("dg_apply<float>", x, br, f32)):
             size = xt.element_size()
-            self.bound[name] = bound(2 * size * n_dofs, flops, dtype)
-            self.residual[name] = dict(
+            self.bound[name + label] = bound(2 * size * n_dofs, flops, dtype)
+            self.residual[name + label] = dict(
                 ms=time_ms(lambda: dk.dg_residual(bt, xt, ops[dtype])),
                 plain_ms=time_ms(
                     lambda: dk.dg_residual_plain(bt, xt, ops[dtype])),
                 bound=bound(3 * size * n_dofs, flops + n_dofs, dtype))
-        self.bound["dg_cheb<float>"] = bound(
+        self.bound["dg_cheb<float>" + label] = bound(
             5 * 4 * n_dofs, flops + (12 * n + 6) * n_dofs, f32)
 
 
@@ -692,8 +754,9 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
-    # registers and spills per source (ptxas -v); no double brick kernel
-    # may spill, nor a DG pencil kernel at p = 4 (n = 5, the path's degree)
+    # registers and spills per source (ptxas -v); no brick kernel may
+    # spill, nor a DG pencil kernel at p = 4, 8 or 9 (n = 5, 9, 10: the
+    # paths' degrees)
     report = _build.ptxas_report(_build.build_log)
     if not report:
         print("  ptxas: the library was built before this run; no compiler "
@@ -719,15 +782,17 @@ def main() -> int:
                 print(f"    {r['kernel']}: {r['registers']} registers, spill "
                       f"stores {r['spill_stores']} B, loads "
                       f"{r['spill_loads']} B")
-            require(not [k for k in spills if "Li5E" in k],
-                    f"a DG pencil kernel spills at p = 4: {spills}")
+            require(not [k for k in spills
+                         if any(f"Li{n}E" in k for n in (5, 9, 10))],
+                    f"a DG pencil kernel spills at p = 4, 8 or 9: {spills}")
     if report:
         names = [r["kernel"] for r in report]
         require(not [k for k in names if "9dg_kernelI" in k],
                 "the cell-per-block dg_kernel is still in the library")
-        require(sum("15dg_apply_kernelI" in k for k in names) == 28
-                and sum("14dg_cheb_kernelI" in k for k in names) == 7,
-                "the DG pencil kernels are not all in the library")
+        require(sum("15dg_apply_kernelI" in k for k in names) == 36
+                and sum("14dg_cheb_kernelI" in k for k in names) == 9,
+                "the DG pencil kernels are not all in the library at p = "
+                "1..9")
         require(sum("17brick_kron_kernelI" in k for k in names) == 72,
                 "brick_kron is not in the library at p = 1..9, both types, "
                 "all four modes")
@@ -773,6 +838,7 @@ def brick(cells, degree):
 def run(dev: torch.device, card: str, t_start: float) -> int:
     """Phase 2 on ``dev``: the kernel checks; then the paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.ops import dg_kernel as dk
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     # phase 2: every kernel against its plain version on the card
@@ -834,16 +900,35 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape}")
     # the DG pencil kernels at every compiled degree, on x axes that are
-    # not a multiple of the pencil or have one cell
-    for p in range(1, 8):
+    # not a multiple of the pencil or have one cell (p = 8, 9: under their
+    # own entries, then timed on the size-24 grids of their paths)
+    for p in range(1, dk.MAX_DEGREE + 1):
+        label = f" p={p}" if p in HIGH_DEGREE_SIZES else ""
         for cells, kind in (((3, 2, 5), "hermite"), ((2, 3, 1), "gll"),
                             ((5, 4, 9), "gauss" if p % 2 else "hermite")):
             ops = checks.dg_ops(dg_grid(cells, p, kind))
-            checks.apply_checks(ops, face=True)
-            checks.cheb_checks(ops, face=True)
+            checks.apply_checks(ops, face=True, label=label)
+            checks.cheb_checks(ops, face=True, label=label)
         torch.cuda.synchronize()
         print(f"dg_apply, dg_residual and dg_cheb checks passed at p={p}: "
               f"(3,2,5), (2,3,1), (5,4,9)")
+    # no fallback above the kernels' degree: the card refuses such a level
+    try:
+        dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),
+                      torch.float32, dev)
+    except ValueError as e:
+        require("no DG kernel" in str(e), f"p = {dk.MAX_DEGREE + 1}: {e}")
+        print(f"a 3-D DG level at p = {dk.MAX_DEGREE + 1} is refused: {e}")
+    else:
+        raise AssertionError(f"a 3-D DG level at p = {dk.MAX_DEGREE + 1} was "
+                             "built on the card")
+    high_mesh = poisson_cube_mesh(DG_HIGH_SIZE)
+    for p in HIGH_DEGREE_SIZES:
+        grid = dg_grid_from_mesh(high_mesh, high_mesh.max_level, p, "hermite")
+        checks.dg_checks(grid, True, label=f" p={p}")
+        torch.cuda.synchronize()
+        print(f"kernel checks passed at DG poisson_cube_mesh({DG_HIGH_SIZE}) "
+              f"p={p} hermite: {grid.shape}")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "
@@ -867,6 +952,12 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                                                             dg_err)
     del dg_sol
     torch.cuda.empty_cache()
+    high = {}
+    for path, p in DG_HIGH_PATHS:
+        launches[degree_path(p, path)], high[path, p] = dg_high_path(
+            dev, card, path, p, high.get(("poisson_dg", p)))
+        torch.cuda.empty_cache()
+    del high
     launches["poisson_shell"] = general_path(dev, card)
     torch.cuda.empty_cache()
     launches["poisson_dg_plain_curved"] = dg_curved_path(dev, card, checks,
@@ -876,16 +967,18 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     torch.cuda.empty_cache()
     launches["poisson_dg_plain_2d"] = dg_plain_2d_path(dev, card)
     torch.cuda.empty_cache()
-    launches["matvec_dg_plain"] = matvec_plain_path(dev)
+    launches[degree_path(8, "matvec_dg")], launches["matvec_dg_plain"] = (
+        matvec_rows_path(dev))
     launches["poisson_cube_2d"] = cube_2d_path(dev, card)
     torch.cuda.empty_cache()
     launches["poisson_dg_2d"] = dg_2d_path(dev, card)
     torch.cuda.empty_cache()
     launches["poisson_cube_135M"] = utils_path(dev, card)
     torch.cuda.empty_cache()
-    off_path = {k: v for k, v in launches["poisson_dg_plain"].items()
-                if k.startswith(("brick_kron", "cheb_epilogue")) and v}
-    require(not off_path, f"the poisson_dg_plain solves launched {off_path}")
+    for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
+        off_path = {k: v for k, v in launches[path].items()
+                    if k.startswith(("brick_kron", "cheb_epilogue")) and v}
+        require(not off_path, f"the {path} solves launched {off_path}")
     for path in PLAIN_PATHS:
         off_path = {k: v for k, v in launches[path].items()
                     if k not in CG_KERNELS and v}
@@ -897,6 +990,11 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                           for p in HIGH_DEGREE_SIZES),
                         ("poisson_dg", DG_KERNELS),
                         ("poisson_dg_plain", DG_PLAIN_KERNELS),
+                        *((degree_path(p, path),
+                           DG_KERNELS if path == "poisson_dg"
+                           else DG_PLAIN_KERNELS)
+                          for path, p in DG_HIGH_PATHS),
+                        (degree_path(8, "matvec_dg"), ["dg_apply<double>"]),
                         *((path, CG_KERNELS) for path in PLAIN_PATHS),
                         ("matvec_dg_plain", []),
                         ("poisson_cube_135M", CUBE_KERNELS)):
@@ -907,15 +1005,12 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
 
     def counted(kernel: str) -> dict:
         """Launches of ``kernel`` by path: an entry of degree p counts the
-        brick kernel on its degree's row, the unlabelled brick entries
-        every other path, and every other kernel every path."""
+        paths of that degree (:func:`degree_path`), an unlabelled entry
+        every other path."""
         base, _, deg = kernel.partition(" p=")
-        if deg:
-            path = degree_path(int(deg))
-            return {path: launches[path][base]}
-        brick = base.startswith("brick_kron")
+        want = int(deg) if deg else None
         return {p: launches[p][base] for p in launches
-                if not (brick and p.startswith("poisson_cube_p"))}
+                if path_degree(p) == want}
 
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -1407,7 +1502,7 @@ def dg_curved_path(dev, card, checks, plain_err: float) -> dict:
 
 def l_path(dev, card, checks) -> dict:
     """poisson_l: the anchor cycles on the card against the CPU on the
-    card's forest, the top rows past 1,000,000 dofs (two CG solves bit for
+    card's forest, the top row past 700,000 dofs (two CG solves bit for
     bit), the 3-D cycle pair and a local-smoothing row, then the CG kernels
     against their plain versions at every length the path gave them;
     returns the device kernels launched by the path's solves."""
@@ -1581,6 +1676,86 @@ def cube_degree_path(dev, card, p: int, size: int) -> dict:
     return launches
 
 
+def dg_high_path(dev, card, path: str, p: int, dg_row=None):
+    """``path`` (poisson_dg or poisson_dg_plain) at degree ``p`` (8 or 9,
+    the DG kernels' degrees above p = 7): the rows of 2^3 and 4^3 cells on
+    the card against the CPU and the JAX rows, then the size-24 row (best
+    of 2 after set-up) at the bars of DG_HIGH_*; poisson_dg_plain's also
+    against ``dg_row``, poisson_dg's (solution, L2 error) at the same
+    degree.  Returns the device kernels launched by the size-24 solves and
+    (solution, L2 error)."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import (
+        MultigridSolverDG, MultigridSolverDGPlain)
+
+    t_path = time.perf_counter()
+    key, plain = (path, p), path == "poisson_dg_plain"
+    cls = MultigridSolverDGPlain if plain else MultigridSolverDG
+
+    def build(size, where):
+        return cls(poisson_cube_mesh(size), p, exact_fn, rhs_fn,
+                   kind="hermite", n_pre=3, n_post=3, device=where)
+
+    def row(s):
+        sol, frac_its, rate = s.solve_cg(tolerance=DG_RTOL)
+        return sol, (frac_its, rate, s.l2_error(sol, s.exact_quad))
+
+    for size in DG_HIGH_SMALL:
+        (_, got), (_, cpu) = (row(build(size, where)) for where in (dev, "cpu"))
+        jax_row = DG_HIGH_ANCHORS[key][size]
+        print(f"{path} p={p} size {size}: its {got[0]:.4f}, rate "
+              f"{got[1]:.4e}, L2 {got[2]:.6e} (CPU {cpu[0]:.4f}, "
+              f"{cpu[1]:.4e}, {cpu[2]:.6e}; JAX {jax_row})")
+        for ref, what in ((cpu, "CPU"), (jax_row, "JAX")):
+            require(abs(math.ceil(got[0]) - math.ceil(ref[0])) <= 1
+                    and abs(got[0] / ref[0] - 1) <= DG_HIGH_AGREE
+                    and abs(got[2] / ref[2] - 1) <= DG_HIGH_AGREE,
+                    f"{path} p={p} size {size}: {got} vs {what} {ref}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build(DG_HIGH_SIZE, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    cg_s = []
+    sol = None
+    for _ in range(2):
+        sol = None
+        t0 = time.perf_counter()
+        sol, (frac_its, rate, err) = row(solver)
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    n_dofs = sol.numel()
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"{path} p={p} size {DG_HIGH_SIZE}: {n_dofs} DG dofs, set-up "
+          f"{setup_s:.2f} s, CG {min(cg_s):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in cg_s)}), frac its {frac_its:.4f} "
+          f"(CPU size 12: {DG_HIGH_CPU[key]}), rate {rate:.4e} (band "
+          f"{DG_HIGH_RATE[key]}), L2 {err:.6e}, max_memory_allocated {mem} "
+          f"bytes [{card}]")
+    require(bool(torch.isfinite(sol).all()), f"{path} p={p}: not finite")
+    require(abs(frac_its - DG_HIGH_CPU[key]) <= 1,
+            f"{path} p={p}: frac its {frac_its:.4f}")
+    lo, hi = DG_HIGH_RATE[key]
+    require(lo <= rate <= hi and (not plain or rate < PLAIN_RATE),
+            f"{path} p={p}: rate {rate:.4e}")
+    require(abs(err - DG_L2) <= DG_L2_TOL, f"{path} p={p}: L2 {err:.6e}")
+    if plain:
+        dg_sol, dg_err = dg_row
+        diff = float((sol - dg_sol).abs().max()) / float(dg_sol.abs().max())
+        print(f"  {path} p={p}: L2 {err:.6e} (poisson_dg {dg_err:.6e}), "
+              f"max|u - u_dg| / max|u_dg| {diff:.3e}")
+        require(abs(err / dg_err - 1) <= PLAIN_AGREE
+                and diff <= PLAIN_AGREE,
+                f"{path} p={p} vs poisson_dg: L2 {err:.6e} / {dg_err:.6e}, "
+                f"solution {diff:.3e}")
+    print(f"  {path} p={p} path {time.perf_counter() - t_path:.1f} s")
+    return launches, (sol, err)
+
+
 def dg_plain_2d_path(dev, card) -> dict:
     """2-D poisson_dg_plain (the reference program's setting, p = 3): the
     small rows of every kind on the card against the CPU, then the two
@@ -1654,20 +1829,24 @@ def dg_plain_2d_path(dev, card) -> dict:
     return launches
 
 
-def matvec_plain_path(dev) -> dict:
-    """matvec_dg above the DG kernels' degree: the "(plain)" rows in f64,
-    each verified by the driver against the face-based operator at its bar
-    (it raises on a miss); returns the device kernels they launched (none
-    of the DG kernels)."""
+def matvec_rows_path(dev) -> tuple[dict, dict]:
+    """matvec_dg in f64 at p = 8 (the kernel row, dg_apply<double>) and
+    above the DG kernels' degree (the "(plain)" rows), each verified by the
+    experiment against the face-based operator at its bar (it raises on a
+    miss); returns the device kernels launched by the kernel row and by
+    the plain rows (none)."""
     from multigrid_tpu_torch.experiments import matvec_dg
 
-    reset_launches()
-    for p, steps in MATVEC_PLAIN.items():
-        row = matvec_dg.run(p, "hermite", steps, torch.float64, dev)
-        require(row["route"] == "plain" and row["verify"]
-                < matvec_dg.VERIFY_TOL[torch.float64],
-                f"matvec_dg p={p}: {row}")
-    return read_launches()
+    launches = []
+    for rows, route in ((MATVEC_KERNEL, "kernel"), (MATVEC_PLAIN, "plain")):
+        reset_launches()
+        for p, steps in rows.items():
+            row = matvec_dg.run(p, "hermite", steps, torch.float64, dev)
+            require(row["route"] == route and row["verify"]
+                    < matvec_dg.VERIFY_TOL[torch.float64],
+                    f"matvec_dg p={p}: {row}")
+        launches.append(read_launches())
+    return launches[0], launches[1]
 
 
 def cube_2d_path(dev, card) -> dict:

@@ -71,6 +71,8 @@ int dg_cheb_f32(const float* b, const float* x, const float* x_old,
     CHEB_CASE(6)
     CHEB_CASE(7)
     CHEB_CASE(8)
+    CHEB_CASE(9)
+    CHEB_CASE(10)
 #undef CHEB_CASE
     default:
       return (int)cudaErrorInvalidValue;

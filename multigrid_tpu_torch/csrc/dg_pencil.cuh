@@ -81,8 +81,11 @@
 // double, the shared memory a block (7 n^3 + 34 n^2 values a cell), which
 // sets the blocks an SM: 3 blocks of 4 warps at p = 4 (pencil()).
 //
-// Degrees 1 to 7 (n = 2..8), one instantiation each; the three kinds via
+// Degrees 1 to 9 (n = 2..10), one instantiation each; the three kinds via
 // the tables (S = I for the Gauss kind, whose flag skips the S products).
+// At n = 9, 10 the shared memory caps the pencil (K (7 n^3 + 34 n^2) values
+// within the 232,448 bytes a block may have: K <= 7 / 5 in float, 3 / 2 in
+// double), and the double table (573 / 694 values) passes 4 KB.
 // An entry reads the table (ops/dg_kernel.py:dg_tables, in T) from host
 // memory, writes the number of kernels it launched (1) to *launched and
 // returns cudaGetLastError().
@@ -105,9 +108,12 @@ struct TabArg {
 // cells per block (pencil length along x), by degree and mode, the same
 // in both value types: measured at p = 4 (n = 5), the path's degree, over
 // 2-12 cells (PERF.md §6): 8 for the step, 5 for apply and residual (one
-// block of 4 warps).  DG_PENCIL (apply and residual) and DG_CHEB_PENCIL
-// (cheb) set it for every degree of a translation unit when tuning
-// (experiments/time_dg_cheb.py --pencil)
+// block of 4 warps); at n = 9, 10 over every pencil that fits a block's
+// shared memory (float 1-7 / 1-5, double 1-3 / 1-2 cells) at p = 8, 9 on
+// 24^3 cells: 3 and 2 won in every mode and type, and none of the six
+// kernels spills (PERF.md §6).  DG_PENCIL (apply and residual) and
+// DG_CHEB_PENCIL (cheb) set it for every degree of a translation unit when
+// tuning (experiments/time_dg_cheb.py --pencil)
 template <int N, int MODE>
 __host__ __device__ constexpr int pencil() {
 #ifdef DG_CHEB_PENCIL
@@ -117,7 +123,8 @@ __host__ __device__ constexpr int pencil() {
   if (MODE != CHEB) return DG_PENCIL;
 #endif
   if (MODE != CHEB && N == 5) return 5;
-  return N == 2 ? 16 : N == 3 ? 14 : N == 4 ? 8 : N == 5 ? 8 : 4;
+  return N == 2 ? 16 : N == 3 ? 14 : N == 4 ? 8 : N == 5 ? 8
+         : N <= 8 ? 4 : N == 9 ? 3 : 2;
 }
 
 template <int N, int MODE>
@@ -642,11 +649,13 @@ __device__ __forceinline__ void pencil_body(
   }
 }
 
-// The table argument: the kernel parameter space holds 4 KB
+// The table argument: kernel parameters hold 32,764 bytes since CUDA 12.1
+// (4 KB before), as brick_kron.cuh's taps also rely on; the double table
+// takes 4,584 B at n = 9 and 5,552 B at n = 10
 template <typename T, int N>
 TabArg<T, N> tab_arg(const T* tab) {
-  static_assert(sizeof(TabArg<T, N>) + 96 <= 4096,
-                "the table and the other arguments exceed 4 KB");
+  static_assert(sizeof(TabArg<T, N>) + 96 <= 32764,
+                "the table and the other arguments exceed 32,764 bytes");
   TabArg<T, N> targ;
   for (int i = 0; i < Tab<N>::SIZE; ++i) targ.v[i] = tab[i];
   return targ;
@@ -699,7 +708,7 @@ int launch_apply(const T* x, const T* b, const T* tab, T* out, int C0,
   return (int)cudaGetLastError();
 }
 
-// y = A x (mode 0) or out = b - A x (mode 1) at n = 2..8 points an axis
+// y = A x (mode 0) or out = b - A x (mode 1) at n = 2..10 points an axis
 template <typename T>
 int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
                    int C0, int C1, int C2, int n, int colloc, void* stream,
@@ -725,6 +734,8 @@ int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
     APPLY_CASE(6)
     APPLY_CASE(7)
     APPLY_CASE(8)
+    APPLY_CASE(9)
+    APPLY_CASE(10)
 #undef APPLY_CASE
     default:
       return (int)cudaErrorInvalidValue;

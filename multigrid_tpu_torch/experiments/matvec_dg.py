@@ -10,7 +10,7 @@ program.cc:176-205).  Run as
 
 The device picks the operator: on the card ``dg_apply<double>`` (K9) for
 float64 and ``dg_apply<float>`` (K7) for float32, on the CPU their plain
-PyTorch version.  The kernels stop at p = 7 (``dg_kernel.MAX_DEGREE``);
+PyTorch version.  The kernels stop at p = 9 (``dg_kernel.MAX_DEGREE``);
 above it the plain ``DGLaplace`` runs on every device, as the JAX
 driver's XLA operator does at every degree, and the row says "(plain)".
 Each row is verified

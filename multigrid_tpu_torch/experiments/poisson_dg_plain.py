@@ -15,7 +15,7 @@ best of three outer-CG solves, fractional iterations, rate and L2 error
 ``--dim`` defaults to 2, the reference program's setting (and the JAX
 driver's).  The DG kernels are 3-D: a 2-D level runs the plain
 ``DGLaplace`` on every device, as the JAX package runs XLA there, and its
-rows say "(plain)".  They stop at p = 7, and the card refuses a 3-D level
+rows say "(plain)".  They stop at p = 9, and the card refuses a 3-D level
 above it (the JAX package runs Pallas there).
 Solves run on the CUDA device, and the driver stops with an error when
 there is none; ``--device cpu`` runs the plain PyTorch operators on the CPU.

@@ -1,14 +1,14 @@
 """Time the DG kernels (``ops/dg_kernel.py``) on the card.
 
     python -m multigrid_tpu_torch.experiments.time_dg_cheb [size ...]
-        [--degree P] [--pencil TYPE:K ...]
+        [--degree P ...] [--pencil TYPE:K ...]
 
 The poisson_dg grid of each ``size``^3 cells (default 48, hermite, degree
-4: 13,824,000 DG dofs); CUDA events over 50 calls after 3 warm-ups, three
-rounds of: the float32 Chebyshev step (``dg_cheb``, on the smoother's
-iterates), the step with x = 0, and A·x and ``b - A x``
-(``DGOperator.vmult`` and ``vmult_residual``, on random inputs) in
-float32 and float64.
+4: 13,824,000 DG dofs) at each ``--degree``; CUDA events over 50 calls
+after 3 warm-ups, three rounds of: the float32 Chebyshev step
+(``dg_cheb``, on the smoother's iterates), the step with x = 0, and A·x
+and ``b - A x`` (``DGOperator.vmult`` and ``vmult_residual``, on random
+inputs) in float32 and float64.
 Prints the sha256 of the step's output at each size, so that two trees'
 steps can be shown equal bit for bit, and the registers and spills of the
 DG kernels at the degree when this process built the library.
@@ -21,11 +21,14 @@ per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step.  Each
 variant is first checked against the library's output (1e-5·max|out|,
 1e-12 in double: K moves x faces between the in-pencil and the neighbour
 path, which round apart), and its registers and spills at the degree are
-printed.
+printed.  A variant whose pencil needs more shared memory than a block
+may have at a degree (K (7 n^3 + 34 n^2) values, 232,448 bytes) is not
+launched there and is listed under ``no_fit``.
 
 Run it with another tree's package on ``PYTHONPATH`` to time that tree in
 the same call (``--pencil`` needs this tree's sources).  Prints the card
-line and one JSON line.  Needs a CUDA device.
+line and one JSON line (a list, one entry a degree).  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -54,6 +57,17 @@ def time_ms(fn, reps: int = 50) -> float:
     return start.elapsed_time(end) / reps
 
 
+SMEM_LIMIT = 232_448     # bytes of shared memory a block may have (H100)
+
+
+def fits(spec: str, n: int) -> bool:
+    """Whether a pencil spec's K cells of ``n`` points an axis fit a block's
+    shared memory (csrc/dg_pencil.cuh:smem_bytes)."""
+    what, k = spec.split(":")
+    size = 8 if what == "f64" else 4
+    return int(k) * (7 * n ** 3 + 34 * n ** 2) * size <= SMEM_LIMIT
+
+
 def degree_rows(log: str, n: int) -> list[dict]:
     """ptxas rows of the DG kernels at ``n`` points an axis in ``log``."""
     from multigrid_tpu_torch import _build
@@ -64,11 +78,11 @@ def degree_rows(log: str, n: int) -> list[dict]:
             if "dg_" in r["kernel"] and f"Li{n}E" in r["kernel"]]
 
 
-def variants(specs: list[str], n: int) -> dict:
+def variants(specs: list[str]) -> dict:
     """For each pencil spec (``TYPE:K``): the C entry it times, of
     ``csrc/dg_pencil.cu`` (``f32``, ``cheb``) or ``dg_pencil_f64.cu``
     (``f64``) built alone with it (one nvcc a spec, all started together),
-    and the ptxas rows of its kernels at ``n``."""
+    and the compiler's output."""
     from multigrid_tpu_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -94,7 +108,7 @@ def variants(specs: list[str], n: int) -> dict:
         fn = getattr(ctypes.CDLL(str(out)), name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
-        built[spec] = (fn, degree_rows(log, n))
+        built[spec] = (fn, log)
     return built
 
 
@@ -136,8 +150,11 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
     torch.cuda.synchronize()
     digest = hashlib.sha256(want["cheb"].cpu().numpy().tobytes()).hexdigest()
     args = (*grid.cells, grid.n, 0, _build.stream_handle(dev))
+    no_fit = [spec for spec in specs if not fits(spec, grid.n)]
     for spec, (entry, _) in specs.items():
         what = spec.split(":")[0]
+        if spec in no_fit:
+            continue
         outs, new = {}, {}
         if what == "cheb":
             outs["cheb"] = torch.empty_like(b)
@@ -166,7 +183,8 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
             fns[f"{key}@{spec}"] = fn
     rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
     return dict(dofs=grid.n_dofs, sha256_cheb=digest, rounds=rounds,
-                best={k: min(r[k] for r in rounds) for k in fns})
+                best={k: min(r[k] for r in rounds) for k in fns},
+                no_fit=no_fit)
 
 
 def main(argv: list[str]) -> int:
@@ -174,7 +192,7 @@ def main(argv: list[str]) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("sizes", type=int, nargs="*", default=[48])
-    ap.add_argument("--degree", type=int, default=4)
+    ap.add_argument("--degree", type=int, nargs="+", default=[4])
     ap.add_argument("--pencil", nargs="*", default=[],
                     help="TYPE:K, TYPE f32, f64 or cheb")
     args = ap.parse_args(argv)
@@ -184,20 +202,24 @@ def main(argv: list[str]) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
-    n = args.degree + 1
     _build.library()
-    specs = variants(args.pencil, n)
-    result = dict(card=card, degree=args.degree,
-                  library_ptxas=degree_rows(_build.build_log, n),
-                  variant_ptxas={s: rows for s, (_, rows) in specs.items()},
-                  sizes={})
-    for size in args.sizes:
-        result["sizes"][size] = size_run(size, args.degree, specs, dev)
-        torch.cuda.empty_cache()
-        print(f"size {size}: sha256 of the f32 step "
-              f"{result['sizes'][size]['sha256_cheb']}")
+    specs = variants(args.pencil)
+    results = []
+    for degree in args.degree:
+        n = degree + 1
+        result = dict(card=card, degree=degree,
+                      library_ptxas=degree_rows(_build.build_log, n),
+                      variant_ptxas={s: degree_rows(log, n)
+                                     for s, (_, log) in specs.items()},
+                      sizes={})
+        for size in args.sizes:
+            result["sizes"][size] = size_run(size, degree, specs, dev)
+            torch.cuda.empty_cache()
+            print(f"p={degree} size {size}: sha256 of the f32 step "
+                  f"{result['sizes'][size]['sha256_cheb']}")
+        results.append(result)
     print(card)
-    print(json.dumps(result))
+    print(json.dumps(results))
     return 0
 
 

@@ -41,7 +41,8 @@ from .dg import DGGrid, DGLaplace, dg_geometry
 
 LAUNCHES = {"dg_apply<double>": 0, "dg_apply<float>": 0, "dg_cheb<float>": 0}
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
-MAX_DEGREE = 7     # n = 8 nodes per axis: the largest kernel instantiation
+MAX_DEGREE = 9     # n = 10 nodes per axis: the largest kernel instantiation,
+                   # the reference programs' top degree
 
 
 def reset_launches() -> None:
@@ -87,14 +88,16 @@ def covers(grid: DGGrid) -> bool:
     339``: ``dim == 3``; Pallas K7 and K8 have no degree limit).  The
     solvers choose a level's route by this when they build it; a 2-D level
     runs the plain operator on every device, as the JAX package runs XLA
-    there.  A covered level above :data:`MAX_DEGREE` has no kernel yet
+    there.  The kernels are built for p = 1..:data:`MAX_DEGREE` (9, the
+    reference programs' top degree, where the FE_Q hierarchy of poisson_dg
+    stops too); a covered level above it has no kernel
     (:func:`has_kernel`), so :class:`DGOperator` refuses it on the card."""
     return grid.dim == 3
 
 
 def has_kernel(grid: DGGrid) -> bool:
     """Whether the kernels are built for ``grid``: covered, degree
-    1..MAX_DEGREE."""
+    1..MAX_DEGREE (p = 1..9, n = 2..10 nodes an axis)."""
     return covers(grid) and 1 <= grid.degree <= MAX_DEGREE
 
 
@@ -212,7 +215,9 @@ class DGOperator:
     """A·u of one DG level in one dtype on one device: the kernels' table
     (in host memory in the operator's dtype; every kernel takes it as a
     kernel parameter) and the plain operator; ``install_jacobi`` adds the
-    preconditioner the fused Chebyshev step applies."""
+    preconditioner the fused Chebyshev step applies.  On the card it takes
+    a 3-D grid of degree 1..:data:`MAX_DEGREE` (9) and refuses any other
+    ("no DG kernel"); on the CPU any grid."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):
         self.grid = grid

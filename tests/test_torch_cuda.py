@@ -10,9 +10,9 @@ Chebyshev step on the smoother's iterates at 1e-12 (double) / 3e-6
 kernels 1e-14; the DG kernels against the plain f64 operator (and the
 face-based one) at 1e-13 (dg_apply<double>, apply and residual), 3e-6
 (dg_apply<float>) of max|A x| and 1e-5 of max|out| (dg_cheb<float>, on
-the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..7 and on
+the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..9 and on
 ragged pencils.  Every compiled degree of brick_kron (p = 1..9) and of
-the DG kernels (p = 1..7) is held.  The launch counters count device
+the DG kernels (p = 1..9) is held.  The launch counters count device
 kernels: 1 per brick_kron call, 2 per reduction, 1 per xpay, 1 per DG
 kernel call.  The
 size-4 FE_Q, DG and pure-DG (DGPlain) solves on the card agree with the
@@ -25,7 +25,7 @@ on the card are bit for bit equal.  The plain routes of the one-device
 configurations the kernels do not cover: 2-D DG-plain (16^2 cells, p = 3,
 every kind; its within one, frac its and L2 to 1% of the CPU's) and the
 2-D brick (FMG to 1e-5 of max|u|, CG its equal, reduction to 2%) launch
-only the CG kernels; a p = 8 ``matvec_dg`` row runs the plain operator at
+only the CG kernels; a p = 10 ``matvec_dg`` row runs the plain operator at
 the driver's bars; a checkpoint of card tensors reads back bit for bit;
 ``device_memory_stats`` reads the allocator on the card (in use <= peak
 < the card's memory, peak >= the solver's level tensors)."""
@@ -234,7 +234,7 @@ def dg_grid(cells, p, kind, seed=0):
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 4), (4, 1, 3), (1, 1, 1)])
-@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("p", range(1, 10))
 @pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
 def test_dg_kernels_match_plain(dev, kind, p, cells):
     """dg_apply<double> against the plain f64 operator at 1e-13·max|y|;
@@ -282,7 +282,7 @@ def test_dg_kernels_match_plain(dev, kind, p, cells):
 
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9),
                                    (3, 2, 4)])
-@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("p", range(1, 10))
 @pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
 def test_dg_apply_residual_every_degree(dev, kind, p, cells):
     """dg_apply and dg_residual (b - A x) in double and float at every
@@ -316,7 +316,7 @@ def test_dg_apply_residual_every_degree(dev, kind, p, cells):
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)])
-@pytest.mark.parametrize("p", range(1, 8))
+@pytest.mark.parametrize("p", range(1, 10))
 @pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
 def test_dg_cheb_every_degree(dev, kind, p, cells):
     """dg_cheb<float> at every compiled degree, on grids whose x axis is
@@ -369,6 +369,35 @@ def test_dg_solver_on_card_matches_cpu(dev):
         sols[str(where)] = s.solve_cg(tolerance=1e-9)[0].cpu()
     u_gpu, u_cpu = sols[str(dev)], sols["cpu"]
     assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
+
+
+@pytest.mark.parametrize("plain", [False, True])
+@pytest.mark.parametrize("p", [8, 9])
+def test_dg_solvers_at_high_degree_on_card_match_cpu(dev, p, plain):
+    """poisson_dg and poisson_dg_plain (3-D, hermite, n_pre = n_post = 3,
+    rtol 1e-9) on 2^3 cells at p = 8, 9 on the card against the CPU: the
+    solution to 1e-5 of max|u|, frac its and L2 to 1%; K7, K8 and K9
+    launch."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.solvers.multigrid_dg import (
+        MultigridSolverDG, MultigridSolverDGPlain)
+
+    cls = MultigridSolverDGPlain if plain else MultigridSolverDG
+    rows = {}
+    for where in (dev, "cpu"):
+        s = cls(poisson_cube_mesh(2), p, exact_fn, rhs_fn, kind="hermite",
+                n_pre=3, n_post=3, device=where)
+        dk.reset_launches()
+        u, its, _ = s.solve_cg(tolerance=1e-9)
+        rows[str(where)] = (u.cpu(), its, s.l2_error(u, s.exact_quad),
+                            dict(dk.LAUNCHES))
+    (u_gpu, its_gpu, l2_gpu, counts), (u_cpu, its_cpu, l2_cpu, _) = (
+        rows[str(dev)], rows["cpu"])
+    assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
+    assert its_gpu == pytest.approx(its_cpu, rel=0.01)
+    assert l2_gpu == pytest.approx(l2_cpu, rel=0.01)
+    assert all(v > 0 for v in counts.values()), counts
 
 
 def _dg_plain(where):
@@ -688,18 +717,20 @@ def test_brick_2d_solve_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_matvec_dg_above_the_kernels_degree_on_card(dev, dtype):
-    """A p = 8 matvec_dg row on the card runs the plain operator, says so
-    and meets the driver's bar against the face-based operator."""
+    """A matvec_dg row above the DG kernels' degree (p = 10) on the card
+    runs the plain operator, says so and meets matvec_dg's bar against
+    the face-based operator."""
     from multigrid_tpu_torch.experiments import matvec_dg
+    from multigrid_tpu_torch.ops import dg_kernel as dk
 
     _reset_counts()
-    row = matvec_dg.run(8, "hermite", 3, dtype, dev)
+    row = matvec_dg.run(dk.MAX_DEGREE + 1, "hermite", 3, dtype, dev)
     assert row["route"] == "plain" and not any(_launch_counts().values())
     assert row["verify"] < matvec_dg.VERIFY_TOL[dtype]
 
 
 def test_dg_levels_above_the_kernels_degree_refuse_the_card(dev):
-    """A 3-D constant-coefficient DG level above p = 7 has no kernel: the
+    """A 3-D constant-coefficient DG level above p = 9 has no kernel: the
     JAX DG solvers run Pallas there, so the card refuses it rather than
     run plain PyTorch; a 2-D one is a plain level on the card."""
     from multigrid_tpu_torch.ops import dg_kernel as dk

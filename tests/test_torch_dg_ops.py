@@ -1,15 +1,20 @@
 """The port's SIP-DG operator layer against the JAX package, on the CPU.
 
-* ``core/dg_basis``: every table equal to the JAX one (three kinds, p 1..7).
+* ``core/dg_basis``: every table equal to the JAX one (three kinds, p 1..9,
+  the kernels' degrees).
 * ``DGLaplace``: f64 to 1e-13·max|y|, f32 to 2e-6·max|y|, on the sheared
   grids and the five ``CASES`` of tests/test_pallas_dg.py:28-34.
 * The kernels' plain versions (``ops/dg_kernel.py``) against the JAX Pallas
   kernels in interpret mode, at the JAX bars: ``dg_apply`` / ``dg_residual``
   f32 and the ``PallasDGSP`` kernel both within 3e-6 of the f64 oracle,
   ``dg_apply`` / ``dg_residual`` f64 and ``PallasDGOzaki`` within 5e-11 of
-  each other; the pencil kernels' per-axis back end (S^T, (D S)^T) against
+  each other (above p = 4, where ``PallasDGOzaki`` refuses the grid, the
+  JAX f64 ``DGLaplace`` its solvers run there, at the same bar; p = 8, 9
+  too); the pencil kernels' per-axis back end (S^T, (D S)^T) against
   S3^T (vacc + sum_e D_e^T acc_e) at 1e-13; one ``dg_cheb`` step
-  against ``FusedChebyshevDG``'s fused pass at 1e-5·max|out|; the
+  against ``FusedChebyshevDG``'s fused pass at 1e-5·max|out| (p = 3; at
+  p = 8, 9 against the step JAX composes in f64, the fused pass at 1e-3,
+  its own accuracy there); the
   smoother's iterates, on which the card checks ``dg_cheb``, show every
   term of the step above that bar.
 * ``JacobiTransformed`` (1e-12) and ``CGDGCoupling`` (1e-13) against JAX.
@@ -75,7 +80,7 @@ def rel_err(got, want):
     return np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max()
 
 
-@pytest.mark.parametrize("degree", range(1, 8))
+@pytest.mark.parametrize("degree", range(1, 10))
 @pytest.mark.parametrize("kind", KINDS)
 def test_dg_basis_tables_match_jax(kind, degree):
     bj = j_basis.make_dg_basis(degree, kind)
@@ -104,7 +109,9 @@ def test_dg_laplace_matches_jax(kind, cells, p, prec):
 
 
 @pytest.mark.parametrize("kind,cells,p", [("hermite", (3, 2, 4), 3),
-                                          ("gauss", (1, 2, 1), 4)])
+                                          ("gauss", (1, 2, 1), 4),
+                                          ("hermite", (1, 2, 1), 8),
+                                          ("gauss", (1, 1, 1), 9)])
 def test_dg_apply_f32_matches_pallas_dgsp(kind, cells, p):
     """K7's plain version and the JAX kernel (interpret) both sit within
     the JAX bar of the f64 oracle (tests/test_pallas_dg.py:82)."""
@@ -134,8 +141,32 @@ def test_dg_apply_f64_matches_pallas_dgozaki():
     assert rel_err(y_t, y_j) < 5e-11
 
 
+@pytest.mark.parametrize("kind,cells,p", [("hermite", (1, 2, 1), 8),
+                                          ("gauss", (1, 1, 1), 9)])
+def test_dg_apply_f64_high_degree_matches_jax(kind, cells, p):
+    """K9's plain version at p = 8, 9 (the kernels' top degrees).  JAX
+    builds ``PallasDGOzaki`` only up to p = 4 (its exact-accumulation
+    bound; ``multigrid_tpu/solvers/multigrid_dg.py:137-139, 345``) and
+    runs its f64 ``DGLaplace`` (XLA) above: the port's plain version
+    against that one, at the PallasDGOzaki bar, apply and residual."""
+    from multigrid_tpu.ops.pallas_dg import PallasDGOzaki
+
+    gj, gt = grids(cells, p, kind)
+    with pytest.raises(ValueError, match="p <= 4"):
+        PallasDGOzaki(gj, interpret=True)
+    u, b = rand(gt.shape, 3), rand(gt.shape, 6)
+    y_j = np.asarray(j_dg.DGLaplace(gj, jnp.float64).vmult(jnp.asarray(u)))
+    op = dk.DGOperator(gt, torch.float64, "cpu")
+    y_t = dk.dg_apply(torch.as_tensor(u), op).numpy()
+    assert rel_err(y_t, y_j) < 5e-11
+    r_t = dk.dg_residual(torch.as_tensor(b), torch.as_tensor(u), op).numpy()
+    assert rel_err(r_t, b - y_j) < 5e-11
+
+
 @pytest.mark.parametrize("kind,cells,p", [("hermite", (3, 2, 4), 3),
-                                          ("gauss", (1, 2, 1), 4)])
+                                          ("gauss", (1, 2, 1), 4),
+                                          ("gll", (1, 1, 1), 8),
+                                          ("hermite", (1, 1, 1), 9)])
 def test_dg_residual_f32_matches_pallas_dgsp(kind, cells, p):
     """The residual mode's plain version (``b - A x`` in float32) and the
     JAX kernel's ``vmult_residual`` (interpret) both sit within 3e-6 of
@@ -171,7 +202,7 @@ def test_dg_residual_f64_matches_pallas_dgozaki():
     assert rel_err(r_t, r_j) < 5e-11
 
 
-@pytest.mark.parametrize("degree", range(1, 8))
+@pytest.mark.parametrize("degree", range(1, 10))
 @pytest.mark.parametrize("kind", KINDS)
 def test_dg_back_end_factorisation(kind, degree):
     """The back end of the apply and residual modes (csrc/dg_pencil.cuh,
@@ -248,6 +279,47 @@ def test_dg_cheb_matches_fused_chebyshev_pass():
     want0 = f2 * np.asarray(jac_j.vmult(jnp.asarray(b)))
     np.testing.assert_allclose(first, want0, rtol=0,
                                atol=1e-5 * np.abs(want0).max())
+
+
+@pytest.mark.parametrize("cells,p", [((1, 2, 1), 8), ((1, 1, 1), 9)])
+def test_dg_cheb_high_degree_matches_fused_chebyshev_pass(cells, p):
+    """K8 at p = 8, 9.  The port's plain step in float32 within
+    1e-5·max|out| of the step that JAX composes in float64 (its f64
+    ``DGLaplace`` and ``JacobiTransformed``), on random inputs and on the
+    smoother's iterates (every term at the output's scale).
+    PallasDGSP.cheb_fused (interpret) within 1e-3·max|out| of the same
+    step on the random inputs: its 3 x 8-bit limbs of A x lose accuracy
+    with the degree (3e-7 at p = 3, 3e-4 to 6e-4 at p = 8, 9), and on the
+    smoother's iterates its output is off by orders of magnitude from
+    p = 6 on, so there the f64 step alone is the reference."""
+    from multigrid_tpu.ops.pallas_dg import PallasDGSP
+
+    gj, gt = grids(cells, p, "hermite")
+    A_j = j_dg.DGLaplace(gj, jnp.float64)
+    jac_j = JJacobi(A_j)
+    op = dk.DGOperator(gt, torch.float32, "cpu")
+    op.install_jacobi(JacobiTransformed(gt, torch.float32, "cpu"))
+    spk = PallasDGSP(gj, interpret=True)
+    T = np.asarray(gj.basis.T)
+    spk.install_jacobi(np.kron(np.kron(T, T), T), spk.to_kernel(
+        JJacobi(j_dg.DGLaplace(gj, jnp.float32)).inv_diag))
+    f1, f2 = 0.37, 0.81
+    z = [rand(gt.shape, s) for s in (4, 5, 6)]
+    iterates = [z[0]] + [np.asarray(jac_j.vmult(jnp.asarray(v))) for v in z[1:]]
+    for inputs, pallas in ((z, True), (iterates, False)):
+        b, x, xo = (a.astype(np.float32) for a in inputs)
+        x64, xo64 = x.astype(np.float64), xo.astype(np.float64)
+        r = jnp.asarray(b, jnp.float64) - A_j.vmult(jnp.asarray(x64))
+        want = x64 + f1 * (x64 - xo64) + f2 * np.asarray(jac_j.vmult(r))
+        scale = np.abs(want).max()
+        t = torch.as_tensor
+        got = dk.dg_cheb(t(b), t(x), t(xo), op, f1, f2).numpy()
+        assert np.abs(got - want).max() <= 1e-5 * scale
+        if pallas:
+            k = lambda a: spk.to_kernel(jnp.asarray(a))
+            pal = np.asarray(spk.from_kernel(spk.cheb_fused(
+                k(x), k(xo), k(b), f1, f2)[:-1]))
+            assert np.abs(pal - want).max() <= 1e-3 * scale
 
 
 @pytest.mark.parametrize("cells,p", [((3, 2, 4), 3), ((1, 1, 1), 4),

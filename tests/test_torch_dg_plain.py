@@ -16,14 +16,14 @@
   run without CUDA otherwise; ``VarCoeffLevel`` refuses a
   constant-coefficient level that the DG kernels cover on the card.
 * The route of a constant-coefficient level follows ``dg_kernel.covers``
-  (3-D, p <= 7, the JAX gate): the DG kernels' ``DGOperator`` where it
-  holds, the plain ``DGLaplace`` everywhere else (2-D, p > 7), on the card
-  too.  ``poisson_dg_plain`` defaults to the reference's 2-D setting: its
+  (3-D, the JAX gate): the DG kernels' ``DGOperator`` where it holds, the
+  plain ``DGLaplace`` everywhere else (2-D), on the card too; above the
+  kernels' degree (p = 9) the card refuses a 3-D level.  ``poisson_dg_plain`` defaults to the reference's 2-D setting: its
   4096-dof rows print "(plain)", hermite's its and L2 those of the JAX
-  solver (2%, 1e-6).  Above p = 7 ``matvec_dg`` on the card (monkeypatched)
+  solver (2%, 1e-6).  Above p = 9 ``matvec_dg`` on the card (monkeypatched)
   builds the plain operator and prints "(plain)" rows that meet the f64
   bar against the face-based operator; ``matvec_dg_cheby`` and
-  ``solver_dg`` run p = 8 on the plain operator at their bars.
+  ``solver_dg`` run p = 10 on the plain operator at their bars.
 """
 
 import jax
@@ -540,7 +540,7 @@ def test_dg_plain_experiment_defaults_to_2d(capsys):
 
 @pytest.mark.parametrize("driver", ["matvec_dg_cheby", "solver_dg"])
 def test_dg_benchmark_drivers_above_the_kernels_degree(driver, capsys):
-    """p = 8, above the DG kernels: the Chebyshev step and the cell-based
+    """p = 10, above the DG kernels: the Chebyshev step and the cell-based
     CG run over the plain operator ("(plain)") and meet their bars."""
     main = {"matvec_dg_cheby": matvec_dg_cheby.main,
             "solver_dg": solver_dg.main}[driver]
