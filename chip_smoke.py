@@ -80,7 +80,11 @@ convergence rows:
   back bit for bit.
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
-degree (p = 1..9) and the DG pencil kernels (``dg_apply`` and
+degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
+picks for each grid: the cell form on the small grids, the z-slab march on
+the large float ones), also at the coarse grids of the p = 8, 9
+hierarchies (64^3 and 28^3 nodes at p = 9, 25^3 at p = 8), and the DG
+pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
 1..9), the DG kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
@@ -92,10 +96,14 @@ Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the paths' solves, as a
 trace counts them: one brick_kron call 1, one CG reduction 2, one DG
 kernel call 1; ``launches`` sums the paths, ``launches_by_path`` gives
-each; the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG
-kernels at those degrees, timed at the cube rows' node grids and the
-24^3-cell DG grids and counted on the paths of that degree (the cube and
-DG rows, the p = 8 ``matvec_dg`` row), the other rows count every other
+each, and brick_kron's by kernel and node grid under "<kernel> ZxYxX";
+the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG kernels at
+those degrees, timed at the cube rows' node grids and the 24^3-cell DG
+grids and counted on the paths of that degree (the cube and DG rows, the
+p = 8 ``matvec_dg`` row), the ``... p=9 64^3`` rows and the like
+brick_kron at a coarse grid, timed there and counted at that grid on the
+paths of its degree (the p = 9 cube row's and the p = 8, 9 poisson_dg
+rows' coarse steps must be there), the other rows count every other
 path; the rows
 ``brick_kron<float>``, ``brick_kron<double>``,
 ``dg_apply<float>`` and ``dg_apply<double>`` count the kernel's A·x modes
@@ -194,6 +202,11 @@ DEFORM_ITS, DEFORM_RATE = 9, 3.2
 # (257^3 nodes, the node grid of the size-64 p = 4 row) and 28^3 at p = 9
 # (253^3); each row's CG its within one of the CPU's on the 4^3 mesh
 HIGH_DEGREE_SIZES = {8: 32, 9: 28}
+# brick_kron's coarse grids at p = 8, 9 (degree -> cells of the coarse
+# level): the p = 9 cube row's 7^3 cells (64^3 nodes, about 235 Chebyshev
+# steps a V-cycle) and poisson_dg's FE_Q(p) coarse level at size 24, 3^3
+# cells (28^3 / 25^3 nodes); checked and timed under " p=<p> <Z>^3"
+HIGH_DEGREE_COARSE = {9: (7, 3), 8: (3,)}
 HIGH_DEGREE_SMALL = 4
 # 2-D DG-plain (the reference program's setting, p = 3, rtol 1e-9): the
 # rows of 16^2 and 32^2 cells (sizes 2, 4) of every kind on the card
@@ -295,14 +308,19 @@ KERNELS = {
     "dg_apply<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:438"),
     "dg_cheb<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:490"),
 }
-# brick_kron at p = 8 and 9, timed at their cube rows' node grids, and
-# the DG kernels at p = 8 and 9, timed at the size-24 DG grids; each
-# counted on the paths of its degree only
+# brick_kron at p = 8 and 9, timed at their cube rows' node grids and
+# their coarse grids, and the DG kernels at p = 8 and 9, timed at the
+# size-24 DG grids; each counted on the paths of its degree only (an entry
+# of a coarse grid: the launches at that node grid)
+BRICK_NAMES = ("brick_kron<double>", "brick_kron_cheb<double>",
+               "brick_kron<float>", "brick_kron_cheb<float>")
 for _p in HIGH_DEGREE_SIZES:
-    for _name in ("brick_kron<double>", "brick_kron_cheb<double>",
-                  "brick_kron<float>", "brick_kron_cheb<float>",
-                  "dg_apply<double>", "dg_apply<float>", "dg_cheb<float>"):
+    for _name in BRICK_NAMES + ("dg_apply<double>", "dg_apply<float>",
+                                "dg_cheb<float>"):
         KERNELS[f"{_name} p={_p}"] = KERNELS[_name]
+    for _c in HIGH_DEGREE_COARSE[_p]:
+        for _name in BRICK_NAMES:
+            KERNELS[f"{_name} p={_p} {_c * _p + 1}^3"] = KERNELS[_name]
 
 
 def degree_path(p: int, path: str = "poisson_cube") -> str:
@@ -772,7 +790,7 @@ def main() -> int:
                 f"a brick_kron kernel spills ({src}): {spills}")
         if src.startswith("brick_kron"):
             for r in rows:
-                if "brick_kron_kernelI" in r["kernel"] and any(
+                if "brick_cell_kernelI" in r["kernel"] and any(
                         f"Li{p}ELi" in r["kernel"] for p in HIGH_DEGREE_SIZES):
                     print(f"    {r['kernel']}: {r['registers']} registers, "
                           f"spill stores {r['spill_stores']} B, loads "
@@ -793,9 +811,11 @@ def main() -> int:
                 and sum("14dg_cheb_kernelI" in k for k in names) == 9,
                 "the DG pencil kernels are not all in the library at p = "
                 "1..9")
-        require(sum("17brick_kron_kernelI" in k for k in names) == 72,
+        require(sum("17brick_kron_kernelI" in k for k in names) == 64
+                and sum("17brick_cell_kernelI" in k for k in names) == 16,
                 "brick_kron is not in the library at p = 1..9, both types, "
-                "all four modes")
+                "all four modes (the march at p = 1..7 and in float at "
+                "p = 8, 9; the cell form at p = 8, 9)")
 
     return run(dev, card, t_start)
 
@@ -812,9 +832,15 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
+    """The kernels' launch counts, and brick_kron's by node grid under
+    "<kernel> ZxYxX"."""
+    from multigrid_tpu_torch.ops import laplace_kernel
+
     out = {}
     for mod in _counters():
         out.update(mod.LAUNCHES)
+    for (name, shape), n in laplace_kernel.LAUNCHES_BY_GRID.items():
+        out[f"{name} {'x'.join(map(str, shape))}"] = n
     return out
 
 
@@ -886,6 +912,14 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                 checks.kron_checks(grid, timed, dtype, label=f" p={p}")
             torch.cuda.synchronize()
             print(f"brick_kron checks passed at {label} p={p}: {grid.shape}")
+        for c in HIGH_DEGREE_COARSE[p]:
+            grid = DofGrid(poisson_cube_mesh(c), 0, p)
+            for dtype in (torch.float32, torch.float64):
+                checks.kron_checks(grid, True, dtype,
+                                   label=f" p={p} {c * p + 1}^3")
+            torch.cuda.synchronize()
+            print(f"brick_kron checks passed at the coarse grid {c}^3 cells "
+                  f"p={p}: {grid.shape}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
     dg_shapes = [
         ("sheared DG (3,2,4) p=3 hermite", dg_grid((3, 2, 4), 3, "hermite"),
@@ -1002,14 +1036,25 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         for k in names:
             require(launches[path][k] > 0,
                     f"kernel {k} was not launched by the {path} solves")
+    # the coarse grids' Chebyshev steps: the cube row's at p = 9, the
+    # poisson_dg rows' FE_Q(p) coarse level at p = 8, 9
+    for path, cells, p in ((degree_path(9), 7, 9),
+                           (degree_path(9, "poisson_dg"), 3, 9),
+                           (degree_path(8, "poisson_dg"), 3, 8)):
+        key = f"brick_kron_cheb<float> {'x'.join([str(cells * p + 1)] * 3)}"
+        require(launches[path].get(key, 0) > 0,
+                f"the {path} solves launched no {key}")
 
     def counted(kernel: str) -> dict:
         """Launches of ``kernel`` by path: an entry of degree p counts the
         paths of that degree (:func:`degree_path`), an unlabelled entry
-        every other path."""
-        base, _, deg = kernel.partition(" p=")
+        every other path; an entry of a node grid ("... p=9 64^3") only
+        the launches at that grid."""
+        base, _, label = kernel.partition(" p=")
+        deg, _, grid = label.partition(" ")
         want = int(deg) if deg else None
-        return {p: launches[p][base] for p in launches
+        key = f"{base} {'x'.join([grid[:-2]] * 3)}" if grid else base
+        return {p: launches[p].get(key, 0) for p in launches
                 if path_degree(p) == want}
 
     kernels = []

@@ -48,9 +48,11 @@ _N = ctypes.POINTER(ctypes.c_int)
 # entry point -> argtypes (all return int = cudaError_t; the last argument
 # receives the number of kernels launched)
 SIGNATURES = {
-    # mode, x, b, x_old, out, taps (host), f1, f2, Z, Y, X, p, stream
-    "brick_kron_f32": [_I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _N],
-    "brick_kron_f64": [_I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P, _N],
+    # mode, form, x, b, x_old, out, taps (host), f1, f2, Z, Y, X, p, stream
+    "brick_kron_f32": [_I, _I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
+                       _N],
+    "brick_kron_f64": [_I, _I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
+                       _N],
     # b, y, x, x_old, lines, out, f1, f2, Z, Y, X, residual_only, stream
     "cheb_epilogue_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
                           _N],

@@ -6,14 +6,15 @@
 
 extern "C" {
 
-// mode: 0 apply, 1 vmult, 2 residual, 3 cheb.  taps: host array of
+// mode: 0 apply, 1 vmult, 2 residual, 3 cheb; form: 0 the z-slab march,
+// 1 the cell form (p >= 8).  taps: host array of
 // 4 * p * (2p + 1) floats (M, c_z L_z, c_y L_y, c_x L_x; each [p][2p + 1]).
-int brick_kron_f32(int mode, const float* x, const float* b,
+int brick_kron_f32(int mode, int form, const float* x, const float* b,
                    const float* x_old, float* out, const float* taps,
                    double f1, double f2, int Z, int Y, int X, int p,
                    void* stream, int* launched) {
-  return brick_kron_entry<float>(mode, x, b, x_old, out, taps, f1, f2, Z, Y,
-                                 X, p, stream, launched);
+  return brick_kron_entry<float>(mode, form, x, b, x_old, out, taps, f1, f2,
+                                 Z, Y, X, p, stream, launched);
 }
 
 }  // extern "C"

@@ -85,10 +85,10 @@
 // experiments/time_brick.py's sweep (--high-variant; H100 700 W, 257^3 /
 // 253^3 nodes, PERF.md): float 1 column at p = 8 (Chebyshev step 0.456
 // against 0.523 ms with 2) and 3 at p = 9 (0.686 against 1.081), two
-// blocks an SM; double 3 columns at p = 8 (apply 1.26 against 2.14 ms,
-// 218-252 registers) and 1 at p = 9 (2.93 ms, slower than the dense
-// plain version: 3 columns spill in the Chebyshev mode), one block an
-// SM.  HBM bytes bound them at 0.04 / 0.08 ms.
+// blocks an SM; the best double tiles took 1.26 ms (p = 8) and 2.93 ms
+// (p = 9, slower than the dense plain version) for the apply.  The march
+// runs there only on the large float grids; the cell form (below) took
+// its place everywhere else.
 // BRICK_KRON_F64_CPT and BRICK_KRON_F64_MIN_BLOCKS override both for
 // tuning builds; BRICK_KRON_HIGH_CPT (the columns a thread aimed at
 // above p = 4, in the type a source builds) and
@@ -105,8 +105,49 @@
 // SMs idle.  The slots are read per instantiation (occupancy x SMs), so
 // the double tile, which fits fewer blocks, gets its own slab depth.
 //
-// The entry points (brick_kron_f32, brick_kron_f64) write the number of
-// kernels they launched (1) to *launched.
+// p = 8 and 9: the cell form.  These degrees stand for K1 and K2 where
+// the JAX package runs them through KronLaplaceF32 / XLA: the FE_Q(8) /
+// FE_Q(9) V-cycles of poisson_cube and of poisson_dg's FE_Q hierarchy,
+// and their outer double residual and CG vmult.  What bounds them: HBM
+// bytes on the large grids (0.04-0.12 ms at 253^3 / 257^3); on the small
+// ones, the launch.  A V-cycle takes most of its launches on its coarse
+// grid (the coarse Chebyshev has degree 236 at 64^3 nodes in the p = 9
+// cube CG, 95 at 28^3 in poisson_dg p = 9): the p = 9 cube CG launched
+// 2585 float steps at 64^3 and 132 above, and spent 0.193 of its 0.271 s
+// of brick time there (torch.profiler by grid, profile_solve --levels).
+// An empty launch takes 1.0 us of device time on the card and a brick
+// call 20-40 us of host time; the march took 65-75 us of device time at
+// 28^3-64^3 (p = 9), because a slab cannot be shorter than one cell plus
+// its p-plane halo: 6-56 blocks for 132 SMs, each marching 2p + 1 planes
+// with three barriers a plane.  The cell form (brick_cell_kernel) gives
+// each cell a block of 256 threads that stages the (2p + 1)^3 input
+// neighbourhood at once (27 KB in float at p = 9) and runs the x sweep
+// (an item a row and field), the y sweep (an item a plane and column) and
+// the z sweep with the epilogue (an item a column and group of output
+// planes), one barrier apart: 343 blocks at 64^3.  Each node adds the
+// same taps in the same order as in the march, so the two forms give the
+// same bits.  Measured (H100 700 W, device time, time_brick --levels
+// --form, PERF.md): the float step at p = 9 takes 17.6 us at 64^3 against
+// the march's 74.8, 9.0 against 65.1 at 28^3, 0.104 against 0.123 ms at
+// 127^3; the double apply 1.00 against 2.91 ms at 253^3 and 1.02 against
+// 1.27 at 257^3 (p = 8).  On the large float grids the cell form loses:
+// the step at p = 9, 253^3, 0.80 against 0.68 ms, at p = 8, 257^3, 0.68
+// against 0.47 (a block stages and sweeps 9.4x (p = 9) its owned nodes
+// in x and y, where the march's slab shares its halo).  So the wrapper
+// (laplace_kernel.brick_form) chooses per grid: the cell form in double
+// on every grid and in float up to 3000 cells (p = 9: 127^3, 2744 cells,
+// cell 0.104 / march 0.123 ms; p = 8: 129^3, 4096 cells, 0.093 / 0.081),
+// the march on the larger float grids; double has only the cell form at
+// p = 8, 9.  The cell form's registers: float
+// 53-76, double 114-128 (the launch bound asks for three blocks an SM in
+// float, two in double), no spill.  Rows of P outputs in shared memory
+// are P | 1 apart, so that p = 8's x-sweep stores and y-sweep loads fall
+// on distinct banks; staging a row a warp (19 of 32 lanes) measured
+// slower than a node a thread.
+//
+// The entry points (brick_kron_f32, brick_kron_f64) take the form (0 the
+// march, 1 the cell form, p >= 8 only) and write the number of kernels
+// they launched (1) to *launched.
 
 #pragma once
 
@@ -142,14 +183,13 @@ struct Tile {
   static constexpr int TXC = (32 + P - 1) / P;  // cells per tile in x
   static constexpr int TX = TXC * P;
   // z columns per thread aimed at: float 4 at p <= 4, 2 at p = 5-7, 1 at
-  // p = 8, 3 at p = 9; double BRICK_KRON_F64_CPT at p <= 4, 3 at p = 8, 1
-  // at p = 5-7 and 9 (p = 8-9: the fastest tiles without a spill in
-  // time_brick's sweep, PERF.md)
+  // p = 8, 3 at p = 9 (the fastest tiles without a spill in time_brick's
+  // sweep, PERF.md); double BRICK_KRON_F64_CPT at p <= 4, 1 at p = 5-7
 #ifdef BRICK_KRON_HIGH_CPT
   static constexpr int CPT_HIGH = BRICK_KRON_HIGH_CPT;
 #else
   static constexpr int CPT_HIGH =
-      sizeof(T) == 4 ? (P == 8 ? 1 : P == 9 ? 3 : 2) : (P == 8 ? 3 : 1);
+      sizeof(T) == 4 ? (P == 8 ? 1 : P == 9 ? 3 : 2) : 1;
 #endif
   static constexpr int CPT_AIM = P > 4            ? CPT_HIGH
                                  : sizeof(T) == 4 ? 4
@@ -212,6 +252,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // the centre tap of residue r (a dynamic r, static indices)
@@ -498,34 +541,278 @@ int launch_mode(const T* x, const T* b, const T* x_old, T* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- p >= 8
+// The cell form (the note at the top says when it runs and why): one
+// block of kThreads owns the P^3 output nodes of one cell, [o, o + P) on
+// each axis (the last cell of an axis also the boundary node o + P),
+// stages the input neighbourhood [o - P, o + P]^3 at once and runs the
+// x, y and z sweeps over it with one barrier between sweeps.  Each node
+// sums the taps of brick_kron_kernel in the same order (x: the taps of
+// its row; y: the same; z: the input planes in ascending order, L then
+// M), so the outputs are the march's bit for bit; Dirichlet and outside
+// nodes stage as 0 and add +0 where the march skips them.
+constexpr int kCellDegree = 8;
+
 template <typename T, int P>
-int launch_degree(int mode, const T* x, const T* b, const T* x_old, T* out,
-                  const T* taps, T f1, T f2, int Z, int Y, int X,
-                  cudaStream_t stream) {
-  switch (mode) {
-    case kApply:
-      return launch_mode<T, P, kApply>(x, b, x_old, out, taps, f1, f2, Z, Y,
-                                       X, stream);
-    case kVmult:
-      return launch_mode<T, P, kVmult>(x, b, x_old, out, taps, f1, f2, Z, Y,
-                                       X, stream);
-    case kResidual:
-      return launch_mode<T, P, kResidual>(x, b, x_old, out, taps, f1, f2, Z,
-                                          Y, X, stream);
-    case kCheb:
-      return launch_mode<T, P, kCheb>(x, b, x_old, out, taps, f1, f2, Z, Y, X,
-                                      stream);
+struct Cell {
+  static constexpr int K = 2 * P + 1;
+  static constexpr int K2 = K * K;
+  static constexpr int K3 = K2 * K;
+  // x sweep: one item a row and field, a field's rows padded to whole
+  // warps, so the field (and its tap table) is uniform across a warp
+  static constexpr int ROWS = (K2 + 31) / 32 * 32;
+  // z sweep: one item a column and group of output planes, the groups
+  // (NG of them, as many as fit the block with columns padded to whole
+  // warps) of about equal FMA counts
+  static constexpr int COLS = (P * P + 31) / 32 * 32;
+  static constexpr int NG0 = kThreads / COLS;
+  static constexpr int NG = NG0 < 1 ? 1 : NG0 > P ? P : NG0;
+  // rows of P outputs stored SP apart (odd: the x sweep's stores and the
+  // y sweep's loads fall on distinct banks)
+  static constexpr int SP = P | 1;
+  static constexpr int NV = K2 * SP;     // v1 or v2: [K z][K y][P x]
+  static constexpr int NW = K * P * SP;  // w1 or w23: [K z][P y][P x]
+  static_assert(2 * NW <= K3, "w1, w23 overlay the staged neighbourhood");
+  // blocks an SM must hold (the launch bound, which caps the registers)
+  static constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 3 : 2;
+};
+
+template <typename T, int P>
+struct CellSmem {
+  using C = Cell<T, P>;
+  T su[C::K3];  // the staged neighbourhood; then w1 (NW) and w23 (NW)
+  T sv1[C::NV];
+  T sv2[C::NV];
+};
+
+// out[r] = sum_k t[r][k] u[r + k] over the band of residue r, in the
+// order of brick_kron_kernel's x sweep
+template <typename T, int P>
+__device__ __forceinline__ void cell_x_row(const T (&t)[P][2 * P + 1],
+                                           const T* u, T* out) {
+  constexpr int K = 2 * P + 1;
+  T v[K];
+#pragma unroll
+  for (int m = 0; m < K; ++m) v[m] = u[m];
+#pragma unroll
+  for (int r = 0; r < P; ++r) {
+    T a = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (in_band<P>(r, k) && r + k < K) a = fma_t(t[r][k], v[r + k], a);
+    out[r] = a;
+  }
+}
+
+template <typename T, int P, int MODE>
+__global__ void __launch_bounds__(kThreads, Cell<T, P>::MIN_BLOCKS)
+    brick_cell_kernel(const T* __restrict__ x, const T* b, const T* x_old,
+                      T* out, const __grid_constant__ Taps<T, P> tp, T f1,
+                      T f2, int Z, int Y, int X) {
+  using C = Cell<T, P>;
+  constexpr int K = C::K;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  CellSmem<T, P>& sm = *reinterpret_cast<CellSmem<T, P>*>(smem_raw);
+  T* const sw1 = sm.su;
+  T* const sw23 = sm.su + C::NW;
+
+  const int tid = threadIdx.x;
+  const int ox = blockIdx.x * P, oy = blockIdx.y * P, oz = blockIdx.z * P;
+  const bool need_x = MODE != kApply;
+  const bool need_b = MODE == kResidual || MODE == kCheb;
+  const bool need_xo = MODE == kCheb && x_old != nullptr;
+  const T zero = T(0);
+
+  // stage [o - P, o + P]^3 of x (Dirichlet and outside nodes as 0), a
+  // node a thread (a warp a row, 19 of 32 lanes busy, measured slower)
+  for (int i = tid; i < C::K3; i += kThreads) {
+    const int sz = i / C::K2, rest = i - sz * C::K2;
+    const int sy = rest / K, sx = rest - sy * K;
+    const int gz = oz - P + sz, gy = oy - P + sy, gx = ox - P + sx;
+    const bool in = gz >= 1 && gz <= Z - 2 && gy >= 1 && gy <= Y - 2 &&
+                    gx >= 1 && gx <= X - 2;
+    cp_async(sm.su + i, in ? x + ((int64_t)gz * Y + gy) * X + gx : x,
+             in ? (int)sizeof(T) : 0);
+  }
+  cp_async_commit();
+  cp_async_wait0();
+  __syncthreads();
+
+  // x sweeps: v1 = Mx u, v2 = Lx u at the P owned x of every staged row
+  for (int it = tid; it < 2 * C::ROWS; it += kThreads) {
+    const int field = it / C::ROWS, row = it - field * C::ROWS;
+    if (row < C::K2) {
+      if (field == 0)
+        cell_x_row<T, P>(tp.m, sm.su + row * K, sm.sv1 + row * C::SP);
+      else
+        cell_x_row<T, P>(tp.l[2], sm.su + row * K, sm.sv2 + row * C::SP);
+    }
+  }
+  __syncthreads();
+
+  // y sweeps: w1 = My v1, w23 = Ly v1 + My v2 at the P x P owned (y, x)
+  // of every staged plane (into the staged neighbourhood's room)
+  for (int it = tid; it < K * P; it += kThreads) {
+    const int sz = it / P, kx = it - sz * P;
+    const T* s1 = sm.sv1 + sz * K * C::SP + kx;
+    const T* s2 = sm.sv2 + sz * K * C::SP + kx;
+    T a[K], v[K];
+#pragma unroll
+    for (int m = 0; m < K; ++m) {
+      a[m] = s1[m * C::SP];
+      v[m] = s2[m * C::SP];
+    }
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      T w1 = zero, w23 = zero;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (in_band<P>(r, k) && r + k < K) {
+          w1 = fma_t(tp.m[r][k], a[r + k], w1);
+          w23 = fma_t(tp.l[1][r][k], a[r + k], w23);
+          w23 = fma_t(tp.m[r][k], v[r + k], w23);
+        }
+      sw1[(sz * P + r) * C::SP + kx] = w1;
+      sw23[(sz * P + r) * C::SP + kx] = w23;
+    }
+  }
+  __syncthreads();
+
+  // z sweep in gather form, and the epilogue: output plane kz of column
+  // (ky, kx) adds the staged planes s = kz .. 2P in ascending order (tap
+  // kz + 2P - s of row s mod P), L z w1 then M z w23 -- the march's order
+  for (int it = tid; it < C::NG * C::COLS; it += kThreads) {
+    const int g = it / C::COLS, col = it - g * C::COLS;
+    if (col >= P * P) continue;
+    const int ky = col / P, kx = col - ky * P, cw = ky * C::SP + kx;
+    const int gy = oy + ky, gx = ox + kx;
+    const bool in_yx = gy >= 1 && gy <= Y - 2 && gx >= 1 && gx <= X - 2;
+    const T mx = centre<T, P>(tp.m, kx), lx = centre<T, P>(tp.l[2], kx);
+    const T my = centre<T, P>(tp.m, ky), ly = centre<T, P>(tp.l[1], ky);
+    const T dg1 = my * mx;
+    const T dg23 = ly * mx + my * lx;
+#pragma unroll
+    for (int gg = 0; gg < C::NG; ++gg) {
+      if (gg != g) continue;  // the same for a whole warp
+#pragma unroll
+      for (int kz = gg * P / C::NG; kz < (gg + 1) * P / C::NG; ++kz) {
+        const int gz = oz + kz;
+        const int64_t gi = ((int64_t)gz * Y + gy) * X + gx;
+        const bool in = in_yx && gz >= 1 && gz <= Z - 2;
+        T ex = zero, eb = zero, eo = zero;
+        if (MODE == kCheb || (need_x && !in)) ex = x[gi];
+        if (need_b) eb = b[gi];
+        if (need_xo) eo = x_old[gi];
+        T acc = zero;
+#pragma unroll
+        for (int s = kz; s < K; ++s) {
+          const int rho = s % P, t = kz + 2 * P - s;
+          if (in_band<P>(rho, t)) {
+            acc = fma_t(tp.l[0][rho][t], sw1[s * P * C::SP + cw], acc);
+            acc = fma_t(tp.m[rho][t], sw23[s * P * C::SP + cw], acc);
+          }
+        }
+        T val;
+        if (!in) {
+          val = dirichlet<MODE>(ex, eb, eo, f1, f2);
+        } else if (MODE == kApply || MODE == kVmult) {
+          val = acc;
+        } else if (MODE == kResidual) {
+          val = eb - acc;
+        } else {
+          const T d = tp.l[0][kz][P] * dg1 + tp.m[kz][P] * dg23;
+          val = ex + f1 * (ex - eo) + f2 * (eb - acc) / d;
+        }
+        out[gi] = val;
+      }
+    }
+  }
+
+  // the boundary nodes o + P of the last cell of an axis
+  const bool last_z = oz + P == Z - 1, last_y = oy + P == Y - 1,
+             last_x = ox + P == X - 1;
+  if (last_z || last_y || last_x) {
+    for (int i = tid; i < (P + 1) * (P + 1) * (P + 1); i += kThreads) {
+      const int kz = i / ((P + 1) * (P + 1)), rest = i - kz * (P + 1) * (P + 1);
+      const int ky = rest / (P + 1), kx = rest - ky * (P + 1);
+      if ((kz < P && ky < P && kx < P) || (kz == P && !last_z) ||
+          (ky == P && !last_y) || (kx == P && !last_x))
+        continue;
+      const int64_t gi = ((int64_t)(oz + kz) * Y + oy + ky) * X + ox + kx;
+      out[gi] = dirichlet<MODE>(need_x ? x[gi] : zero, need_b ? b[gi] : zero,
+                                need_xo ? x_old[gi] : zero, f1, f2);
+    }
+  }
+}
+
+template <typename T, int P, int MODE>
+int launch_cell(const T* x, const T* b, const T* x_old, T* out,
+                const T* taps, T f1, T f2, int Z, int Y, int X,
+                cudaStream_t stream) {
+  constexpr int kSmem = (int)sizeof(CellSmem<T, P>);
+  static bool ready = false;
+  if (!ready) {
+    if (kSmem > 48 * 1024)
+      cudaFuncSetAttribute(brick_cell_kernel<T, P, MODE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    ready = true;
+  }
+  Taps<T, P> tp;
+  memcpy(&tp, taps, sizeof(tp));
+  const dim3 grid((X - 1) / P, (Y - 1) / P, (Z - 1) / P);
+  brick_cell_kernel<T, P, MODE><<<grid, kThreads, kSmem, stream>>>(
+      x, b, x_old, out, tp, f1, f2, Z, Y, X);
+  return (int)cudaGetLastError();
+}
+
+// form 0: the z-slab march (p <= 7, and float at p >= 8); form 1: the
+// cell form (p >= 8; in double the only one there, faster on every grid)
+template <typename T, int P, int MODE>
+int launch_form(int form, const T* x, const T* b, const T* x_old, T* out,
+                const T* taps, T f1, T f2, int Z, int Y, int X,
+                cudaStream_t stream) {
+  if constexpr (P >= kCellDegree) {
+    if (form == 1)
+      return launch_cell<T, P, MODE>(x, b, x_old, out, taps, f1, f2, Z, Y, X,
+                                     stream);
+  }
+  if constexpr (P < kCellDegree || sizeof(T) == 4) {
+    if (form == 0)
+      return launch_mode<T, P, MODE>(x, b, x_old, out, taps, f1, f2, Z, Y,
+                                     X, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// mode: 0 apply, 1 vmult, 2 residual, 3 cheb.  taps: host array of
-// 4 * p * (2p + 1) values of T (M, c_z L_z, c_y L_y, c_x L_x; each
-// [p][2p + 1]).
+template <typename T, int P>
+int launch_degree(int mode, int form, const T* x, const T* b, const T* x_old,
+                  T* out, const T* taps, T f1, T f2, int Z, int Y, int X,
+                  cudaStream_t stream) {
+  switch (mode) {
+    case kApply:
+      return launch_form<T, P, kApply>(form, x, b, x_old, out, taps, f1, f2,
+                                       Z, Y, X, stream);
+    case kVmult:
+      return launch_form<T, P, kVmult>(form, x, b, x_old, out, taps, f1, f2,
+                                       Z, Y, X, stream);
+    case kResidual:
+      return launch_form<T, P, kResidual>(form, x, b, x_old, out, taps, f1,
+                                          f2, Z, Y, X, stream);
+    case kCheb:
+      return launch_form<T, P, kCheb>(form, x, b, x_old, out, taps, f1, f2,
+                                      Z, Y, X, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// mode: 0 apply, 1 vmult, 2 residual, 3 cheb.  form: 0 the z-slab march,
+// 1 the cell form (p >= 8 only).  taps: host array of 4 * p * (2p + 1)
+// values of T (M, c_z L_z, c_y L_y, c_x L_x; each [p][2p + 1]).
 template <typename T>
-int brick_kron_entry(int mode, const T* x, const T* b, const T* x_old,
-                     T* out, const T* taps, double f1, double f2, int Z,
-                     int Y, int X, int p, void* stream, int* launched) {
+int brick_kron_entry(int mode, int form, const T* x, const T* b,
+                     const T* x_old, T* out, const T* taps, double f1,
+                     double f2, int Z, int Y, int X, int p, void* stream,
+                     int* launched) {
   *launched = 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const T g1 = (T)f1, g2 = (T)f2;
@@ -533,8 +820,8 @@ int brick_kron_entry(int mode, const T* x, const T* b, const T* x_old,
   switch (p) {
 #define MGT_KRON_CASE(P)                                                     \
   case P:                                                                    \
-    err = launch_degree<T, P>(mode, x, b, x_old, out, taps, g1, g2, Z, Y, X, \
-                              s);                                            \
+    err = launch_degree<T, P>(mode, form, x, b, x_old, out, taps, g1, g2, Z, \
+                              Y, X, s);                                      \
     break;
     MGT_KRON_CASE(1)
     MGT_KRON_CASE(2)

@@ -10,6 +10,8 @@ one CUDA device.
     python -m multigrid_tpu_torch.experiments.profile_solve 8 --path l
     python -m multigrid_tpu_torch.experiments.profile_solve 64 --path \\
         dg-plain --dim 2 --degree 3
+    python -m multigrid_tpu_torch.experiments.profile_solve 28 --degree 9 \\
+        --levels
 
 For each cube size (``poisson_cube_mesh(size, dim)``, FE_Q(degree)) and each of
 FMG (``solve``) and V-cycle-preconditioned CG (``solve_cg``) -- with
@@ -46,6 +48,12 @@ through the launch's correlation id) falls in the innermost range's class:
   contractions and the transfers;
 * l: the operator's weighted gather, the element matmul (the rest of
   ``apply_cells``), the weighted scatter, and the transfers.
+
+With ``--levels`` (cube and dg paths) each ``brick_kron`` call of the
+profiled run sits in a range named by its node grid, and the cell also
+gives the brick kernels' device time and launches by kernel and grid
+(``brick_levels``: "brick_kron<float> 64x64x64" -> seconds, launches),
+so that a solve's brick time can be read level by level.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ import torch
 from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
 from ..ops import dg_curved, dg_precond
+from ..ops import laplace_kernel as lk
 from ..ops.dg import DGLaplace
 from ..ops.dg_transfer import DGTransfer
 from ..ops.laplace_adaptive import AdaptiveLaplace
@@ -79,8 +88,10 @@ from .poisson_dg_plain import deform_chart
 # class -> substrings of the demangled kernel name (first match wins; the
 # port's own kernels sit in an anonymous namespace)
 CLASSES = (
-    ("brick_kron<float>", ("brick_kron_kernel<float,",)),
-    ("brick_kron<double>", ("brick_kron_kernel<double,",)),
+    ("brick_kron<float>", ("brick_kron_kernel<float,",
+                           "brick_cell_kernel<float,")),
+    ("brick_kron<double>", ("brick_kron_kernel<double,",
+                            "brick_cell_kernel<double,")),
     ("cheb_epilogue<float>", ("cheb_epilogue_kernel<float>",)),
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",
@@ -124,6 +135,8 @@ RANGES = {
 }
 # the port's own kernels keep their class inside a range
 OWN_CLASSES = ("brick_kron", "cheb_epilogue", "cg kernels", "dg_")
+# the range of a brick_kron call under --levels, before its node grid
+LEVEL_RANGE = "grid "
 
 
 def kernel_class(name: str) -> str:
@@ -180,6 +193,7 @@ def breakdown(events: list, wall_s: float) -> dict:
     busy = union_seconds([(e["ts"], e["ts"] + e["dur"]) for e in dev])
     ranges = launch_ranges(events)
     time_us, count = defaultdict(float), defaultdict(int)
+    level_s, level_n = {}, {}
     for e in dev:
         cls = kernel_class(e["name"]) if e["cat"] == "kernel" else "fill/copy"
         rng = ranges.get(e.get("args", {}).get("correlation"))
@@ -187,12 +201,42 @@ def breakdown(events: list, wall_s: float) -> dict:
             cls = rng
         time_us[cls] += e["dur"]
         count[cls] += 1
+        if rng is not None and rng.startswith(LEVEL_RANGE) and \
+                cls.startswith("brick_kron"):
+            key = f"{cls} {rng.removeprefix(LEVEL_RANGE)}"
+            level_s[key] = level_s.get(key, 0.0) + e["dur"] / 1e6
+            level_n[key] = level_n.get(key, 0) + 1
     total = sum(time_us.values()) or 1.0
     order = sorted(time_us, key=lambda c: -time_us[c])
-    return {"profiled_wall_s": wall_s, "device_busy_s": busy,
-            "idle_share": 1.0 - busy / wall_s, "device_events": len(dev),
-            "share": {c: time_us[c] / total for c in order},
-            "events": {c: count[c] for c in order}}
+    out = {"profiled_wall_s": wall_s, "device_busy_s": busy,
+           "idle_share": 1.0 - busy / wall_s, "device_events": len(dev),
+           "share": {c: time_us[c] / total for c in order},
+           "events": {c: count[c] for c in order}}
+    if level_s:
+        out["brick_levels"] = {k: {"seconds": level_s[k],
+                                   "launches": level_n[k]}
+                               for k in sorted(level_s)}
+    return out
+
+
+@contextlib.contextmanager
+def level_ranges():
+    """Run each ``brick_kron`` call inside a ``record_function`` range named
+    by its node grid (``LEVEL_RANGE`` + "ZxYxX") while the context is
+    open."""
+    from torch.profiler import record_function
+
+    fn = lk.brick_kron
+
+    def wrapped(x, *a, **k):
+        with record_function(LEVEL_RANGE + "x".join(map(str, x.shape))):
+            return fn(x, *a, **k)
+
+    lk.brick_kron = wrapped
+    try:
+        yield
+    finally:
+        lk.brick_kron = fn
 
 
 @contextlib.contextmanager
@@ -218,11 +262,15 @@ def path_ranges(path: str):
             setattr(cls, meth, fn)
 
 
-def profile_call(fn, trace: Path, path: str = "cube") -> dict:
+def profile_call(fn, trace: Path, path: str = "cube",
+                 levels: bool = False) -> dict:
     """Run ``fn`` once under ``torch.profiler``
     (:func:`~..utils.profiling.device_trace`) and break its trace down,
-    inside the ranges of ``path`` (:func:`path_ranges`)."""
-    with path_ranges(path), device_trace(str(trace)):
+    inside the ranges of ``path`` (:func:`path_ranges`) and, with
+    ``levels``, of :func:`level_ranges`."""
+    with path_ranges(path), (level_ranges() if levels
+                             else contextlib.nullcontext()), \
+            device_trace(str(trace)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -245,6 +293,9 @@ def main(argv=None) -> list:
                          "levels run the plain operators")
     ap.add_argument("--repeat", type=int, default=3)
     ap.add_argument("--out", default=None, help="JSON file for the numbers")
+    ap.add_argument("--levels", action="store_true",
+                    help="also the brick kernels' device time and launches "
+                         "by node grid (cube and dg paths)")
     ap.add_argument("--path", default="cube",
                     choices=["cube", "dg", "dg-plain", "dg-curved", "shell",
                              "l"],
@@ -305,7 +356,7 @@ def main(argv=None) -> list:
             profile_fn(fn, n_warmup=1, n_runs=args.repeat, walls=walls)
             cell = {"size": size, "dofs": dofs, "phase": phase,
                     "wall_s": min(walls), "walls_s": walls, "card": card,
-                    **profile_call(fn, trace, args.path)}
+                    **profile_call(fn, trace, args.path, args.levels)}
             cells.append(cell)
             shares = ", ".join(f"{c} {s:.3f}" for c, s in cell["share"].items())
             print(f"size {size} ({dofs} dofs) {phase}: wall {cell['wall_s']:.6f} s"
@@ -314,6 +365,9 @@ def main(argv=None) -> list:
                   f"{cell['device_busy_s']:.6f} s, idle share "
                   f"{cell['idle_share']:.4f}, {cell['device_events']} device "
                   f"events; shares: {shares} [{card}]", flush=True)
+            for key, v in cell.get("brick_levels", {}).items():
+                print(f"  {key}: {v['launches']} launches, "
+                      f"{v['seconds']:.6f} s device [{card}]", flush=True)
         del solver
         torch.cuda.empty_cache()
     if args.out:

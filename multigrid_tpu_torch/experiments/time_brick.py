@@ -3,6 +3,8 @@
     python -m multigrid_tpu_torch.experiments.time_brick [size ...]
         [--degree P] [--plain] [--f64-variant CPT:BLOCKS ...]
         [--high-variant TYPE:CPT:BLOCKS ...]
+    python -m multigrid_tpu_torch.experiments.time_brick [size ...]
+        --degree P --levels [--form auto|cell|march]
 
 For each poisson_cube size (default 64 and 128: 257^3 and 513^3 nodes at
 the default FE_Q(4); ``--degree 8`` at size 32 and ``--degree 9`` at size
@@ -27,8 +29,25 @@ moves no rounding: every node sums the same taps in the same order) and
 is timed beside.  The script uses only the operator's public methods, so
 run as a file with another tree's package on ``PYTHONPATH`` it times that
 tree's kernels in the same call (``PYTHONPATH=<tree> python
-<tree>/multigrid_tpu_torch/experiments/time_brick.py``).  Prints the card
-line and one JSON line.  Needs a CUDA device.
+<tree>/multigrid_tpu_torch/experiments/time_brick.py``, or this file with
+``PYTHONPATH=<tree>``).  Prints the card line and one JSON line.  Needs a
+CUDA device.
+
+``--levels`` times every level of each size's hierarchy instead (the
+node grids of ``poisson_cube_mesh(size)`` at FE_Q(P), coarse to fine: a
+poisson_cube row's V-cycle and, for the size of a poisson_dg row, its
+FE_Q(P) hierarchy): the double apply, vmult and residual and the float
+apply, residual and Chebyshev step, each as the wall of one wrapper call
+(CUDA events over back-to-back calls, as a solve issues them: the host's
+cost of a call included) and as the device time of its kernel
+(``torch.profiler``: the mean duration of the kernel events of 20
+calls), with its bound (bytes through HBM or operations at the peak rate,
+the larger) and the digest of its output.  The row ``floor`` is an empty
+launch on the same card: the fill kernel of a one-element tensor, timed
+the same two ways.  ``--form cell`` or ``march`` runs that form of the
+float ``brick_kron`` at p = 8, 9 on every grid (the default is
+``laplace_kernel.brick_form``'s choice; double has only the cell form
+there), so that the two forms can be timed grid by grid in one call.
 """
 
 from __future__ import annotations
@@ -54,6 +73,109 @@ def time_ms(fn, reps: int = 50) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = 67e12            # fp32 outside the tensor cores; fp64 on them
+# values each mode moves a node (inputs read once, the output written once)
+MODE_VALUES = dict(apply=2, vmult=2, residual=3, apply_f32=2,
+                   residual_f32=3, cheb_f32=4)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The mean device duration (ms) of the kernel that each call of ``fn``
+    launches (one), over the kernel events of a ``torch.profiler`` trace
+    of ``reps`` calls (the tracer may drop an event)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    durs = [e["dur"] for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    if not reps // 2 <= len(durs) <= reps:
+        raise RuntimeError(f"device_ms: {len(durs)} kernel events for "
+                           f"{reps} calls")
+    return sum(durs) / len(durs) / 1e3
+
+
+def level_rows(sizes: list[int], degree: int, dev,
+               form: str = "auto") -> list[dict]:
+    """``--levels``: every level of each size's hierarchy, coarse to fine
+    (see the module note); ``form`` "cell" or "march" runs that form of
+    the float brick_kron on every grid instead of
+    ``laplace_kernel.brick_form``'s."""
+    from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    if form != "auto":   # float only: double has the cell form alone
+        auto = lk.brick_form
+        lk.brick_form = lambda shape, degree, dtype: (
+            form if dtype == torch.float32 else auto(shape, degree, dtype))
+
+    one = torch.zeros(1, device=dev)
+    floor = dict(fill=lambda: one.zero_())
+    rows = [dict(size=None, level=None, grid="floor", ms={"fill": min(
+        time_ms(floor["fill"]) for _ in range(3))},
+        device_ms={"fill": device_ms(floor["fill"])})]
+    for size in sizes:
+        mesh = poisson_cube_mesh(size)
+        for level in range(mesh.n_levels):
+            grid = DofGrid(mesh, level, degree)
+            op = lk.BrickLaplace(grid, torch.float64, dev)
+            op32 = lk.BrickLaplace(grid, torch.float32, dev)
+            gen = torch.Generator(dev).manual_seed(size * 100 + level)
+            x, b, xo = (torch.randn(grid.shape, dtype=torch.float64,
+                                    device=dev, generator=gen)
+                        for _ in range(3))
+            x32, b32, xo32 = (t.float() for t in (x, b, xo))
+            fns = dict(
+                apply=lambda: op.apply(x), vmult=lambda: op.vmult(x),
+                residual=lambda: op.vmult_residual(b, x),
+                apply_f32=lambda: op32.apply(x32),
+                residual_f32=lambda: op32.vmult_residual(b32, x32),
+                cheb_f32=lambda: op32.cheb_step(b32, x32, xo32, 0.37, 0.81))
+            digests, launches = {}, {}
+            for name, fn in fns.items():
+                lk.reset_launches()
+                out = fn()
+                launches[name] = sum(lk.LAUNCHES.values())
+                digests[name] = hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()[:16]
+            nodes = grid.n_dofs
+            flops = 14 * (degree + 2) * nodes
+            bound = {name: 1e3 * max(
+                MODE_VALUES[name] * (4 if name.endswith("_f32") else 8)
+                * nodes / HBM_BYTES_PER_S, flops / PEAK_FLOPS)
+                for name in fns}
+            ms = {name: min(time_ms(fn) for _ in range(3))
+                  for name, fn in fns.items()}
+            rows.append(dict(size=size, level=level, grid=list(grid.shape),
+                             nodes=nodes, launches=launches, ms=ms,
+                             device_ms={k: device_ms(fn)
+                                        for k, fn in fns.items()},
+                             bound_ms=bound,
+                             digests=digests))
+            print(f"size {size} level {level} {grid.shape}: " + ", ".join(
+                f"{k} {ms[k]:.4f} / {rows[-1]['device_ms'][k]:.4f} ms"
+                for k in fns), flush=True)
+            del op, op32, x, b, xo, x32, b32, xo32, fns
+        torch.cuda.empty_cache()
+    return rows
 
 
 def variant_entries(variants: list[str], degree: int) -> dict:
@@ -118,6 +240,12 @@ def main(argv: list[str]) -> int:
                     help="also time the dense plain apply in both dtypes")
     ap.add_argument("--f64-variant", nargs="*", default=[])
     ap.add_argument("--high-variant", nargs="*", default=[])
+    ap.add_argument("--levels", action="store_true",
+                    help="time every level of each size's hierarchy")
+    ap.add_argument("--form", default="auto",
+                    choices=["auto", "cell", "march"],
+                    help="--levels: the form of brick_kron on every grid "
+                         "(default: laplace_kernel.brick_form's choice)")
     args = ap.parse_args(argv)
     if args.high_variant and args.degree <= 4:
         ap.error("--high-variant tiles apply above p = 4")
@@ -127,6 +255,13 @@ def main(argv: list[str]) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if args.levels:
+        rows = level_rows(args.sizes, args.degree, dev, args.form)
+        print(card)
+        print(json.dumps(dict(card=card, tree=str(_build.PACKAGE_DIR.parent),
+                              degree=args.degree, form=args.form,
+                              levels=rows)))
+        return 0
     entries = variant_entries(
         [f"f64:{v}" for v in args.f64_variant]
         + [f"high:{v}" for v in args.high_variant], args.degree)
@@ -165,9 +300,13 @@ def main(argv: list[str]) -> int:
                 out, launched = torch.empty_like(xs), ctypes.c_int(0)
                 kmode = lk.KRON_MODES[mode.removesuffix("_f32")]
 
+                form = lk.FORMS[lk.brick_form(grid.shape, grid.degree,
+                                              xs.dtype)]
+
                 def call(entry=entry, out=out, launched=launched,
-                         kmode=kmode, xs=xs, bs=bs, xos=xos, host=host):
-                    err = entry(kmode, xs.data_ptr(), bs.data_ptr(),
+                         kmode=kmode, xs=xs, bs=bs, xos=xos, host=host,
+                         form=form):
+                    err = entry(kmode, form, xs.data_ptr(), bs.data_ptr(),
                                 xos.data_ptr() if kmode == 3 else None,
                                 out.data_ptr(), host.ctypes.data, 0.37,
                                 0.81, *grid.shape, grid.degree,

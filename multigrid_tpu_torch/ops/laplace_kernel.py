@@ -11,7 +11,9 @@ A·u with its residual and Chebyshev epilogues).  Two kernels:
   the epilogue fuses -- ``apply`` (y = A x, 0 on Dirichlet rows),
   ``vmult`` (x on Dirichlet rows), ``residual`` (b - A x; b - x on
   Dirichlet rows) and ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag),
-  one launch each;
+  one launch each, in one of two forms with the same bits: the z-slab
+  march, or at p >= 8 the cell form (a block a cell), chosen per grid by
+  :func:`brick_form`;
 * ``cheb_epilogue`` (``csrc/cheb_epilogue.cu``): the residual ``b - y`` or
   the Chebyshev update ``x + f1 (x - x_old) + f2 (b - y) / diag`` with the
   separable diagonal rebuilt in the kernel, for a given y: the f32 step
@@ -26,7 +28,9 @@ through ``brick_kron``, and on the CPU through the dense element path
 counts the device kernels launched, as a trace shows them: one per
 ``brick_kron`` call (``brick_kron<float>`` / ``brick_kron<double>`` for
 the A·x modes, ``brick_kron_cheb<...>`` for the fused step) and one per
-``cheb_epilogue``.
+``cheb_epilogue``; ``LAUNCHES_BY_GRID[name, (Z, Y, X)]`` counts the
+``brick_kron`` launches by kernel name and node grid, so that a solve's
+launches can be read level by level.
 """
 
 from __future__ import annotations
@@ -45,14 +49,22 @@ from .masks import interior_mask
 LAUNCHES = {"brick_kron<float>": 0, "brick_kron_cheb<float>": 0,
             "brick_kron<double>": 0, "brick_kron_cheb<double>": 0,
             "cheb_epilogue<double>": 0, "cheb_epilogue<float>": 0}
+LAUNCHES_BY_GRID: dict = {}
 KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
 MAX_DEGREE = 9     # brick_kron's largest instantiation (the reference's)
+CELL_DEGREE = 8    # brick_kron's cell form: degrees CELL_DEGREE..MAX_DEGREE
+# the float cell form's largest grid, in cells: above it the march is
+# faster (PERF.md, time_brick --levels --form); double runs the cell form
+# on every grid
+F32_CELL_FORM_MAX_CELLS = 3000
+FORMS = {"march": 0, "cell": 1}
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_GRID.clear()
 
 
 def _check_grid_tensor(t: torch.Tensor, like, what: str):
@@ -155,6 +167,20 @@ def cheb_epilogue(b: torch.Tensor, y=None, x=None, x_old=None, lines=None,
 
 
 # ------------------------------------------------------------- brick_kron
+def brick_form(shape, degree: int, dtype) -> str:
+    """The form of ``brick_kron`` on a node grid ``shape`` at ``degree``
+    in ``dtype``: "march" (the z-slab march) below CELL_DEGREE; above,
+    "cell" (one block a cell) in double and on float grids of at most
+    F32_CELL_FORM_MAX_CELLS cells, else "march".  The two give the same
+    bits."""
+    if degree < CELL_DEGREE:
+        return "march"
+    z, y, x = shape   # plain ints: this runs on every launch
+    cells = ((z - 1) // degree) * ((y - 1) // degree) * ((x - 1) // degree)
+    return ("cell" if dtype != torch.float32
+            or cells <= F32_CELL_FORM_MAX_CELLS else "march")
+
+
 def brick_kron_reference(x, op: "BrickLaplace", mode: str = "apply", b=None,
                          x_old=None, f1: float = 0.0, f2: float = 0.0,
                          out=None) -> torch.Tensor:
@@ -179,7 +205,8 @@ def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
     """One pass of A x with its epilogue (``mode`` in :data:`KRON_MODES`,
     see the module note), float32 or float64.  ``b`` is read by
     ``residual`` and ``cheb``, ``x_old`` (None: zero) and ``f1``, ``f2`` by
-    ``cheb``; ``out`` may alias ``x_old`` or ``b``, never ``x``."""
+    ``cheb``; ``out`` may alias ``x_old`` or ``b``, never ``x``.  The
+    kernel's form is :func:`brick_form`'s."""
     if mode not in KRON_MODES:
         raise ValueError(f"brick_kron: mode must be one of {list(KRON_MODES)}")
     if x.device.type == "cpu":
@@ -204,11 +231,15 @@ def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
     ptr = lambda t: None if t is None else t.data_ptr()
     suffix, cname = _SUFFIX[op.dtype]
     name = f"brick_kron_cheb<{cname}>" if mode == "cheb" else f"brick_kron<{cname}>"
-    LAUNCHES[name] += _build.launch(
-        f"brick_kron_{suffix}", KRON_MODES[mode], x.data_ptr(), ptr(b),
+    form = FORMS[brick_form(x.shape, op.grid.degree, op.dtype)]
+    n = _build.launch(
+        f"brick_kron_{suffix}", KRON_MODES[mode], form, x.data_ptr(), ptr(b),
         ptr(x_old if mode == "cheb" else None), out.data_ptr(),
-        op.host_taps.ctypes.data, float(f1), float(f2), Z, Y, X,
+        op.host_taps_ptr, float(f1), float(f2), Z, Y, X,
         op.grid.degree, _build.stream_handle(x.device))
+    LAUNCHES[name] += n
+    key = (name, (Z, Y, X))
+    LAUNCHES_BY_GRID[key] = LAUNCHES_BY_GRID.get(key, 0) + n
     return out
 
 
@@ -255,6 +286,7 @@ class BrickLaplace:
         # the kernel's parameter, in the operator's dtype
         self.host_taps = np.ascontiguousarray(
             self.taps, dtype=np.float64 if dtype == torch.float64 else np.float32)
+        self.host_taps_ptr = self.host_taps.ctypes.data   # kept alive above
         self.kron = self.device.type == "cuda"
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:

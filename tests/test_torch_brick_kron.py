@@ -165,3 +165,49 @@ def test_brick_kron_refuses_other_devices():
         lk.brick_kron(torch.zeros(gt.shape), op, "resid")
     assert not op.kron
     assert all(v == 0 for v in lk.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("p", [8, 9])
+@pytest.mark.parametrize("cells", [(1, 1, 1), (3, 3, 3), (5, 7, 3), (2, 1, 4)])
+def test_cell_form_blocks_cover_every_node_once(p, cells):
+    """The cell form's ownership (``csrc/brick_kron.cuh``,
+    brick_cell_kernel: block (cz, cy, cx) of a grid of cells writes nodes
+    [c p, c p + p) on each axis, and the last cell of an axis also its
+    boundary node c p + p) writes every node of the grid exactly once."""
+    shape = tuple(c * p + 1 for c in cells)
+    hits = np.zeros(shape, dtype=np.int64)
+    ranges = [[slice(c * p, (c + 1) * p + (c == n - 1)) for c in range(n)]
+              for n in cells]
+    for rz in ranges[0]:
+        for ry in ranges[1]:
+            for rx in ranges[2]:
+                hits[rz, ry, rx] += 1
+    assert (hits == 1).all()
+
+
+def test_brick_form_follows_degree_type_and_grid():
+    """The march below p = 8; at p = 8, 9 the cell form on every double
+    grid and on the float grids up to F32_CELL_FORM_MAX_CELLS cells (the
+    coarse levels, where a V-cycle takes most of its steps), the march on
+    the float grids above; both forms are reached on the p = 8, 9
+    hierarchies."""
+    f32, f64 = torch.float32, torch.float64
+    seen = set()
+    for p, sizes in ((8, (32, 24)), (9, (28, 24))):
+        for size in sizes:
+            mesh = poisson_cube_mesh(size)
+            for level in range(mesh.n_levels):
+                shape = DofGrid(mesh, level, p).shape
+                cells = int(np.prod([(n - 1) // p for n in shape]))
+                assert lk.brick_form(shape, p, f64) == "cell"
+                want = ("cell" if cells <= lk.F32_CELL_FORM_MAX_CELLS
+                        else "march")
+                assert lk.brick_form(shape, p, f32) == want
+                seen.add(want)
+        assert lk.brick_form(DofGrid(poisson_cube_mesh(8), 0, p).shape, p,
+                             f32) == "cell"
+    assert seen == {"cell", "march"}
+    for p in range(1, lk.CELL_DEGREE):
+        shape = DofGrid(poisson_cube_mesh(4), 0, p).shape
+        assert lk.brick_form(shape, p, f32) == "march"
+        assert lk.brick_form(shape, p, f64) == "march"

@@ -78,7 +78,16 @@ KRON_GRIDS = dict(GRIDS, **{
     "one_cell_axis_p1": lambda: brick((1, 4, 3), 1),
     "ragged_p3": lambda: brick((7, 5, 9), 3),
     "tiles_p4": lambda: brick((3, 12, 20), 4),
-    "tiles_p5": lambda: brick((2, 9, 11), 5)})
+    "tiles_p5": lambda: brick((2, 9, 11), 5),
+    # the coarse grids of the p = 8, 9 hierarchies (poisson_cube size 28
+    # at p = 9, poisson_dg size 24 at p = 9 and 8, poisson_cube size 32 at
+    # p = 8) and grids ragged in both x and y
+    "coarse_cube28_p9": lambda: brick((7, 7, 7), 9),
+    "coarse_dg24_p9": lambda: brick((3, 3, 3), 9),
+    "coarse_dg24_p8": lambda: brick((3, 3, 3), 8),
+    "coarse_cube32_p8": lambda: brick((1, 1, 1), 8),
+    "ragged_xy_p9": lambda: brick((5, 7, 3), 9),
+    "ragged_xy_p8": lambda: brick((5, 7, 3), 8)})
 
 
 # value type -> (name in LAUNCHES, bar of apply / vmult / residual, bar of
@@ -154,6 +163,149 @@ def test_brick_kron_modes_match_plain(dev, grid, dtype):
     assert lk.LAUNCHES[f"brick_kron<{cname}>"] == 5
     assert lk.LAUNCHES[f"brick_kron_cheb<{cname}>"] == 4
     assert sum(lk.LAUNCHES.values()) == 9
+
+
+# brick_kron at p = 8, 9 on seeded inputs: sha256 (first 16 hex digits) of
+# each mode's output, recorded on an H100 from the z-slab march, the only
+# form these degrees had before the cell form (csrc/brick_kron.cuh).  The
+# cell form sums every node's taps in the march's order, so either form
+# gives the same bits.
+KRON_HIGH_CASES = ("cube4_p8", "cube4_p9", "one_cell_axis_p9", "tiles_p8",
+                   "tiles_p9", "coarse_cube28_p9", "coarse_dg24_p9",
+                   "coarse_dg24_p8", "coarse_cube32_p8", "ragged_xy_p9",
+                   "ragged_xy_p8")
+KRON_HIGH_DIGESTS = {
+    "cube4_p8 float apply": "a5cd0df7e93987dc",
+    "cube4_p8 float vmult": "fabee234cd1133d6",
+    "cube4_p8 float residual": "2debc4a193617756",
+    "cube4_p8 float cheb": "f67f35482139b3d6",
+    "cube4_p8 double apply": "33228f2adf18279b",
+    "cube4_p8 double vmult": "1d3122a37c291db0",
+    "cube4_p8 double residual": "7450156a31b91cb4",
+    "cube4_p8 double cheb": "821e4e58bbae159e",
+    "cube4_p9 float apply": "d51b087ecb7cbc68",
+    "cube4_p9 float vmult": "43a730a4009e696f",
+    "cube4_p9 float residual": "1a4a0bddaa7ec497",
+    "cube4_p9 float cheb": "0f336295d9c3ae5a",
+    "cube4_p9 double apply": "17c20815b25c23d5",
+    "cube4_p9 double vmult": "33e1da54d21886d3",
+    "cube4_p9 double residual": "f54a30d5bd88d7c4",
+    "cube4_p9 double cheb": "bfa5f39960cc1306",
+    "one_cell_axis_p9 float apply": "d0e11565e015d879",
+    "one_cell_axis_p9 float vmult": "151cdd2e1677a265",
+    "one_cell_axis_p9 float residual": "fa0b4c24d5813a77",
+    "one_cell_axis_p9 float cheb": "757d74f04322ee5d",
+    "one_cell_axis_p9 double apply": "bad3b49a42c502ce",
+    "one_cell_axis_p9 double vmult": "acbf2499f27e2fc6",
+    "one_cell_axis_p9 double residual": "0dcdc83bda28fdd6",
+    "one_cell_axis_p9 double cheb": "085a981f5af0aa78",
+    "tiles_p8 float apply": "585e2471ad891cc4",
+    "tiles_p8 float vmult": "ab03bb940d485648",
+    "tiles_p8 float residual": "dec5bd59c6849871",
+    "tiles_p8 float cheb": "3356630b5742aa95",
+    "tiles_p8 double apply": "b853fe10fdff7832",
+    "tiles_p8 double vmult": "0b9dda1314b5b501",
+    "tiles_p8 double residual": "3811df83bd6e482b",
+    "tiles_p8 double cheb": "b0888c6472e7f609",
+    "tiles_p9 float apply": "c9c81738d332e398",
+    "tiles_p9 float vmult": "e04fb958f3bb8a67",
+    "tiles_p9 float residual": "b8b2bd002e1ef62b",
+    "tiles_p9 float cheb": "6423632238172015",
+    "tiles_p9 double apply": "475da2a9639cbc13",
+    "tiles_p9 double vmult": "b765fe76d8a08cc3",
+    "tiles_p9 double residual": "6dc82160e94d3e2e",
+    "tiles_p9 double cheb": "74da1f6c98f1cf15",
+    "coarse_cube28_p9 float apply": "852b4707c1d76750",
+    "coarse_cube28_p9 float vmult": "39a944bc506120e1",
+    "coarse_cube28_p9 float residual": "9eb30200108ddd46",
+    "coarse_cube28_p9 float cheb": "123aa99e42be7bdb",
+    "coarse_cube28_p9 double apply": "aa52a3ef381aa81b",
+    "coarse_cube28_p9 double vmult": "ce7f455845a6d1e2",
+    "coarse_cube28_p9 double residual": "e28f6ff8393ec314",
+    "coarse_cube28_p9 double cheb": "69bb8291d38a46e3",
+    "coarse_dg24_p9 float apply": "1eb503fd8a0a290a",
+    "coarse_dg24_p9 float vmult": "52258aa5c8fc0df3",
+    "coarse_dg24_p9 float residual": "8e74883cce440718",
+    "coarse_dg24_p9 float cheb": "ea51820983ceb9d3",
+    "coarse_dg24_p9 double apply": "85157a31e069ce29",
+    "coarse_dg24_p9 double vmult": "2cb9d07afa6d7cb2",
+    "coarse_dg24_p9 double residual": "e268321198e9448e",
+    "coarse_dg24_p9 double cheb": "6d65dbf71d434b9a",
+    "coarse_dg24_p8 float apply": "aa8bac595d2b9a85",
+    "coarse_dg24_p8 float vmult": "98384382b9e6d31c",
+    "coarse_dg24_p8 float residual": "21baee550157ee81",
+    "coarse_dg24_p8 float cheb": "9a888a7ddad63bea",
+    "coarse_dg24_p8 double apply": "3dc4e0ac7f9df85e",
+    "coarse_dg24_p8 double vmult": "4fef7afd0a80dab3",
+    "coarse_dg24_p8 double residual": "214d3d54491782e1",
+    "coarse_dg24_p8 double cheb": "9cdf117a248abd6c",
+    "coarse_cube32_p8 float apply": "8d2accc8c71d02f3",
+    "coarse_cube32_p8 float vmult": "a9109e87e6e119d8",
+    "coarse_cube32_p8 float residual": "0b2f057ba0ac6504",
+    "coarse_cube32_p8 float cheb": "636c329ecf222543",
+    "coarse_cube32_p8 double apply": "0226c3a6e324bb3b",
+    "coarse_cube32_p8 double vmult": "17bf9fc5894f02f6",
+    "coarse_cube32_p8 double residual": "e785f070b29b61c6",
+    "coarse_cube32_p8 double cheb": "7fefdd866dcb6432",
+    "ragged_xy_p9 float apply": "c5459fa087aae27a",
+    "ragged_xy_p9 float vmult": "97d3c89998bac609",
+    "ragged_xy_p9 float residual": "0e34f5b02e694333",
+    "ragged_xy_p9 float cheb": "f267494b3d06b122",
+    "ragged_xy_p9 double apply": "33ad5054d019dfd1",
+    "ragged_xy_p9 double vmult": "00ec37918ba0c4f8",
+    "ragged_xy_p9 double residual": "6cad4e4478a1548e",
+    "ragged_xy_p9 double cheb": "e1694af62ef8b57d",
+    "ragged_xy_p8 float apply": "af0a0aa3a3990c60",
+    "ragged_xy_p8 float vmult": "89fedd4bbf300280",
+    "ragged_xy_p8 float residual": "8e251845e6265089",
+    "ragged_xy_p8 float cheb": "8c0c40abe31e6713",
+    "ragged_xy_p8 double apply": "5c5d15afe4791de6",
+    "ragged_xy_p8 double vmult": "49f264bbb1da1c32",
+    "ragged_xy_p8 double residual": "a29c119c7242d3a1",
+    "ragged_xy_p8 double cheb": "e1cdfb2a88c25f3b",
+}
+
+
+def kron_high_digests(dev) -> dict:
+    """"<case> <type> <mode>" -> the digest of brick_kron's output on the
+    inputs of seeds 1 (x), 2 (b), 3 (x_old), f1 = 0.37, f2 = 0.81."""
+    import hashlib
+
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    out = {}
+    for case in KRON_HIGH_CASES:
+        g = KRON_GRIDS[case]()
+        for dtype in (torch.float32, torch.float64):
+            op = lk.BrickLaplace(g, dtype, dev)
+            x, b, xo = (rand(g.shape, dtype, dev, s) for s in (1, 2, 3))
+            for mode in lk.KRON_MODES:
+                y = lk.brick_kron(x, op, mode, b=b, x_old=xo, f1=0.37,
+                                  f2=0.81)
+                out[f"{case} {KRON[dtype][0]} {mode}"] = hashlib.sha256(
+                    y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
+@pytest.mark.parametrize("form", ["cell", "march"])
+def test_brick_kron_high_degree_is_the_march_bit_for_bit(dev, form,
+                                                         monkeypatch):
+    """At p = 8, 9 every mode in both types gives the outputs the z-slab
+    march gave, bit for bit, on the hierarchies' coarse grids, grids with
+    a one-cell axis and grids of several cells on every axis: float in
+    either form, double in its cell form; the march in double is refused
+    there."""
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    auto = lk.brick_form
+    monkeypatch.setattr(lk, "brick_form", lambda shape, p, dtype: (
+        form if dtype == torch.float32 else auto(shape, p, dtype)))
+    assert kron_high_digests(dev) == KRON_HIGH_DIGESTS
+    monkeypatch.setattr(lk, "brick_form", lambda shape, p, dtype: "march")
+    g = KRON_GRIDS["coarse_dg24_p9"]()
+    op = lk.BrickLaplace(g, torch.float64, dev)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        lk.brick_kron(rand(g.shape, torch.float64, dev, 1), op)
 
 
 @pytest.mark.parametrize("residual_only", [True, False])

@@ -45,3 +45,25 @@ def test_degree_sweep_matches_jax(degree):
         errs = [ERRORS[p] for p in range(1, 10)]
         assert all(b < 0.7 * a for a, b in zip(errs, errs[1:])), errs
         assert errs[-1] < 1e-6, errs
+
+
+@pytest.mark.parametrize("smoothing_range", [1e-3, 2e-3])
+@pytest.mark.parametrize("degree", [8, 9])
+def test_coarse_chebyshev_degree_matches_jax(degree, smoothing_range):
+    """The coarse solve's Chebyshev at p = 8, 9 on the 3^3-cell coarse mesh
+    (25^3 / 28^3 nodes, the coarse level of poisson_dg's FE_Q(p) hierarchy
+    at size 24) has the JAX solver's degree, theta and delta, at the cube's
+    coarse range (1e-3) and poisson_dg's (2e-3); theta and delta to 1e-5,
+    as the two Lanczos runs round apart.  The degree sets how many
+    brick_kron steps a V-cycle spends on that grid: 95 at p = 9 and 2e-3,
+    so 94 operator applications a coarse solve of the p = 9 poisson_dg
+    row."""
+    sj = JSolver(j_pcm(3), degree, exact_fn, rhs_fn,
+                 coarse_smoothing_range=smoothing_range)
+    st = MultigridSolver(poisson_cube_mesh(3), degree, exact_fn, rhs_fn,
+                         coarse_smoothing_range=smoothing_range, device="cpu")
+    assert st.grids[0].shape == (3 * degree + 1,) * 3
+    got, want = st.smoothers[0], sj.smoothers[0]
+    assert got.degree == want.degree
+    assert got.theta == pytest.approx(want.theta, rel=1e-5)
+    assert got.delta == pytest.approx(want.delta, rel=1e-5)

@@ -175,6 +175,61 @@ def test_profile_classes_of_brick_kernels(p, mode):
         assert kernel_class(name) == f"brick_kron<{t}>"
 
 
+@pytest.mark.parametrize("mode", range(4))
+@pytest.mark.parametrize("p", [8, 9])
+def test_profile_classes_of_brick_cell_kernels(p, mode):
+    """brick_kron's cell form (p >= 8) falls in the class of its value
+    type, as the march does."""
+    from multigrid_tpu_torch.experiments.profile_solve import kernel_class
+
+    pre = "void (anonymous namespace)::brick_cell_kernel"
+    for t in ("float", "double"):
+        name = (f"{pre}<{t}, {p}, {mode}>({t} const*, {t} const*, {t} const*, "
+                f"{t}*, (anonymous namespace)::Taps<{t}, {p}>, {t}, {t}, int, "
+                f"int, int)")
+        assert kernel_class(name) == f"brick_kron<{t}>"
+
+
+def test_profile_breakdown_by_level():
+    """With --levels a brick kernel launched inside a node-grid range
+    counts under its class and grid in ``brick_levels``; its class share
+    stays the kernel's, and other kernels in the range are not counted
+    there."""
+    from multigrid_tpu_torch.experiments.profile_solve import (LEVEL_RANGE,
+                                                               breakdown)
+
+    def launch(ts, corr):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 1.0, "args": {"correlation": corr}}
+
+    def kernel(name, ts, dur, corr):
+        return {"ph": "X", "cat": "kernel", "name": name, "ts": ts,
+                "dur": dur, "args": {"correlation": corr}}
+
+    def rng(label, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": label, "ts": ts,
+                "dur": dur}
+
+    cell = "void (anonymous namespace)::brick_cell_kernel<float, 9, 3>(float)"
+    march = "void (anonymous namespace)::brick_kron_kernel<float, 4, 3>(float)"
+    events = [
+        rng(LEVEL_RANGE + "64x64x64", 0.0, 10.0), launch(1.0, 1),
+        rng(LEVEL_RANGE + "64x64x64", 20.0, 10.0), launch(21.0, 2),
+        rng(LEVEL_RANGE + "253x253x253", 40.0, 10.0), launch(41.0, 3),
+        launch(60.0, 4),
+        kernel(cell, 100.0, 8.0, 1), kernel(cell, 110.0, 6.0, 2),
+        kernel(cell, 120.0, 300.0, 3), kernel(march, 500.0, 20.0, 4),
+    ]
+    got = breakdown(events, wall_s=1e-3)
+    assert got["share"] == pytest.approx({"brick_kron<float>": 1.0})
+    assert got["brick_levels"] == {
+        "brick_kron<float> 253x253x253": {"seconds": pytest.approx(300e-6),
+                                          "launches": 1},
+        "brick_kron<float> 64x64x64": {"seconds": pytest.approx(14e-6),
+                                       "launches": 2}}
+    assert "brick_levels" not in breakdown(events[-1:], wall_s=1e-3)
+
+
 @pytest.mark.parametrize("resid", ["false", "true"])
 @pytest.mark.parametrize("p", [1, 4, 7])
 def test_profile_classes_of_dg_kernels(p, resid):
