@@ -77,7 +77,19 @@ convergence rows:
 * the single-device utils: ``poisson_cube --output`` (2-D, 16,641 nodes)
   read back; the memory report after the set-up of poisson_cube at size
   128 (135,005,697 dofs), its CG solution through a checkpoint file and
-  back bit for bit.
+  back bit for bit, then its FMG and V-cycle reduction;
+* poisson_cube on ranks of ``torch.distributed`` sharing the card
+  (``parallel.distributed.DistributedMultigrid``, z-slabs with 2p ghost
+  planes, gloo with the planes staged through pinned host memory): 2
+  ranks at size 128 and 4 ranks at size 64, FMG and CG (best of 2), each
+  held to the single-device row of this run (cg_its 8; CG reduction,
+  V-cycle reduction and FMG L2 within 3%; the CG solution within
+  ``RANKS_SOL_BAR`` of max|u|; two CG solves bit for bit), the owned
+  planes of the distributed ``vmult`` and ``apply`` in float and double
+  against ``BrickLaplace`` on the whole grid bit for bit, the exchange
+  share of the f64 ``vmult``; one rank on nccl against the single-device
+  solver's bits; whether gloo moves a CUDA tensor point to point.  The
+  kernels' launches are summed over the ranks.
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
 degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
@@ -123,6 +135,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -397,6 +410,13 @@ L_TOP_ROWS = [(8, 0.06933)]
 L_TOP_AGREE = 0.03
 L_ITS = 10              # the bar of tests/test_adaptive.py on every row
 L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
+
+
+# the rank path: (ranks, cube size) on gloo sharing the card; the CG
+# solution against the single-device one of this run
+RANKS_RUNS = ((2, MEM_SIZE), (4, SIZE))
+RANKS_SOL_BAR = 1e-7       # of max|u|
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -868,6 +888,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     # phase 2: every kernel against its plain version on the card
+    laps = [time.perf_counter()]
     checks = KernelChecks(dev)
     shapes = [
         ("poisson_cube_mesh(8)", DofGrid(poisson_cube_mesh(8), 3, 4), False),
@@ -975,40 +996,55 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
 
-    # phases 3 to 15: the paths, each with the counters zeroed just before
-    # it and read just after
-    launches = {"poisson_cube": cube_path(dev, card, checks)}
+    # phases 3 to 16: the paths, each with the counters zeroed just before
+    # it and read just after; each phase's wall seconds on its own line
+
+    def lap(name: str) -> None:
+        torch.cuda.empty_cache()
+        now = time.perf_counter()
+        print(f"path {name}: {now - laps[0]:.1f} s")
+        laps[0] = now
+
+    lap("kernel checks")
+    launches = {}
+    launches["poisson_cube"], cube_row = cube_path(dev, card, checks)
+    lap("poisson_cube")
     for p, size in HIGH_DEGREE_SIZES.items():
         launches[degree_path(p)] = cube_degree_path(dev, card, p, size)
-        torch.cuda.empty_cache()
+        lap(degree_path(p))
     launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
+    lap("poisson_dg")
     launches["poisson_dg_plain"], plain_err = dg_plain_path(dev, card, dg_sol,
                                                             dg_err)
     del dg_sol
-    torch.cuda.empty_cache()
+    lap("poisson_dg_plain")
     high = {}
     for path, p in DG_HIGH_PATHS:
         launches[degree_path(p, path)], high[path, p] = dg_high_path(
             dev, card, path, p, high.get(("poisson_dg", p)))
-        torch.cuda.empty_cache()
+        lap(degree_path(p, path))
     del high
     launches["poisson_shell"] = general_path(dev, card)
-    torch.cuda.empty_cache()
+    lap("poisson_shell")
     launches["poisson_dg_plain_curved"] = dg_curved_path(dev, card, checks,
                                                          plain_err)
-    torch.cuda.empty_cache()
+    lap("poisson_dg_plain_curved")
     launches["poisson_l"] = l_path(dev, card, checks)
-    torch.cuda.empty_cache()
+    lap("poisson_l")
     launches["poisson_dg_plain_2d"] = dg_plain_2d_path(dev, card)
-    torch.cuda.empty_cache()
+    lap("poisson_dg_plain_2d")
     launches[degree_path(8, "matvec_dg")], launches["matvec_dg_plain"] = (
         matvec_rows_path(dev))
+    lap("matvec_dg rows")
     launches["poisson_cube_2d"] = cube_2d_path(dev, card)
-    torch.cuda.empty_cache()
+    lap("poisson_cube_2d")
     launches["poisson_dg_2d"] = dg_2d_path(dev, card)
-    torch.cuda.empty_cache()
-    launches["poisson_cube_135M"] = utils_path(dev, card)
-    torch.cuda.empty_cache()
+    lap("poisson_dg_2d")
+    launches["poisson_cube_135M"], big_row = utils_path(dev, card)
+    lap("poisson_cube_135M")
+    launches["poisson_cube_ranks"] = ranks_path(
+        dev, card, {SIZE: cube_row, MEM_SIZE: big_row})
+    lap("poisson_cube_ranks")
     for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
         off_path = {k: v for k, v in launches[path].items()
                     if k.startswith(("brick_kron", "cheb_epilogue")) and v}
@@ -1031,7 +1067,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                         (degree_path(8, "matvec_dg"), ["dg_apply<double>"]),
                         *((path, CG_KERNELS) for path in PLAIN_PATHS),
                         ("matvec_dg_plain", []),
-                        ("poisson_cube_135M", CUBE_KERNELS)):
+                        ("poisson_cube_135M", CUBE_KERNELS),
+                        ("poisson_cube_ranks", CUBE_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
@@ -1080,9 +1117,10 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     return 0
 
 
-def cube_path(dev, card, checks) -> dict:
+def cube_path(dev, card, checks):
     """poisson_cube at size 64: FMG and CG, best of 3 each; returns the
-    device kernels launched by the solves."""
+    device kernels launched by the solves and the row (its CG solution in
+    a file under ``SCRATCH``)."""
     from multigrid_tpu_torch.experiments.poisson_cube import build_solver
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
 
@@ -1147,7 +1185,12 @@ def cube_path(dev, card, checks) -> dict:
         require(np.isfinite(v) and v < L2_BOUND, f"{name} L2 error {v}")
     require(sol.shape == solver.grids[solver.maxlevel].shape
             and bool(torch.isfinite(sol).all()), "FMG solution not finite")
-    return launches
+    # the row the rank path is held to, its CG solution in a file
+    cg_file = SCRATCH / f"cube{SIZE}_cg.npy"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    np.save(cg_file, sol_cg.cpu().numpy())
+    return launches, dict(reduction=reduction, cg_reduction=cg_red,
+                          fmg_L2error=fmg_l2, cg_its=its, cg_file=cg_file)
 
 
 def dg_path(dev, card, checks) -> dict:
@@ -1992,20 +2035,19 @@ def dg_2d_path(dev, card) -> dict:
     return launches
 
 
-def utils_path(dev, card) -> dict:
+def utils_path(dev, card):
     """The single-device utils: ``poisson_cube --output`` (2-D size 4)
     read back; the memory report after the 135M cube's set-up; one CG
     solve, its solution through a checkpoint file and back bit for bit;
-    returns the device kernels launched by that solve."""
-    from pathlib import Path
-
+    then FMG and the V-cycle reduction; returns the device kernels
+    launched by the CG solve and the row (its CG solution in a file)."""
     from multigrid_tpu_torch.experiments.poisson_cube import (build_solver,
                                                               exact_fn,
                                                               run_cycle)
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.utils import checkpoint, memory
 
-    scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    scratch = SCRATCH
     scratch.mkdir(parents=True, exist_ok=True)
     mesh = poisson_cube_mesh(VTK_SIZE, 2)
     row = run_cycle(mesh, 4, 2, 2, 2, device=dev, n_fmg_repeat=1,
@@ -2062,8 +2104,113 @@ def utils_path(dev, card) -> dict:
           f" s, bit for bit {same} [{card}]")
     require(same and meta["its"] == its, "checkpoint round trip differs")
     ck.unlink()
-    del solver, sol, back, state
-    return launches
+    del back, state
+    # the single-device row the rank path is held to: FMG, its L2 error,
+    # the V-cycle reduction; the CG solution in a file
+    cg_file = scratch / f"cube{MEM_SIZE}_cg.npy"
+    np.save(cg_file, sol.cpu().numpy())
+    del sol
+    t0 = time.perf_counter()
+    fmg = solver.solve()
+    torch.cuda.synchronize()
+    fmg_s = time.perf_counter() - t0
+    _, _, reduction = solver.solve_analyze()
+    fmg_l2 = solver.l2_error(solver.maxlevel, fmg)
+    print(f"  135M FMG: {fmg_s:.4f} s, L2 {fmg_l2:.4e}, V-cycle reduction "
+          f"{reduction:.4e}; CG reduction {red:.4e} [{card}]")
+    del solver, fmg
+    return launches, dict(reduction=reduction, cg_reduction=red,
+                          fmg_L2error=fmg_l2, cg_its=its, cg_file=cg_file)
+
+
+def ranks_path(dev, card, rows) -> dict:
+    """poisson_cube on several ranks of torch.distributed sharing the card
+    (gloo, the planes staged through pinned host memory): 2 ranks at size
+    128 and 4 at size 64 against the single-device rows of this run
+    (``rows``: cube size -> that row); the owned planes of the distributed
+    apply against ``BrickLaplace`` on the whole grid; one rank on nccl
+    against the single-device solver's bits.  Returns the device kernels
+    launched by the solves, summed over the ranks."""
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.parallel.programs import cube_program, p2p_probe
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    # PyTorch's backend table gives gloo no send/recv of CUDA tensors,
+    # whence the staging; whether it refuses, fails or works is printed
+    try:
+        probe = launch(p2p_probe, 2, "gloo", "cuda", timeout_s=120)
+    except RuntimeError as e:
+        lines = str(e).strip().splitlines()
+        probe = f"{lines[0]} {lines[-1]}"
+    print(f"gloo send/recv of a CUDA tensor between two ranks on the card: "
+          f"{probe}")
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for n, size in RANKS_RUNS:
+        ref = rows[size]
+        t0 = time.perf_counter()
+        out = launch(cube_program, n, "gloo", "cuda",
+                     args=(poisson_cube_mesh(size),),
+                     kwargs=dict(reps=2, reference=str(ref["cg_file"]),
+                                 apply_seed=3, comm_reps=10))
+        wall = time.perf_counter() - t0
+        add(out["launches"])
+        label = f"{n} ranks (gloo, one card), size {size}, {out['dofs']} dofs"
+        print(f"{label}: levels split {out['levels']}, finest cuts "
+              f"{out['bounds'][-1]}; launch {wall:.1f} s")
+        print(f"  set-up {out['setup_time']:.2f} s, FMG {out['fmg_time']:.4f}"
+              f" s (runs {', '.join(f'{t:.4f}' for t in out['fmg_times'])}),"
+              f" CG {out['cg_time']:.4f} s (runs "
+              f"{', '.join(f'{t:.4f}' for t in out['cg_times'])}), peak "
+              f"device memory of a rank {int(out['peak_bytes'])} bytes [{card}]")
+        print(f"  FMG L2 {out['fmg_L2error']:.4e} (one device "
+              f"{ref['fmg_L2error']:.4e}), V-cycle reduction "
+              f"{out['reduction']:.4e} ({ref['reduction']:.4e}), CG "
+              f"{out['cg_its']} its, reduction {out['cg_reduction']:.4e} "
+              f"({ref['cg_reduction']:.4e}), CG L2 {out['cg_L2error']:.4e}")
+        print(f"  CG solution against one device's: max diff "
+              f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, "
+              f"bar {RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
+              f"{out['cg_repeat_equal']}")
+        comm = out["comm"]
+        print(f"  f64 vmult of the finest level: {comm['total'] * 1e3:.3f} "
+              f"ms with the ghost refresh, {comm['cell_loop'] * 1e3:.3f} ms "
+              f"without; exchange share {comm['comm_fraction']:.3f}; rank 0's"
+              f" refresh: " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                                         comm["steps"].items())
+              + f" [{card}]")
+        for k, v in out["apply"].items():
+            print(f"  distributed {k} on the owned planes vs BrickLaplace on "
+                  f"the whole grid: bit for bit {v['equal']}, max diff "
+                  f"{v['max_diff']:.3e} (max|y| {v['scale']:.3e})")
+        require(out["cg_its"] == CG_ITS, f"{label}: cg_its {out['cg_its']}")
+        for key in ("cg_reduction", "reduction", "fmg_L2error"):
+            require(abs(out[key] / ref[key] - 1) <= ROW_TOL,
+                    f"{label}: {key} {out[key]:.4e} vs {ref[key]:.4e}")
+        require(out["cg_ref_diff"] <= RANKS_SOL_BAR * out["cg_ref_max"],
+                f"{label}: CG solution off by {out['cg_ref_diff']:.3e}")
+        require(out["cg_repeat_equal"], f"{label}: CG solves differ")
+        require(all(v["equal"] for v in out["apply"].values()),
+                f"{label}: the owned planes of the apply differ")
+        require(any(out["levels"]) and not all(out["levels"]),
+                f"{label}: no level split or none replicated")
+        ref["cg_file"].unlink()
+    # one rank on nccl: the single-device solver, bit for bit
+    t0 = time.perf_counter()
+    out = launch(cube_program, 1, "nccl", "cuda",
+                 args=(poisson_cube_mesh(SIZE),), kwargs=dict(single=True))
+    add(out["launches"])
+    print(f"1 rank (nccl), size {SIZE}: FMG bit for bit "
+          f"{out['single']['fmg_equal']}, CG bit for bit "
+          f"{out['single']['cg_equal']} ({out['single']['its']} its); launch "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(out["single"]["fmg_equal"] and out["single"]["cg_equal"],
+            "one rank on nccl differs from the single-device solver")
+    return total
 
 
 if __name__ == "__main__":

@@ -16,6 +16,11 @@ numpy arrays and floats (so this module never imports JAX):
   stiffness; the CUDA kernel builds it from its 1-D tables, so a matrix
   that differs from :func:`~.ops.laplace_dense.element_matrix` is refused.
 
+A :class:`~.parallel.distributed.DistributedMultigrid` takes the same
+state, for the whole grids: every rank installs the same Chebyshev values
+and element matrices, and its slab of each split level's ``rhs`` and
+``u_bc``.
+
 For a :class:`~.solvers.multigrid_dg.MultigridSolverDG` the state is
 
 * ``"rhs"``: the f64 DG right-hand side ``[C0, C1, C2, n, n, n]``;
@@ -75,6 +80,7 @@ import torch
 from .ops.laplace import make_diag_coef
 from .ops.laplace_dense import element_matrix
 from .mesh.adaptive import Cell, Forest, OctForest, QuadForest
+from .parallel.distributed import DistributedMultigrid
 from .solvers.multigrid_adaptive import AdaptiveSystem
 from .solvers.multigrid_dg import MultigridSolverDGPlain
 from .solvers.multigrid_general import GeneralMultigridSolver
@@ -341,13 +347,20 @@ def load_state(solver, state: dict) -> None:
     dev, f_dtype = solver.device, solver.f_dtype
     t = lambda a, dtype: torch.tensor(np.asarray(a, np.float64), dtype=dtype,
                                       device=dev)
+    ranked = isinstance(solver, DistributedMultigrid)
     for l in range(len(solver.grids)):
         if "rhs" in state:
-            solver.rhs[l] = t(state["rhs"][l], f_dtype)
+            rhs = np.asarray(state["rhs"][l], np.float64)
+            planes = solver.planes(l) if ranked else None
+            if planes is not None:
+                rhs = rhs[planes[0]:planes[1]]
+            solver.rhs[l] = t(rhs, f_dtype)
         if "u_bc" in state:
-            solver.u_bc[l] = [t(f, f_dtype) for f in state["u_bc"][l]]
+            solver.u_bc[l] = (solver.local_faces(l, state["u_bc"][l]) if ranked
+                              else [t(f, f_dtype) for f in state["u_bc"][l]])
         if "chebyshev" in state:
             _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
         if "element_matrix" in state:
             for op in (solver.dp_ops[l], solver.sp_ops[l]):
+                op = getattr(op, "op", op) if ranked else op
                 op.K = t(state["element_matrix"][l], op.dtype)

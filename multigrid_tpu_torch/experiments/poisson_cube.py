@@ -17,6 +17,15 @@ the grid stays under ``utils.vtk.SIZE_GUARD`` nodes.  Solves run on the
 CUDA device, and the driver stops with an error when there is none;
 ``--device cpu`` is the only way to run it on the CPU, with the plain
 PyTorch operators.
+
+``--devices N`` (N > 1; 0 and 1 mean one device, as in the JAX driver)
+runs every row on N ranks of ``torch.distributed``, one process a rank,
+each level split into z-slabs where every rank gets two cells
+(``parallel.distributed.DistributedMultigrid``): rank r on
+``cuda:(r % cards)``, or the CPU with ``--device cpu``.  ``--backend``
+is ``nccl`` (a card for every rank; fewer cards raise) or ``gloo`` (the
+CPU, or ranks that share cards).  Rank 0 prints each row with the world
+size and backend; the rows carry no matvec columns.
 """
 
 from __future__ import annotations
@@ -182,6 +191,23 @@ def run_cycle(mesh: BrickMesh, degree: int, n_cycles: int, n_pre: int,
     return row
 
 
+def rank_ladder(ranks, meshes, degree: int, n_cycles: int, n_pre: int,
+                reps: int = 3) -> list:
+    """The rows of ``meshes`` on the ranks (``parallel.sharding.launch``
+    runs it on every rank); rank 0 prints each row as it ends."""
+    from ..parallel.programs import cube_program
+
+    rows = []
+    for mesh in meshes:
+        row = cube_program(ranks, mesh, degree, n_cycles, n_pre, reps=reps)
+        row.pop("launches")
+        if ranks.rank == 0:
+            print({k: v for k, v in row.items() if k not in ("bounds",)},
+                  flush=True)
+        rows.append(row)
+    return rows
+
+
 def run_deformed(args, device) -> list:
     """The deformed-manifold ladder on the general (mapped-mesh) path
     (program.cc:405-484, off by default there too): FMG and CG solves with
@@ -238,11 +264,27 @@ def main(argv=None):
     ap.add_argument("--output", default="",
                     help="directory for .vtr solution dumps (size-guarded "
                          "like the reference's output_results)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="run each row on this many ranks (z-slabs, one "
+                         "process a rank); 0 or 1: one device")
+    ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
+                    help="torch.distributed backend of --devices: nccl (a "
+                         "card for every rank) or gloo (the CPU, or ranks "
+                         "sharing a card)")
     args = ap.parse_args(argv)
+    ranked = args.devices > 1
+    if ranked:
+        from ..parallel.sharding import check_backend
+
+        if args.deform or args.dim != 3 or args.output:
+            raise SystemExit("--devices runs the 3-D brick rows only (no "
+                             "--deform, --dim 2 or --output)")
+        check_backend(args.backend, args.devices, args.device)
     device = driver_device(args.device)
     if args.deform:
         return run_deformed(args, device)
 
+    meshes = []
     rows = []
     for cycle, size in enumerate(SIZES):
         mesh = (doubling_mesh(cycle, args.dim) if args.mesh == "doubling"
@@ -256,9 +298,22 @@ def main(argv=None):
             break
         print(f"Cycle {cycle}: {mesh.cells(mesh.max_level)} cells, "
               f"{grid_dofs} dofs")
+        if ranked:
+            meshes.append(mesh)
+            continue
         rows.append(run_cycle(mesh, args.degree, args.n_mg_cycles,
                               args.n_pre_smooth, args.n_post_smooth,
                               device=device, output_dir=args.output))
+    if ranked:
+        from ..parallel.sharding import launch
+
+        if args.n_pre_smooth != args.n_post_smooth:
+            raise SystemExit("the reference requires equal pre/post degree")
+        print(f"# {args.devices} ranks, backend {args.backend}, device "
+              f"{device.type}", flush=True)
+        rows = launch(rank_ladder, args.devices, args.backend, device.type,
+                      args=(meshes, args.degree, args.n_mg_cycles,
+                            args.n_pre_smooth))
     print_convergence_table(rows, dim=args.dim)
     return rows
 

@@ -12,6 +12,8 @@ coefficient fast path (reference common/laplace_operator.h:374-387).
 
 Axis order is (z, y, x) slowest-to-fastest, i.e. arrays are indexed
 ``u[z, y, x]``; coordinates returned per axis follow the same order.
+:class:`ZSlab` (the port's own) is a z-range of one level's grid, the
+slab a rank of the decomposed solver (``parallel/``) builds on.
 """
 
 from __future__ import annotations
@@ -208,3 +210,45 @@ class DofGrid:
     def jxw_scalar(self) -> float:
         """det(J) for the affine cell map (constant over the brick)."""
         return float(np.prod(self.h))
+
+    def z_slab(self, z0: int, z1: int) -> "ZSlab":
+        """Cell layers ``z0 .. z1 - 1`` of axis 0 as a grid of their own
+        (:class:`ZSlab`)."""
+        if not 0 <= z0 < z1 <= self.cells[0]:
+            raise ValueError(f"z cells [{z0}, {z1}) outside [0, "
+                             f"{self.cells[0]})")
+        return ZSlab(self.mesh, self.level, self.degree, z0, z1)
+
+
+@dataclass(frozen=True)
+class ZSlab(DofGrid):
+    """Cell layers ``[z0, z1)`` of axis 0 of one level's grid: the node
+    planes ``z0 p .. z1 p`` of the level.  Cell size, node and quadrature
+    coordinates are the level's own, sliced and not recomputed, so every
+    table built from a slab (taps, diagonal lines, boundary values, rhs)
+    holds the level's numbers; its Dirichlet boundary is its own outer
+    faces.  The slab keeps the level number, so two nested slabs of
+    adjacent levels make a :class:`~..ops.transfer.Transfer`."""
+
+    z0: int = 0
+    z1: int = 0
+
+    @property
+    def parent(self) -> DofGrid:
+        return DofGrid(self.mesh, self.level, self.degree)
+
+    @property
+    def cells(self) -> tuple[int, ...]:
+        return (self.z1 - self.z0,) + self.mesh.cells(self.level)[1:]
+
+    @cached_property
+    def axis_nodes(self) -> list[np.ndarray]:
+        out = list(self.parent.axis_nodes)
+        out[0] = out[0][self.z0 * self.degree: self.z1 * self.degree + 1]
+        return out
+
+    @cached_property
+    def axis_quads(self) -> list[np.ndarray]:
+        out = list(self.parent.axis_quads)
+        out[0] = out[0][self.z0: self.z1]
+        return out

@@ -1,0 +1,298 @@
+"""Ranks of ``torch.distributed`` for the z-slab decomposition.
+
+Twin of ``multigrid_tpu/parallel/sharding.py``.  The reference's only
+inter-process strategy is MPI domain decomposition of the cell grid with
+ghost exchange (SURVEY.md section 2.3); the JAX package renders it as a
+``jax.sharding.Mesh`` over which GSPMD or ``shard_map`` move the planes.
+Here every rank is a process of its own, with its own slab of every split
+level on its own device, and the exchanges are explicit:
+
+* :class:`Ranks`: world size, rank, the rank's device and the backend,
+  with the few communication steps the solver needs (plane exchange with
+  the neighbours, sums of scalars in rank order, the gather of a replicated
+  level, a broadcast of floats);
+* :func:`launch`: spawns ``n_ranks`` processes of one function of this
+  package and returns rank 0's result.
+
+Backends: ``nccl`` when every rank has a card of its own (asking for it
+with fewer cards than ranks raises; nothing falls back); ``gloo`` for
+ranks on the CPU and for ranks that share one card.  PyTorch's gloo has no
+point-to-point transfer of CUDA tensors, so on a card under gloo the
+planes travel through pinned host buffers, copied explicitly
+(:attr:`Ranks.staged`).
+
+The JAX module's ``wrap_padded`` / ``pad_spec`` / ``padded_len`` have no
+counterpart: they exist because a ``jax.Array`` sharding must divide its
+axis evenly, and a node grid of ``N p + 1`` planes never divides a
+power-of-two device count.  A rank here holds a slab of any length.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+
+
+def rank_device(rank: int, device="cuda") -> torch.device:
+    """The device of ``rank``: ``cuda:(rank % device_count)``, or the CPU
+    when the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"ranks run on 'cuda' or 'cpu', not {device!r}")
+    n = torch.cuda.device_count()
+    if n == 0:
+        raise RuntimeError("no CUDA device: pass device='cpu' (--device cpu "
+                           "--backend gloo) to run the ranks on the CPU")
+    return torch.device("cuda", rank % n)
+
+
+def check_backend(backend: str, n_ranks: int, device="cuda") -> None:
+    """Refuse a backend that cannot serve ``n_ranks`` ranks on ``device``:
+    ``nccl`` needs a card for every rank."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, not {backend!r}")
+    if n_ranks < 1:
+        raise ValueError(f"n_ranks must be at least 1, not {n_ranks}")
+    if backend == "nccl":
+        if torch.device(device).type != "cuda":
+            raise ValueError("backend nccl runs on CUDA devices only; use "
+                             "--backend gloo for ranks on the CPU")
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n_ranks:
+            raise ValueError(
+                f"backend nccl needs one card per rank: {n_ranks} ranks, "
+                f"{cards} card(s); use --backend gloo to share the cards")
+
+
+@dataclass
+class Ranks:
+    """This process's place among the ranks, and the communication steps
+    of the decomposed solver.  Build it with :func:`init` (or
+    :func:`launch`, which does)."""
+
+    world: int
+    rank: int
+    device: torch.device
+    backend: str
+    # seconds of the exchange steps ("stage", "wire", "unstage") when a
+    # dict: host clock, each step ending with its copies done
+    times: Optional[dict] = None
+    _bufs: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def staged(self) -> bool:
+        """True when CUDA tensors travel through pinned host buffers (gloo
+        on a card)."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _buf(self, key, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer shaped like ``like``, kept for reuse."""
+        key = (key, tuple(like.shape), like.dtype)
+        buf = self._bufs.get(key)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._bufs[key] = buf
+        return buf
+
+    # ------------------------------------------------------------ exchange
+    def exchange(self, sends, recvs) -> None:
+        """Point-to-point step: ``sends`` and ``recvs`` are lists of
+        ``(peer, tensor)``; every tensor is contiguous (a z-range of a
+        slab).  All are posted together and waited for, so the order of
+        the lists cannot deadlock; a receive writes into its tensor."""
+        if not sends and not recvs:
+            return
+        clock = None
+        if self.times is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)   # the pass before
+            clock = [time.perf_counter()]
+        if self.staged:
+            send_t = []
+            for i, (peer, t) in enumerate(sends):
+                buf = self._buf(("send", i), t)
+                buf.copy_(t)          # device to pinned host: synchronous
+                send_t.append((peer, buf))
+            recv_t = [(peer, self._buf(("recv", i), t))
+                      for i, (peer, t) in enumerate(recvs)]
+        else:
+            send_t, recv_t = sends, recvs
+        self._tick(clock, "stage")
+        ops = ([dist.P2POp(dist.isend, t, peer) for peer, t in send_t]
+               + [dist.P2POp(dist.irecv, t, peer) for peer, t in recv_t])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        self._tick(clock, "wire")
+        if self.staged:
+            for (_, t), (_, buf) in zip(recvs, recv_t):
+                t.copy_(buf)
+            self._tick(clock, "unstage")
+
+    def _tick(self, clock, step: str) -> None:
+        if clock is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.times[step] = self.times.get(step, 0.0) + now - clock[0]
+        clock[0] = now
+
+    # ---------------------------------------------------------- reductions
+    def _host_or_device(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu() if self.staged else t
+
+    def allsum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of a 0-d tensor over the ranks, added in rank order, so that
+        every rank gets the same bits whatever order the backend reduces
+        in; a 0-d tensor of ``t``'s dtype on ``t``'s device."""
+        if self.world == 1:
+            return t
+        src = self._host_or_device(t.reshape(1))
+        parts = [torch.empty_like(src) for _ in range(self.world)]
+        dist.all_gather(parts, src)
+        out = parts[0]
+        for q in parts[1:]:
+            out = out + q
+        return out.reshape(()).to(t.device)
+
+    def allmax(self, value: float) -> float:
+        """Largest of a float over the ranks."""
+        t = torch.tensor([float(value)], dtype=torch.float64,
+                         device="cpu" if self.backend == "gloo"
+                         else self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """In-place sum of ``t`` over the ranks (the gather of a replicated
+        level: each rank fills its own planes and zeros elsewhere, so the
+        sum is exact)."""
+        if self.world == 1:
+            return t
+        if self.staged:
+            buf = self._buf("sum", t)
+            buf.copy_(t)
+            dist.all_reduce(buf)
+            return t.copy_(buf)
+        dist.all_reduce(t)
+        return t
+
+    def broadcast_floats(self, values) -> list[float]:
+        """Rank 0's ``values`` on every rank."""
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device="cpu" if self.backend == "gloo"
+                         else self.device)
+        if self.world > 1:
+            dist.broadcast(t, src=0)
+        return t.tolist()
+
+    def barrier(self) -> None:
+        if self.world > 1:
+            dist.barrier()
+
+
+def init(backend: str, world: int, rank: int, init_method: str,
+         device="cuda", timeout_s: float = 600.0) -> Ranks:
+    """Join the process group (``init_method`` e.g. ``file://<path>`` or
+    ``tcp://localhost:<port>``) and bind this process to its device."""
+    check_backend(backend, world, device)
+    dev = rank_device(rank, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=timeout_s),
+                            device_id=dev if backend == "nccl" else None)
+    return Ranks(world, rank, dev, backend)
+
+
+def _rank_main(fn, rank, world, backend, device, init_method, args, kwargs,
+               timeout_s, q):
+    """One spawned rank: join, run ``fn(ranks, *args, **kwargs)``,
+    report."""
+    try:
+        if torch.device(device).type == "cpu":
+            torch.set_num_threads(1)
+        ranks = init(backend, world, rank, init_method, device,
+                     timeout_s=min(600.0, timeout_s))
+        try:
+            out = fn(ranks, *args, **kwargs)
+        finally:
+            dist.destroy_process_group()
+        q.put((rank, True, out if rank == 0 else None))
+    except BaseException:  # reported to the parent, which raises
+        q.put((rank, False, traceback.format_exc()))
+
+
+def launch(fn: Callable, n_ranks: int, backend: str, device="cuda",
+           args: tuple = (), kwargs: Optional[dict] = None,
+           timeout_s: float = 1800.0):
+    """Run ``fn(ranks, *args, **kwargs)`` on ``n_ranks`` spawned processes,
+    one a rank, and return rank 0's result (picklable: plain numbers and
+    numpy arrays).  ``fn`` must be a module-level
+    function of an importable module (the children import it, and nothing
+    of the caller's ``__main__``).  The ranks meet through a file store in
+    a fresh temporary directory (no port to pick).  On the card the kernel
+    library is built here first, so that no two ranks build it.  Raises
+    with the rank's traceback if any rank fails, and stops the others;
+    ``timeout_s`` bounds the run and each collective wait."""
+    check_backend(backend, n_ranks, device)
+    if torch.device(device).type == "cuda":
+        from .. import _build
+
+        _build.library()
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = "file://" + os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, n_ranks, backend, device,
+                                   init_method, args, kwargs or {},
+                                   timeout_s, q),
+                             daemon=True)
+                 for r in range(n_ranks)]
+        for p in procs:
+            p.start()
+        results, failure = {}, None
+        deadline = time.monotonic() + timeout_s
+        try:
+            while len(results) < n_ranks and failure is None:
+                try:
+                    rank, ok, out = q.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in results and p.exitcode is not None]
+                    if dead:
+                        failure = (f"rank {dead[0]} exited with code "
+                                   f"{procs[dead[0]].exitcode} and no result")
+                    elif time.monotonic() > deadline:
+                        failure = f"ranks did not finish in {timeout_s} s"
+                    continue
+                if ok:
+                    results[rank] = out
+                else:
+                    failure = f"rank {rank} failed:\n{out}"
+        finally:
+            for p in procs:
+                if failure is not None and p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=10)
+    if failure is not None:
+        raise RuntimeError(failure)
+    return results[0]

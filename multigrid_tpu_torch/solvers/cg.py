@@ -13,7 +13,7 @@ exist for TPU memory limits and are not needed here.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -29,12 +29,17 @@ class CGResult(NamedTuple):
 
 def cg_solve(A: Callable, b: torch.Tensor, precond: Callable,
              max_iterations: int = 1000, abs_tol: float = 1e-16,
-             rtol: float = 1e-9) -> CGResult:
-    """Solve A x = b from x = 0; ``b`` is not modified."""
-    norm0 = math.sqrt(float(cg_dot(b, b)))
+             rtol: float = 1e-9, *,
+             dot: Optional[Callable] = None) -> CGResult:
+    """Solve A x = b from x = 0; ``b`` is not modified.  ``dot(a, c)``
+    (a float) replaces the ``cg_dot`` of the whole vector: a rank's slab
+    passes the sum over every rank's owned planes, and |r| is then its
+    ``dot(r, r)``, not ``cg_update``'s fused sum of the slab."""
+    total = (lambda a, c: float(cg_dot(a, c))) if dot is None else dot
+    norm0 = math.sqrt(total(b, b))
     tol = max(abs_tol, rtol * norm0)
     z = precond(b)
-    rz = float(cg_dot(b, z))
+    rz = total(b, z)
     x = torch.zeros_like(b)
     r = b.clone()
     p = z
@@ -42,11 +47,12 @@ def cg_solve(A: Callable, b: torch.Tensor, precond: Callable,
     res = norm0
     while res > tol and it < max_iterations:
         q = A(p)
-        alpha = rz / float(cg_dot(p, q))
-        res = math.sqrt(float(cg_update(x, r, p, q, alpha)))
+        alpha = rz / total(p, q)
+        r2 = cg_update(x, r, p, q, alpha)
+        res = math.sqrt(float(r2) if dot is None else dot(r, r))
         del q
         z = precond(r)
-        rz_new = float(cg_dot(r, z))
+        rz_new = total(r, z)
         cg_xpay(p, z, rz_new / rz)
         rz = rz_new
         it += 1

@@ -59,38 +59,49 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.dot(a.reshape(-1), b.reshape(-1))
 
 
-def eig_estimate_start_vector(shape, dtype, device=None) -> torch.Tensor:
+def eig_estimate_start_vector(shape, dtype, device=None, *,
+                              planes=None) -> torch.Tensor:
     """deal.II's deterministic start vector: global index mod 11, minus the
-    exact mean."""
+    exact mean, on the node grid ``shape``; ``planes = (lo, hi)`` gives
+    only the planes ``lo .. hi - 1`` of axis 0 (a rank's slab, with the
+    indices of the whole grid)."""
     n = int(np.prod(shape))
     q, r = divmod(n, 11)
     mean = (q * 55.0 + r * (r - 1) / 2.0) / n
-    i = torch.arange(n, device=device)
+    if planes is None:
+        i = torch.arange(n, device=device)
+    else:
+        plane = n // shape[0]
+        i = torch.arange(planes[0] * plane, planes[1] * plane, device=device)
+        shape = (planes[1] - planes[0],) + tuple(shape[1:])
     v = (i % 11).to(dtype) - torch.tensor(mean, dtype=dtype, device=device)
     return v.reshape(shape)
 
 
 def lanczos_host_stepped(vmult: Callable, precond: Callable,
-                         n_iterations: int, rhs: torch.Tensor):
+                         n_iterations: int, rhs: torch.Tensor, *,
+                         dot: Callable = _dot):
     """CG-Lanczos, one Python step per iteration; returns the CG
     coefficient streams (alphas, betas).  Stops where the JAX twin's
     validity mask first goes false (CG converged to rounding level:
-    ``rz <= (100 eps)^2 rz0``, or a non-positive ``p.q`` / ``r.z``)."""
+    ``rz <= (100 eps)^2 rz0``, or a non-positive ``p.q`` / ``r.z``).
+    ``dot`` is the inner product (a decomposed solve passes its sum over
+    the owned planes of every rank)."""
     z0 = precond(rhs)
-    rz = _dot(rhs, z0)
+    rz = dot(rhs, z0)
     eps = torch.finfo(rhs.dtype).eps
     floor = float((100.0 * eps) ** 2 * rz)
     r, p = rhs, z0
     alphas, betas = [], []
     for _ in range(n_iterations):
         q = vmult(p)
-        pq = _dot(p, q)
+        pq = dot(p, q)
         if not (float(pq) > 0 and float(rz) > floor):
             break
         alpha = rz / pq
         r = r - alpha * q
         z = precond(r)
-        rz2 = _dot(r, z)
+        rz2 = dot(r, z)
         beta = rz2 / rz
         p = z + beta * p
         alphas.append(float(alpha))
@@ -118,10 +129,11 @@ def tridiag_extremes(alphas, betas) -> tuple[float, float]:
 
 
 def estimate_eigenvalues(vmult: Callable, precond: Callable,
-                         n_iterations: int, rhs: torch.Tensor):
+                         n_iterations: int, rhs: torch.Tensor, *,
+                         dot: Callable = _dot):
     """Largest/smallest eigenvalue estimate of P^{-1} A by CG-Lanczos."""
     return tridiag_extremes(*lanczos_host_stepped(vmult, precond,
-                                                  n_iterations, rhs))
+                                                  n_iterations, rhs, dot=dot))
 
 
 def interval_from_spectrum(max_eig: float, min_eig: float,
@@ -164,13 +176,18 @@ class Chebyshev:
 
     @staticmethod
     def create(op, precond: Callable, smoothing_range: float,
-               degree: Optional[int],
-               eig_cg_n_iterations: int) -> "Chebyshev":
+               degree: Optional[int], eig_cg_n_iterations: int, *,
+               dot: Optional[Callable] = None,
+               rhs0: Optional[torch.Tensor] = None) -> "Chebyshev":
         """Estimate the spectrum of ``P^-1 A`` and fix the interval and
-        degree of a first-kind smoother; ``P^-1 r`` is ``precond(r)``."""
-        rhs0 = eig_estimate_start_vector(op.shape, op.dtype, op.device)
+        degree of a first-kind smoother; ``P^-1 r`` is ``precond(r)``.  A
+        decomposed level passes its global ``dot`` and its slab of the
+        start vector ``rhs0`` (by default the whole grid's ``a . b`` and
+        start vector)."""
+        if rhs0 is None:
+            rhs0 = eig_estimate_start_vector(op.shape, op.dtype, op.device)
         max_eig, min_eig = estimate_eigenvalues(
-            op.vmult, precond, eig_cg_n_iterations, rhs0)
+            op.vmult, precond, eig_cg_n_iterations, rhs0, dot=dot or _dot)
         theta, delta, n_apps = interval_from_spectrum(
             max_eig, min_eig, smoothing_range, degree)
         return Chebyshev(op, theta, delta, n_apps, max_eig, min_eig)

@@ -19,6 +19,11 @@ the level is built, as the JAX package runs XLA there; the outer CG still
 runs on the CG kernels.  There is no other switch.  TF32 is turned off for
 float32 matrix products on the card, so the plain float32 code is a
 full-float32 oracle.
+
+``parallel.distributed.DistributedMultigrid`` runs this class's V-cycle,
+FMG and CG on z-slabs over ranks; its hooks here are the inner products
+(``_cg_dot``, ``_norm``, the smoothers' ``dot``), faces given as None in
+``_impose_bc`` and the ``planes`` of ``_level_rhs``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,10 @@ class MultigridSolver:
     common/multigrid_solver_dg.h:266-304).
     """
 
+    # the outer CG's inner product: None is cg_solve's own (the whole
+    # vector); a decomposed solver sets its sum over the ranks' owned planes
+    _cg_dot: Optional[Callable] = None
+
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn: Callable,
                  rhs_fn: Callable, coefficient: float = 1.0, n_pre: int = 2,
                  n_post: int = 2, n_cycles: int = 1, device="cuda",
@@ -152,58 +161,79 @@ class MultigridSolver:
         self._exact_quad_cache = {}
         self.u_bc = []
         self.rhs = []
-        sep = getattr(rhs_fn, "separable_1d", None)
         for l, g in enumerate(self.grids):
             faces_np = _bc_faces_host(g, exact_fn)
             self.u_bc.append([torch.tensor(f, dtype=f_dtype, device=dev)
                               for f in faces_np])
-            if sep is not None and g.n_dofs > _HOST_ASSEMBLY_DOFS:
-                self.rhs.append(self._rhs_separable_device(
-                    l, g, sep(g.dim), faces_np))
-            else:
-                self.rhs.append(torch.as_tensor(
-                    compute_rhs_host(g, rhs_fn, _dense_bc_host(g, faces_np),
-                                     coefs[l]), dtype=f_dtype, device=dev))
+            self.rhs.append(self._level_rhs(l, rhs_fn, faces_np, coefs[l]))
 
         # Chebyshev smoothers (multigrid_solver.h:268-291)
-        self.smoothers = []
-        for l in range(L):
-            if l > self.minlevel:
-                # deal.II: smoother_data.degree = n_pre literally
-                deg = n_pre
-                if finest_degree is not None and l == self.maxlevel:
-                    deg = finest_degree
-                sm = Chebyshev.create(self.sp_ops[l], precond[l],
-                                      smoothing_range=20.0, degree=deg,
-                                      eig_cg_n_iterations=15)
-            else:
-                sm = Chebyshev.create(self.sp_ops[l], precond[l],
-                                      smoothing_range=coarse_smoothing_range,
-                                      degree=None,
-                                      eig_cg_n_iterations=self.grids[l].n_dofs)
-            self.smoothers.append(sm)
+        self._n_pre, self._finest_degree = n_pre, finest_degree
+        self._coarse_range = coarse_smoothing_range
+        self.smoothers = [self._make_smoother(l, self.sp_ops[l], precond[l])
+                          for l in range(L)]
 
     # ------------------------------------------------------------- set-up
+    def _make_smoother(self, l: int, op, precond, *, dot=None,
+                       rhs0=None) -> Chebyshev:
+        """Level ``l``'s Chebyshev smoother over ``op`` (degree n_pre, the
+        finest level's ``finest_degree``) or, on the coarsest level, the
+        Chebyshev coarse solver with an automatic degree and one Lanczos
+        step per dof; a decomposed level passes its global ``dot`` and its
+        slab of the start vector ``rhs0``."""
+        if l > self.minlevel:
+            # deal.II: smoother_data.degree = n_pre literally
+            deg = self._n_pre
+            if self._finest_degree is not None and l == self.maxlevel:
+                deg = self._finest_degree
+            return Chebyshev.create(op, precond, smoothing_range=20.0,
+                                    degree=deg, eig_cg_n_iterations=15,
+                                    dot=dot, rhs0=rhs0)
+        return Chebyshev.create(op, precond,
+                                smoothing_range=self._coarse_range,
+                                degree=None,
+                                eig_cg_n_iterations=self.grids[l].n_dofs,
+                                dot=dot, rhs0=rhs0)
+
+    def _level_rhs(self, l: int, rhs_fn, faces_np, coef,
+                   planes=None) -> torch.Tensor:
+        """Level ``l``'s f64 rhs ``b = M f - A u_bc`` (zero Dirichlet rows):
+        on the device from separable factors above 4M dofs, else on the
+        host; ``planes = (lo, hi)``: only those planes of axis 0."""
+        g = self.grids[l]
+        sep = getattr(rhs_fn, "separable_1d", None)
+        if sep is not None and g.n_dofs > _HOST_ASSEMBLY_DOFS:
+            return self._rhs_separable_device(l, g, sep(g.dim), faces_np,
+                                              planes=planes)
+        b = compute_rhs_host(g, rhs_fn, _dense_bc_host(g, faces_np), coef)
+        if planes is not None:
+            b = b[planes[0]:planes[1]].copy()
+        return torch.as_tensor(b, dtype=self.f_dtype, device=self.device)
+
     def _impose_bc(self, faces, x: torch.Tensor,
                    inplace: bool = False) -> torch.Tensor:
         """Overwrite the Dirichlet boundary of ``x`` with the face values
         (edges and corners are set more than once with the same value);
-        ``inplace`` writes into ``x`` instead of a copy."""
+        a face given as None is not written (a rank's cut); ``inplace``
+        writes into ``x`` instead of a copy."""
         out = x if inplace else x.clone()
         i = 0
         for d in range(out.ndim):
             for side in (0, -1):
-                out.select(d, side).copy_(faces[i].select(d, 0))
+                if faces[i] is not None:
+                    out.select(d, side).copy_(faces[i].select(d, 0))
                 i += 1
         return out
 
     def _rhs_separable_device(self, level: int, g: DofGrid, factors,
-                              faces_np) -> torch.Tensor:
+                              faces_np, planes=None) -> torch.Tensor:
         """dp rhs ``b = M f - A u_bc`` for rank-1 separable
         f = prod_d factors[d](x_d): the mass term is an outer product of
         1-D host-assembled vectors (exact: cells and quadrature factorize
         per axis), built on the device; only ``2 dim`` thin node slabs of
-        the boundary correction are assembled on the host."""
+        the boundary correction are assembled on the host.  ``planes =
+        (lo, hi)`` builds only those planes of axis 0, with the whole
+        grid's values (its outer planes zeroed as Dirichlet rows)."""
         b = g.basis
         S = np.asarray(b.S, np.float64)
         qw = np.asarray(b.quad_weights, np.float64)
@@ -213,6 +243,9 @@ class MultigridSolver:
             fd = np.asarray(factors[d](xq), np.float64)
             vs.append(_scatter_pair_host((fd * qw[None, :]) @ S, g.degree))
         vs[0] = vs[0] * g.jxw_scalar
+        lo, hi = (0, g.shape[0]) if planes is None else planes
+        if planes is not None:
+            vs[0] = vs[0][lo:hi]
         t = lambda a: torch.as_tensor(a, dtype=self.f_dtype, device=self.device)
         # r = v_0 (x) (v_1 (x) ... ), the last axes first
         r = None
@@ -225,6 +258,14 @@ class MultigridSolver:
             slices, arrs = compute_bc_slab_correction_host(
                 g, faces_np, self.ops_dp[level].coef)
             for sl, a in zip(slices, arrs):
+                if planes is not None:
+                    # the part of the slab inside planes [lo, hi)
+                    z0, z1, _ = sl[0].indices(g.shape[0])
+                    o0, o1 = max(z0, lo), min(z1, hi)
+                    if o1 <= o0:
+                        continue
+                    a = a[o0 - z0:o1 - z0]
+                    sl = (slice(o0 - lo, o1 - lo),) + tuple(sl[1:])
                 r[sl] += t(a)
         return zero_boundary_(r)
 
@@ -289,14 +330,10 @@ class MultigridSolver:
             compute_errors = (self.grids[self.maxlevel].n_dofs
                               <= _HOST_ASSEMBLY_DOFS)
 
-        def norm(v):
-            return float(torch.linalg.vector_norm(v))
-
         def err(l, sol):
             if not compute_errors:
                 return float("nan")
-            u = self._impose_bc(self.u_bc[l], sol)
-            return float(self.ops_dp[l].l2_error(u, self.exact_on_quad(l)))
+            return self.l2_error(l, sol, host=False)
 
         d0 = self.rhs[0].to(self.v_dtype)
         t = self.v_cycle(0, d0, 1)
@@ -310,12 +347,13 @@ class MultigridSolver:
             err_start = err(l, sol)
             zero_boundary_(sol)
             res = self.dp_ops[l].vmult_residual(self.rhs[l], sol)
-            res_start = norm(res)
+            res_start = self._norm(l, res)
             upd = self.v_cycle(l, res.to(self.v_dtype), self.n_cycles)
             del res
             sol += upd.to(self.f_dtype)
             del upd
-            res_end = norm(self.dp_ops[l].vmult_residual(self.rhs[l], sol))
+            res_end = self._norm(l, self.dp_ops[l].vmult_residual(self.rhs[l],
+                                                               sol))
             err_end = err(l, sol)
             reduction = (res_end / res_start) ** (1.0 / self.n_cycles)
             report.append(dict(level=l, error_start=err_start,
@@ -338,18 +376,26 @@ class MultigridSolver:
         res: CGResult = cg_solve(self.dp_ops[L].vmult, self.rhs[L],
                                  precond=self._precond,
                                  max_iterations=max_iterations,
-                                 abs_tol=abs_tol, rtol=rtol)
+                                 abs_tol=abs_tol, rtol=rtol,
+                                 dot=self._cg_dot)
         its = res.iterations
         red = (res.final_norm / res.initial_norm) ** (1.0 / max(its, 1))
         return self._impose_bc(self.u_bc[L], res.x, inplace=True), its, red
 
     # ----------------------------------------------------------- analysis
-    def l2_error(self, level: int, sol: torch.Tensor) -> float:
+    def _norm(self, level: int, v: torch.Tensor) -> float:
+        """Euclidean norm of a vector of ``level``."""
+        return float(torch.linalg.vector_norm(v))
+
+    def l2_error(self, level: int, sol: torch.Tensor,
+                 host: Optional[bool] = None) -> float:
         """L2 error of a solution (boundary values are re-imposed); on the
-        host above 4M dofs."""
+        host (``host`` None: above 4M dofs) or on the device."""
         g = self.grids[level]
         u = self._impose_bc(self.u_bc[level], sol)
-        if g.n_dofs > _HOST_ASSEMBLY_DOFS:
+        if host is None:
+            host = g.n_dofs > _HOST_ASSEMBLY_DOFS
+        if host:
             return l2_error_host(g, u.cpu().numpy(), self._exact_fn)
         return float(self.ops_dp[level].l2_error(u, self.exact_on_quad(level)))
 

@@ -28,7 +28,14 @@ every kind; its within one, frac its and L2 to 1% of the CPU's) and the
 only the CG kernels; a p = 10 ``matvec_dg`` row runs the plain operator at
 the driver's bars; a checkpoint of card tensors reads back bit for bit;
 ``device_memory_stats`` reads the allocator on the card (in use <= peak
-< the card's memory, peak >= the solver's level tensors)."""
+< the card's memory, peak >= the solver's level tensors).  Ranks of
+``torch.distributed`` sharing the card (gloo): the collected distributed
+``vmult`` equals ``BrickLaplace`` on the whole grid bit for bit in float
+and double; a 2-rank size-8 solve gives the one-device CG its, reduction
+to 1e-4 and solution to 1e-9 of max|u|, two CG solves bit for bit, and
+launches every kernel of the cube path; one rank on nccl is the
+one-device solver bit for bit, and nccl with more ranks than cards
+raises."""
 
 import numpy as np
 import pytest
@@ -928,3 +935,54 @@ def test_device_memory_stats_on_card(dev):
         < stats["bytes_limit"]
     rep = memory.solver_memory_report(s)
     assert rep["allocator"]["peak_bytes_in_use"] >= rep["total_bytes"] > 0
+
+
+# ---- ranks of torch.distributed on the card (parallel/): gloo ranks share
+# the card, their planes staged through pinned host memory
+def test_halo_vmult_on_card_is_the_whole_grid_bit_for_bit(dev):
+    from multigrid_tpu_torch.ops.laplace_kernel import BrickLaplace
+    from multigrid_tpu_torch.parallel.programs import halo_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    g = DofGrid(BrickMesh((8, 3, 5), (-0.9,) * 3, (1.9, 1.3, 1.1)), 1, 4)
+    x = np.random.default_rng(7).standard_normal(g.shape)
+    for dtype in (torch.float32, torch.float64):
+        out = launch(halo_program, 2, "gloo", "cuda", args=(g, x, dtype))
+        want = BrickLaplace(g, dtype, dev).vmult(
+            torch.as_tensor(x, dtype=dtype, device=dev)).cpu().numpy()
+        np.testing.assert_array_equal(out["vmult"], want)
+
+
+def test_distributed_solve_on_card_matches_one_device(dev, tmp_path):
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+    from multigrid_tpu_torch.parallel.programs import cube_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    mesh = poisson_cube_mesh(8)
+    s = build_solver(mesh, 4, n_cycles=2, device=dev)
+    x, its, red = s.solve_cg()
+    ref = tmp_path / "cg.npy"
+    np.save(ref, x.cpu().numpy())
+    out = launch(cube_program, 2, "gloo", "cuda", args=(mesh,),
+                 kwargs=dict(reps=2, reference=str(ref), apply_seed=1))
+    assert out["levels"] == [False, False, True, True]
+    assert out["cg_its"] == its
+    assert abs(out["cg_reduction"] - red) < 1e-4
+    assert out["cg_ref_diff"] <= 1e-9 * out["cg_ref_max"]
+    assert out["cg_repeat_equal"]
+    assert all(v["equal"] for v in out["apply"].values())
+    for k in ("brick_kron<float>", "brick_kron_cheb<float>",
+              "brick_kron<double>", "cheb_epilogue<float>", "cg_update",
+              "cg_dot", "cg_xpay"):
+        assert out["launches"][k] > 0, k
+
+
+def test_one_nccl_rank_is_the_one_device_solver(dev):
+    from multigrid_tpu_torch.parallel.programs import cube_program
+    from multigrid_tpu_torch.parallel.sharding import check_backend, launch
+
+    out = launch(cube_program, 1, "nccl", "cuda",
+                 args=(poisson_cube_mesh(8),), kwargs=dict(single=True))
+    assert out["single"]["fmg_equal"] and out["single"]["cg_equal"]
+    with pytest.raises(ValueError, match="--backend gloo"):
+        check_backend("nccl", torch.cuda.device_count() + 1, "cuda")
