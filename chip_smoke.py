@@ -89,7 +89,24 @@ convergence rows:
   against ``BrickLaplace`` on the whole grid bit for bit, the exchange
   share of the f64 ``vmult``; one rank on nccl against the single-device
   solver's bits; whether gloo moves a CUDA tensor point to point.  The
-  kernels' launches are summed over the ranks.
+  kernels' launches are summed over the ranks;
+* the DG solvers on ranks sharing the card
+  (``parallel.distributed.DistributedMultigridDG``: cell slabs with ghost
+  cell layers on the DG pencil kernels): poisson_dg (hermite p = 4, n_pre
+  3) at size 64 (32,768,000 DG dofs) on 2 ranks, its FE_Q hierarchy on
+  F-1's slabs, and poisson_dg_plain (gauss p = 4) at size 48 (13,824,000
+  DG dofs) on 4, each against its one-device row of this run (frac its
+  within 5%, rate within 1e-3 and L2 within 1e-6 relative, the CG solution
+  within ``RANKS_SOL_BAR`` of max|u|, two CG solves bit for bit) and
+  ``PERF.md`` section 2's DG and DG-plain guards; the owned cells of
+  ``dg_apply<double>``, ``dg_residual<float>`` and ``dg_cheb<float>`` on
+  the slab against ``DGOperator`` on the whole grid bit for bit (the
+  traces wire) and against the plain algorithm; the exchange split of the
+  13.8M DG-plain finest level's f32 apply and the bytes of a refresh on
+  both wires; ``HaloDGLaplace2D`` on a 2 x 2 rank grid at 48^3 cells (p =
+  4) against ``DGOperator`` on the whole grid (the traces wire bit for
+  bit, the hermite wire within ``DG_HERMITE_BAR`` of max|y| in f64); one
+  nccl rank of each DG solver against the single-device solver's bits.
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
 degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
@@ -417,6 +434,14 @@ L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
 RANKS_RUNS = ((2, MEM_SIZE), (4, SIZE))
 RANKS_SOL_BAR = 1e-7       # of max|u|
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the DG rank path: (solver, ranks, size, kind) on gloo sharing the card,
+# p = 4, n_pre 3 (``experiments/time_ranks.py``'s DG rows), each against
+# its one-device row of this run; HaloDGLaplace2D on 2 x 2 ranks at
+# DG_RANKS_2D^3 cells; one nccl rank of each solver at DG_RANKS_SINGLE
+DG_RANKS_RUNS = (("dg", 2, 64, "hermite"), ("dg-plain", 4, DG_SIZE, "gauss"))
+DG_RANKS_2D = DG_SIZE
+DG_RANKS_SINGLE = 24
+DG_HERMITE_BAR = 1e-12     # of max|y|, f64: the hermite wire's owned cells
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
@@ -1045,6 +1070,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     launches["poisson_cube_ranks"] = ranks_path(
         dev, card, {SIZE: cube_row, MEM_SIZE: big_row})
     lap("poisson_cube_ranks")
+    launches["poisson_dg_ranks"] = dg_ranks_path(dev, card, dg_err)
+    lap("poisson_dg_ranks")
     for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
         off_path = {k: v for k, v in launches[path].items()
                     if k.startswith(("brick_kron", "cheb_epilogue")) and v}
@@ -1068,7 +1095,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                         *((path, CG_KERNELS) for path in PLAIN_PATHS),
                         ("matvec_dg_plain", []),
                         ("poisson_cube_135M", CUBE_KERNELS),
-                        ("poisson_cube_ranks", CUBE_KERNELS)):
+                        ("poisson_cube_ranks", CUBE_KERNELS),
+                        ("poisson_dg_ranks", DG_KERNELS)):
         print(f"launches during the {path} solves: {launches[path]}")
         for k in names:
             require(launches[path][k] > 0,
@@ -2210,6 +2238,121 @@ def ranks_path(dev, card, rows) -> dict:
           f"{time.perf_counter() - t0:.1f} s")
     require(out["single"]["fmg_equal"] and out["single"]["cg_equal"],
             "one rank on nccl differs from the single-device solver")
+    return total
+
+
+def dg_ranks_path(dev, card, dg_err: float) -> dict:
+    """The DG solvers on ranks of torch.distributed sharing the card (gloo,
+    the cell layers staged through pinned host memory): each run of
+    ``DG_RANKS_RUNS`` against its one-device row of this run
+    (``experiments/time_ranks.py``'s rows and bars), with the slab
+    kernels' owned cells and the exchange split by wire; HaloDGLaplace2D
+    on 2 x 2 ranks against the whole grid; one nccl rank of each solver
+    against the single-device bits.  ``dg_err``: poisson_dg's L2 error at
+    size 48 in this run (the DG-plain guard).  Returns the device kernels
+    launched by the solves, summed over the ranks."""
+    from multigrid_tpu_torch.experiments import time_ranks
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.parallel.programs import (dg_halo_program,
+                                                       dg_programs)
+    from multigrid_tpu_torch.parallel.sharding import launch
+    from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    for path, n, size, kind in DG_RANKS_RUNS:
+        ref_file = SCRATCH / f"{path}{size}_cg.npy"
+        t0 = time.perf_counter()
+        ref = time_ranks.one_device_dg(size, path, dev, ref_file)
+        torch.cuda.empty_cache()
+        print(f"{path} size {size}, one device: {ref['dg_dofs']} DG dofs, "
+              f"frac its {ref['frac_its']:.6f}, rate {ref['rate']:.6e}, L2 "
+              f"{ref['L2']:.9e}, CG {ref['cg_time']:.4f} s; "
+              f"{time.perf_counter() - t0:.1f} s with set-up [{card}]")
+        t0 = time.perf_counter()
+        (out,) = launch(dg_programs, n, "gloo", "cuda",
+                        args=(poisson_cube_mesh(size),
+                              [time_ranks.dg_kwargs(path, ref_file)]))
+        wall = time.perf_counter() - t0
+        add(out["launches"])
+        label = (f"{path} on {n} ranks (gloo, one card), size {size}, "
+                 f"{out['dg_dofs']} DG dofs")
+        print(f"{label}: levels split {out['levels']}, finest cuts "
+              f"{out['bounds']}; launch {wall:.1f} s")
+        print(f"  set-up {out['setup_time']:.2f} s, CG {out['cg_time']:.4f} s"
+              f" (runs {', '.join(f'{t:.4f}' for t in out['cg_times'])}; one "
+              f"device {ref['cg_time']:.4f}), peak device memory of a rank "
+              f"{int(out['peak_bytes'])} bytes [{card}]")
+        print(f"  frac its {out['frac_its']:.6f} (one device "
+              f"{ref['frac_its']:.6f}), rate {out['rate']:.6e} "
+              f"({ref['rate']:.6e}), L2 {out['L2']:.9e} ({ref['L2']:.9e})")
+        print(f"  CG solution against one device's: max diff "
+              f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, bar "
+              f"{RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
+              f"{out['cg_repeat_equal']}")
+        for k, v in out["apply"].items():
+            print(f"  slab {k} on the owned cells vs the whole grid: bit for "
+                  f"bit {v['equal']}, max diff {v['max_diff']:.3e} (max|y| "
+                  f"{v['scale']:.3e})")
+        for wire, comm in out["comm"].items():
+            print(f"  f32 apply of the finest level, {wire} wire: "
+                  f"{time_ranks.comm_line(comm)} [{card}]")
+        require(time_ranks.dg_row_ok(out, ref),
+                f"{label}: off its one-device row")
+        if path == "dg":
+            require(DG_ITS[0] <= out["frac_its"] <= DG_ITS[1]
+                    and DG_RATE[0] <= out["rate"] <= DG_RATE[1]
+                    and abs(out["L2"] - DG_L2) <= DG_L2_TOL,
+                    f"{label}: outside the DG guard")
+        else:
+            require(abs(out["L2"] / dg_err - 1) <= PLAIN_AGREE
+                    and out["rate"] < PLAIN_RATE,
+                    f"{label}: L2 {out['L2']:.9e} vs poisson_dg "
+                    f"{dg_err:.9e}, rate {out['rate']:.4e}")
+        require(any(out["levels"]), f"{label}: no level split")
+        ref_file.unlink()
+    # the ('z', 'y') split of the operator at full width, both wires
+    mesh = poisson_cube_mesh(DG_RANKS_2D)
+    grid = dg_grid_from_mesh(mesh, mesh.max_level, 4, "gauss")
+    t0 = time.perf_counter()
+    outs = launch(dg_halo_program, 4, "gloo", "cuda",
+                  args=([(grid, 5, wire, (2, 2))
+                         for wire in ("traces", "hermite")],),
+                  kwargs=dict(collect=False, whole=True, comm_reps=5))
+    print(f"HaloDGLaplace2D on 2 x 2 ranks, {grid.n_dofs} DG dofs (gauss p = "
+          f"4): launch {time.perf_counter() - t0:.1f} s")
+    for wire, out in zip(("traces", "hermite"), outs):
+        w, pl = out["vmult_whole"], out["vmult_plain_whole"]
+        print(f"  {wire} wire: owned cells vs DGOperator on the whole grid: "
+              f"bit for bit {w['equal']}, max diff {w['max_diff']:.3e}; the "
+              f"plain algorithm {pl['max_diff']:.3e} (max|y| {w['scale']:.3e})"
+              f"; f64 apply {time_ranks.comm_line(out['comm'])} [{card}]")
+        bar = 0.0 if wire == "traces" else DG_HERMITE_BAR * w["scale"]
+        require(w["max_diff"] <= bar and pl["max_diff"]
+                <= DG_HERMITE_BAR * pl["scale"],
+                f"HaloDGLaplace2D {wire} wire: off the whole grid")
+    # one rank on nccl: the single-device solvers, bit for bit
+    t0 = time.perf_counter()
+    outs = launch(dg_programs, 1, "nccl", "cuda",
+                  args=(poisson_cube_mesh(DG_RANKS_SINGLE),
+                        [dict(path=path, degree=4, kind=kind, n_pre=3,
+                              single=True)
+                         for path, _, _, kind in DG_RANKS_RUNS]))
+    for (path, _, _, _), out in zip(DG_RANKS_RUNS, outs):
+        add(out["launches"])
+        print(f"1 rank (nccl), {path} size {DG_RANKS_SINGLE}: CG bit for bit "
+              f"{out['single']['cg_equal']}, L2 bit for bit "
+              f"{out['single']['L2_equal']} (frac its "
+              f"{out['single']['frac_its']:.6f})")
+        require(out["single"]["cg_equal"] and out["single"]["L2_equal"],
+                f"one nccl rank of {path} differs from the single-device "
+                "solver")
+    print(f"  nccl launch {time.perf_counter() - t0:.1f} s")
     return total
 
 

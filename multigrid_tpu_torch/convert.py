@@ -19,7 +19,10 @@ numpy arrays and floats (so this module never imports JAX):
 A :class:`~.parallel.distributed.DistributedMultigrid` takes the same
 state, for the whole grids: every rank installs the same Chebyshev values
 and element matrices, and its slab of each split level's ``rhs`` and
-``u_bc``.
+``u_bc``.  So does a :class:`~.parallel.distributed.DistributedMultigridDG`
+(the DG forms below): every rank the same Chebyshev values, its slab of
+the DG ``rhs`` and of each split level's ``inv_diag``, and the FE_Q
+state through its ``DistributedMultigrid``.
 
 For a :class:`~.solvers.multigrid_dg.MultigridSolverDG` the state is
 
@@ -80,7 +83,7 @@ import torch
 from .ops.laplace import make_diag_coef
 from .ops.laplace_dense import element_matrix
 from .mesh.adaptive import Cell, Forest, OctForest, QuadForest
-from .parallel.distributed import DistributedMultigrid
+from .parallel.distributed import DistributedMultigrid, DistributedMultigridDG
 from .solvers.multigrid_adaptive import AdaptiveSystem
 from .solvers.multigrid_dg import MultigridSolverDGPlain
 from .solvers.multigrid_general import GeneralMultigridSolver
@@ -131,7 +134,12 @@ def _install_chebyshev(sm, values) -> None:
     sm.max_eig, sm.min_eig = float(max_eig), float(min_eig)
 
 
-def _load_dg_state(solver, state: dict) -> None:
+def _whole(a, level):
+    """A one-device solver keeps every array whole."""
+    return a
+
+
+def _load_dg_state(solver, state: dict, part=_whole) -> None:
     shape = solver.dg_grid.shape
     for key in ("rhs", "inv_diag"):
         if key in state and np.shape(state[key]) != shape:
@@ -142,19 +150,20 @@ def _load_dg_state(solver, state: dict) -> None:
         _validate(solver.cg, state["cg"])
     dev = solver.device
     if "rhs" in state:
-        solver.rhs = torch.tensor(np.asarray(state["rhs"], np.float64),
-                                  dtype=solver.f_dtype, device=dev)
+        solver.rhs = torch.tensor(part(np.asarray(state["rhs"], np.float64),
+                                       -1), dtype=solver.f_dtype, device=dev)
     if "inv_diag" in state:
         jac = solver.jacobi
-        jac.inv_diag = torch.tensor(np.asarray(state["inv_diag"], np.float64),
-                                    dtype=jac.dtype, device=dev)
+        jac.inv_diag = torch.tensor(
+            part(np.asarray(state["inv_diag"], np.float64), -1),
+            dtype=jac.dtype, device=dev)
     if "chebyshev" in state:
         _install_chebyshev(solver.smooth_dg, state["chebyshev"])
     if "cg" in state:
         load_state(solver.cg, state["cg"])
 
 
-def _load_dg_plain_state(solver, state: dict) -> None:
+def _load_dg_plain_state(solver, state: dict, part=_whole) -> None:
     L = len(solver.grids)
     for key in ("chebyshev", "inv_diag"):
         if key in state and len(state[key]) != L:
@@ -171,12 +180,12 @@ def _load_dg_plain_state(solver, state: dict) -> None:
             _check_chebyshev(f"chebyshev[{l}]", state["chebyshev"][l])
     dev = solver.device
     if "rhs" in state:
-        solver.rhs = torch.tensor(np.asarray(state["rhs"], np.float64),
-                                  dtype=solver.f_dtype, device=dev)
+        solver.rhs = torch.tensor(part(np.asarray(state["rhs"], np.float64),
+                                       -1), dtype=solver.f_dtype, device=dev)
     for l, jac in enumerate(solver.jacobis):
         if "inv_diag" in state:
             jac.inv_diag = torch.tensor(
-                np.asarray(state["inv_diag"][l], np.float64),
+                part(np.asarray(state["inv_diag"][l], np.float64), l),
                 dtype=jac.dtype, device=dev)
         if "chebyshev" in state:
             _install_chebyshev(solver.smoothers[l], state["chebyshev"][l])
@@ -329,8 +338,21 @@ def load_state(solver, state: dict) -> None:
     :class:`~.solvers.multigrid_dg.MultigridSolverDG`, a
     :class:`~.solvers.multigrid_dg.MultigridSolverDGPlain`, a
     :class:`~.solvers.multigrid_general.GeneralMultigridSolver` or one of
-    the adaptive solvers) in place; the whole state is checked before
-    anything is installed."""
+    the adaptive solvers, or the rank-decomposed ones) in place; the whole
+    state is checked before anything is installed."""
+    if isinstance(solver, DistributedMultigridDG):
+        inner = solver.solver
+        plain = solver.kind == "dg-plain"
+        slabs = inner.slabs if plain else [inner.dg_slabs]
+
+        def part(a, level):
+            s = slabs[level]
+            return a if s is None else np.ascontiguousarray(
+                a[s.stored_cells()])
+
+        (_load_dg_plain_state if plain else _load_dg_state)(inner, state,
+                                                            part)
+        return
     if isinstance(solver, AdaptiveSystem):
         _load_adaptive_state(solver, state)
         return

@@ -1,7 +1,10 @@
-"""poisson_cube on ranks against one device, backend by backend.
+"""poisson_cube (or a DG solver) on ranks against one device, backend by
+backend.
 
     python -m multigrid_tpu_torch.experiments.time_ranks 128 64 --ranks 4 \\
         --backends nccl gloo
+    python -m multigrid_tpu_torch.experiments.time_ranks 64 --path dg \\
+        --ranks 4 --backends nccl gloo
 
 For each cube size: the one-device row on the first card (FMG, V-cycle
 reduction, FMG L2, CG its, reduction and wall, the CG solution saved under
@@ -16,6 +19,20 @@ A row is ``ok`` when its its, reductions and FMG L2 are the one-device
 row's within 3%, its CG solution within 1e-7 of max|u|, and the bit for
 bit checks hold.  ``--device cpu`` runs it on the CPU (gloo only), to
 rehearse.
+
+``--path dg`` (poisson_dg: hermite p = 4, n_pre 3, rtol 1e-9; the FE_Q
+hierarchy on the ranks too) and ``--path dg-plain`` (poisson_dg_plain:
+gauss p = 4, n_pre 3) run ``parallel.programs.dg_program`` instead: the
+one-device row (frac its, rate, L2, CG wall) and per backend set-up, the
+CG walls of two solves, frac its, rate, L2, the CG solution against the
+one-device one, the owned cells of ``dg_apply<double>``,
+``dg_residual<float>`` and ``dg_cheb<float>`` on the slab against
+``DGOperator`` on the whole grid (bit for bit) and against the plain
+algorithm, and the exchange split of the finest level's f32 apply with
+the bytes of a refresh, by wire (both wires for dg-plain).  A DG row is
+``ok`` when its frac its are within 5%, its rate within 1e-3 and its L2
+within 1e-6 relative of the one-device row, its CG solution within 1e-7
+of max|u|, and the bit for bit checks hold.
 """
 
 from __future__ import annotations
@@ -29,13 +46,19 @@ import torch
 
 from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
-from ..parallel.programs import cube_program
+from ..parallel.programs import cube_program, dg_program
 from ..parallel.sharding import launch
-from .poisson_cube import build_solver
+from .poisson_cube import build_solver, exact_fn, rhs_fn
 
 OUT = Path(__file__).resolve().parents[2] / "build" / "time_ranks"
 ROW_TOL = 0.03
 SOL_BAR = 1e-7
+# the DG rows: (kind, wires of the exchange split); degree 4, n_pre 3
+DG_PATHS = {"dg": ("hermite", ("traces",)),
+            "dg-plain": ("gauss", ("traces", "hermite"))}
+DG_DEGREE, DG_N_PRE, DG_RTOL = 4, 3, 1e-9
+DG_ITS_TOL, DG_RATE_TOL, DG_L2_TOL = 0.05, 1e-3, 1e-6
+PLAIN_BAR = 1e-12          # the slab apply against the plain algorithm
 
 
 def one_device(size: int, dev: torch.device, path: Path) -> dict:
@@ -67,10 +90,97 @@ def row_ok(out: dict, ref: dict) -> bool:
             and all(v["equal"] for v in out["apply"].values()))
 
 
+def one_device_dg(size: int, path: str, dev: torch.device,
+                  out: Path) -> dict:
+    """The one-device DG row; its CG solution goes to ``out``."""
+    from ..solvers.multigrid_dg import MultigridSolverDG, \
+        MultigridSolverDGPlain
+
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    cls = MultigridSolverDG if path == "dg" else MultigridSolverDGPlain
+    s = cls(poisson_cube_mesh(size), DG_DEGREE, exact_fn, rhs_fn,
+            kind=DG_PATHS[path][0], n_pre=DG_N_PRE, n_post=DG_N_PRE,
+            device=dev)
+    s.solve_cg(tolerance=DG_RTOL)
+    sync()
+    t0 = time.perf_counter()
+    x, its, rate = s.solve_cg(tolerance=DG_RTOL)
+    sync()
+    cg_s = time.perf_counter() - t0
+    np.save(out, x.cpu().numpy())
+    return dict(frac_its=its, rate=rate, L2=s.l2_error(x, s.exact_quad),
+                cg_time=cg_s, dg_dofs=x.numel())
+
+
+def dg_row_ok(out: dict, ref: dict) -> bool:
+    return (abs(out["frac_its"] / ref["frac_its"] - 1) <= DG_ITS_TOL
+            and abs(out["rate"] / ref["rate"] - 1) <= DG_RATE_TOL
+            and abs(out["L2"] / ref["L2"] - 1) <= DG_L2_TOL
+            and out["cg_ref_diff"] <= SOL_BAR * out["cg_ref_max"]
+            and out["cg_repeat_equal"]
+            and all(v["equal"] if not k.endswith("vmult_plain")
+                    else v["max_diff"] <= PLAIN_BAR * v["scale"]
+                    for k, v in out["apply"].items()))
+
+
+def dg_kwargs(path: str, reference: Path, comm_reps: int = 10) -> dict:
+    """``dg_program``'s keywords for a DG row of ``path``."""
+    kind, wires = DG_PATHS[path]
+    return dict(path=path, degree=DG_DEGREE, kind=kind, n_pre=DG_N_PRE,
+                tolerance=DG_RTOL, reps=2, reference=str(reference),
+                apply_seed=3, comm_reps=comm_reps, comm_wires=wires)
+
+
+def comm_line(comm: dict) -> str:
+    """One wire's exchange split: the apply with and without the refresh,
+    the share, this rank's refresh by step, the bytes a refresh."""
+    return (f"{comm['total'] * 1e3:.3f} / {comm['cell_loop'] * 1e3:.3f} ms, "
+            f"share {comm['comm_fraction']:.3f}, refresh "
+            + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in comm["steps"].items())
+            + f" ms, {comm['bytes']} B")
+
+
+def run_dg(args, dev) -> int:
+    failed = 0
+    for size in args.sizes:
+        path = OUT / f"{args.path}{size}_cg.npy"
+        ref = one_device_dg(size, args.path, dev, path)
+        print(f"{args.path} size {size}, one device: {ref['dg_dofs']} DG "
+              f"dofs, frac its {ref['frac_its']:.6f}, rate {ref['rate']:.6e},"
+              f" L2 {ref['L2']:.9e}, CG {ref['cg_time']:.4f} s", flush=True)
+        for backend in args.backends:
+            t0 = time.perf_counter()
+            out = launch(dg_program, args.ranks, backend, args.device,
+                         args=(poisson_cube_mesh(size),),
+                         kwargs=dg_kwargs(args.path, path))
+            ok = dg_row_ok(out, ref)
+            failed += not ok
+            print(f"{args.path} size {size}, {args.ranks} ranks, {backend}: "
+                  f"ok {ok}; levels split {out['levels']}, cuts "
+                  f"{out['bounds']}; launch {time.perf_counter() - t0:.1f} s, "
+                  f"set-up {out['setup_time']:.2f} s, CG "
+                  f"{', '.join(f'{t:.4f}' for t in out['cg_times'])} s, frac "
+                  f"its {out['frac_its']:.6f}, rate {out['rate']:.6e}, L2 "
+                  f"{out['L2']:.9e}; CG solution max diff "
+                  f"{out['cg_ref_diff']:.3e} of {out['cg_ref_max']:.4e}"
+                  + (f"; peak device memory of a rank "
+                     f"{int(out['peak_bytes'])} bytes"
+                     if "peak_bytes" in out else ""), flush=True)
+            for k, v in out["apply"].items():
+                print(f"  {k}: owned cells bit for bit {v['equal']}, max "
+                      f"diff {v['max_diff']:.3e} of {v['scale']:.3e}")
+            for wire, comm in out["comm"].items():
+                print(f"  f32 apply, {wire} wire: {comm_line(comm)}")
+        path.unlink()
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("sizes", type=int, nargs="*", default=[128, 64])
+    ap.add_argument("sizes", type=int, nargs="*")
+    ap.add_argument("--path", default="cube", choices=["cube", *DG_PATHS])
     ap.add_argument("--ranks", type=int, default=4)
     ap.add_argument("--backends", nargs="+", default=["nccl", "gloo"],
                     choices=["nccl", "gloo"])
@@ -84,6 +194,10 @@ def main(argv=None) -> int:
         print(f"# card: {card_line()} x {torch.cuda.device_count()}",
               flush=True)
     OUT.mkdir(parents=True, exist_ok=True)
+    if args.path != "cube":
+        args.sizes = args.sizes or [64 if args.path == "dg" else 48]
+        return run_dg(args, dev)
+    args.sizes = args.sizes or [128, 64]
     failed = 0
     for size in args.sizes:
         path = OUT / f"cube{size}_cg.npy"

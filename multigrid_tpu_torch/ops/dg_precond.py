@@ -15,6 +15,11 @@ boundary-adjacency category (3 per axis), so the probe runs on a mesh of
 ``min(cells, 3)`` cells per axis, on the CPU, at set-up.  An operator with
 per-cell data (``has_cell_data``: :class:`~.dg.DGLaplaceVarCoeff`) takes
 the exact general path instead, probing the real mesh on its device.
+A rank's slab of a grid (``whole``) takes its categories from the whole
+grid, its ghost cells too: a pointwise pass (the Chebyshev step with
+x = 0) applies ``P^-1`` to the ghost cells, whose result an owned cell
+then reads, so they must hold the neighbour's inverse diagonal, not that
+of a slab edge.
 The fused Chebyshev kernel (``ops/dg_kernel.dg_cheb``) reads ``inv_diag``
 on the device.
 """
@@ -65,10 +70,13 @@ class JacobiTransformed:
     """P^-1 = T3 diag^-1 T3^T of one DG level.  ``op``: the level's
     operator, if it is not the constant-coefficient ``DGLaplace`` of
     ``grid``; one with per-cell data (``has_cell_data``) is probed exactly
-    on its own mesh, any other by boundary-adjacency category."""
+    on its own mesh, any other by boundary-adjacency category.  ``whole =
+    (cells, offset)``: ``grid`` is the block of a grid of ``cells`` cells
+    starting at cell ``offset`` (a rank's slab), whose categories it
+    takes."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda",
-                 op=None):
+                 op=None, *, whole=None):
         self.grid = grid
         self.dtype = dtype
         self.device = resolve(device)
@@ -84,22 +92,30 @@ class JacobiTransformed:
         if op is not None and op.grid != grid:
             raise ValueError("JacobiTransformed: op is of another grid")
         if getattr(op, "has_cell_data", False):
+            if whole is not None:
+                raise ValueError("JacobiTransformed: a slab of an operator "
+                                 "with per-cell data is not supported")
             full = _transformed_diagonals(op.astype(torch.float64), T3)
             self.inv_diag = (1.0 / full).to(dtype).reshape(
                 grid.shape).to(self.device).contiguous()
             return
-        probe_cells = tuple(min(c, 3) for c in grid.cells)
+        cells, offset = whole if whole is not None else (grid.cells,
+                                                         (0,) * dim)
+        probe_cells = tuple(min(c, 3) for c in cells)
         probe = DGGrid(cells=probe_cells, jacobian=grid.jacobian,
                        degree=grid.degree, kind=grid.kind)
         d_cat = _transformed_diagonals(DGLaplace(probe, torch.float64, "cpu"),
                                        T3).numpy()
         # category of each cell along each axis: first, interior, last
         idx = []
-        for C, P in zip(grid.cells, probe_cells):
+        for C, P, o, c in zip(cells, probe_cells, offset, grid.cells):
+            if not 0 <= o <= o + c <= C:
+                raise ValueError(f"JacobiTransformed: cells [{o}, {o + c}) "
+                                 f"outside [0, {C})")
             m = np.full(C, min(1, P - 1))
             m[0] = 0
             m[-1] = P - 1
-            idx.append(m)
+            idx.append(m[o:o + c])
         self.inv_diag = t((1.0 / d_cat)[np.ix_(*idx)].reshape(grid.shape))
 
     def vmult(self, u: torch.Tensor) -> torch.Tensor:

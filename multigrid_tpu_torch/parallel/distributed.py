@@ -24,6 +24,20 @@ writes only its true faces) and the L2 errors (owned cells, summed).
 On the card each rank's kernels are ``brick_kron<float>`` / ``<double>``,
 ``cheb_epilogue<float>`` and the CG kernels, as on one device; the planes
 move through the backend of :class:`~.sharding.Ranks`.
+
+``DistributedMultigridDG`` (the JAX ``dg_block_spec`` and
+``DistributedMultigridDG``) does the same for the DG solvers, on cell
+slabs with ghost cell layers (:class:`~.dg_halo.DGSlabs`): DG-plain
+splits every level where each rank gets a cell (a pair when a level lies
+below, :func:`dg_level_bounds`), with one ghost layer; DG-over-CG puts
+its DG level on the FE_Q finest level's cuts with two ghost layers, so
+that the coupling maps a rank's DG slab to its FE_Q slab, and runs the
+FE_Q hierarchy on
+:class:`DistributedMultigrid`.  The one-device solvers' V-cycles and
+outer CG run unchanged; their hooks are the outer CG's dot, the
+smoothers' dot and start vector, and the L2 error of the owned cells.
+Each rank's DG kernels are ``dg_apply<double>``, ``dg_apply<float>``
+(the residual) and ``dg_cheb<float>``.
 """
 
 from __future__ import annotations
@@ -36,28 +50,38 @@ import torch
 
 from ..mesh.brick import BrickMesh, DofGrid
 from ..ops.cg_kernel import cg_dot
+from ..ops.dg import DGGrid
+from ..ops.dg_kernel import DGOperator
+from ..ops.dg_precond import JacobiTransformed
+from ..ops.dg_transfer import CGDGCoupling, DGTransfer
 from ..ops.laplace import LaplaceOperator, l2_sums_host, make_diag_coef, \
     quad_coords_blocked
 from ..ops.laplace_kernel import BrickLaplace
 from ..ops.transfer import Transfer
-from ..solvers.chebyshev import eig_estimate_start_vector
+from ..solvers.chebyshev import Chebyshev, eig_estimate_start_vector
 from ..solvers.multigrid import (_HOST_ASSEMBLY_DOFS, MultigridSolver,
                                  _bc_faces_host, set_full_precision_matmul)
+from ..solvers.multigrid_dg import (MultigridSolverDG, MultigridSolverDGPlain,
+                                    _quad_tensor, dg_grid_from_mesh,
+                                    quad_coords_block)
+from .dg_halo import GHOST_LAYERS, DGSlabs
 from .halo import GHOST_CELLS, Slabs, split_cells
 from .sharding import Ranks
 
 
-def level_bounds(mesh: BrickMesh, world: int) -> list[Optional[list[int]]]:
+def level_bounds(mesh: BrickMesh, world: int,
+                 min_cells: int = GHOST_CELLS) -> list[Optional[list[int]]]:
     """Per level, the z cell boundaries of the ranks' slabs, or None where
     the level is replicated (the JAX ``level_spec``).  A level splits when
-    every rank gets at least ``GHOST_CELLS`` z cells.  The coarsest split
+    every rank gets at least ``min_cells`` z cells (the ghost width) and,
+    when a level lies below it, a pair of cells.  The coarsest split
     level is cut on cell pairs when a level lies below it, and each finer
     level's cuts are twice the coarser's: the slabs nest, and every cut is
     on a coarse-cell boundary."""
     L = mesh.n_levels
     out: list[Optional[list[int]]] = [None] * L
-    split = [world > 1 and mesh.cells(l)[0] >= GHOST_CELLS * world
-             for l in range(L)]
+    split = [world > 1 and mesh.cells(l)[0]
+             >= max(min_cells, 2 if l else 1) * world for l in range(L)]
     if not any(split):
         return out
     first = split.index(True)
@@ -65,6 +89,16 @@ def level_bounds(mesh: BrickMesh, world: int) -> list[Optional[list[int]]]:
     for l in range(first, L):
         out[l] = [c << (l - first) for c in base]
     return out
+
+
+def share_interval(sm, ranks: Ranks):
+    """Every rank runs a replicated level alone: rank 0's Chebyshev
+    interval and degree for all, whatever its rounding; returns ``sm``."""
+    (sm.theta, sm.delta, degree_f, sm.max_eig,
+     sm.min_eig) = ranks.broadcast_floats(
+        (sm.theta, sm.delta, sm.degree, sm.max_eig, sm.min_eig))
+    sm.degree = int(degree_f)
+    return sm
 
 
 class SlabLevel:
@@ -146,7 +180,8 @@ class DistributedMultigrid(MultigridSolver):
                  rhs_fn: Callable, ranks: Ranks, coefficient: float = 1.0,
                  n_pre: int = 2, n_post: int = 2, n_cycles: int = 1,
                  v_dtype=torch.float32, f_dtype=torch.float64,
-                 coarse_smoothing_range: float = 1e-3):
+                 coarse_smoothing_range: float = 1e-3,
+                 finest_degree: Optional[int] = None):
         if mesh.dim != 3:
             raise ValueError("the rank-decomposed solver runs 3-D bricks")
         if n_pre != n_post:
@@ -194,18 +229,13 @@ class DistributedMultigrid(MultigridSolver):
             self.rhs.append(self._level_rhs(l, rhs_fn, faces_np, coefs[l],
                                             planes=self.planes(l)))
 
-        self._n_pre, self._finest_degree = n_pre, None
+        self._n_pre, self._finest_degree = n_pre, finest_degree
         self._coarse_range = coarse_smoothing_range
         self.smoothers = []
         for l, s in enumerate(self.slabs):
             if s is None:
-                sm = self._make_smoother(l, self.sp_ops[l], precond[l])
-                # every rank runs a replicated level alone: rank 0's
-                # interval and degree for all, whatever its rounding
-                (sm.theta, sm.delta, degree_f, sm.max_eig,
-                 sm.min_eig) = ranks.broadcast_floats(
-                    (sm.theta, sm.delta, sm.degree, sm.max_eig, sm.min_eig))
-                sm.degree = int(degree_f)
+                sm = share_interval(self._make_smoother(l, self.sp_ops[l],
+                                                        precond[l]), ranks)
             else:
                 sm = self._make_smoother(
                     l, self.sp_ops[l], precond[l], dot=s.dot,
@@ -308,3 +338,338 @@ class DistributedMultigrid(MultigridSolver):
             err, vol = op.l2_sums(u, self._exact_quad_cache[level])
         ranks = self.ranks
         return math.sqrt(float(ranks.allsum(err)) / float(ranks.allsum(vol)))
+
+
+# ------------------------------------------------------------------ DG
+def dg_level_bounds(mesh: BrickMesh, world: int,
+                    ghost: int = GHOST_LAYERS) -> list[Optional[list[int]]]:
+    """Per DG level, the z cell boundaries of the ranks' slabs, or None
+    where the level is replicated (the JAX ``dg_block_spec``, cells
+    leading): a level splits when every rank gets ``ghost`` z cells (and a
+    pair of them when a level lies below), with :func:`level_bounds`'
+    nested cuts, so that every cut is on a coarse-cell boundary and
+    ``DGTransfer`` maps owned cells to owned cells."""
+    return level_bounds(mesh, world, min_cells=ghost)
+
+
+class SlabDGLevel(SlabLevel):
+    """A split DG level's :class:`~..ops.dg_kernel.DGOperator` on the
+    rank's slab (``dg_apply``, ``dg_cheb``): ``vmult`` and a Chebyshev
+    step with A x end in the ghost refresh.  ``vmult_residual`` does not:
+    its output is read only by cell-local passes on the owned cells (the
+    restriction, a ``DGTransfer``) or, on a two-layer slab, by
+    ``dg_to_cg`` through the first ghost layer, which the residual
+    computes right from a refreshed input."""
+
+    def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
+        return self.op.vmult_residual(rhs, lhs)
+
+
+def _part(grid: DGGrid, cells: int) -> DGGrid:
+    """``grid`` with ``cells`` z cells (a slab's shape; same geometry)."""
+    return DGGrid(cells=(cells,) + grid.cells[1:], jacobian=grid.jacobian,
+                  degree=grid.degree, kind=grid.kind)
+
+
+class SlabDGTransfer:
+    """The 2:1 DG transfer between a split fine level and the level below,
+    split or replicated.  The cuts nest on coarse-cell boundaries
+    (:func:`dg_level_bounds`), so ``restrict`` maps the owned fine cells to
+    the owned coarse cells with no exchange, then refreshes the coarse slab
+    (its smoother reads the ghosts) or, on a replicated coarse level, sums
+    the ranks' owned coarse cells into the whole level (exact: zero off
+    their owner).  ``prolongate`` needs no exchange either: the coarse
+    slab's ghost layer covers the fine slab's."""
+
+    def __init__(self, fine: DGSlabs, coarse: Optional[DGSlabs],
+                 coarse_grid: DGGrid, dtype, device):
+        (c0, c1), (s0, s1) = fine.owned[0], fine.stored[0]
+        if c0 % 2 or c1 % 2:
+            raise ValueError(f"fine cuts {fine.bounds[0]} are not on coarse "
+                             "cells")
+        self.fine, self.coarse = fine, coarse
+        self.coarse_shape = tuple(coarse_grid.shape)
+        self.down = DGTransfer(_part(fine.grid, c1 - c0),
+                               _part(coarse_grid, (c1 - c0) // 2), dtype,
+                               device)
+        self.owned = (c0 // 2, c1 // 2)
+        # the coarse cells under the fine slab: the whole coarse slab, or
+        # the cells of a replicated level that cover it
+        if coarse is not None:
+            (a0, a1), self.src = coarse.stored[0], slice(None)
+        else:
+            a0, a1 = s0 // 2, (s1 + 1) // 2
+            self.src = slice(a0, a1)
+        if not 2 * a0 <= s0 < s1 <= 2 * a1:
+            raise ValueError("the coarse slab does not cover the fine slab")
+        self.cut = slice(s0 - 2 * a0, s1 - 2 * a0)
+        self.up = DGTransfer(_part(fine.grid, 2 * (a1 - a0)),
+                             _part(coarse_grid, a1 - a0), dtype, device)
+
+    def restrict(self, u_fine: torch.Tensor) -> torch.Tensor:
+        uc = self.down.restrict(self.fine.own(u_fine))
+        if self.coarse is not None:
+            out = uc.new_zeros(self.coarse.shape)
+            self.coarse.own(out).copy_(uc)
+            return self.coarse.refresh(out)
+        out = uc.new_zeros(self.coarse_shape)
+        out[self.owned[0]:self.owned[1]] = uc
+        return self.fine.ranks.sum_(out)
+
+    def prolongate(self, u_coarse: torch.Tensor) -> torch.Tensor:
+        return self.up.prolongate(u_coarse[self.src])[self.cut]
+
+
+class _SlabCoupling:
+    """The CG <-> DG coupling between a rank's DG slab and its FE_Q slab
+    (the same cells): ``dg_to_cg`` zeroes the true Dirichlet faces only and
+    ends in the FE_Q refresh; ``cg_to_dg`` is cell-local."""
+
+    def __init__(self, coupling: CGDGCoupling, slabs: Slabs):
+        self.coupling, self.slabs = coupling, slabs
+
+    def dg_to_cg(self, r_dg: torch.Tensor) -> torch.Tensor:
+        return self.slabs.refresh(self.coupling.dg_to_cg(r_dg))
+
+    def cg_to_dg(self, u_cg: torch.Tensor) -> torch.Tensor:
+        return self.coupling.cg_to_dg(u_cg)
+
+
+class _OnRanks:
+    """What both DG solvers on ranks share: the finest level's slab
+    (``dg_slabs``, None where it is replicated), the slab's right-hand
+    side and exact values, the outer CG's dot and the L2 error of the
+    owned cells.  A slab's transformed Jacobi takes the whole grid's cell
+    categories (``JacobiTransformed(whole=...)``): its ghost cells hold
+    the neighbours' inverse diagonal, which the pointwise Chebyshev step
+    applies there."""
+
+    def _jacobi(self, grid: DGGrid, slabs) -> JacobiTransformed:
+        if slabs is None:
+            return JacobiTransformed(grid, self.v_dtype, self.device)
+        return JacobiTransformed(slabs.local, self.v_dtype, self.device,
+                                 whole=(grid.cells,
+                                        (slabs.stored[0][0], 0, 0)))
+
+    def _finest(self, mesh: BrickMesh, grid: DGGrid, slabs, rhs_fn,
+                exact_fn) -> None:
+        self.dg_slabs = slabs
+        quads = quad_coords_block(grid, mesh, mesh.max_level)
+        if slabs is not None:
+            quads[0] = quads[0][slabs.stored_cells()[0]]
+        shape = grid.shape if slabs is None else slabs.shape
+        f_quad = _quad_tensor(rhs_fn, quads, shape, self.f_dtype, self.device)
+        self.rhs = self.op_ref.compute_rhs(f_quad).contiguous()
+        del f_quad
+        self.exact_quad = _quad_tensor(exact_fn, quads, shape, self.f_dtype,
+                                       self.device)
+        if slabs is not None:
+            ranks = self.ranks
+            self._cg_dot = lambda a, c: float(
+                ranks.allsum(cg_dot(slabs.own(a), slabs.own(c))))
+
+    def l2_error(self, u: torch.Tensor, exact_quad: torch.Tensor) -> float:
+        """L2 error of a finest-level slab: each rank integrates its owned
+        cells, the sums are added over the ranks in rank order."""
+        s = self.dg_slabs
+        if s is None:
+            return super().l2_error(u, exact_quad)
+        err, vol = self.op_ref.l2_sums(s.own(u), s.own(exact_quad))
+        ranks = self.ranks
+        return math.sqrt(float(ranks.allsum(err)) / float(ranks.allsum(vol)))
+
+
+def _slab_op(grid, slabs, dtype, dev, jacobi=None):
+    op = DGOperator(grid if slabs is None else slabs.local, dtype, dev)
+    if jacobi is not None:
+        op.install_jacobi(jacobi)
+    return op if slabs is None else SlabDGLevel(op, slabs)
+
+
+class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
+    """:class:`~..solvers.multigrid_dg.MultigridSolverDGPlain` on ranks:
+    every split level a ``DGOperator`` with its transformed Jacobi on the
+    rank's slab (one ghost layer, the traces wire), the levels joined by
+    :class:`SlabDGTransfer`; replicated levels run alike on every rank
+    with rank 0's Chebyshev interval.  The V-cycle and the outer CG are
+    the one-device solver's."""
+
+    def __init__(self, mesh: BrickMesh, degree: int, exact_fn, rhs_fn,
+                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype):
+        self.ranks = ranks
+        self.device = dev = ranks.device
+        if dev.type == "cuda":
+            set_full_precision_matmul()
+        self.mesh, self.v_dtype, self.f_dtype = mesh, v_dtype, f_dtype
+        L = mesh.n_levels
+        self.maxlevel = L - 1
+        self.grids = [dg_grid_from_mesh(mesh, l, degree, kind)
+                      for l in range(L)]
+        self.slabs = [None if b is None else DGSlabs(g, ranks, [b])
+                      for g, b in zip(self.grids,
+                                      dg_level_bounds(mesh, ranks.world))]
+        self.jacobis = [self._jacobi(g, s)
+                        for g, s in zip(self.grids, self.slabs)]
+        self.ops = [_slab_op(g, s, v_dtype, dev, j) for g, s, j
+                    in zip(self.grids, self.slabs, self.jacobis)]
+        fine = self.slabs[-1]
+        self.op_dp = _slab_op(self.grids[-1], fine, f_dtype, dev)   # K9
+        self.op_ref = getattr(self.op_dp, "op", self.op_dp).plain
+        self.plain_route = False
+        self.transfers = [None] + [self._transfer(l) for l in range(1, L)]
+        self.smoothers = []
+        for l, (op, jac, s) in enumerate(zip(self.ops, self.jacobis,
+                                             self.slabs)):
+            if s is None:
+                self.smoothers.append(share_interval(
+                    self._make_smoother(l, op, jac, n_pre), ranks))
+            else:
+                self.smoothers.append(self._make_smoother(
+                    l, op, jac, n_pre, dot=s.dot,
+                    rhs0=eig_estimate_start_vector(
+                        self.grids[l].shape, v_dtype, dev,
+                        planes=s.stored[0])))
+        self._finest(mesh, self.grids[-1], fine, rhs_fn, exact_fn)
+
+    def _transfer(self, l: int):
+        fine = self.slabs[l]
+        if fine is None:
+            return DGTransfer(self.grids[l], self.grids[l - 1], self.v_dtype,
+                              self.device)
+        return SlabDGTransfer(fine, self.slabs[l - 1], self.grids[l - 1],
+                              self.v_dtype, self.device)
+
+
+class _DGOnRanks(_OnRanks, MultigridSolverDG):
+    """:class:`~..solvers.multigrid_dg.MultigridSolverDG` on ranks: the DG
+    level on the rank's slab of the FE_Q finest level's cells (two ghost
+    layers, the traces wire), the FE_Q hierarchy a
+    :class:`DistributedMultigrid` with the same cuts, the coupling between
+    the two slabs.  The ``dg_v_cycle`` and the outer CG are the one-device
+    solver's."""
+
+    def __init__(self, mesh: BrickMesh, degree: int, exact_fn, rhs_fn,
+                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype):
+        self.ranks = ranks
+        self.device = dev = ranks.device
+        if dev.type == "cuda":
+            set_full_precision_matmul()
+        self.mesh, self.v_dtype, self.f_dtype = mesh, v_dtype, f_dtype
+        self.cg = DistributedMultigrid(
+            mesh, degree, exact_fn, rhs_fn, ranks, n_pre=n_pre,
+            n_post=n_pre, n_cycles=1, v_dtype=v_dtype, f_dtype=f_dtype,
+            coarse_smoothing_range=2e-3, finest_degree=max(1, n_pre - 1))
+        L = mesh.max_level
+        self.dg_grid = dg_grid_from_mesh(mesh, L, degree, kind)
+        fe = self.cg.slabs[L]
+        slabs = None if fe is None else DGSlabs(
+            self.dg_grid, ranks, [fe.bounds], GHOST_CELLS)
+        self.jacobi = self._jacobi(self.dg_grid, slabs)
+        self.op = _slab_op(self.dg_grid, slabs, v_dtype, dev,
+                           self.jacobi)                          # K7, K8
+        self.op_dp = _slab_op(self.dg_grid, slabs, f_dtype, dev)   # K9
+        self.op_ref = getattr(self.op_dp, "op", self.op_dp).plain
+        self.plain_route = False
+        if fe is None:
+            self.coupling = CGDGCoupling(self.cg.grids[L], self.dg_grid,
+                                         v_dtype, dev)
+        else:
+            self.coupling = _SlabCoupling(CGDGCoupling(
+                fe.local, slabs.local, v_dtype, dev,
+                z_faces=(fe.below is None, fe.above is None)), fe)
+        self.smooth_dg = Chebyshev.create(
+            self.op, self.jacobi.vmult, smoothing_range=20.0, degree=n_pre,
+            eig_cg_n_iterations=15, dot=None if slabs is None else slabs.dot,
+            rhs0=None if slabs is None else eig_estimate_start_vector(
+                self.dg_grid.shape, v_dtype, dev, planes=slabs.stored[0]))
+        self._finest(mesh, self.dg_grid, slabs, rhs_fn, exact_fn)
+
+
+class DistributedMultigridDG:
+    """The DG solvers on the ranks of ``ranks`` (twin of the JAX
+    ``DistributedMultigridDG``), z-slabs of cells: ``solver="dg-plain"``
+    (:class:`~..solvers.multigrid_dg.MultigridSolverDGPlain`, every level
+    split where :func:`dg_level_bounds` lets it, one ghost layer) or
+    ``"dg"`` (:class:`~..solvers.multigrid_dg.MultigridSolverDG`: the DG
+    level on the FE_Q finest level's cuts with two ghost layers, the FE_Q
+    hierarchy on :class:`DistributedMultigrid`).  Ghost layers travel on
+    the traces wire, so that the owned cells of every pass are the
+    one-device bits; the hermite wire is the operator's
+    (:class:`~.dg_halo.HaloDGLaplace`).  The
+    same arguments as the one-device solvers (3-D bricks; the device is the
+    rank's).  Entry points: :meth:`solve_cg`, :meth:`l2_error`,
+    :meth:`owned`, :meth:`collect`, :meth:`distributed_levels`; a solution
+    is the rank's slab of the finest level (the whole level where it is
+    replicated).  On the card each rank's kernels are ``dg_apply<double>``,
+    ``dg_apply<float>`` (the residual), ``dg_cheb<float>``, the CG kernels
+    and, for ``"dg"``, F-1's brick kernels."""
+
+    SOLVERS = ("dg-plain", "dg")
+
+    def __init__(self, mesh: BrickMesh, degree: int, exact_fn: Callable,
+                 rhs_fn: Callable, ranks: Ranks, solver: str = "dg-plain",
+                 kind: Optional[str] = None, n_pre: Optional[int] = None,
+                 n_post: Optional[int] = None, v_dtype=torch.float32,
+                 f_dtype=torch.float64):
+        if mesh.dim != 3:
+            raise ValueError("the rank-decomposed DG solvers run 3-D bricks")
+        if solver not in self.SOLVERS:
+            raise ValueError(f"solver must be one of {self.SOLVERS}, not "
+                             f"{solver!r}")
+        if n_pre is None:          # the one-device solvers' defaults
+            n_pre = 3 if solver == "dg-plain" else 2
+        if n_post is not None and n_post != n_pre:
+            raise ValueError("the reference requires equal pre/post degree")
+        self.ranks, self.kind = ranks, solver
+        if solver == "dg-plain":
+            self.solver = _DGPlainOnRanks(mesh, degree, exact_fn, rhs_fn,
+                                          ranks, kind or "gauss", n_pre,
+                                          v_dtype, f_dtype)
+        else:
+            self.solver = _DGOnRanks(mesh, degree, exact_fn, rhs_fn, ranks,
+                                     kind or "hermite", n_pre, v_dtype,
+                                     f_dtype)
+
+    @property
+    def slabs(self) -> Optional[DGSlabs]:
+        """The finest DG level's slab (None: replicated)."""
+        return self.solver.dg_slabs
+
+    @property
+    def exact_quad(self) -> torch.Tensor:
+        return self.solver.exact_quad
+
+    @property
+    def rhs(self) -> torch.Tensor:
+        return self.solver.rhs
+
+    def solve_cg(self, **kw):
+        """The outer CG (``tolerance``, ``max_iterations``): (the rank's
+        solution slab, fractional iterations, rate)."""
+        return self.solver.solve_cg(**kw)
+
+    def l2_error(self, u: torch.Tensor,
+                 exact_quad: Optional[torch.Tensor] = None) -> float:
+        return self.solver.l2_error(u, self.exact_quad if exact_quad is None
+                                    else exact_quad)
+
+    def owned(self, u: torch.Tensor) -> torch.Tensor:
+        """The cells of a finest-level slab this rank owns."""
+        return u if self.slabs is None else self.slabs.own(u)
+
+    def owned_cells(self) -> slice:
+        """The global z cells of :meth:`owned`."""
+        return slice(None) if self.slabs is None else \
+            self.slabs.owned_cells()[0]
+
+    def collect(self, u: torch.Tensor) -> torch.Tensor:
+        """The whole finest level, on every rank (small grids)."""
+        return u.clone() if self.slabs is None else self.slabs.collect(u)
+
+    def distributed_levels(self) -> list[bool]:
+        """Which DG levels split across the ranks (False: replicated); for
+        ``"dg"`` the DG level, then the FE_Q levels."""
+        s = self.solver
+        if self.kind == "dg-plain":
+            return [sl is not None for sl in s.slabs]
+        return [s.dg_slabs is not None] + s.cg.distributed_levels()

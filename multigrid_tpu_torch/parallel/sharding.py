@@ -11,6 +11,8 @@ level on its own device, and the exchanges are explicit:
   with the few communication steps the solver needs (plane exchange with
   the neighbours, sums of scalars in rank order, the gather of a replicated
   level, a broadcast of floats);
+* :class:`RankGrid`: the ranks laid out on a grid of split axes (z, or
+  z and y), with each rank's coordinates and neighbours;
 * :func:`launch`: spawns ``n_ranks`` processes of one function of this
   package and returns rank 0's result.
 
@@ -38,6 +40,7 @@ from dataclasses import dataclass, field
 from datetime import timedelta
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -90,6 +93,8 @@ class Ranks:
     # seconds of the exchange steps ("stage", "wire", "unstage") when a
     # dict: host clock, each step ending with its copies done
     times: Optional[dict] = None
+    # point-to-point steps made (exchange calls that moved data)
+    exchanges: int = 0
     _bufs: dict = field(default_factory=dict, repr=False)
 
     @property
@@ -115,6 +120,7 @@ class Ranks:
         the lists cannot deadlock; a receive writes into its tensor."""
         if not sends and not recvs:
             return
+        self.exchanges += 1
         clock = None
         if self.times is not None:
             if self.device.type == "cuda":
@@ -140,6 +146,45 @@ class Ranks:
             for (_, t), (_, buf) in zip(recvs, recv_t):
                 t.copy_(buf)
             self._tick(clock, "unstage")
+
+    def exchange_packed(self, sends, recvs) -> None:
+        """:meth:`exchange` of tensors that need not be contiguous (a y
+        layer of a block, a node plane of a cell layer): each
+        non-contiguous one goes through a contiguous buffer on its device,
+        kept for reuse, packed before the exchange and unpacked after (the
+        steps "pack" and "unpack" of :attr:`times`)."""
+        clock = None
+        if self.times is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            clock = [time.perf_counter()]
+
+        def packed(kind, i, t):
+            if t.is_contiguous():
+                return t
+            key = ("packed", kind, i, tuple(t.shape), t.dtype, t.device)
+            buf = self._bufs.get(key)
+            if buf is None:
+                buf = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                self._bufs[key] = buf
+            return buf
+
+        send_b = []
+        for i, (peer, t) in enumerate(sends):
+            b = packed("send", i, t)
+            if b is not t:
+                b.copy_(t)
+            send_b.append((peer, b))
+        recv_b = [(peer, packed("recv", i, t))
+                  for i, (peer, t) in enumerate(recvs)]
+        self._tick(clock, "pack")
+        self.exchange(send_b, recv_b)
+        if clock is not None:
+            clock[0] = time.perf_counter()
+        for (_, t), (_, b) in zip(recvs, recv_b):
+            if b is not t:
+                t.copy_(b)
+        self._tick(clock, "unpack")
 
     def _tick(self, clock, step: str) -> None:
         if clock is None:
@@ -202,6 +247,34 @@ class Ranks:
     def barrier(self) -> None:
         if self.world > 1:
             dist.barrier()
+
+
+@dataclass(frozen=True)
+class RankGrid:
+    """``world`` ranks on a grid of ``shape`` (one extent per split axis:
+    ``(nz,)``, or ``(nz, ny)`` for the ('z', 'y') split), row-major:
+    rank ``iz ny + iy``."""
+
+    shape: tuple[int, ...]
+    rank: int
+
+    def __post_init__(self):
+        if not 0 <= self.rank < int(np.prod(self.shape)):
+            raise ValueError(f"rank {self.rank} outside a rank grid of "
+                             f"{self.shape}")
+
+    @property
+    def coords(self) -> tuple[int, ...]:
+        return tuple(int(i) for i in np.unravel_index(self.rank, self.shape))
+
+    def neighbor(self, axis: int, side: int) -> Optional[int]:
+        """The rank next to this one along ``axis`` below (side 0) or above
+        (side 1), or None at the end of the axis."""
+        c = list(self.coords)
+        c[axis] += 1 if side else -1
+        if not 0 <= c[axis] < self.shape[axis]:
+            return None
+        return int(np.ravel_multi_index(c, self.shape))
 
 
 def init(backend: str, world: int, rank: int, init_method: str,

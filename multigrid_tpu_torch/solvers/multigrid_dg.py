@@ -51,6 +51,11 @@ grid (:func:`~..ops.dg_kernel.covers`: 3-D, the JAX gate of
 from the grid alone.  The kernels stop at p = 9
 (``dg_kernel.MAX_DEGREE``, the reference programs' top degree), and a 3-D
 level above it is refused on the card: the JAX package runs Pallas there.
+
+``parallel.distributed.DistributedMultigridDG`` runs both solvers' CG and
+V-cycles on z-slabs over ranks; its hooks here are the outer CG's inner
+product (``_cg_dot``), the smoothers' ``dot`` and start vector
+(``_make_smoother``) and :meth:`_DGOuterCG.l2_error`.
 """
 
 from __future__ import annotations
@@ -127,6 +132,10 @@ class _DGOuterCG:
     """The outer CG of both DG solvers (multigrid_solver_dg.h:410-424):
     ``op_dp``, ``rhs``, ``_precond`` and ``op_ref`` come from the solver."""
 
+    # the outer CG's inner product: None is cg_solve's own (the whole
+    # vector); a decomposed solver sets its sum over the ranks' owned cells
+    _cg_dot: Optional[Callable] = None
+
     def solve_cg(self, tolerance: float = 1e-3, max_iterations: int = 100):
         """Outer CG on the f64 DG operator, ReductionControl(max_iterations,
         1e-16, tolerance).  Returns (solution, fractional iterations
@@ -134,7 +143,7 @@ class _DGOuterCG:
         res: CGResult = cg_solve(self.op_dp.vmult, self.rhs,
                                  precond=self._precond,
                                  max_iterations=max_iterations, abs_tol=1e-16,
-                                 rtol=tolerance)
+                                 rtol=tolerance, dot=self._cg_dot)
         its = res.iterations
         rate = (res.final_norm / res.initial_norm) ** (1.0 / max(its, 1))
         frac_its = np.log(tolerance) / np.log(rate) if rate < 1 else np.inf
@@ -274,17 +283,9 @@ class MultigridSolverDGPlain(_DGOuterCG):
         self.transfers = [None] + [
             DGTransfer(self.grids[l], self.grids[l - 1], v_dtype, dev)
             for l in range(1, L)]
-        self.smoothers = []
-        for l, (op, jac) in enumerate(zip(self.ops, self.jacobis)):
-            if l > 0:
-                deg = n_pre if l < self.maxlevel else max(1, n_pre - 1)
-                sm = Chebyshev.create(op, jac.vmult, smoothing_range=20.0,
-                                      degree=deg, eig_cg_n_iterations=15)
-            else:
-                sm = Chebyshev.create(op, jac.vmult, smoothing_range=1e-5,
-                                      degree=None,
-                                      eig_cg_n_iterations=self.grids[0].n_dofs)
-            self.smoothers.append(sm)
+        self.smoothers = [self._make_smoother(l, op, jac, n_pre)
+                          for l, (op, jac) in enumerate(zip(self.ops,
+                                                            self.jacobis))]
         quads = (self.grids[-1].quad_phys if mapping is not None
                  else quad_coords_block(self.grids[-1], mesh, L - 1))
         shape = self.grids[-1].shape
@@ -292,6 +293,24 @@ class MultigridSolverDGPlain(_DGOuterCG):
         self.rhs = self.op_ref.compute_rhs(f_quad).contiguous()
         del f_quad
         self.exact_quad = _quad_tensor(exact_fn, quads, shape, f_dtype, dev)
+
+    def _make_smoother(self, l: int, op, jac, n_pre: int, *, dot=None,
+                       rhs0=None) -> Chebyshev:
+        """Level ``l``'s Chebyshev smoother (multigrid_solver_dg_plain.h:
+        186-213): degree ``n_pre`` (the finest level ``max(1, n_pre -
+        1)``), or on the coarsest level the coarse solver with an
+        automatic degree and one Lanczos step per dof; a decomposed level
+        passes its global ``dot`` and its slab of the start vector
+        ``rhs0``."""
+        if l > 0:
+            deg = n_pre if l < self.maxlevel else max(1, n_pre - 1)
+            return Chebyshev.create(op, jac.vmult, smoothing_range=20.0,
+                                    degree=deg, eig_cg_n_iterations=15,
+                                    dot=dot, rhs0=rhs0)
+        return Chebyshev.create(op, jac.vmult, smoothing_range=1e-5,
+                                degree=None,
+                                eig_cg_n_iterations=self.grids[0].n_dofs,
+                                dot=dot, rhs0=rhs0)
 
     def v_cycle(self, level: int, defect: torch.Tensor) -> torch.Tensor:
         """multigrid_solver_dg_plain.h:455-496."""

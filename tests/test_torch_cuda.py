@@ -35,7 +35,15 @@ and double; a 2-rank size-8 solve gives the one-device CG its, reduction
 to 1e-4 and solution to 1e-9 of max|u|, two CG solves bit for bit, and
 launches every kernel of the cube path; one rank on nccl is the
 one-device solver bit for bit, and nccl with more ranks than cards
-raises."""
+raises.  The DG solvers on 2 gloo ranks sharing the card (size 8, p = 4):
+the owned cells of the slab's dg_apply<double> (K9), dg_residual<float>
+(K7) and dg_cheb<float> (K8), their inputs' ghost layers through the
+traces wire, are those of DGOperator on the whole grid bit for bit, and
+of the plain JAX algorithm (``vmult_plain``) to 1e-13 of max|y|; the
+hermite wire's owned cells (z split and a 2 x 2 rank grid) within 1e-12
+of max|y| in f64; each solve launches K7, K8, K9 and the CG kernels, and
+gives the one-device frac its to 5%, rate to 1e-3 and L2 to 1e-6
+relative."""
 
 import numpy as np
 import pytest
@@ -986,3 +994,61 @@ def test_one_nccl_rank_is_the_one_device_solver(dev):
     assert out["single"]["fmg_equal"] and out["single"]["cg_equal"]
     with pytest.raises(ValueError, match="--backend gloo"):
         check_backend("nccl", torch.cuda.device_count() + 1, "cuda")
+
+
+@pytest.mark.parametrize("path", ["dg-plain", "dg"])
+def test_distributed_dg_slab_kernels_are_the_whole_grids(dev, path):
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.parallel.programs import dg_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+    from multigrid_tpu_torch.solvers.multigrid_dg import (
+        MultigridSolverDG, MultigridSolverDGPlain)
+
+    mesh = poisson_cube_mesh(8)
+    cls = MultigridSolverDGPlain if path == "dg-plain" else MultigridSolverDG
+    one = cls(mesh, 4, exact_fn, rhs_fn, device=dev)
+    x, its, rate = one.solve_cg(tolerance=1e-9)
+    l2 = one.l2_error(x, one.exact_quad)
+    out = launch(dg_program, 2, "gloo", "cuda", args=(mesh,),
+                 kwargs=dict(path=path, reps=2, apply_seed=3))
+    assert out["levels"][0 if path == "dg" else -1]
+    for name, c in out["apply"].items():
+        if name.endswith("vmult_plain"):
+            assert c["max_diff"] <= 1e-13 * c["scale"], (name, c)
+        else:
+            assert c["equal"], (name, c)
+    assert abs(out["frac_its"] / its - 1) <= 0.05
+    assert abs(out["rate"] / rate - 1) <= 1e-3
+    assert abs(out["L2"] / l2 - 1) <= 1e-6
+    assert out["cg_repeat_equal"]
+    for k in ("dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
+              "cg_update", "cg_dot", "cg_xpay"):
+        assert out["launches"][k] > 0, k
+
+
+def test_dg_halo_wires_on_card(dev):
+    from multigrid_tpu_torch.ops.dg import DGGrid
+    from multigrid_tpu_torch.parallel.programs import dg_halo_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    cases = []
+    for kind in ("gauss", "hermite"):
+        for cells, shape in (((12, 6, 5), None), ((8, 6, 5), (2, 2))):
+            g = DGGrid(cells=cells, jacobian=((0.25, 0.03, 0.0),
+                                              (0.02, 0.31, 0.04),
+                                              (0.0, 0.05, 0.21)),
+                       degree=4, kind=kind)
+            for wire in ("traces", "hermite"):
+                cases.append((g, 5, wire, shape))
+    for world in (2, 4):
+        todo = [c for c in cases if (c[3] is None) == (world == 2)]
+        for case, out in zip(todo, launch(
+                dg_halo_program, world, "gloo", "cuda", args=(todo,),
+                kwargs=dict(collect=False, whole=True))):
+            w = out["vmult_whole"]
+            if case[2] == "traces":
+                assert w["equal"], (case, w)
+            else:
+                assert w["max_diff"] <= 1e-12 * w["scale"], (case, w)
+            assert out["vmult_plain_whole"]["max_diff"] <= \
+                1e-12 * out["vmult_plain_whole"]["scale"]

@@ -272,6 +272,7 @@ def test_import_loads_no_jax():
             "multigrid_tpu_torch.ops.dg_precond, "
             "multigrid_tpu_torch.convert, "
             "multigrid_tpu_torch.parallel.programs, "
+            "multigrid_tpu_torch.parallel.dg_halo, "
             "multigrid_tpu_torch.experiments.time_ranks; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'multigrid_tpu', 'experiments')]; "
