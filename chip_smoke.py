@@ -79,23 +79,27 @@ convergence rows:
   128 (135,005,697 dofs), its CG solution through a checkpoint file and
   back bit for bit, then its FMG and V-cycle reduction;
 * poisson_cube on ranks of ``torch.distributed`` sharing the card
-  (``parallel.distributed.DistributedMultigrid``, z-slabs with 2p ghost
-  planes, gloo with the planes staged through pinned host memory): 2
-  ranks at size 128 and 4 ranks at size 64, FMG and CG (best of 2), each
-  held to the single-device row of this run (cg_its 8; CG reduction,
-  V-cycle reduction and FMG L2 within 3%; the CG solution within
-  ``RANKS_SOL_BAR`` of max|u|; two CG solves bit for bit), the owned
-  planes of the distributed ``vmult`` and ``apply`` in float and double
-  against ``BrickLaplace`` on the whole grid bit for bit, the exchange
-  share of the f64 ``vmult``; one rank on nccl against the single-device
-  solver's bits; whether gloo moves a CUDA tensor point to point.  The
+  (``parallel.distributed.DistributedMultigrid``, boxes of cells with 2p
+  ghost planes along each split axis, gloo with the planes staged through
+  pinned host memory): 2 z-slab ranks at size 128, a 2 x 2 (z x y) grid
+  at size 64, and the 2-D cube (size 64, 4,198,401 dofs, plain levels)
+  on 2 x 2, FMG and CG (best of 2), each held to the single-device row of
+  this run (cg_its 8; CG reduction, V-cycle reduction and FMG L2 within
+  3%; the CG solution within ``RANKS_SOL_BAR`` of max|u|; two CG solves
+  bit for bit), the owned nodes of the distributed 3-D ``vmult`` and
+  ``apply`` in float and double (on 2 x 2 the corners near both cuts
+  included) against ``BrickLaplace`` on the whole grid bit for bit, the
+  exchange share of the f64 ``vmult`` and its bytes a refresh by stage;
+  one rank on nccl against the single-device solver's bits.  The
   kernels' launches are summed over the ranks;
 * the DG solvers on ranks sharing the card
   (``parallel.distributed.DistributedMultigridDG``: cell slabs with ghost
   cell layers on the DG pencil kernels): poisson_dg (hermite p = 4, n_pre
-  3) at size 64 (32,768,000 DG dofs) on 2 ranks, its FE_Q hierarchy on
-  F-1's slabs, and poisson_dg_plain (gauss p = 4) at size 48 (13,824,000
-  DG dofs) on 4, each against its one-device row of this run (frac its
+  3) at size 64 (32,768,000 DG dofs) on 2 z-slab ranks, its FE_Q
+  hierarchy on F-1's slabs, poisson_dg_plain (gauss p = 4) at size 48
+  (13,824,000 DG dofs) on a 2 x 2 grid, and poisson_dg at size 32
+  (4,096,000 DG dofs) on 2 x 2, every FE_Q level above the coarsest two
+  split, each against its one-device row of this run (frac its
   within 5%, rate within 1e-3 and L2 within 1e-6 relative, the CG solution
   within ``RANKS_SOL_BAR`` of max|u|, two CG solves bit for bit) and
   ``PERF.md`` section 2's DG and DG-plain guards; the owned cells of
@@ -429,18 +433,25 @@ L_ITS = 10              # the bar of tests/test_adaptive.py on every row
 L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
 
 
-# the rank path: (ranks, cube size) on gloo sharing the card; the CG
-# solution against the single-device one of this run
-RANKS_RUNS = ((2, MEM_SIZE), (4, SIZE))
+# the rank path: launches of (ranks, rank grid, runs of (dim, cube size))
+# on gloo sharing the card; the CG solution against the single-device one
+# of this run
+RANKS_RUNS = ((2, (2,), ((3, MEM_SIZE),)),
+              (4, (2, 2), ((3, SIZE), (2, CUBE2_SIZE))))
 RANKS_SOL_BAR = 1e-7       # of max|u|
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"
-# the DG rank path: (solver, ranks, size, kind) on gloo sharing the card,
-# p = 4, n_pre 3 (``experiments/time_ranks.py``'s DG rows), each against
-# its one-device row of this run; HaloDGLaplace2D on 2 x 2 ranks at
+# the DG rank path: launches of (ranks, rank grid, runs of (solver, size,
+# kind)) on gloo sharing the card, p = 4, n_pre 3
+# (``experiments/time_ranks.py``'s DG rows), each against its one-device
+# row of this run (DG-over-CG on 2 x 2 at size 32: every FE_Q level above
+# the coarsest two splits); the 2 x 2 launch also runs HaloDGLaplace2D at
 # DG_RANKS_2D^3 cells; one nccl rank of each solver at DG_RANKS_SINGLE
-DG_RANKS_RUNS = (("dg", 2, 64, "hermite"), ("dg-plain", 4, DG_SIZE, "gauss"))
+DG_RANKS_RUNS = ((2, (2,), (("dg", 64, "hermite"),)),
+                 (4, (2, 2), (("dg-plain", DG_SIZE, "gauss"),
+                              ("dg", 32, "hermite"))))
 DG_RANKS_2D = DG_SIZE
 DG_RANKS_SINGLE = 24
+NCCL_DG = (("dg", "hermite"), ("dg-plain", "gauss"))
 DG_HERMITE_BAR = 1e-12     # of max|y|, f64: the hermite wire's owned cells
 
 
@@ -1061,14 +1072,15 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     launches[degree_path(8, "matvec_dg")], launches["matvec_dg_plain"] = (
         matvec_rows_path(dev))
     lap("matvec_dg rows")
-    launches["poisson_cube_2d"] = cube_2d_path(dev, card)
+    launches["poisson_cube_2d"], cube2_row = cube_2d_path(dev, card)
     lap("poisson_cube_2d")
     launches["poisson_dg_2d"] = dg_2d_path(dev, card)
     lap("poisson_dg_2d")
     launches["poisson_cube_135M"], big_row = utils_path(dev, card)
     lap("poisson_cube_135M")
     launches["poisson_cube_ranks"] = ranks_path(
-        dev, card, {SIZE: cube_row, MEM_SIZE: big_row})
+        dev, card, {(3, SIZE): cube_row, (3, MEM_SIZE): big_row,
+                    (2, CUBE2_SIZE): cube2_row})
     lap("poisson_cube_ranks")
     launches["poisson_dg_ranks"] = dg_ranks_path(dev, card, dg_err)
     lap("poisson_dg_ranks")
@@ -1965,10 +1977,11 @@ def matvec_rows_path(dev) -> tuple[dict, dict]:
     return launches[0], launches[1]
 
 
-def cube_2d_path(dev, card) -> dict:
+def cube_2d_path(dev, card):
     """poisson_cube --dim 2: size 4 on the card against the CPU, then size
     64 (512^2 cells, 4,198,401 dofs): its and reductions; returns the
-    device kernels launched by the size-64 solves."""
+    device kernels launched by the size-64 solves and the size-64 row (its
+    CG solution saved for the rank path)."""
     from multigrid_tpu_torch.experiments.poisson_cube import build_solver
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
 
@@ -2007,7 +2020,11 @@ def cube_2d_path(dev, card) -> dict:
             f"2-D cube size {CUBE2_SIZE}: {its} its, {cg_red}, {reduction}")
     require(np.isfinite(fmg_l2) and cg_l2 < L2_BOUND,
             f"2-D cube L2 {fmg_l2}, {cg_l2}")
-    return launches
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    cg_file = SCRATCH / f"cube2d{CUBE2_SIZE}_cg.npy"
+    np.save(cg_file, sol_cg.cpu().numpy())
+    return launches, dict(reduction=reduction, cg_reduction=cg_red,
+                          fmg_L2error=fmg_l2, cg_its=its, cg_file=cg_file)
 
 
 def dg_2d_path(dev, card) -> dict:
@@ -2151,82 +2168,92 @@ def utils_path(dev, card):
                           fmg_L2error=fmg_l2, cg_its=its, cg_file=cg_file)
 
 
+def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
+              card: str) -> None:
+    """Print one poisson_cube rank row (``cube_program``'s output) and hold
+    it to the single-device row ``ref`` of this run; removes the saved
+    one-device CG solution."""
+    label = (f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card), "
+             f"{dim}-D size {size}, {out['dofs']} dofs")
+    print(f"{label}: levels split {out['levels']}, finest cuts "
+          f"{out['bounds'][-1]}")
+    print(f"  set-up {out['setup_time']:.2f} s, FMG {out['fmg_time']:.4f}"
+          f" s (runs {', '.join(f'{t:.4f}' for t in out['fmg_times'])}),"
+          f" CG {out['cg_time']:.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in out['cg_times'])}), peak "
+          f"device memory of a rank {int(out['peak_bytes'])} bytes [{card}]")
+    print(f"  FMG L2 {out['fmg_L2error']:.4e} (one device "
+          f"{ref['fmg_L2error']:.4e}), V-cycle reduction "
+          f"{out['reduction']:.4e} ({ref['reduction']:.4e}), CG "
+          f"{out['cg_its']} its, reduction {out['cg_reduction']:.4e} "
+          f"({ref['cg_reduction']:.4e}), CG L2 {out['cg_L2error']:.4e}")
+    print(f"  CG solution against one device's: max diff "
+          f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, "
+          f"bar {RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
+          f"{out['cg_repeat_equal']}")
+    if dim == 3:
+        comm = out["comm"]
+        print(f"  f64 vmult of the finest level: "
+              f"{comm['total'] * 1e3:.3f} ms with the ghost refresh, "
+              f"{comm['cell_loop'] * 1e3:.3f} ms without; exchange "
+              f"share {comm['comm_fraction']:.3f}; rank 0's refresh: "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                          comm["steps"].items())
+              + f"; bytes a refresh by stage {comm['bytes_by_stage']} "
+              f"[{card}]")
+        for k, v in out["apply"].items():
+            print(f"  distributed {k} on the owned nodes vs BrickLaplace "
+                  f"on the whole grid: bit for bit {v['equal']}, max diff "
+                  f"{v['max_diff']:.3e} (max|y| {v['scale']:.3e})")
+        require(all(v["equal"] for v in out["apply"].values()),
+                f"{label}: the owned nodes of the apply differ")
+    require(out["cg_its"] == CG_ITS, f"{label}: cg_its {out['cg_its']}")
+    for key in ("cg_reduction", "reduction", "fmg_L2error"):
+        require(abs(out[key] / ref[key] - 1) <= ROW_TOL,
+                f"{label}: {key} {out[key]:.4e} vs {ref[key]:.4e}")
+    require(out["cg_ref_diff"] <= RANKS_SOL_BAR * out["cg_ref_max"],
+            f"{label}: CG solution off by {out['cg_ref_diff']:.3e}")
+    require(out["cg_repeat_equal"], f"{label}: CG solves differ")
+    require(any(out["levels"]) and not all(out["levels"]),
+            f"{label}: no level split or none replicated")
+    require(tuple(out["grid"]) == grid, f"{label}: grid {out['grid']}")
+    ref["cg_file"].unlink()
+
+
 def ranks_path(dev, card, rows) -> dict:
     """poisson_cube on several ranks of torch.distributed sharing the card
-    (gloo, the planes staged through pinned host memory): 2 ranks at size
-    128 and 4 at size 64 against the single-device rows of this run
-    (``rows``: cube size -> that row); the owned planes of the distributed
-    apply against ``BrickLaplace`` on the whole grid; one rank on nccl
-    against the single-device solver's bits.  Returns the device kernels
-    launched by the solves, summed over the ranks."""
+    (gloo, the planes staged through pinned host memory): 2 z-slab ranks
+    at size 128, then a 2 x 2 grid at size 64 and a 2-D 2 x 2 grid at size
+    64 in one launch (``RANKS_RUNS``), against the single-device rows of
+    this run (``rows``: (dim, cube size) -> that row); the owned nodes of
+    the distributed 3-D apply (corners included) against ``BrickLaplace``
+    on the whole grid; one rank on nccl against the single-device solver's
+    bits.  Returns the device kernels launched by the solves, summed over
+    the ranks.  (A gloo send of a CUDA tensor aborts the sender: whence
+    the staging.)"""
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
-    from multigrid_tpu_torch.parallel.programs import cube_program, p2p_probe
+    from multigrid_tpu_torch.parallel.programs import cube_program, programs
     from multigrid_tpu_torch.parallel.sharding import launch
 
-    # PyTorch's backend table gives gloo no send/recv of CUDA tensors,
-    # whence the staging; whether it refuses, fails or works is printed
-    try:
-        probe = launch(p2p_probe, 2, "gloo", "cuda", timeout_s=120)
-    except RuntimeError as e:
-        lines = str(e).strip().splitlines()
-        probe = f"{lines[0]} {lines[-1]}"
-    print(f"gloo send/recv of a CUDA tensor between two ranks on the card: "
-          f"{probe}")
     total = {}
 
     def add(launches):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
 
-    for n, size in RANKS_RUNS:
-        ref = rows[size]
+    for n, grid, runs in RANKS_RUNS:
         t0 = time.perf_counter()
-        out = launch(cube_program, n, "gloo", "cuda",
-                     args=(poisson_cube_mesh(size),),
-                     kwargs=dict(reps=2, reference=str(ref["cg_file"]),
-                                 apply_seed=3, comm_reps=10))
-        wall = time.perf_counter() - t0
-        add(out["launches"])
-        label = f"{n} ranks (gloo, one card), size {size}, {out['dofs']} dofs"
-        print(f"{label}: levels split {out['levels']}, finest cuts "
-              f"{out['bounds'][-1]}; launch {wall:.1f} s")
-        print(f"  set-up {out['setup_time']:.2f} s, FMG {out['fmg_time']:.4f}"
-              f" s (runs {', '.join(f'{t:.4f}' for t in out['fmg_times'])}),"
-              f" CG {out['cg_time']:.4f} s (runs "
-              f"{', '.join(f'{t:.4f}' for t in out['cg_times'])}), peak "
-              f"device memory of a rank {int(out['peak_bytes'])} bytes [{card}]")
-        print(f"  FMG L2 {out['fmg_L2error']:.4e} (one device "
-              f"{ref['fmg_L2error']:.4e}), V-cycle reduction "
-              f"{out['reduction']:.4e} ({ref['reduction']:.4e}), CG "
-              f"{out['cg_its']} its, reduction {out['cg_reduction']:.4e} "
-              f"({ref['cg_reduction']:.4e}), CG L2 {out['cg_L2error']:.4e}")
-        print(f"  CG solution against one device's: max diff "
-              f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, "
-              f"bar {RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
-              f"{out['cg_repeat_equal']}")
-        comm = out["comm"]
-        print(f"  f64 vmult of the finest level: {comm['total'] * 1e3:.3f} "
-              f"ms with the ghost refresh, {comm['cell_loop'] * 1e3:.3f} ms "
-              f"without; exchange share {comm['comm_fraction']:.3f}; rank 0's"
-              f" refresh: " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
-                                         comm["steps"].items())
-              + f" [{card}]")
-        for k, v in out["apply"].items():
-            print(f"  distributed {k} on the owned planes vs BrickLaplace on "
-                  f"the whole grid: bit for bit {v['equal']}, max diff "
-                  f"{v['max_diff']:.3e} (max|y| {v['scale']:.3e})")
-        require(out["cg_its"] == CG_ITS, f"{label}: cg_its {out['cg_its']}")
-        for key in ("cg_reduction", "reduction", "fmg_L2error"):
-            require(abs(out[key] / ref[key] - 1) <= ROW_TOL,
-                    f"{label}: {key} {out[key]:.4e} vs {ref[key]:.4e}")
-        require(out["cg_ref_diff"] <= RANKS_SOL_BAR * out["cg_ref_max"],
-                f"{label}: CG solution off by {out['cg_ref_diff']:.3e}")
-        require(out["cg_repeat_equal"], f"{label}: CG solves differ")
-        require(all(v["equal"] for v in out["apply"].values()),
-                f"{label}: the owned planes of the apply differ")
-        require(any(out["levels"]) and not all(out["levels"]),
-                f"{label}: no level split or none replicated")
-        ref["cg_file"].unlink()
+        outs = launch(programs, n, "gloo", "cuda", args=([
+            (cube_program, (poisson_cube_mesh(size, dim),),
+             dict(reps=2, reference=str(rows[dim, size]["cg_file"]),
+                  apply_seed=3 if dim == 3 else None,
+                  comm_reps=10 if dim == 3 else 0, shape=grid))
+            for dim, size in runs],))
+        print(f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card): "
+              f"launch {time.perf_counter() - t0:.1f} s")
+        for (dim, size), out in zip(runs, outs):
+            ranks_row(out, rows[dim, size], n, grid, dim, size, card)
+            add(out["launches"])
     # one rank on nccl: the single-device solver, bit for bit
     t0 = time.perf_counter()
     out = launch(cube_program, 1, "nccl", "cuda",
@@ -2239,6 +2266,75 @@ def ranks_path(dev, card, rows) -> dict:
     require(out["single"]["fmg_equal"] and out["single"]["cg_equal"],
             "one rank on nccl differs from the single-device solver")
     return total
+
+
+def dg_ranks_row(out: dict, ref: dict, path: str, n: int, grid, size: int,
+                 dg_err: float, card: str) -> None:
+    """Print one DG rank row (``dg_program``'s output) and hold it to its
+    one-device row ``ref`` of this run and to the DG guards."""
+    from multigrid_tpu_torch.experiments import time_ranks
+
+    label = (f"{path} on {n} ranks ({'x'.join(map(str, grid))}, gloo, "
+             f"one card), size {size}, {out['dg_dofs']} DG dofs")
+    print(f"{label}: levels split {out['levels']}, finest cuts "
+          f"{out['bounds']}")
+    print(f"  set-up {out['setup_time']:.2f} s, CG {out['cg_time']:.4f} s"
+          f" (runs {', '.join(f'{t:.4f}' for t in out['cg_times'])}; one "
+          f"device {ref['cg_time']:.4f}), peak device memory of a rank "
+          f"{int(out['peak_bytes'])} bytes [{card}]")
+    print(f"  frac its {out['frac_its']:.6f} (one device "
+          f"{ref['frac_its']:.6f}), rate {out['rate']:.6e} "
+          f"({ref['rate']:.6e}), L2 {out['L2']:.9e} ({ref['L2']:.9e})")
+    print(f"  CG solution against one device's: max diff "
+          f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, bar "
+          f"{RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
+          f"{out['cg_repeat_equal']}")
+    for k, v in out["apply"].items():
+        print(f"  slab {k} on the owned cells vs the whole grid: bit for "
+              f"bit {v['equal']}, max diff {v['max_diff']:.3e} (max|y| "
+              f"{v['scale']:.3e})")
+    for wire, comm in out["comm"].items():
+        print(f"  f32 apply of the finest level, {wire} wire: "
+              f"{time_ranks.comm_line(comm)} [{card}]")
+    require(time_ranks.dg_row_ok(out, ref), f"{label}: off its one-device row")
+    require(tuple(out["grid"]) == grid, f"{label}: grid {out['grid']}")
+    if path == "dg" and len(grid) == 2:
+        # the FE_Q hierarchy on the rank grid: all but the coarsest two
+        # levels split
+        fe = out["levels"][1:]
+        require(out["levels"][0] and fe == [False, False]
+                + [True] * (len(fe) - 2),
+                f"{label}: levels split {out['levels']}")
+    elif path == "dg":
+        require(DG_ITS[0] <= out["frac_its"] <= DG_ITS[1]
+                and DG_RATE[0] <= out["rate"] <= DG_RATE[1]
+                and abs(out["L2"] - DG_L2) <= DG_L2_TOL,
+                f"{label}: outside the DG guard")
+    else:
+        require(abs(out["L2"] / dg_err - 1) <= PLAIN_AGREE
+                and out["rate"] < PLAIN_RATE,
+                f"{label}: L2 {out['L2']:.9e} vs poisson_dg "
+                f"{dg_err:.9e}, rate {out['rate']:.4e}")
+    require(any(out["levels"]), f"{label}: no level split")
+
+
+def halo_row(outs, halo_grid, grid, card: str) -> None:
+    """Print and check ``HaloDGLaplace2D`` on the rank grid ``grid``, both
+    wires (``dg_halo_program``'s output)."""
+    from multigrid_tpu_torch.experiments import time_ranks
+
+    print(f"HaloDGLaplace2D on {' x '.join(map(str, grid))} ranks, "
+          f"{halo_grid.n_dofs} DG dofs (gauss p = 4)")
+    for wire, out in zip(("traces", "hermite"), outs):
+        w, pl = out["vmult_whole"], out["vmult_plain_whole"]
+        print(f"  {wire} wire: owned cells vs DGOperator on the whole grid: "
+              f"bit for bit {w['equal']}, max diff {w['max_diff']:.3e}; the "
+              f"plain algorithm {pl['max_diff']:.3e} (max|y| {w['scale']:.3e})"
+              f"; f64 apply {time_ranks.comm_line(out['comm'])} [{card}]")
+        bar = 0.0 if wire == "traces" else DG_HERMITE_BAR * w["scale"]
+        require(w["max_diff"] <= bar and pl["max_diff"]
+                <= DG_HERMITE_BAR * pl["scale"],
+                f"HaloDGLaplace2D {wire} wire: off the whole grid")
 
 
 def dg_ranks_path(dev, card, dg_err: float) -> dict:
@@ -2254,7 +2350,8 @@ def dg_ranks_path(dev, card, dg_err: float) -> dict:
     from multigrid_tpu_torch.experiments import time_ranks
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.parallel.programs import (dg_halo_program,
-                                                       dg_programs)
+                                                       dg_program, dg_programs,
+                                                       programs)
     from multigrid_tpu_torch.parallel.sharding import launch
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
@@ -2265,85 +2362,49 @@ def dg_ranks_path(dev, card, dg_err: float) -> dict:
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
 
-    for path, n, size, kind in DG_RANKS_RUNS:
-        ref_file = SCRATCH / f"{path}{size}_cg.npy"
-        t0 = time.perf_counter()
-        ref = time_ranks.one_device_dg(size, path, dev, ref_file)
-        torch.cuda.empty_cache()
-        print(f"{path} size {size}, one device: {ref['dg_dofs']} DG dofs, "
-              f"frac its {ref['frac_its']:.6f}, rate {ref['rate']:.6e}, L2 "
-              f"{ref['L2']:.9e}, CG {ref['cg_time']:.4f} s; "
-              f"{time.perf_counter() - t0:.1f} s with set-up [{card}]")
-        t0 = time.perf_counter()
-        (out,) = launch(dg_programs, n, "gloo", "cuda",
-                        args=(poisson_cube_mesh(size),
-                              [time_ranks.dg_kwargs(path, ref_file)]))
-        wall = time.perf_counter() - t0
-        add(out["launches"])
-        label = (f"{path} on {n} ranks (gloo, one card), size {size}, "
-                 f"{out['dg_dofs']} DG dofs")
-        print(f"{label}: levels split {out['levels']}, finest cuts "
-              f"{out['bounds']}; launch {wall:.1f} s")
-        print(f"  set-up {out['setup_time']:.2f} s, CG {out['cg_time']:.4f} s"
-              f" (runs {', '.join(f'{t:.4f}' for t in out['cg_times'])}; one "
-              f"device {ref['cg_time']:.4f}), peak device memory of a rank "
-              f"{int(out['peak_bytes'])} bytes [{card}]")
-        print(f"  frac its {out['frac_its']:.6f} (one device "
-              f"{ref['frac_its']:.6f}), rate {out['rate']:.6e} "
-              f"({ref['rate']:.6e}), L2 {out['L2']:.9e} ({ref['L2']:.9e})")
-        print(f"  CG solution against one device's: max diff "
-              f"{out['cg_ref_diff']:.3e}, max|u| {out['cg_ref_max']:.4e}, bar "
-              f"{RANKS_SOL_BAR:g} * max|u|; two CG solves bit for bit "
-              f"{out['cg_repeat_equal']}")
-        for k, v in out["apply"].items():
-            print(f"  slab {k} on the owned cells vs the whole grid: bit for "
-                  f"bit {v['equal']}, max diff {v['max_diff']:.3e} (max|y| "
-                  f"{v['scale']:.3e})")
-        for wire, comm in out["comm"].items():
-            print(f"  f32 apply of the finest level, {wire} wire: "
-                  f"{time_ranks.comm_line(comm)} [{card}]")
-        require(time_ranks.dg_row_ok(out, ref),
-                f"{label}: off its one-device row")
-        if path == "dg":
-            require(DG_ITS[0] <= out["frac_its"] <= DG_ITS[1]
-                    and DG_RATE[0] <= out["rate"] <= DG_RATE[1]
-                    and abs(out["L2"] - DG_L2) <= DG_L2_TOL,
-                    f"{label}: outside the DG guard")
-        else:
-            require(abs(out["L2"] / dg_err - 1) <= PLAIN_AGREE
-                    and out["rate"] < PLAIN_RATE,
-                    f"{label}: L2 {out['L2']:.9e} vs poisson_dg "
-                    f"{dg_err:.9e}, rate {out['rate']:.4e}")
-        require(any(out["levels"]), f"{label}: no level split")
-        ref_file.unlink()
-    # the ('z', 'y') split of the operator at full width, both wires
+    # the ('z', 'y') split of the operator at full width, both wires, in
+    # the 2 x 2 launch
     mesh = poisson_cube_mesh(DG_RANKS_2D)
-    grid = dg_grid_from_mesh(mesh, mesh.max_level, 4, "gauss")
-    t0 = time.perf_counter()
-    outs = launch(dg_halo_program, 4, "gloo", "cuda",
-                  args=([(grid, 5, wire, (2, 2))
-                         for wire in ("traces", "hermite")],),
-                  kwargs=dict(collect=False, whole=True, comm_reps=5))
-    print(f"HaloDGLaplace2D on 2 x 2 ranks, {grid.n_dofs} DG dofs (gauss p = "
-          f"4): launch {time.perf_counter() - t0:.1f} s")
-    for wire, out in zip(("traces", "hermite"), outs):
-        w, pl = out["vmult_whole"], out["vmult_plain_whole"]
-        print(f"  {wire} wire: owned cells vs DGOperator on the whole grid: "
-              f"bit for bit {w['equal']}, max diff {w['max_diff']:.3e}; the "
-              f"plain algorithm {pl['max_diff']:.3e} (max|y| {w['scale']:.3e})"
-              f"; f64 apply {time_ranks.comm_line(out['comm'])} [{card}]")
-        bar = 0.0 if wire == "traces" else DG_HERMITE_BAR * w["scale"]
-        require(w["max_diff"] <= bar and pl["max_diff"]
-                <= DG_HERMITE_BAR * pl["scale"],
-                f"HaloDGLaplace2D {wire} wire: off the whole grid")
+    halo_grid = dg_grid_from_mesh(mesh, mesh.max_level, 4, "gauss")
+    for n, grid, runs in DG_RANKS_RUNS:
+        refs = []
+        for path, size, _ in runs:
+            ref_file = SCRATCH / f"{path}{size}_cg.npy"
+            t0 = time.perf_counter()
+            ref = time_ranks.one_device_dg(size, path, dev, ref_file)
+            torch.cuda.empty_cache()
+            print(f"{path} size {size}, one device: {ref['dg_dofs']} DG dofs,"
+                  f" frac its {ref['frac_its']:.6f}, rate {ref['rate']:.6e}, "
+                  f"L2 {ref['L2']:.9e}, CG {ref['cg_time']:.4f} s; "
+                  f"{time.perf_counter() - t0:.1f} s with set-up [{card}]")
+            refs.append((ref, ref_file))
+        calls = [(dg_program, (poisson_cube_mesh(size),),
+                  time_ranks.dg_kwargs(path, ref_file, shape=grid))
+                 for (path, size, _), (_, ref_file) in zip(runs, refs)]
+        halo = len(grid) == 2
+        if halo:
+            calls.append((dg_halo_program, ([(halo_grid, 5, wire, grid)
+                                             for wire in ("traces",
+                                                          "hermite")],),
+                          dict(collect=False, whole=True, comm_reps=5)))
+        t0 = time.perf_counter()
+        outs = launch(programs, n, "gloo", "cuda", args=(calls,))
+        print(f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card): "
+              f"launch {time.perf_counter() - t0:.1f} s")
+        for (path, size, _), (ref, ref_file), out in zip(runs, refs, outs):
+            dg_ranks_row(out, ref, path, n, grid, size, dg_err, card)
+            add(out["launches"])
+            ref_file.unlink()
+        if halo:
+            halo_row(outs[-1], halo_grid, grid, card)
     # one rank on nccl: the single-device solvers, bit for bit
     t0 = time.perf_counter()
     outs = launch(dg_programs, 1, "nccl", "cuda",
                   args=(poisson_cube_mesh(DG_RANKS_SINGLE),
                         [dict(path=path, degree=4, kind=kind, n_pre=3,
                               single=True)
-                         for path, _, _, kind in DG_RANKS_RUNS]))
-    for (path, _, _, _), out in zip(DG_RANKS_RUNS, outs):
+                         for path, kind in NCCL_DG]))
+    for (path, _), out in zip(NCCL_DG, outs):
         add(out["launches"])
         print(f"1 rank (nccl), {path} size {DG_RANKS_SINGLE}: CG bit for bit "
               f"{out['single']['cg_equal']}, L2 bit for bit "

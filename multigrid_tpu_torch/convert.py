@@ -373,9 +373,9 @@ def load_state(solver, state: dict) -> None:
     for l in range(len(solver.grids)):
         if "rhs" in state:
             rhs = np.asarray(state["rhs"][l], np.float64)
-            planes = solver.planes(l) if ranked else None
-            if planes is not None:
-                rhs = rhs[planes[0]:planes[1]]
+            box = solver.stored_index(l) if ranked else None
+            if box is not None:
+                rhs = rhs[box]
             solver.rhs[l] = t(rhs, f_dtype)
         if "u_bc" in state:
             solver.u_bc[l] = (solver.local_faces(l, state["u_bc"][l]) if ranked

@@ -19,13 +19,19 @@ CUDA device, and the driver stops with an error when there is none;
 PyTorch operators.
 
 ``--devices N`` (N > 1; 0 and 1 mean one device, as in the JAX driver)
-runs every row on N ranks of ``torch.distributed``, one process a rank,
-each level split into z-slabs where every rank gets two cells
-(``parallel.distributed.DistributedMultigrid``): rank r on
+runs every row on N ranks of ``torch.distributed``, one process a rank
+(``parallel.distributed.DistributedMultigrid``): the ranks form the JAX
+experiment's grid (``parallel.sharding.default_grid``: z-slabs below 4 ranks,
+a z x y grid from 4 on, 4 -> 2 x 2, 8 -> 2 x 4), and each level splits
+into boxes where every rank gets two cells along each split axis; a 2-D
+brick splits its two axes the same way.  Rank r runs on
 ``cuda:(r % cards)``, or the CPU with ``--device cpu``.  ``--backend``
 is ``nccl`` (a card for every rank; fewer cards raise) or ``gloo`` (the
 CPU, or ranks that share cards).  Rank 0 prints each row with the world
-size and backend; the rows carry no matvec columns.
+size, grid and backend; the rows carry no matvec columns.  With
+``--output`` every rank's owned nodes of the FMG solution are gathered
+and rank 0 writes the file, under the same size guard.  ``--deform``
+runs on one device only.
 """
 
 from __future__ import annotations
@@ -192,18 +198,33 @@ def run_cycle(mesh: BrickMesh, degree: int, n_cycles: int, n_pre: int,
 
 
 def rank_ladder(ranks, meshes, degree: int, n_cycles: int, n_pre: int,
-                reps: int = 3) -> list:
+                reps: int = 3, shape=None, output_dir: str = "") -> list:
     """The rows of ``meshes`` on the ranks (``parallel.sharding.launch``
-    runs it on every rank); rank 0 prints each row as it ends."""
+    runs it on every rank) on the rank grid ``shape``; rank 0 prints each
+    row as it ends and, with ``output_dir``, writes its FMG solution as
+    ``solution_<dofs>.vtr`` while the grid is under the size guard."""
+    from ..mesh.brick import DofGrid
     from ..parallel.programs import cube_program
+    from ..utils.vtk import SIZE_GUARD
 
     rows = []
     for mesh in meshes:
-        row = cube_program(ranks, mesh, degree, n_cycles, n_pre, reps=reps)
+        grid = DofGrid(mesh, mesh.max_level, degree)
+        dump = bool(output_dir) and grid.n_dofs <= SIZE_GUARD
+        row = cube_program(ranks, mesh, degree, n_cycles, n_pre, reps=reps,
+                           shape=shape, collect=dump)
         row.pop("launches")
+        fmg = row.pop("fmg", None)
+        row.pop("cg", None)
         if ranks.rank == 0:
-            print({k: v for k, v in row.items() if k not in ("bounds",)},
-                  flush=True)
+            if dump:
+                os.makedirs(output_dir, exist_ok=True)
+                path = os.path.join(output_dir,
+                                    f"solution_{grid.n_dofs}.vtr")
+                write_solution(path, grid, fmg, exact_fn)
+                _phase(f"wrote {path}")
+            print({k: v for k, v in row.items()
+                   if k not in ("bounds", "foreign")}, flush=True)
         rows.append(row)
     return rows
 
@@ -265,8 +286,9 @@ def main(argv=None):
                     help="directory for .vtr solution dumps (size-guarded "
                          "like the reference's output_results)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="run each row on this many ranks (z-slabs, one "
-                         "process a rank); 0 or 1: one device")
+                    help="run each row on this many ranks (one process a "
+                         "rank; z-slabs below 4 ranks, a z x y grid from 4 "
+                         "on); 0 or 1: one device")
     ap.add_argument("--backend", default="nccl", choices=["nccl", "gloo"],
                     help="torch.distributed backend of --devices: nccl (a "
                          "card for every rank) or gloo (the CPU, or ranks "
@@ -276,9 +298,8 @@ def main(argv=None):
     if ranked:
         from ..parallel.sharding import check_backend
 
-        if args.deform or args.dim != 3 or args.output:
-            raise SystemExit("--devices runs the 3-D brick rows only (no "
-                             "--deform, --dim 2 or --output)")
+        if args.deform:
+            raise SystemExit("--devices runs the brick rows (no --deform)")
         check_backend(args.backend, args.devices, args.device)
     device = driver_device(args.device)
     if args.deform:
@@ -305,15 +326,17 @@ def main(argv=None):
                               args.n_pre_smooth, args.n_post_smooth,
                               device=device, output_dir=args.output))
     if ranked:
-        from ..parallel.sharding import launch
+        from ..parallel.sharding import default_grid, launch
 
         if args.n_pre_smooth != args.n_post_smooth:
             raise SystemExit("the reference requires equal pre/post degree")
-        print(f"# {args.devices} ranks, backend {args.backend}, device "
-              f"{device.type}", flush=True)
+        shape = default_grid(args.devices)
+        print(f"# {args.devices} ranks, grid {'x'.join(map(str, shape))}, "
+              f"backend {args.backend}, device {device.type}", flush=True)
         rows = launch(rank_ladder, args.devices, args.backend, device.type,
                       args=(meshes, args.degree, args.n_mg_cycles,
-                            args.n_pre_smooth))
+                            args.n_pre_smooth),
+                      kwargs=dict(shape=shape, output_dir=args.output))
     print_convergence_table(rows, dim=args.dim)
     return rows
 

@@ -5,15 +5,22 @@ backend.
         --backends nccl gloo
     python -m multigrid_tpu_torch.experiments.time_ranks 64 --path dg \\
         --ranks 4 --backends nccl gloo
+    python -m multigrid_tpu_torch.experiments.time_ranks 64 --ranks 4 \\
+        --grid 4 --backends gloo
 
 For each cube size: the one-device row on the first card (FMG, V-cycle
 reduction, FMG L2, CG its, reduction and wall, the CG solution saved under
 ``build/time_ranks/``), then the same row on ``--ranks`` ranks
 (``parallel.programs.cube_program``: set-up, FMG and CG walls of two
 solves each, the CG solution against the one-device one, two CG solves
-and the owned planes of the distributed apply bit for bit, the exchange
-split of the f64 vmult and its refresh by step, the peak device memory of
-a rank) for each backend in turn.  Rank r runs on ``cuda:(r % cards)``:
+and the owned nodes of the distributed apply bit for bit, the exchange
+split of the f64 vmult, its refresh by step and the bytes a refresh by
+stage, the peak device memory of a rank) for each backend in turn.  The
+ranks form the grid ``--grid NZxNY`` (or ``--grid N``, z-slabs; default:
+the experiments' rule, ``parallel.sharding.default_grid``: z-slabs below 4
+ranks, 4 -> 2x2); on a z x y grid a refresh has two stages, the y rows
+then the z planes, and its steps are named by them ("y wire", "z
+wire").  Rank r runs on ``cuda:(r % cards)``:
 with as many cards as ranks, each rank has its own; ``nccl`` needs that.
 A row is ``ok`` when its its, reductions and FMG L2 are the one-device
 row's within 3%, its CG solution within 1e-7 of max|u|, and the bit for
@@ -47,7 +54,7 @@ import torch
 from ..devices import card_line
 from ..mesh.brick import poisson_cube_mesh
 from ..parallel.programs import cube_program, dg_program
-from ..parallel.sharding import launch
+from ..parallel.sharding import default_grid, launch, parse_grid
 from .poisson_cube import build_solver, exact_fn, rhs_fn
 
 OUT = Path(__file__).resolve().parents[2] / "build" / "time_ranks"
@@ -124,21 +131,32 @@ def dg_row_ok(out: dict, ref: dict) -> bool:
                     for k, v in out["apply"].items()))
 
 
-def dg_kwargs(path: str, reference: Path, comm_reps: int = 10) -> dict:
-    """``dg_program``'s keywords for a DG row of ``path``."""
+def dg_kwargs(path: str, reference: Path, comm_reps: int = 10,
+              shape=None) -> dict:
+    """``dg_program``'s keywords for a DG row of ``path`` on the rank grid
+    ``shape``."""
     kind, wires = DG_PATHS[path]
     return dict(path=path, degree=DG_DEGREE, kind=kind, n_pre=DG_N_PRE,
                 tolerance=DG_RTOL, reps=2, reference=str(reference),
-                apply_seed=3, comm_reps=comm_reps, comm_wires=wires)
+                apply_seed=3, comm_reps=comm_reps, comm_wires=wires,
+                shape=shape)
 
 
 def comm_line(comm: dict) -> str:
     """One wire's exchange split: the apply with and without the refresh,
-    the share, this rank's refresh by step, the bytes a refresh."""
+    the share, this rank's refresh by step, the bytes a refresh (by stage
+    where it has stages)."""
+    stages = comm.get("bytes_by_stage")
+    by = "" if not stages or len(stages) < 2 else " (" + ", ".join(
+        f"{k} {v}" for k, v in stages.items()) + ")"
     return (f"{comm['total'] * 1e3:.3f} / {comm['cell_loop'] * 1e3:.3f} ms, "
             f"share {comm['comm_fraction']:.3f}, refresh "
             + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in comm["steps"].items())
-            + f" ms, {comm['bytes']} B")
+            + f" ms, {comm['bytes']} B{by}")
+
+
+def grid_name(shape) -> str:
+    return "x".join(str(n) for n in shape)
 
 
 def run_dg(args, dev) -> int:
@@ -153,10 +171,11 @@ def run_dg(args, dev) -> int:
             t0 = time.perf_counter()
             out = launch(dg_program, args.ranks, backend, args.device,
                          args=(poisson_cube_mesh(size),),
-                         kwargs=dg_kwargs(args.path, path))
+                         kwargs=dg_kwargs(args.path, path, shape=args.grid))
             ok = dg_row_ok(out, ref)
             failed += not ok
-            print(f"{args.path} size {size}, {args.ranks} ranks, {backend}: "
+            print(f"{args.path} size {size}, {args.ranks} ranks "
+                  f"({grid_name(args.grid)}), {backend}: "
                   f"ok {ok}; levels split {out['levels']}, cuts "
                   f"{out['bounds']}; launch {time.perf_counter() - t0:.1f} s, "
                   f"set-up {out['setup_time']:.2f} s, CG "
@@ -182,10 +201,18 @@ def main(argv=None) -> int:
     ap.add_argument("sizes", type=int, nargs="*")
     ap.add_argument("--path", default="cube", choices=["cube", *DG_PATHS])
     ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--grid", type=parse_grid, default=None,
+                    help="rank grid NZxNY or N (default: z-slabs below 4 "
+                         "ranks, a z x y grid from 4 on)")
     ap.add_argument("--backends", nargs="+", default=["nccl", "gloo"],
                     choices=["nccl", "gloo"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.grid is None:
+        args.grid = default_grid(args.ranks)
+    if int(np.prod(args.grid)) != args.ranks:
+        raise SystemExit(f"--grid {grid_name(args.grid)} is not "
+                         f"{args.ranks} ranks")
     dev = torch.device("cuda", 0) if args.device == "cuda" else \
         torch.device("cpu")
     if dev.type == "cuda":
@@ -212,11 +239,13 @@ def main(argv=None) -> int:
             out = launch(cube_program, args.ranks, backend, args.device,
                          args=(poisson_cube_mesh(size),),
                          kwargs=dict(reps=2, reference=str(path),
-                                     apply_seed=3, comm_reps=10))
+                                     apply_seed=3, comm_reps=10,
+                                     shape=args.grid))
             ok = row_ok(out, ref)
             failed += not ok
             comm = out["comm"]
-            print(f"size {size}, {args.ranks} ranks, {backend}: ok {ok}; "
+            print(f"size {size}, {args.ranks} ranks ({grid_name(args.grid)}),"
+                  f" {backend}: ok {ok}; "
                   f"levels split {out['levels']}; launch "
                   f"{time.perf_counter() - t0:.1f} s, set-up "
                   f"{out['setup_time']:.2f} s, FMG "
@@ -226,12 +255,8 @@ def main(argv=None) -> int:
                   f"{out['cg_reduction']:.6e}, V-cycle reduction "
                   f"{out['reduction']:.6e}, FMG L2 {out['fmg_L2error']:.6e}; "
                   f"CG solution max diff {out['cg_ref_diff']:.3e} of "
-                  f"{out['cg_ref_max']:.4e}; f64 vmult "
-                  f"{comm['total'] * 1e3:.3f} ms, without the refresh "
-                  f"{comm['cell_loop'] * 1e3:.3f} ms, exchange share "
-                  f"{comm['comm_fraction']:.3f}, rank 0's refresh "
-                  + ", ".join(f"{k} {v * 1e3:.3f} ms"
-                              for k, v in comm["steps"].items())
+                  f"{out['cg_ref_max']:.4e}; f64 vmult, rank 0's refresh: "
+                  f"{comm_line(comm)}"
                   + (f"; peak device memory of a rank "
                      f"{int(out['peak_bytes'])} bytes"
                      if "peak_bytes" in out else ""), flush=True)

@@ -12,8 +12,9 @@ coefficient fast path (reference common/laplace_operator.h:374-387).
 
 Axis order is (z, y, x) slowest-to-fastest, i.e. arrays are indexed
 ``u[z, y, x]``; coordinates returned per axis follow the same order.
-:class:`ZSlab` (the port's own) is a z-range of one level's grid, the
-slab a rank of the decomposed solver (``parallel/``) builds on.
+:class:`CellBox` (the port's own) is a block of cells of one level's grid
+cut along z (and y), the box a rank of the decomposed solver
+(``parallel/``) builds on.
 """
 
 from __future__ import annotations
@@ -211,27 +212,38 @@ class DofGrid:
         """det(J) for the affine cell map (constant over the brick)."""
         return float(np.prod(self.h))
 
-    def z_slab(self, z0: int, z1: int) -> "ZSlab":
-        """Cell layers ``z0 .. z1 - 1`` of axis 0 as a grid of their own
-        (:class:`ZSlab`)."""
-        if not 0 <= z0 < z1 <= self.cells[0]:
-            raise ValueError(f"z cells [{z0}, {z1}) outside [0, "
-                             f"{self.cells[0]})")
-        return ZSlab(self.mesh, self.level, self.degree, z0, z1)
+    def box(self, ranges) -> "CellBox":
+        """The cells ``ranges[a][0] .. ranges[a][1] - 1`` of each leading
+        axis ``a`` (the others whole) as a grid of their own
+        (:class:`CellBox`)."""
+        ranges = tuple((int(c0), int(c1)) for c0, c1 in ranges)
+        if not 1 <= len(ranges) <= self.dim:
+            raise ValueError(f"a box over {len(ranges)} axes of a "
+                             f"{self.dim}-D grid")
+        for a, (c0, c1) in enumerate(ranges):
+            if not 0 <= c0 < c1 <= self.cells[a]:
+                raise ValueError(f"cells [{c0}, {c1}) of axis {a} outside "
+                                 f"[0, {self.cells[a]})")
+        return CellBox(self.mesh, self.level, self.degree, ranges)
+
+    def z_slab(self, z0: int, z1: int) -> "CellBox":
+        """Cell layers ``z0 .. z1 - 1`` of axis 0 as a grid of their own:
+        the box over axis 0 alone."""
+        return self.box(((z0, z1),))
 
 
 @dataclass(frozen=True)
-class ZSlab(DofGrid):
-    """Cell layers ``[z0, z1)`` of axis 0 of one level's grid: the node
-    planes ``z0 p .. z1 p`` of the level.  Cell size, node and quadrature
-    coordinates are the level's own, sliced and not recomputed, so every
-    table built from a slab (taps, diagonal lines, boundary values, rhs)
-    holds the level's numbers; its Dirichlet boundary is its own outer
-    faces.  The slab keeps the level number, so two nested slabs of
-    adjacent levels make a :class:`~..ops.transfer.Transfer`."""
+class CellBox(DofGrid):
+    """The cells ``[c0, c1)`` of each leading axis (``ranges``, one pair
+    an axis: z, or z and y) of one level's grid: its node planes ``c0 p ..
+    c1 p`` along each.  Cell size, node and quadrature coordinates are the
+    level's own, sliced and not recomputed, so every table built from a
+    box (taps, diagonal lines, boundary values, rhs) holds the level's
+    numbers; its Dirichlet boundary is its own outer faces.  The box keeps
+    the level number, so two nested boxes of adjacent levels make a
+    :class:`~..ops.transfer.Transfer`."""
 
-    z0: int = 0
-    z1: int = 0
+    ranges: tuple[tuple[int, int], ...] = ()
 
     @property
     def parent(self) -> DofGrid:
@@ -239,16 +251,21 @@ class ZSlab(DofGrid):
 
     @property
     def cells(self) -> tuple[int, ...]:
-        return (self.z1 - self.z0,) + self.mesh.cells(self.level)[1:]
+        whole = self.mesh.cells(self.level)
+        k = len(self.ranges)
+        return tuple(c1 - c0 for c0, c1 in self.ranges) + whole[k:]
 
     @cached_property
     def axis_nodes(self) -> list[np.ndarray]:
         out = list(self.parent.axis_nodes)
-        out[0] = out[0][self.z0 * self.degree: self.z1 * self.degree + 1]
+        p = self.degree
+        for a, (c0, c1) in enumerate(self.ranges):
+            out[a] = out[a][c0 * p: c1 * p + 1]
         return out
 
     @cached_property
     def axis_quads(self) -> list[np.ndarray]:
         out = list(self.parent.axis_quads)
-        out[0] = out[0][self.z0: self.z1]
+        for a, (c0, c1) in enumerate(self.ranges):
+            out[a] = out[a][c0: c1]
         return out

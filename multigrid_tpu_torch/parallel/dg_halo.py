@@ -57,7 +57,7 @@ import torch
 from ..ops.dg import DGGrid, DGLaplace, hermite_basis_change
 from ..ops.dg_kernel import DGOperator
 from ..ops.laplace import apply_1d
-from .halo import comm_split, split_cells
+from .halo import _dot, comm_split, owned_dot, split_cells
 from .sharding import RankGrid, Ranks
 
 GHOST_LAYERS = 1
@@ -150,8 +150,8 @@ class DGSlabs:
     def _index(self, a: int, layers: slice) -> tuple:
         """The slab index of cell ``layers`` along split axis ``a``: the
         whole stored range of axis 0 (a contiguous z layer; its y ghosts
-        land in ghost corners, which nothing reads), the owned range of
-        the other split axis."""
+        land in the ghost corners: fresh when the y layers went first,
+        :meth:`refresh`), the owned range of the other split axis."""
         idx = [slice(None) if a == 0 or b == a else self._own[b]
                for b in range(len(self._own))]
         idx[a] = layers
@@ -197,12 +197,15 @@ class DGSlabs:
             ghost.copy_(apply_1d(planes, rows[1][:, r:r + 2], ax))
         return ghost
 
-    def _plan(self, t: torch.Tensor):
+    def _plan(self, t: torch.Tensor, axes=None):
         """Sends, receives and, for the hermite wire, the ghost layers to
-        expand after the exchange: ``(sends, recvs, expand)``."""
+        expand after the exchange, of the split ``axes`` (None: all):
+        ``(sends, recvs, expand)``."""
         G = self.ghost
         sends, recvs, expand = [], [], []
         for a, (lo, hi) in enumerate(self.nbrs):
+            if axes is not None and a not in axes:
+                continue
             o0, o1 = self._own[a].start, self._own[a].stop
             for side, peer in ((0, lo), (1, hi)):
                 if peer is None:
@@ -234,13 +237,20 @@ class DGSlabs:
 
     def refresh(self, t: torch.Tensor) -> torch.Tensor:
         """Fill the ghost layers from their owners by the wire, in place;
-        returns ``t``."""
+        returns ``t``.  One exchange; with more than one ghost layer on a
+        rank grid, two (the y layers of the owned z range, then the z
+        layers over the whole stored y range), so that the ghost corners,
+        which the DG-over-CG coupling reads, arrive from the diagonal rank
+        through the z neighbour."""
         if not self.split:
             return t
-        sends, recvs, expand = self._plan(t)
-        self.ranks.exchange_packed(sends, recvs)
-        for ghost, buf, a, side in expand:
-            self.expand_planes(ghost, buf, a, side)
+        stages = [None] if self.ghost == 1 or len(self.nbrs) == 1 \
+            else [(1,), (0,)]
+        for axes in stages:
+            sends, recvs, expand = self._plan(t, axes)
+            self.ranks.exchange_packed(sends, recvs)
+            for ghost, buf, a, side in expand:
+                self.expand_planes(ghost, buf, a, side)
         return t
 
     def bytes_per_refresh(self, dtype) -> int:
@@ -267,11 +277,12 @@ class DGSlabs:
         out[self.owned_cells()] = self.own(t)
         return self.ranks.sum_(out)
 
-    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """Global ``a . b`` over the owned cells (0-d, ``a``'s dtype),
-        summed over the ranks in rank order."""
-        oa, ob = self.own(a), self.own(b)
-        return self.ranks.allsum(torch.dot(oa.reshape(-1), ob.reshape(-1)))
+    def dot(self, a: torch.Tensor, b: torch.Tensor,
+            fn=_dot) -> torch.Tensor:
+        """Global ``a . b`` over the owned cells (0-d, ``a``'s dtype; ``fn``
+        as :func:`~.halo.owned_dot` takes it), summed over the ranks in
+        rank order."""
+        return self.ranks.allsum(owned_dot(a, b, self._own, fn))
 
 
 class HaloDGLaplace:

@@ -1,4 +1,4 @@
-"""Rank-decomposed multigrid: the FE_Q brick solver over z-slabs.
+"""Rank-decomposed multigrid: the FE_Q brick solver over boxes of cells.
 
 Twin of ``multigrid_tpu/parallel/distributed.py`` (``level_spec`` and
 ``DistributedMultigrid``), the rendering of the reference's per-level MPI
@@ -6,38 +6,49 @@ decomposition (reference common/multigrid_solver.h:151-200: one
 partitioned vector storage per level, every rank active on every level)
 for ranks of ``torch.distributed``, one process a rank.
 
-Each rank builds only its part: on a *split* level a z-slab with ghost
+The ranks form a grid over z, or over z and y (``shape``; the
+experiments' rule is :func:`~.sharding.default_grid`, JAX's: z and y from
+4 ranks on).
+Each rank builds only its part: on a *split* level a box with ghost
 planes (:class:`~.halo.Slabs`) and the level's operators on it (the
 ``brick_kron`` operators in float and double, the Chebyshev smoother,
-the transfers), wrapped so that every pass that reads neighbours ends in
-a ghost refresh; on a *replicated* level the whole level, computed the
-same way on every rank.  The policy is the JAX module's ``min_local``: a
-level splits when every rank owns at least ``GHOST_CELLS`` z cells (the
-ghost width), else it is replicated; restriction into a replicated level
-gathers the ranks' owned planes, prolongation out of it slices.  The
-V-cycle, FMG and CG are :class:`~..solvers.multigrid.MultigridSolver`'s
-own code; the solver's hooks are the inner products (a sum over the owned
-planes of every rank, added in rank order: the same bits on every rank,
-so that every rank takes the same branches), the Dirichlet faces (a rank
-writes only its true faces) and the L2 errors (owned cells, summed).
+the transfers; on a 2-D level the plain operators), wrapped so that every
+pass that reads neighbours ends in a ghost refresh; on a *replicated*
+level the whole level, computed the same way on every rank.
+
+Split policy (the port's own, :func:`level_bounds`): a level splits on
+every axis of the rank grid, or is replicated whole.  It splits when
+every rank gets at least ``GHOST_CELLS`` cells along each split axis (the
+ghost width) and, when a level lies below it, a pair; the cuts nest along
+each axis and lie on coarse-cell boundaries.  The JAX ``level_spec``
+splits each axis on its own; here a level split on z alone would be
+replicated along y, and its restriction would sum over the y ranks.
+Parity with JAX is by results.  A 2-D brick splits its axis 0 by the
+rank grid's first axis and its axis 1 by the second, as JAX's positional
+``level_spec`` does.  Restriction into a replicated level sums the ranks'
+owned nodes, prolongation out of it slices.  The V-cycle, FMG and CG are
+:class:`~..solvers.multigrid.MultigridSolver`'s own code; the solver's
+hooks are the inner products (a sum over the owned nodes of every rank,
+added in rank order: the same bits on every rank, so that every rank
+takes the same branches), the Dirichlet faces (a rank writes only its
+true faces) and the L2 errors (owned cells, summed).
 
 On the card each rank's kernels are ``brick_kron<float>`` / ``<double>``,
 ``cheb_epilogue<float>`` and the CG kernels, as on one device; the planes
 move through the backend of :class:`~.sharding.Ranks`.
 
 ``DistributedMultigridDG`` (the JAX ``dg_block_spec`` and
-``DistributedMultigridDG``) does the same for the DG solvers, on cell
-slabs with ghost cell layers (:class:`~.dg_halo.DGSlabs`): DG-plain
-splits every level where each rank gets a cell (a pair when a level lies
-below, :func:`dg_level_bounds`), with one ghost layer; DG-over-CG puts
-its DG level on the FE_Q finest level's cuts with two ghost layers, so
-that the coupling maps a rank's DG slab to its FE_Q slab, and runs the
-FE_Q hierarchy on
-:class:`DistributedMultigrid`.  The one-device solvers' V-cycles and
-outer CG run unchanged; their hooks are the outer CG's dot, the
-smoothers' dot and start vector, and the L2 error of the owned cells.
-Each rank's DG kernels are ``dg_apply<double>``, ``dg_apply<float>``
-(the residual) and ``dg_cheb<float>``.
+``DistributedMultigridDG``) does the same for the DG solvers, on boxes of
+cells with ghost cell layers (:class:`~.dg_halo.DGSlabs`): DG-plain
+splits every level where each rank gets a cell along each split axis (a
+pair when a level lies below, :func:`dg_level_bounds`), with one ghost
+layer; DG-over-CG puts its DG level on the FE_Q finest level's cuts with
+two ghost layers, so that the coupling maps a rank's DG box to its FE_Q
+box, and runs the FE_Q hierarchy on :class:`DistributedMultigrid`.  The
+one-device solvers' V-cycles and outer CG run unchanged; their hooks are
+the outer CG's dot, the smoothers' dot and start vector, and the L2 error
+of the owned cells.  Each rank's DG kernels are ``dg_apply<double>``,
+``dg_apply<float>`` (the residual) and ``dg_cheb<float>``.
 """
 
 from __future__ import annotations
@@ -59,35 +70,47 @@ from ..ops.laplace import LaplaceOperator, l2_sums_host, make_diag_coef, \
 from ..ops.laplace_kernel import BrickLaplace
 from ..ops.transfer import Transfer
 from ..solvers.chebyshev import Chebyshev, eig_estimate_start_vector
+from ..solvers.fused import PlainLevel
 from ..solvers.multigrid import (_HOST_ASSEMBLY_DOFS, MultigridSolver,
                                  _bc_faces_host, set_full_precision_matmul)
 from ..solvers.multigrid_dg import (MultigridSolverDG, MultigridSolverDGPlain,
                                     _quad_tensor, dg_grid_from_mesh,
                                     quad_coords_block)
 from .dg_halo import GHOST_LAYERS, DGSlabs
-from .halo import GHOST_CELLS, Slabs, split_cells
+from .halo import GHOST_CELLS, Slabs, axis_cuts, split_cells
 from .sharding import Ranks
 
 
-def level_bounds(mesh: BrickMesh, world: int,
-                 min_cells: int = GHOST_CELLS) -> list[Optional[list[int]]]:
-    """Per level, the z cell boundaries of the ranks' slabs, or None where
-    the level is replicated (the JAX ``level_spec``).  A level splits when
-    every rank gets at least ``min_cells`` z cells (the ghost width) and,
-    when a level lies below it, a pair of cells.  The coarsest split
+def level_bounds(mesh: BrickMesh, grid, min_cells: int = GHOST_CELLS
+                 ) -> list[Optional[list]]:
+    """Per level, the cell boundaries of the ranks' boxes, or None where
+    the level is replicated (the port's twin of the JAX ``level_spec``).
+    ``grid``: a number of ranks (the z split: each level's z cuts, a flat
+    list) or a rank grid shape ``(nz,)`` / ``(nz, ny)`` (each level's cuts
+    per axis, ``[z cuts, y cuts]``).  A level splits when every rank gets
+    at least ``min_cells`` cells along each split axis (the ghost width)
+    and, when a level lies below it, a pair of cells.  The coarsest split
     level is cut on cell pairs when a level lies below it, and each finer
-    level's cuts are twice the coarser's: the slabs nest, and every cut is
+    level's cuts are twice the coarser's: the boxes nest, and every cut is
     on a coarse-cell boundary."""
+    flat = isinstance(grid, (int, np.integer))
+    shape = (int(grid),) if flat else tuple(int(n) for n in grid)
+    if len(shape) > mesh.dim:
+        raise ValueError(f"a rank grid of {shape} on a {mesh.dim}-D mesh")
+    world = int(np.prod(shape))
     L = mesh.n_levels
-    out: list[Optional[list[int]]] = [None] * L
-    split = [world > 1 and mesh.cells(l)[0]
-             >= max(min_cells, 2 if l else 1) * world for l in range(L)]
+    out: list[Optional[list]] = [None] * L
+    split = [world > 1 and all(
+        mesh.cells(l)[a] >= max(min_cells, 2 if l else 1) * n
+        for a, n in enumerate(shape)) for l in range(L)]
     if not any(split):
         return out
     first = split.index(True)
-    base = split_cells(mesh.cells(first)[0], world, align=2 if first else 1)
+    base = [split_cells(mesh.cells(first)[a], n, align=2 if first else 1)
+            for a, n in enumerate(shape)]
     for l in range(first, L):
-        out[l] = [c << (l - first) for c in base]
+        cuts = [[c << (l - first) for c in b] for b in base]
+        out[l] = cuts[0] if flat else cuts
     return out
 
 
@@ -102,15 +125,15 @@ def share_interval(sm, ranks: Ranks):
 
 
 class SlabLevel:
-    """A split level's operator (``BrickLaplace`` on the rank's slab) as
-    the smoother, V-cycle and CG call it: ``vmult``, ``vmult_residual``
-    and ``cheb_step``, each followed by the ghost refresh.  The Chebyshev
-    step without A x (``x`` None) is pointwise and keeps its input's
-    ghosts."""
+    """A split level's operator (``BrickLaplace``, or on a 2-D level the
+    plain operator, on the rank's box) as the smoother, V-cycle and CG
+    call it: ``vmult``, ``vmult_residual`` and ``cheb_step``, each
+    followed by the ghost refresh.  The Chebyshev step without A x (``x``
+    None) is pointwise and keeps its input's ghosts."""
 
-    def __init__(self, op: BrickLaplace, slabs: Slabs):
+    def __init__(self, op, slabs: Slabs):
         self.op, self.slabs = op, slabs
-        self.shape, self.dtype, self.device = op.shape, op.dtype, op.device
+        self.shape, self.dtype, self.device = slabs.shape, op.dtype, op.device
 
     def vmult(self, x: torch.Tensor) -> torch.Tensor:
         return self.slabs.refresh(self.op.vmult(x))
@@ -125,55 +148,60 @@ class SlabLevel:
 
 class SlabTransfer:
     """The 2:1 transfer between a split fine level and the level below,
-    split or replicated.  The fine slab covers cells ``[g0, g1)`` (even:
-    the cuts nest), over the coarse cells ``[g0 / 2, g1 / 2)``; a
-    :class:`~..ops.transfer.Transfer` between the two slabs computes every
-    owned plane as the whole level would.  ``restrict`` places the result
-    in the coarse slab and refreshes it, or on a replicated coarse level
-    sums the ranks' owned coarse planes into the whole level;
-    ``prolongate`` takes those coarse planes and refreshes the fine slab."""
+    split or replicated.  Along each split axis the fine box covers cells
+    ``[g0, g1)`` (even: the cuts nest), over the coarse cells ``[g0 / 2,
+    g1 / 2)``; a :class:`~..ops.transfer.Transfer` between the two boxes
+    computes every owned node as the whole level would.  ``restrict``
+    places the result in the coarse box and refreshes it, or on a
+    replicated coarse level sums the ranks' owned coarse nodes into the
+    whole level; ``prolongate`` takes those coarse nodes and refreshes
+    the fine box."""
 
     def __init__(self, fine: Slabs, coarse: Optional[Slabs],
                  coarse_grid: DofGrid, dtype, device, constrained: bool):
-        f = fine.local
         p = coarse_grid.degree
-        a, b = f.z0 // 2, f.z1 // 2
-        self.tr = Transfer(f, coarse_grid.z_slab(a, b), dtype, device,
+        halves = [(g0 // 2, g1 // 2) for g0, g1 in fine.local.ranges]
+        self.tr = Transfer(fine.local, coarse_grid.box(halves), dtype, device,
                            constrained)
         self.fine, self.coarse = fine, coarse
         self.coarse_shape = tuple(coarse_grid.shape)
-        self.rows = (a * p, b * p + 1)            # coarse planes under fine
-        last = fine.above is None
-        # the coarse planes this rank owns (a replicated coarse level)
-        self.owned = (fine.c0 // 2 * p,
-                      coarse_grid.shape[0] if last else fine.c1 // 2 * p)
-
-    def _coarse_part(self, u: torch.Tensor) -> torch.Tensor:
-        off = self.rows[0] - (0 if self.coarse is None else self.coarse.lo)
-        return u[off:off + self.rows[1] - self.rows[0]]
+        # the coarse nodes under the fine box, in the coarse box (or the
+        # whole replicated level)
+        base = [0] * len(halves) if coarse is None else \
+            [lo for lo, _ in coarse.stored]
+        self.part = tuple(slice(a * p - o, b * p + 1 - o)
+                          for (a, b), o in zip(halves, base))
+        # the coarse nodes this rank owns (a replicated coarse level), in
+        # the whole level and in the transfer's coarse box
+        self.owned = tuple(
+            slice(c0 // 2 * p, coarse_grid.shape[d] if nb[1] is None
+                  else c1 // 2 * p)
+            for d, ((c0, c1), nb) in enumerate(zip(fine.cells, fine.nbrs)))
+        self.owned_part = tuple(slice(o.start - a * p, o.stop - a * p)
+                                for o, (a, _) in zip(self.owned, halves))
 
     def restrict(self, u_fine: torch.Tensor) -> torch.Tensor:
         uc = self.tr.restrict(u_fine)
         if self.coarse is not None:
             out = uc.new_zeros(self.coarse.shape)
-            self._coarse_part(out).copy_(uc)
+            out[self.part].copy_(uc)
             return self.coarse.refresh(out)
         out = uc.new_zeros(self.coarse_shape)
-        o0, o1 = self.owned
-        out[o0:o1] = uc[o0 - self.rows[0]:o1 - self.rows[0]]
+        out[self.owned] = uc[self.owned_part]
         return self.fine.ranks.sum_(out)
 
     def prolongate(self, u_coarse: torch.Tensor) -> torch.Tensor:
-        return self.fine.refresh(self.tr.prolongate(self._coarse_part(u_coarse)))
+        return self.fine.refresh(self.tr.prolongate(u_coarse[self.part]))
 
 
 class DistributedMultigrid(MultigridSolver):
     """:class:`~..solvers.multigrid.MultigridSolver` on the ranks of
-    ``ranks``: the same constructor arguments (3-D bricks; ``device`` is
-    the rank's), and the entry points ``solve``, ``solve_analyze``,
+    ``ranks``: the same constructor arguments (2-D and 3-D bricks;
+    ``device`` is the rank's), the rank grid ``shape`` (None: ``(world,)``,
+    the z split), and the entry points ``solve``, ``solve_analyze``,
     ``solve_cg`` and ``l2_error``, which run decomposed on every split
-    level.  A solution is the rank's slab of the finest level (its whole
-    grid where that level is replicated): :meth:`owned` gives the planes
+    level.  A solution is the rank's box of the finest level (its whole
+    grid where that level is replicated): :meth:`owned` gives the nodes
     the rank owns, :meth:`collect` the whole grid (small grids)."""
 
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn: Callable,
@@ -181,12 +209,18 @@ class DistributedMultigrid(MultigridSolver):
                  n_pre: int = 2, n_post: int = 2, n_cycles: int = 1,
                  v_dtype=torch.float32, f_dtype=torch.float64,
                  coarse_smoothing_range: float = 1e-3,
-                 finest_degree: Optional[int] = None):
-        if mesh.dim != 3:
-            raise ValueError("the rank-decomposed solver runs 3-D bricks")
+                 finest_degree: Optional[int] = None,
+                 shape: Optional[tuple] = None):
+        if mesh.dim not in (2, 3):
+            raise ValueError("the rank-decomposed solver runs 2-D and 3-D "
+                             "bricks")
         if n_pre != n_post:
             raise ValueError("the reference requires equal pre/post degree")
-        self.ranks = ranks
+        shape = (ranks.world,) if shape is None else tuple(shape)
+        if int(np.prod(shape)) != ranks.world:
+            raise ValueError(f"a rank grid of {shape} for {ranks.world} "
+                             "ranks")
+        self.ranks, self.shape = ranks, shape
         self.device = dev = ranks.device
         if dev.type == "cuda":
             set_full_precision_matmul()
@@ -196,9 +230,9 @@ class DistributedMultigrid(MultigridSolver):
         self.minlevel, self.maxlevel = 0, mesh.max_level
         L = mesh.n_levels
         self.grids = [DofGrid(mesh, l, degree) for l in range(L)]
+        cuts = level_bounds(mesh, shape[0] if len(shape) == 1 else shape)
         self.slabs = [None if b is None else Slabs(g, ranks, b)
-                      for g, b in zip(self.grids, level_bounds(mesh,
-                                                               ranks.world))]
+                      for g, b in zip(self.grids, cuts)]
         local = [g if s is None else s.local
                  for g, s in zip(self.grids, self.slabs)]
         coefs = [make_diag_coef(g, coefficient) for g in self.grids]
@@ -207,14 +241,19 @@ class DistributedMultigrid(MultigridSolver):
         precond = [LaplaceOperator(g, v_dtype, c, dev).inverse_diagonal().mul
                    for g, c in zip(local, coefs)]
 
-        def level_op(g, s, dtype):
-            op = BrickLaplace(g, dtype, dev, coefficient)
+        def level_op(l, dtype, smoother):
+            g, s = local[l], self.slabs[l]
+            if mesh.dim == 3:
+                op = BrickLaplace(g, dtype, dev, coefficient)
+            elif smoother:   # a 2-D level: the plain operators, as on one
+                op = PlainLevel(LaplaceOperator(g, dtype, coefs[l], dev),
+                                precond[l])                    # device
+            else:
+                op = self.ops_dp[l]
             return op if s is None else SlabLevel(op, s)
 
-        self.sp_ops = [level_op(g, s, v_dtype)
-                       for g, s in zip(local, self.slabs)]
-        self.dp_ops = [level_op(g, s, f_dtype)
-                       for g, s in zip(local, self.slabs)]
+        self.sp_ops = [level_op(l, v_dtype, True) for l in range(L)]
+        self.dp_ops = [level_op(l, f_dtype, False) for l in range(L)]
         self.transfers = [None] + [self._transfer(l, v_dtype, True)
                                    for l in range(1, L)]
         self.transfers_nobc = [None] + [self._transfer(l, f_dtype, False)
@@ -226,8 +265,10 @@ class DistributedMultigrid(MultigridSolver):
         for l, g in enumerate(self.grids):
             faces_np = _bc_faces_host(g, exact_fn)
             self.u_bc.append(self.local_faces(l, faces_np))
-            self.rhs.append(self._level_rhs(l, rhs_fn, faces_np, coefs[l],
-                                            planes=self.planes(l)))
+            s = self.slabs[l]
+            self.rhs.append(self._level_rhs(
+                l, rhs_fn, faces_np, coefs[l],
+                box=None if s is None else s.stored))
 
         self._n_pre, self._finest_degree = n_pre, finest_degree
         self._coarse_range = coarse_smoothing_range
@@ -240,13 +281,11 @@ class DistributedMultigrid(MultigridSolver):
                 sm = self._make_smoother(
                     l, self.sp_ops[l], precond[l], dot=s.dot,
                     rhs0=eig_estimate_start_vector(
-                        self.grids[l].shape, v_dtype, dev,
-                        planes=(s.lo, s.hi)))
+                        self.grids[l].shape, v_dtype, dev, box=s.stored))
             self.smoothers.append(sm)
         fine = self.slabs[self.maxlevel]
         if fine is not None:
-            self._cg_dot = lambda a, c: float(
-                ranks.allsum(cg_dot(fine.own(a), fine.own(c))))
+            self._cg_dot = lambda a, c: float(fine.dot(a, c, cg_dot))
 
     def _transfer(self, l: int, dtype, constrained: bool):
         fine, coarse = self.slabs[l], self.slabs[l - 1]
@@ -261,41 +300,42 @@ class DistributedMultigrid(MultigridSolver):
         """Which levels split across the ranks (False: replicated)."""
         return [s is not None for s in self.slabs]
 
-    def planes(self, level: int):
-        """The planes ``(lo, hi)`` of axis 0 this rank stores of
-        ``level``, or None (the whole level)."""
+    def stored_index(self, level: int):
+        """The nodes of ``level`` this rank stores, one slice a split axis,
+        or None (the whole level)."""
         s = self.slabs[level]
-        return None if s is None else (s.lo, s.hi)
+        return None if s is None else s.stored_index()
 
     def local_faces(self, level: int, faces) -> list:
-        """This rank's part of the level's six Dirichlet face slabs (numpy,
-        ``[(d, side) for d for side in (0, 1)]``): the z faces where the
-        slab has them (None at a cut), the others sliced to its planes."""
+        """This rank's part of the level's Dirichlet face slabs (numpy,
+        ``[(d, side) for d for side in (0, 1)]``): a split axis's faces
+        where the box has them (None at a cut), every face sliced to the
+        box along the split axes across it."""
         s = self.slabs[level]
         out = []
         for i, f in enumerate(faces):
             f = np.asarray(f, np.float64)
+            d, side = divmod(i, 2)
             if s is not None:
-                if i == 0 and s.below is not None or \
-                        i == 1 and s.above is not None:
+                if d < len(s.nbrs) and s.nbrs[d][side] is not None:
                     out.append(None)
                     continue
-                if i >= 2:
-                    f = f[s.lo:s.hi]
+                f = f[tuple(slice(None) if e == d else sl
+                            for e, sl in enumerate(s.stored_index()))]
             out.append(torch.tensor(np.ascontiguousarray(f),
                                     dtype=self.f_dtype, device=self.device))
         return out
 
     def owned(self, t: torch.Tensor, level: Optional[int] = None):
-        """The planes of a finest-level (or ``level``) vector this rank
-        owns; the whole vector on a replicated level."""
+        """The nodes of a finest-level (or ``level``) vector this rank
+        owns (a view); the whole vector on a replicated level."""
         s = self.slabs[self.maxlevel if level is None else level]
         return t if s is None else s.own(t)
 
-    def owned_rows(self, level: Optional[int] = None) -> slice:
-        """The global planes of :meth:`owned`."""
+    def owned_rows(self, level: Optional[int] = None) -> tuple:
+        """The global index of :meth:`owned`, one slice a split axis."""
         s = self.slabs[self.maxlevel if level is None else level]
-        return slice(None) if s is None else s.owned_rows()
+        return (slice(None),) if s is None else s.owned_index()
 
     def collect(self, t: torch.Tensor, level: Optional[int] = None):
         """The whole grid of a finest-level (or ``level``) vector, on every
@@ -312,7 +352,7 @@ class DistributedMultigrid(MultigridSolver):
 
     def l2_error(self, level: int, sol: torch.Tensor,
                  host: Optional[bool] = None) -> float:
-        """L2 error of a solution slab: each rank integrates its owned
+        """L2 error of a solution box: each rank integrates its owned
         cells (on the host above 4M dofs of the level), the sums are added
         over the ranks."""
         s = self.slabs[level]
@@ -320,8 +360,9 @@ class DistributedMultigrid(MultigridSolver):
             return super().l2_error(level, sol, host)
         p = self.degree
         u = self._impose_bc(self.u_bc[level], sol)
-        u = u[s.c0 * p - s.lo: s.c1 * p - s.lo + 1]
-        part = self.grids[level].z_slab(s.c0, s.c1)
+        u = u[tuple(slice(c0 * p - lo, c1 * p - lo + 1) for (c0, c1), (lo, _)
+                    in zip(s.cells, s.stored))].contiguous()
+        part = self.grids[level].box(s.cells)
         if host is None:
             host = self.grids[level].n_dofs > _HOST_ASSEMBLY_DOFS
         if host:
@@ -341,23 +382,24 @@ class DistributedMultigrid(MultigridSolver):
 
 
 # ------------------------------------------------------------------ DG
-def dg_level_bounds(mesh: BrickMesh, world: int,
-                    ghost: int = GHOST_LAYERS) -> list[Optional[list[int]]]:
-    """Per DG level, the z cell boundaries of the ranks' slabs, or None
+def dg_level_bounds(mesh: BrickMesh, grid, ghost: int = GHOST_LAYERS
+                    ) -> list[Optional[list]]:
+    """Per DG level, the cell boundaries of the ranks' boxes, or None
     where the level is replicated (the JAX ``dg_block_spec``, cells
-    leading): a level splits when every rank gets ``ghost`` z cells (and a
-    pair of them when a level lies below), with :func:`level_bounds`'
-    nested cuts, so that every cut is on a coarse-cell boundary and
+    leading; ``grid`` as :func:`level_bounds` takes it): a level splits
+    when every rank gets ``ghost`` cells along each split axis (and a pair
+    of them when a level lies below), with :func:`level_bounds`' nested
+    cuts, so that every cut is on a coarse-cell boundary and
     ``DGTransfer`` maps owned cells to owned cells."""
-    return level_bounds(mesh, world, min_cells=ghost)
+    return level_bounds(mesh, grid, min_cells=ghost)
 
 
 class SlabDGLevel(SlabLevel):
     """A split DG level's :class:`~..ops.dg_kernel.DGOperator` on the
-    rank's slab (``dg_apply``, ``dg_cheb``): ``vmult`` and a Chebyshev
+    rank's box (``dg_apply``, ``dg_cheb``): ``vmult`` and a Chebyshev
     step with A x end in the ghost refresh.  ``vmult_residual`` does not:
     its output is read only by cell-local passes on the owned cells (the
-    restriction, a ``DGTransfer``) or, on a two-layer slab, by
+    restriction, a ``DGTransfer``) or, on a two-layer box, by
     ``dg_to_cg`` through the first ghost layer, which the residual
     computes right from a refreshed input."""
 
@@ -365,63 +407,71 @@ class SlabDGLevel(SlabLevel):
         return self.op.vmult_residual(rhs, lhs)
 
 
-def _part(grid: DGGrid, cells: int) -> DGGrid:
-    """``grid`` with ``cells`` z cells (a slab's shape; same geometry)."""
-    return DGGrid(cells=(cells,) + grid.cells[1:], jacobian=grid.jacobian,
-                  degree=grid.degree, kind=grid.kind)
+def _part(grid: DGGrid, cells) -> DGGrid:
+    """``grid`` with ``cells`` cells along its leading axes (a box's
+    shape; same geometry)."""
+    cells = tuple(cells)
+    return DGGrid(cells=cells + grid.cells[len(cells):],
+                  jacobian=grid.jacobian, degree=grid.degree, kind=grid.kind)
 
 
 class SlabDGTransfer:
     """The 2:1 DG transfer between a split fine level and the level below,
     split or replicated.  The cuts nest on coarse-cell boundaries
     (:func:`dg_level_bounds`), so ``restrict`` maps the owned fine cells to
-    the owned coarse cells with no exchange, then refreshes the coarse slab
+    the owned coarse cells with no exchange, then refreshes the coarse box
     (its smoother reads the ghosts) or, on a replicated coarse level, sums
     the ranks' owned coarse cells into the whole level (exact: zero off
     their owner).  ``prolongate`` needs no exchange either: the coarse
-    slab's ghost layer covers the fine slab's."""
+    box's ghost layer covers the fine box's."""
 
     def __init__(self, fine: DGSlabs, coarse: Optional[DGSlabs],
                  coarse_grid: DGGrid, dtype, device):
-        (c0, c1), (s0, s1) = fine.owned[0], fine.stored[0]
-        if c0 % 2 or c1 % 2:
-            raise ValueError(f"fine cuts {fine.bounds[0]} are not on coarse "
+        if any(c % 2 for pair in fine.owned for c in pair):
+            raise ValueError(f"fine cuts {fine.bounds} are not on coarse "
                              "cells")
         self.fine, self.coarse = fine, coarse
         self.coarse_shape = tuple(coarse_grid.shape)
-        self.down = DGTransfer(_part(fine.grid, c1 - c0),
-                               _part(coarse_grid, (c1 - c0) // 2), dtype,
-                               device)
-        self.owned = (c0 // 2, c1 // 2)
-        # the coarse cells under the fine slab: the whole coarse slab, or
+        owned = [c1 - c0 for c0, c1 in fine.owned]
+        self.down = DGTransfer(_part(fine.grid, owned),
+                               _part(coarse_grid, [c // 2 for c in owned]),
+                               dtype, device)
+        self.owned = tuple(slice(c0 // 2, c1 // 2) for c0, c1 in fine.owned)
+        # the coarse cells under the fine box: the whole coarse box, or
         # the cells of a replicated level that cover it
         if coarse is not None:
-            (a0, a1), self.src = coarse.stored[0], slice(None)
+            cover, src = coarse.stored, ()
         else:
-            a0, a1 = s0 // 2, (s1 + 1) // 2
-            self.src = slice(a0, a1)
-        if not 2 * a0 <= s0 < s1 <= 2 * a1:
-            raise ValueError("the coarse slab does not cover the fine slab")
-        self.cut = slice(s0 - 2 * a0, s1 - 2 * a0)
-        self.up = DGTransfer(_part(fine.grid, 2 * (a1 - a0)),
-                             _part(coarse_grid, a1 - a0), dtype, device)
+            cover = [(s0 // 2, (s1 + 1) // 2) for s0, s1 in fine.stored]
+            src = tuple(slice(a0, a1) for a0, a1 in cover)
+        self.src = src
+        for (a0, a1), (s0, s1) in zip(cover, fine.stored):
+            if not 2 * a0 <= s0 < s1 <= 2 * a1:
+                raise ValueError("the coarse box does not cover the fine "
+                                 "box")
+        self.cut = tuple(slice(s0 - 2 * a0, s1 - 2 * a0)
+                         for (a0, _), (s0, s1) in zip(cover, fine.stored))
+        self.up = DGTransfer(_part(fine.grid, [2 * (a1 - a0)
+                                               for a0, a1 in cover]),
+                             _part(coarse_grid, [a1 - a0 for a0, a1 in cover]),
+                             dtype, device)
 
     def restrict(self, u_fine: torch.Tensor) -> torch.Tensor:
-        uc = self.down.restrict(self.fine.own(u_fine))
+        uc = self.down.restrict(self.fine.own(u_fine).contiguous())
         if self.coarse is not None:
             out = uc.new_zeros(self.coarse.shape)
             self.coarse.own(out).copy_(uc)
             return self.coarse.refresh(out)
         out = uc.new_zeros(self.coarse_shape)
-        out[self.owned[0]:self.owned[1]] = uc
+        out[self.owned] = uc
         return self.fine.ranks.sum_(out)
 
     def prolongate(self, u_coarse: torch.Tensor) -> torch.Tensor:
-        return self.up.prolongate(u_coarse[self.src])[self.cut]
+        return self.up.prolongate(u_coarse[self.src])[self.cut].contiguous()
 
 
 class _SlabCoupling:
-    """The CG <-> DG coupling between a rank's DG slab and its FE_Q slab
+    """The CG <-> DG coupling between a rank's DG box and its FE_Q box
     (the same cells): ``dg_to_cg`` zeroes the true Dirichlet faces only and
     ends in the FE_Q refresh; ``cg_to_dg`` is cell-local."""
 
@@ -436,10 +486,10 @@ class _SlabCoupling:
 
 
 class _OnRanks:
-    """What both DG solvers on ranks share: the finest level's slab
-    (``dg_slabs``, None where it is replicated), the slab's right-hand
+    """What both DG solvers on ranks share: the finest level's box
+    (``dg_slabs``, None where it is replicated), the box's right-hand
     side and exact values, the outer CG's dot and the L2 error of the
-    owned cells.  A slab's transformed Jacobi takes the whole grid's cell
+    owned cells.  A box's transformed Jacobi takes the whole grid's cell
     categories (``JacobiTransformed(whole=...)``): its ghost cells hold
     the neighbours' inverse diagonal, which the pointwise Chebyshev step
     applies there."""
@@ -447,16 +497,18 @@ class _OnRanks:
     def _jacobi(self, grid: DGGrid, slabs) -> JacobiTransformed:
         if slabs is None:
             return JacobiTransformed(grid, self.v_dtype, self.device)
+        offset = [s0 for s0, _ in slabs.stored]
+        offset += [0] * (grid.dim - len(offset))
         return JacobiTransformed(slabs.local, self.v_dtype, self.device,
-                                 whole=(grid.cells,
-                                        (slabs.stored[0][0], 0, 0)))
+                                 whole=(grid.cells, tuple(offset)))
 
     def _finest(self, mesh: BrickMesh, grid: DGGrid, slabs, rhs_fn,
                 exact_fn) -> None:
         self.dg_slabs = slabs
         quads = quad_coords_block(grid, mesh, mesh.max_level)
         if slabs is not None:
-            quads[0] = quads[0][slabs.stored_cells()[0]]
+            for a, cells in enumerate(slabs.stored_cells()):
+                quads[a] = quads[a][(slice(None),) * a + (cells,)]
         shape = grid.shape if slabs is None else slabs.shape
         f_quad = _quad_tensor(rhs_fn, quads, shape, self.f_dtype, self.device)
         self.rhs = self.op_ref.compute_rhs(f_quad).contiguous()
@@ -464,17 +516,16 @@ class _OnRanks:
         self.exact_quad = _quad_tensor(exact_fn, quads, shape, self.f_dtype,
                                        self.device)
         if slabs is not None:
-            ranks = self.ranks
-            self._cg_dot = lambda a, c: float(
-                ranks.allsum(cg_dot(slabs.own(a), slabs.own(c))))
+            self._cg_dot = lambda a, c: float(slabs.dot(a, c, cg_dot))
 
     def l2_error(self, u: torch.Tensor, exact_quad: torch.Tensor) -> float:
-        """L2 error of a finest-level slab: each rank integrates its owned
+        """L2 error of a finest-level box: each rank integrates its owned
         cells, the sums are added over the ranks in rank order."""
         s = self.dg_slabs
         if s is None:
             return super().l2_error(u, exact_quad)
-        err, vol = self.op_ref.l2_sums(s.own(u), s.own(exact_quad))
+        err, vol = self.op_ref.l2_sums(s.own(u).contiguous(),
+                                       s.own(exact_quad).contiguous())
         ranks = self.ranks
         return math.sqrt(float(ranks.allsum(err)) / float(ranks.allsum(vol)))
 
@@ -495,7 +546,8 @@ class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
     the one-device solver's."""
 
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn, rhs_fn,
-                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype):
+                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype,
+                 shape: tuple):
         self.ranks = ranks
         self.device = dev = ranks.device
         if dev.type == "cuda":
@@ -505,9 +557,9 @@ class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
         self.maxlevel = L - 1
         self.grids = [dg_grid_from_mesh(mesh, l, degree, kind)
                       for l in range(L)]
-        self.slabs = [None if b is None else DGSlabs(g, ranks, [b])
+        self.slabs = [None if b is None else DGSlabs(g, ranks, b)
                       for g, b in zip(self.grids,
-                                      dg_level_bounds(mesh, ranks.world))]
+                                      dg_level_bounds(mesh, shape))]
         self.jacobis = [self._jacobi(g, s)
                         for g, s in zip(self.grids, self.slabs)]
         self.ops = [_slab_op(g, s, v_dtype, dev, j) for g, s, j
@@ -527,8 +579,7 @@ class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
                 self.smoothers.append(self._make_smoother(
                     l, op, jac, n_pre, dot=s.dot,
                     rhs0=eig_estimate_start_vector(
-                        self.grids[l].shape, v_dtype, dev,
-                        planes=s.stored[0])))
+                        self.grids[l].shape, v_dtype, dev, box=s.stored)))
         self._finest(mesh, self.grids[-1], fine, rhs_fn, exact_fn)
 
     def _transfer(self, l: int):
@@ -549,7 +600,8 @@ class _DGOnRanks(_OnRanks, MultigridSolverDG):
     solver's."""
 
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn, rhs_fn,
-                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype):
+                 ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype,
+                 shape: tuple):
         self.ranks = ranks
         self.device = dev = ranks.device
         if dev.type == "cuda":
@@ -558,12 +610,13 @@ class _DGOnRanks(_OnRanks, MultigridSolverDG):
         self.cg = DistributedMultigrid(
             mesh, degree, exact_fn, rhs_fn, ranks, n_pre=n_pre,
             n_post=n_pre, n_cycles=1, v_dtype=v_dtype, f_dtype=f_dtype,
-            coarse_smoothing_range=2e-3, finest_degree=max(1, n_pre - 1))
+            coarse_smoothing_range=2e-3, finest_degree=max(1, n_pre - 1),
+            shape=shape)
         L = mesh.max_level
         self.dg_grid = dg_grid_from_mesh(mesh, L, degree, kind)
         fe = self.cg.slabs[L]
         slabs = None if fe is None else DGSlabs(
-            self.dg_grid, ranks, [fe.bounds], GHOST_CELLS)
+            self.dg_grid, ranks, fe.cuts, GHOST_CELLS)
         self.jacobi = self._jacobi(self.dg_grid, slabs)
         self.op = _slab_op(self.dg_grid, slabs, v_dtype, dev,
                            self.jacobi)                          # K7, K8
@@ -576,18 +629,20 @@ class _DGOnRanks(_OnRanks, MultigridSolverDG):
         else:
             self.coupling = _SlabCoupling(CGDGCoupling(
                 fe.local, slabs.local, v_dtype, dev,
-                z_faces=(fe.below is None, fe.above is None)), fe)
+                faces=[tuple(n is None for n in pair) for pair in fe.nbrs]),
+                fe)
         self.smooth_dg = Chebyshev.create(
             self.op, self.jacobi.vmult, smoothing_range=20.0, degree=n_pre,
             eig_cg_n_iterations=15, dot=None if slabs is None else slabs.dot,
             rhs0=None if slabs is None else eig_estimate_start_vector(
-                self.dg_grid.shape, v_dtype, dev, planes=slabs.stored[0]))
+                self.dg_grid.shape, v_dtype, dev, box=slabs.stored))
         self._finest(mesh, self.dg_grid, slabs, rhs_fn, exact_fn)
 
 
 class DistributedMultigridDG:
     """The DG solvers on the ranks of ``ranks`` (twin of the JAX
-    ``DistributedMultigridDG``), z-slabs of cells: ``solver="dg-plain"``
+    ``DistributedMultigridDG``), boxes of cells on the rank grid ``shape``
+    (None: ``(world,)``, z-slabs): ``solver="dg-plain"``
     (:class:`~..solvers.multigrid_dg.MultigridSolverDGPlain`, every level
     split where :func:`dg_level_bounds` lets it, one ghost layer) or
     ``"dg"`` (:class:`~..solvers.multigrid_dg.MultigridSolverDG`: the DG
@@ -597,7 +652,7 @@ class DistributedMultigridDG:
     one-device bits; the hermite wire is the operator's
     (:class:`~.dg_halo.HaloDGLaplace`).  The
     same arguments as the one-device solvers (3-D bricks; the device is the
-    rank's).  Entry points: :meth:`solve_cg`, :meth:`l2_error`,
+    rank's; 2-D DG on ranks is not ported).  Entry points: :meth:`solve_cg`, :meth:`l2_error`,
     :meth:`owned`, :meth:`collect`, :meth:`distributed_levels`; a solution
     is the rank's slab of the finest level (the whole level where it is
     replicated).  On the card each rank's kernels are ``dg_apply<double>``,
@@ -610,7 +665,7 @@ class DistributedMultigridDG:
                  rhs_fn: Callable, ranks: Ranks, solver: str = "dg-plain",
                  kind: Optional[str] = None, n_pre: Optional[int] = None,
                  n_post: Optional[int] = None, v_dtype=torch.float32,
-                 f_dtype=torch.float64):
+                 f_dtype=torch.float64, shape: Optional[tuple] = None):
         if mesh.dim != 3:
             raise ValueError("the rank-decomposed DG solvers run 3-D bricks")
         if solver not in self.SOLVERS:
@@ -620,19 +675,23 @@ class DistributedMultigridDG:
             n_pre = 3 if solver == "dg-plain" else 2
         if n_post is not None and n_post != n_pre:
             raise ValueError("the reference requires equal pre/post degree")
-        self.ranks, self.kind = ranks, solver
+        shape = (ranks.world,) if shape is None else tuple(shape)
+        if int(np.prod(shape)) != ranks.world:
+            raise ValueError(f"a rank grid of {shape} for {ranks.world} "
+                             "ranks")
+        self.ranks, self.kind, self.shape = ranks, solver, shape
         if solver == "dg-plain":
             self.solver = _DGPlainOnRanks(mesh, degree, exact_fn, rhs_fn,
                                           ranks, kind or "gauss", n_pre,
-                                          v_dtype, f_dtype)
+                                          v_dtype, f_dtype, shape)
         else:
             self.solver = _DGOnRanks(mesh, degree, exact_fn, rhs_fn, ranks,
                                      kind or "hermite", n_pre, v_dtype,
-                                     f_dtype)
+                                     f_dtype, shape)
 
     @property
     def slabs(self) -> Optional[DGSlabs]:
-        """The finest DG level's slab (None: replicated)."""
+        """The finest DG level's box (None: replicated)."""
         return self.solver.dg_slabs
 
     @property
@@ -654,13 +713,13 @@ class DistributedMultigridDG:
                                     else exact_quad)
 
     def owned(self, u: torch.Tensor) -> torch.Tensor:
-        """The cells of a finest-level slab this rank owns."""
+        """The cells of a finest-level box this rank owns (a view)."""
         return u if self.slabs is None else self.slabs.own(u)
 
-    def owned_cells(self) -> slice:
-        """The global z cells of :meth:`owned`."""
-        return slice(None) if self.slabs is None else \
-            self.slabs.owned_cells()[0]
+    def owned_cells(self) -> tuple:
+        """The global cells of :meth:`owned`, one slice a split axis."""
+        return (slice(None),) if self.slabs is None else \
+            self.slabs.owned_cells()
 
     def collect(self, u: torch.Tensor) -> torch.Tensor:
         """The whole finest level, on every rank (small grids)."""

@@ -3,9 +3,10 @@ runs on every rank, each returning rank 0's view as plain numbers and
 numpy arrays (a spawned rank imports this module and nothing of its
 caller's).
 
-* :func:`halo_program`: one :class:`~.halo.HaloLaplace` level: the
-  collected ``vmult`` of a given grid vector, an owned-plane dot and a
-  few CG iterations in the distributed layout;
+* :func:`halo_program`: one :class:`~.halo.HaloLaplace` (or
+  ``HaloLaplace2D``) level: the collected ``vmult`` of a given grid
+  vector, its owned nodes against the whole grid's apply, an owned-node
+  dot and a few CG iterations in the distributed layout;
 * :func:`dg_halo_program`: one :class:`~.dg_halo.HaloDGLaplace` (or
   ``HaloDGLaplace2D``) level: the collected slab-route ``vmult`` and
   ``vmult_plain`` of a given block, an owned-cell dot, the bytes of a
@@ -17,12 +18,11 @@ caller's).
   ``dg_cheb<float>`` on the slab against ``DGOperator`` on the whole grid
   and against ``vmult_plain``, the transfers' need of no exchange, the CG
   solution against a saved one, two solves, a world of one);
-* :func:`p2p_probe`: whether the backend sends a CUDA tensor from one
-  rank to another;
+* :func:`programs`: several of these in one launch;
 * :func:`cube_program`: poisson_cube on a
   :class:`~.distributed.DistributedMultigrid` (FMG, V-cycle reduction,
   CG, L2 errors), with the checks of a decomposed solve against the
-  single-device one: the owned planes of the distributed apply against
+  single-device one: the owned nodes of the distributed apply against
   ``BrickLaplace`` on the whole grid, the CG solution against a saved
   single-device solution, two CG solves bit for bit, a world of one
   against :class:`~..solvers.multigrid.MultigridSolver`'s bits, the
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..mesh.brick import BrickMesh, DofGrid
-from .halo import HaloLaplace
+from .halo import HaloLaplace, HaloLaplace2D
 from .sharding import Ranks
 
 
@@ -55,18 +55,37 @@ def _sync(ranks: Ranks) -> None:
 
 def halo_program(ranks: Ranks, grid: DofGrid, x: np.ndarray,
                  dtype=torch.float64, n_cg: int = 0,
-                 comm_reps: int = 0) -> dict:
-    """``vmult`` of the global ``x`` (collected), ``x . A x`` by the owned
-    planes, ``n_cg`` unpreconditioned CG iterations on ``A u = b`` with
+                 comm_reps: int = 0, shape: Optional[tuple] = None,
+                 whole: bool = False) -> dict:
+    """``vmult`` of the global ``x`` (collected) on a z split (``shape``
+    None or ``(world,)``: :class:`~.halo.HaloLaplace`) or an ``nz x ny``
+    rank grid (:class:`~.halo.HaloLaplace2D`), ``x . A x`` by the owned
+    nodes, ``n_cg`` unpreconditioned CG iterations on ``A u = b`` with
     ``b`` = ``x`` on the interior, 0 on the boundary (the collected
-    ``u``), and with ``comm_reps`` the exchange split of the ``vmult``
-    (:meth:`~.halo.HaloLaplace.comm_split_report`).  ``foreign``: the
-    modules of JAX or of the JAX package the rank has loaded (none)."""
-    halo = HaloLaplace(grid, ranks, dtype)
+    ``u``), with ``whole`` the owned nodes of the ``vmult`` against
+    ``BrickLaplace`` on the whole grid on every rank (bit for bit, largest
+    difference, max|y|), and with ``comm_reps`` the exchange split of the
+    ``vmult`` (:meth:`~.halo.HaloLaplace.comm_split_report`).
+    ``foreign``: the modules of JAX or of the JAX package the rank has
+    loaded (none)."""
+    if shape is None or len(shape) == 1:
+        halo = HaloLaplace(grid, ranks, dtype)
+    else:
+        halo = HaloLaplace2D(grid, ranks, shape, dtype)
     xd = halo.distribute(x)
     y = halo.vmult(xd)
     out = dict(vmult=_np(halo.collect(y)), x_ax=float(halo.dot(xd, y)),
-               levels=halo.slabs.bounds, foreign=_foreign())
+               levels=halo.slabs.bounds, foreign=_foreign(),
+               bytes=halo.bytes_per_refresh())
+    if whole:
+        from ..ops.laplace_kernel import BrickLaplace
+
+        one = BrickLaplace(grid, dtype, ranks.device)
+        want = one.vmult(torch.as_tensor(x, dtype=dtype,
+                                         device=ranks.device))
+        out["whole"] = _compare(ranks, halo.slabs.own(y),
+                                want[halo.slabs.owned_index()])
+        del one, want
     if n_cg:
         m = halo.op.interior
         b = torch.where(m, xd, 0)
@@ -151,28 +170,6 @@ def _compare(ranks: Ranks, got: torch.Tensor, want: torch.Tensor) -> dict:
                 scale=ranks.allmax(float(want.abs().max())))
 
 
-def p2p_probe(ranks: Ranks) -> list[str]:
-    """Rank 0 sends a tensor on its device to rank 1 with the group's
-    backend: each rank's outcome, "ok" or the first line of its error."""
-    import torch.distributed as dist
-
-    want = torch.arange(4, dtype=torch.float64)
-    t = want.to(ranks.device) if ranks.rank == 0 else torch.zeros(
-        4, dtype=torch.float64, device=ranks.device)
-    try:
-        if ranks.rank == 0:
-            dist.send(t, 1)
-            msg = "ok"
-        else:
-            dist.recv(t, 0)
-            msg = "ok" if torch.equal(t.cpu(), want) else f"received {t}"
-    except RuntimeError as e:
-        msg = f"{type(e).__name__}: {str(e).splitlines()[0]}"
-    out = [None] * ranks.world
-    dist.all_gather_object(out, msg)
-    return out
-
-
 def _launches(ranks: Ranks) -> dict:
     """The kernels' launch counts, summed over the ranks."""
     from ..ops import cg_kernel, dg_kernel, laplace_kernel
@@ -202,23 +199,27 @@ def cube_program(ranks: Ranks, mesh: BrickMesh, degree: int = 4,
                  reps: int = 1, state: Optional[dict] = None,
                  collect: bool = False, reference: Optional[str] = None,
                  apply_seed: Optional[int] = None, comm_reps: int = 0,
-                 single: bool = False) -> dict:
-    """poisson_cube on ``mesh`` (a cube ladder's brick) on the ranks.  Always: set-up seconds, FMG
-    seconds (best of ``reps``), V-cycle reduction, FMG L2, CG seconds,
-    its, reduction, L2, which levels split, and the kernels' launches
-    during the solves summed over the ranks.  Options:
+                 single: bool = False, shape: Optional[tuple] = None) -> dict:
+    """poisson_cube on ``mesh`` (a cube ladder's brick, 2-D or 3-D) on the
+    ranks, on the rank grid ``shape`` (None: the z split).  Always: set-up
+    seconds, FMG seconds (best of ``reps``), V-cycle reduction, FMG L2, CG
+    seconds, its, reduction, L2, which levels split and their cuts, the
+    kernels' launches during the solves summed over the ranks, and
+    ``foreign`` (as :func:`halo_program`).  Options:
 
     * ``state``: :func:`~..convert.load_state` it before solving;
     * ``collect``: the FMG and CG solutions as whole grids;
     * ``reference``: a ``.npy`` file of the single-device CG solution: the
-      largest difference of the owned planes, and max|u|;
+      largest difference of the owned nodes, and max|u|;
     * ``reps`` > 1 also compares the CG solutions of two solves bit for
       bit;
     * ``apply_seed``: the distributed ``vmult`` and ``apply`` of a random
       grid (the seed's) in float32 and float64 against ``BrickLaplace`` on
-      the whole grid, owned planes, bit for bit and largest difference;
+      the whole grid, owned nodes (corners included), bit for bit and
+      largest difference (3-D);
     * ``comm_reps``: :meth:`~.halo.HaloLaplace.comm_split_report` of the
-      finest level in float64, ``comm_reps`` applies a run;
+      finest level in float64 on the solver's cuts, ``comm_reps`` applies
+      a run;
     * ``single``: the single-device solver's FMG and CG on the same rank,
       bit for bit against the decomposed ones (a world of one).
 
@@ -235,12 +236,13 @@ def cube_program(ranks: Ranks, mesh: BrickMesh, degree: int = 4,
     _sync(ranks)
     t0 = time.perf_counter()
     s = DistributedMultigrid(mesh, degree, exact_fn, rhs_fn, ranks,
-                             n_pre=n_pre, n_post=n_pre, n_cycles=n_cycles)
+                             n_pre=n_pre, n_post=n_pre, n_cycles=n_cycles,
+                             shape=shape)
     if state is not None:
         convert.load_state(s, state)
     _sync(ranks)
-    out = dict(world=ranks.world, backend=ranks.backend,
-               setup_time=time.perf_counter() - t0,
+    out = dict(world=ranks.world, backend=ranks.backend, grid=s.shape,
+               foreign=_foreign(), setup_time=time.perf_counter() - t0,
                cells=mesh.n_cells(mesh.max_level),
                dofs=s.grids[s.maxlevel].n_dofs,
                levels=s.distributed_levels(),
@@ -293,7 +295,9 @@ def cube_program(ranks: Ranks, mesh: BrickMesh, degree: int = 4,
     if apply_seed is not None:
         out["apply"] = _apply_check(ranks, s, apply_seed)
     if comm_reps:
-        halo = HaloLaplace(s.grids[s.maxlevel], ranks, torch.float64)
+        fine = s.slabs[s.maxlevel]
+        halo = HaloLaplace(s.grids[s.maxlevel], ranks, torch.float64,
+                           bounds=None if fine is None else fine.bounds)
         out["comm"] = halo.comm_split_report(comm_reps)
         del halo
     if single:
@@ -304,8 +308,8 @@ def cube_program(ranks: Ranks, mesh: BrickMesh, degree: int = 4,
 def _apply_check(ranks: Ranks, s, seed: int) -> dict:
     """The finest level's decomposed ``vmult`` and ``apply`` against
     ``BrickLaplace`` on the whole grid, float32 and float64: whether the
-    owned planes are equal bit for bit on every rank, and the largest
-    difference."""
+    owned nodes (on a rank grid, the corners near both cuts included) are
+    equal bit for bit on every rank, and the largest difference."""
     from ..ops.laplace_kernel import BrickLaplace
 
     g = s.grids[s.maxlevel]
@@ -316,9 +320,9 @@ def _apply_check(ranks: Ranks, s, seed: int) -> dict:
         whole = BrickLaplace(g, dtype, ranks.device, s.coefficient)
         xg = torch.as_tensor(x, dtype=dtype, device=ranks.device)
         rows = s.owned_rows()
-        planes = s.planes(s.maxlevel)
-        xs = xg.clone() if planes is None else xg[planes[0]:planes[1]].clone()
-        # the slab's own apply: its owned planes need no refresh
+        box = s.stored_index(s.maxlevel)
+        xs = xg.clone() if box is None else xg[box].contiguous()
+        # the box's own apply: its owned nodes need no refresh
         for mode, dist_fn, one_fn in (
                 ("vmult", op.vmult, whole.vmult),
                 ("apply", getattr(op, "op", op).apply, whole.apply)):
@@ -382,11 +386,12 @@ def dg_program(ranks: Ranks, mesh: BrickMesh, path: str = "dg-plain",
                reference: Optional[str] = None,
                apply_seed: Optional[int] = None, comm_reps: int = 0,
                comm_wires=("traces",), transfer_seed: Optional[int] = None,
-               single: bool = False, problem: str = "cube") -> dict:
+               single: bool = False, problem: str = "cube",
+               shape: Optional[tuple] = None) -> dict:
     """poisson_dg (``path="dg"``) or poisson_dg_plain (``"dg-plain"``) on
-    ``mesh`` on the ranks (:class:`~.distributed.DistributedMultigridDG`),
-    the right-hand side and exact solution of ``problem``
-    (:func:`dg_problem`).
+    ``mesh`` on the ranks (:class:`~.distributed.DistributedMultigridDG`)
+    on the rank grid ``shape`` (None: the z split), the right-hand side
+    and exact solution of ``problem`` (:func:`dg_problem`).
     Always: set-up seconds, CG seconds (each of ``reps`` solves), frac
     its, rate, L2 error, which levels split and the cuts, the kernels'
     launches during the solves summed over the ranks.  Options:
@@ -425,17 +430,19 @@ def dg_program(ranks: Ranks, mesh: BrickMesh, path: str = "dg-plain",
     _sync(ranks)
     t0 = time.perf_counter()
     dm = DistributedMultigridDG(mesh, degree, exact_fn, rhs_fn, ranks,
-                                solver=path, kind=kind, n_pre=n_pre)
+                                solver=path, kind=kind, n_pre=n_pre,
+                                shape=shape)
     if state is not None:
         convert.load_state(dm, state)
     _sync(ranks)
     s = dm.solver
     grid = s.grids[-1] if path == "dg-plain" else s.dg_grid
+    cuts = None if dm.slabs is None else dm.slabs.bounds
     out = dict(world=ranks.world, backend=ranks.backend, path=path,
-               setup_time=time.perf_counter() - t0, dg_dofs=grid.n_dofs,
-               levels=dm.distributed_levels(),
-               bounds=None if dm.slabs is None else dm.slabs.bounds[0],
-               foreign=_foreign())
+               grid=dm.shape, setup_time=time.perf_counter() - t0,
+               dg_dofs=grid.n_dofs, levels=dm.distributed_levels(),
+               bounds=cuts[0] if cuts is not None and len(cuts) == 1
+               else cuts, foreign=_foreign())
     _reset_launches()
     cg_s, sols = [], []
     its = rate = None
@@ -478,8 +485,7 @@ def dg_program(ranks: Ranks, mesh: BrickMesh, path: str = "dg-plain",
         out["comm"] = {}
         for w in comm_wires:
             halo = HaloDGLaplace(DGLaplace(grid, torch.float32, ranks.device),
-                                 ranks, w, bounds=[out["bounds"]
-                                                   or [0, grid.cells[0]]])
+                                 ranks, w, bounds=cuts or [[0, grid.cells[0]]])
             out["comm"][w] = halo.comm_split_report(comm_reps)
             del halo
     if transfer_seed is not None:
@@ -578,12 +584,13 @@ def _dg_transfer_check(ranks: Ranks, dm, seed: int) -> list[dict]:
         whole = CGDGCoupling(s.cg.grids[s.cg.maxlevel], s.dg_grid, s.v_dtype,
                              dev)
         u, r = rand(whole.cg.shape), rand(s.dg_grid.shape)
-        got, n_up = counted(s.coupling.cg_to_dg, u[fe.lo:fe.hi].clone())
+        got, n_up = counted(s.coupling.cg_to_dg,
+                            u[fe.stored_index()].contiguous())
         up = _compare(ranks, got, whole.cg_to_dg(u)[slabs.stored_cells()])
         got, n_down = counted(s.coupling.dg_to_cg,
                               slabs.distribute(r, s.v_dtype, dev))
         down = _compare(ranks, fe.own(got),
-                        whole.dg_to_cg(r)[fe.owned_rows()])
+                        whole.dg_to_cg(r)[fe.owned_index()])
         return [dict(cg_to_dg=up, dg_to_cg=down, cg_to_dg_exchanges=n_up,
                      dg_to_cg_exchanges=n_down)]
     for l in range(1, len(s.grids)):
@@ -635,3 +642,10 @@ def dg_programs(ranks: Ranks, mesh: BrickMesh, runs) -> list[dict]:
     """:func:`dg_program` once for each keyword set of ``runs``, in one
     launch."""
     return [dg_program(ranks, mesh, **kw) for kw in runs]
+
+
+def programs(ranks: Ranks, calls) -> list:
+    """Several programs in one launch (one spawn of the ranks): each of
+    ``calls`` is ``(function, args, kwargs)``, a function of this module
+    run as ``function(ranks, *args, **kwargs)``; their results in order."""
+    return [fn(ranks, *args, **kwargs) for fn, args, kwargs in calls]

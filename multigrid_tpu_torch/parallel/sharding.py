@@ -13,6 +13,9 @@ level on its own device, and the exchanges are explicit:
   level, a broadcast of floats);
 * :class:`RankGrid`: the ranks laid out on a grid of split axes (z, or
   z and y), with each rank's coordinates and neighbours;
+  :func:`rank_grid_shape` factors a world into that grid as the JAX
+  ``make_mesh`` does, and :func:`default_grid` picks the axes as the JAX
+  poisson_cube experiment does (z and y from 4 ranks on);
 * :func:`launch`: spawns ``n_ranks`` processes of one function of this
   package and returns rank 0's result.
 
@@ -91,8 +94,10 @@ class Ranks:
     device: torch.device
     backend: str
     # seconds of the exchange steps ("stage", "wire", "unstage") when a
-    # dict: host clock, each step ending with its copies done
+    # dict: host clock, each step ending with its copies done; each key
+    # starts with ``label`` (a two-stage refresh names its stage there)
     times: Optional[dict] = None
+    label: str = ""
     # point-to-point steps made (exchange calls that moved data)
     exchanges: int = 0
     _bufs: dict = field(default_factory=dict, repr=False)
@@ -192,7 +197,8 @@ class Ranks:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()
-        self.times[step] = self.times.get(step, 0.0) + now - clock[0]
+        key = self.label + step
+        self.times[key] = self.times.get(key, 0.0) + now - clock[0]
         clock[0] = now
 
     # ---------------------------------------------------------- reductions
@@ -275,6 +281,41 @@ class RankGrid:
         if not 0 <= c[axis] < self.shape[axis]:
             return None
         return int(np.ravel_multi_index(c, self.shape))
+
+
+def rank_grid_shape(world: int, n_axes: int = 1) -> tuple[int, ...]:
+    """The rank grid of ``world`` ranks over ``n_axes`` split axes (1: z;
+    2: z and y), factored as the JAX ``make_mesh`` does
+    (``multigrid_tpu/parallel/sharding.py:31-36``): ``nz`` is the largest
+    divisor of ``world`` not above its square root, ``ny = world / nz``."""
+    if world < 1:
+        raise ValueError(f"world must be at least 1, not {world}")
+    if n_axes == 1:
+        return (world,)
+    if n_axes != 2:
+        raise ValueError(f"ranks split z, or z and y: not {n_axes} axes")
+    nz = int(np.floor(np.sqrt(world)))
+    while world % nz:
+        nz -= 1
+    return (nz, world // nz)
+
+
+def default_grid(world: int) -> tuple[int, ...]:
+    """The rank grid the experiments use for ``world`` ranks: the axes of
+    the JAX poisson_cube experiment, ('z', 'y') from 4 ranks on, else
+    ('z',) (``experiments/poisson_cube.py:118``)."""
+    return rank_grid_shape(world, 2 if world >= 4 else 1)
+
+
+def parse_grid(text: str) -> tuple[int, ...]:
+    """``"NZxNY"`` (or ``"N"``) as a rank grid shape."""
+    try:
+        shape = tuple(int(v) for v in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"a rank grid is NZ or NZxNY, not {text!r}") from None
+    if not 1 <= len(shape) <= 2 or min(shape) < 1:
+        raise ValueError(f"a rank grid is NZ or NZxNY, not {text!r}")
+    return shape
 
 
 def init(backend: str, world: int, rank: int, init_method: str,

@@ -60,20 +60,23 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def eig_estimate_start_vector(shape, dtype, device=None, *,
-                              planes=None) -> torch.Tensor:
+                              box=None) -> torch.Tensor:
     """deal.II's deterministic start vector: global index mod 11, minus the
-    exact mean, on the node grid ``shape``; ``planes = (lo, hi)`` gives
-    only the planes ``lo .. hi - 1`` of axis 0 (a rank's slab, with the
+    exact mean, on the node grid ``shape``; ``box = ((lo, hi), ...)``
+    gives only those indices of the leading axes (a rank's box, with the
     indices of the whole grid)."""
     n = int(np.prod(shape))
     q, r = divmod(n, 11)
     mean = (q * 55.0 + r * (r - 1) / 2.0) / n
-    if planes is None:
+    if box is None:
         i = torch.arange(n, device=device)
     else:
-        plane = n // shape[0]
-        i = torch.arange(planes[0] * plane, planes[1] * plane, device=device)
-        shape = (planes[1] - planes[0],) + tuple(shape[1:])
+        # the flat index of the whole grid, axis by axis
+        i = torch.zeros((), dtype=torch.int64, device=device)
+        for d, e in enumerate(shape):
+            lo, hi = box[d] if d < len(box) else (0, e)
+            i = i.unsqueeze(-1) * e + torch.arange(lo, hi, device=device)
+        shape = tuple(i.shape)
     v = (i % 11).to(dtype) - torch.tensor(mean, dtype=dtype, device=device)
     return v.reshape(shape)
 

@@ -21,9 +21,9 @@ float32 matrix products on the card, so the plain float32 code is a
 full-float32 oracle.
 
 ``parallel.distributed.DistributedMultigrid`` runs this class's V-cycle,
-FMG and CG on z-slabs over ranks; its hooks here are the inner products
+FMG and CG on boxes of cells over ranks; its hooks here are the inner products
 (``_cg_dot``, ``_norm``, the smoothers' ``dot``), faces given as None in
-``_impose_bc`` and the ``planes`` of ``_level_rhs``.
+``_impose_bc`` and the ``box`` of ``_level_rhs``.
 """
 
 from __future__ import annotations
@@ -196,18 +196,19 @@ class MultigridSolver:
                                 dot=dot, rhs0=rhs0)
 
     def _level_rhs(self, l: int, rhs_fn, faces_np, coef,
-                   planes=None) -> torch.Tensor:
+                   box=None) -> torch.Tensor:
         """Level ``l``'s f64 rhs ``b = M f - A u_bc`` (zero Dirichlet rows):
         on the device from separable factors above 4M dofs, else on the
-        host; ``planes = (lo, hi)``: only those planes of axis 0."""
+        host; ``box = ((lo, hi), ...)``: only those nodes of the leading
+        axes."""
         g = self.grids[l]
         sep = getattr(rhs_fn, "separable_1d", None)
         if sep is not None and g.n_dofs > _HOST_ASSEMBLY_DOFS:
             return self._rhs_separable_device(l, g, sep(g.dim), faces_np,
-                                              planes=planes)
+                                              box=box)
         b = compute_rhs_host(g, rhs_fn, _dense_bc_host(g, faces_np), coef)
-        if planes is not None:
-            b = b[planes[0]:planes[1]].copy()
+        if box is not None:
+            b = b[tuple(slice(lo, hi) for lo, hi in box)].copy()
         return torch.as_tensor(b, dtype=self.f_dtype, device=self.device)
 
     def _impose_bc(self, faces, x: torch.Tensor,
@@ -226,14 +227,14 @@ class MultigridSolver:
         return out
 
     def _rhs_separable_device(self, level: int, g: DofGrid, factors,
-                              faces_np, planes=None) -> torch.Tensor:
+                              faces_np, box=None) -> torch.Tensor:
         """dp rhs ``b = M f - A u_bc`` for rank-1 separable
         f = prod_d factors[d](x_d): the mass term is an outer product of
         1-D host-assembled vectors (exact: cells and quadrature factorize
         per axis), built on the device; only ``2 dim`` thin node slabs of
-        the boundary correction are assembled on the host.  ``planes =
-        (lo, hi)`` builds only those planes of axis 0, with the whole
-        grid's values (its outer planes zeroed as Dirichlet rows)."""
+        the boundary correction are assembled on the host.  ``box = ((lo,
+        hi), ...)`` builds only those nodes of the leading axes, with the
+        whole grid's values (its outer faces zeroed as Dirichlet rows)."""
         b = g.basis
         S = np.asarray(b.S, np.float64)
         qw = np.asarray(b.quad_weights, np.float64)
@@ -243,9 +244,9 @@ class MultigridSolver:
             fd = np.asarray(factors[d](xq), np.float64)
             vs.append(_scatter_pair_host((fd * qw[None, :]) @ S, g.degree))
         vs[0] = vs[0] * g.jxw_scalar
-        lo, hi = (0, g.shape[0]) if planes is None else planes
-        if planes is not None:
-            vs[0] = vs[0][lo:hi]
+        box = () if box is None else tuple(box)
+        for d, (lo, hi) in enumerate(box):
+            vs[d] = vs[d][lo:hi]
         t = lambda a: torch.as_tensor(a, dtype=self.f_dtype, device=self.device)
         # r = v_0 (x) (v_1 (x) ... ), the last axes first
         r = None
@@ -258,15 +259,17 @@ class MultigridSolver:
             slices, arrs = compute_bc_slab_correction_host(
                 g, faces_np, self.ops_dp[level].coef)
             for sl, a in zip(slices, arrs):
-                if planes is not None:
-                    # the part of the slab inside planes [lo, hi)
-                    z0, z1, _ = sl[0].indices(g.shape[0])
+                sl = list(sl) + [slice(None)] * (g.dim - len(sl))
+                for d, (lo, hi) in enumerate(box):
+                    # the part of the slab inside the box's [lo, hi)
+                    z0, z1, _ = sl[d].indices(g.shape[d])
                     o0, o1 = max(z0, lo), min(z1, hi)
                     if o1 <= o0:
-                        continue
-                    a = a[o0 - z0:o1 - z0]
-                    sl = (slice(o0 - lo, o1 - lo),) + tuple(sl[1:])
-                r[sl] += t(a)
+                        break
+                    a = a.take(range(o0 - z0, o1 - z0), axis=d)
+                    sl[d] = slice(o0 - lo, o1 - lo)
+                else:
+                    r[tuple(sl)] += t(a)
         return zero_boundary_(r)
 
     def exact_on_quad(self, level: int) -> torch.Tensor:

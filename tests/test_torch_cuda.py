@@ -961,6 +961,20 @@ def test_halo_vmult_on_card_is_the_whole_grid_bit_for_bit(dev):
         np.testing.assert_array_equal(out["vmult"], want)
 
 
+def test_halo2d_vmult_on_card_is_the_whole_grid_bit_for_bit(dev):
+    """A 2 x 2 rank grid: every rank's owned nodes, the corners near both
+    cuts included, are brick_kron on the whole grid bit for bit."""
+    from multigrid_tpu_torch.parallel.programs import halo_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    g = DofGrid(BrickMesh((4, 4, 5), (-0.9,) * 3, (1.9, 1.3, 1.1)), 1, 4)
+    x = np.random.default_rng(7).standard_normal(g.shape)
+    for dtype in (torch.float32, torch.float64):
+        out = launch(halo_program, 4, "gloo", "cuda", args=(g, x, dtype),
+                     kwargs=dict(shape=(2, 2), whole=True))
+        assert out["whole"]["equal"], (dtype, out["whole"])
+
+
 def test_distributed_solve_on_card_matches_one_device(dev, tmp_path):
     from multigrid_tpu_torch.experiments.poisson_cube import build_solver
     from multigrid_tpu_torch.parallel.programs import cube_program

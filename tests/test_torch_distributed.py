@@ -130,6 +130,6 @@ def test_nccl_needs_a_card_per_rank():
 
 
 def test_a_failed_rank_fails_the_launch():
-    flat = BrickMesh((4, 4), (0.0, 0.0), (1.0, 1.0), n_levels=2)
+    line = BrickMesh((4,), (0.0,), (1.0,), n_levels=2)
     with pytest.raises(RuntimeError, match="failed:(.|\n)*3-D bricks"):
-        launch(cube_program, 2, "gloo", "cpu", args=(flat,), timeout_s=120)
+        launch(cube_program, 2, "gloo", "cpu", args=(line,), timeout_s=120)
