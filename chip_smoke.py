@@ -36,8 +36,8 @@ convergence rows:
 * the curved DG-plain path (``poisson_dg_plain --deform 0.05``: per-point
   geometry, plain PyTorch levels, the outer f64 CG on the CG kernels): the
   512- and 4096-dof rows of every element type, p = 3, on the card against
-  the CPU and the JAX driver's anchors; hermite p = 4 at size 48,
-  13,824,000 DG dofs, five levels, rate < 0.35, its frac its those of
+  the CPU and the JAX driver's anchors; hermite p = 4 at size 24,
+  1,728,000 DG dofs, four levels, rate < 0.35, its frac its those of
   the first card run and its L2 the affine DG-plain row's, with its set-up
   seconds and peak memory; one ``matvec_dg --impl curved`` row in f64 and
   f32;
@@ -45,17 +45,17 @@ convergence rows:
   deterministic scatters, the outer f64 CG on the CG kernels): the four
   ``--initial 5`` anchor cycles on the card, each forest also solved on
   the CPU, and whether the card's Kelly marking parts from the CPU's; the
-  first adaptive row from ``--initial 8`` (788,481 dofs; the rows went on
-  past 1,000,000 until the DG paths at p = 8, 9 took their time), its
-  iterations and reduction those of the first card run, its CG solution
+  first adaptive row from ``--initial 7`` (197,633 dofs; the rows went on
+  past 1,000,000 until the script neared its time limit), its
+  iterations and reduction those of the port on the CPU, its CG solution
   bit for bit the same in three solves; a ``--dim 3
   --initial 3`` cycle pair; a ``--local-smoothing --initial 7`` row
   (197,633 dofs).  The CG kernels are held against their plain versions
   at the vector lengths these two paths give them;
 * poisson_dg at p = 8 and 9 and poisson_dg_plain at p = 8 (3-D, hermite,
   n_pre = n_post = 3, rtol 1e-9), the DG kernels' degrees above p = 7:
-  the rows of 2^3 and 4^3 cells on the card against the port on the CPU
-  and the JAX package's rows, then 24^3 cells (10,077,696 / 13,824,000 DG
+  the rows of 2^3 and 4^3 cells on the card against the JAX package's
+  rows (2^3 also against the port on the CPU), then 24^3 cells (10,077,696 / 13,824,000 DG
   dofs; poisson_dg over the FE_Q(8) / FE_Q(9) hierarchy on brick_kron p =
   8 / 9, poisson_dg_plain on four DG levels 3^3 -> 24^3): frac its within
   one of the CPU's size-12 row, the rate in a band from the CPU ladder,
@@ -89,9 +89,18 @@ convergence rows:
   bit for bit), the owned nodes of the distributed 3-D ``vmult`` and
   ``apply`` in float and double (on 2 x 2 the corners near both cuts
   included) against ``BrickLaplace`` on the whole grid bit for bit, the
-  exchange share of the f64 ``vmult`` and its bytes a refresh by stage;
-  one rank on nccl against the single-device solver's bits.  The
-  kernels' launches are summed over the ranks;
+  exchange share of the f64 ``vmult`` and its bytes a refresh by stage,
+  and the same vmult of ``HaloLaplace`` on the finest cuts in the overlap
+  schedule (``parallel.halo.SplitApply``: the send regions first, their
+  exchange in flight while the interior runs) with the refresh alone,
+  the hidden share and the plan's overlappable fraction, its box equal to
+  apply-then-refresh, every node, bit for bit; one rank on nccl against
+  the single-device solver's bits.  Before the ranks, in one process:
+  the overlap schedule at p = 8 in float32 where the sub-boxes run
+  ``brick_kron``'s cell form and the whole box the march (bit for bit),
+  and ``LaplaceOperator`` with a ``SymCoef`` on the card against
+  ``DiagCoef`` and the CPU.  The kernels' launches are summed over the
+  ranks;
 * the DG solvers on ranks sharing the card
   (``parallel.distributed.DistributedMultigridDG``: cell slabs with ghost
   cell layers on the DG pencil kernels): poisson_dg (hermite p = 4, n_pre
@@ -111,6 +120,8 @@ convergence rows:
   4) against ``DGOperator`` on the whole grid (the traces wire bit for
   bit, the hermite wire within ``DG_HERMITE_BAR`` of max|y| in f64); one
   nccl rank of each DG solver against the single-device solver's bits.
+  The cube and DG rows of one world size share a launch of the ranks, and
+  the nccl rank runs both solvers.
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
 degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
@@ -211,13 +222,15 @@ SHELL_LEVELS = 5       # 6-block shell, FE_Q(4): 1,597,570 dofs
 # docs/tpu_r4/shell_blk.log, cycles 8 and 6)
 SHELL_CG_L2 = {5: 1.40080e-5, 4: 4.00663e-4}
 SHELL_CG_L2_TOL = 1e-3
-PD_LEVELS = 5          # the pure-double fourth-kind row (4: 202,818 dofs)
-# CG iterations of the 5-level rows, held within one: mixed, the JAX
-# package's ladder (docs/tpu_r4/shell_blk.log, cycle 8: 24 its, FMG L2
-# 1.919187e-2, reduction 0.413267, both also held at the anchors' bars);
-# pure double, which that ladder never reached at this size, the port's
-# own first card runs (34 its, PERF.md)
-SHELL_ITS = {(5, False): 24, (5, True): 34}
+# the pure-double fourth-kind row: 4 levels, 202,818 dofs (5 levels spent
+# 16 s in set-up on one H100)
+PD_LEVELS = 4
+# CG iterations, held within one: the 5-level mixed row, the JAX package's
+# ladder (docs/tpu_r4/shell_blk.log, cycle 8: 24 its, FMG L2 1.919187e-2,
+# reduction 0.413267, both also held at the anchors' bars); pure double,
+# which that ladder never reached, the port's own runs (34 its at 5 levels
+# on the card, PERF.md; 34 at 4 levels on the CPU)
+SHELL_ITS = {(5, False): 24, (5, True): 34, (4, True): 34}
 SHELL_MIXED = (1.919187e-2, 0.413267)     # FMG L2, reduction
 # minimal_surface at 2 levels, degree 2, card against CPU: the same Newton
 # and CG counts, each residual norm to 1e-6 of itself or of the Newton
@@ -258,15 +271,17 @@ MATVEC_KERNEL = {8: 12}
 # poisson_dg (DG over the FE_Q(p) hierarchy) and poisson_dg_plain at the DG
 # kernels' degrees above p = 7 (3-D, hermite, n_pre = n_post = 3, rtol
 # 1e-9): the rows of 2^3 and 4^3 cells (sizes 2, 4) on the card against the
-# port on the CPU and against the JAX package's rows (DG_HIGH_ANCHORS):
-# its within one, frac its and L2 to DG_HIGH_AGREE; then the size-24 row
-# (24^3 cells: 10,077,696 DG dofs at p = 8, 13,824,000 at p = 9): frac its
+# JAX package's rows (DG_HIGH_ANCHORS) and, at DG_HIGH_CPU_SMALL, the port
+# on the CPU (at size 4 its set-up held the script back): its within one,
+# frac its and L2 to DG_HIGH_AGREE; then the size-24 row (24^3
+# cells: 10,077,696 DG dofs at p = 8, 13,824,000 at p = 9): frac its
 # within one of the port's largest CPU row (size 12, DG_HIGH_CPU), the rate
 # in DG_HIGH_RATE (half the smallest to twice the largest rate of the CPU
 # ladder, sizes 2-12), the L2 error the DG plateau (DG_L2 +- DG_L2_TOL);
 # poisson_dg_plain's L2 and solution poisson_dg's of the same degree and
 # size to PLAIN_AGREE, its rate below PLAIN_RATE
 DG_HIGH_SIZE, DG_HIGH_SMALL, DG_HIGH_AGREE = 24, (2, 4), 0.01
+DG_HIGH_CPU_SMALL = (2,)
 DG_HIGH_PATHS = (("poisson_dg", 8), ("poisson_dg", 9), ("poisson_dg_plain", 8))
 # (path, p) -> {size: (frac its, rate, L2)}: the JAX solvers on the CPU
 # (MultigridSolverDG with dp_impl="native", MultigridSolverDGPlain)
@@ -396,16 +411,15 @@ CURVED_ANCHORS = {
     "gauss": ((10.4466, 1.5964e-1), (11.1137, 1.0396e-1)),
 }
 CURVED_AGREE = 0.01
-# the full-width row: hermite p = 4 at size 48 (13,824,000 DG dofs, five
-# levels), rtol 1e-9, rate below the bar of tests/test_dg_curved.py:150-174,
-# frac its within one of the first card run's (9.9819), L2 the affine
-# DG-plain row's of the same run to CURVED_L2_AGREE (the Dirichlet plateau:
-# the two agreed to 7 printed digits on the first card run); a smaller
-# even size only when the host set-up at 48 would pass CURVED_SETUP_LIMIT
-# seconds (none so far)
-CURVED_SIZE = 48
+# the large row: hermite p = 4 at size 24 (1,728,000 DG dofs, four levels;
+# size 48 spent 81 s in set-up on one H100, near a sixth of the script),
+# rtol 1e-9, rate below the bar of tests/test_dg_curved.py:150-174, frac
+# its within one of the first card run's at this size (10.1254; 9.9819 at
+# size 48), L2 the affine DG-plain row's of the same run (size 48) to
+# CURVED_L2_AGREE (the Dirichlet plateau: 4.5e-7 apart on that first run)
+CURVED_SIZE = 24
 CURVED_RATE = 0.35
-CURVED_ITS = 9.98
+CURVED_ITS = 10.13
 CURVED_L2_AGREE = 1e-5
 CURVED_SETUP_LIMIT = 150.0
 # poisson_l (2-D, FE_Q(2), global coarsening, rtol 1e-9): the first four
@@ -414,11 +428,12 @@ CURVED_SETUP_LIMIT = 150.0
 # the card's forest each cycle (iterations within one, val_L2 to 1%) and,
 # while the card's meshes are the JAX driver's, against these (dofs and
 # constraints exact, iterations within one, reduction and val_L2 to 1%);
-# the top rows from --initial 8 until one passes L_TOP_DOFS, below
+# the top rows from --initial 7 until one passes L_TOP_DOFS, below
 # poisson_l's --max-dofs ceiling L_MAX_DOFS, each row's (iterations,
-# reduction) those of the first card run (788,481 dofs; the next row,
-# 1,121,717 dofs at 8 its and 0.06912, was cut to keep the script near
-# half its time limit): iterations within one, reduction to L_TOP_AGREE;
+# reduction) those of the port on the CPU (197,633 dofs; the rows from
+# --initial 8, 788,481 dofs at 8 its and 0.06933 on the card, then
+# 1,121,717 at 8 and 0.06912, were cut to keep the script near half its
+# time limit): iterations within one, reduction to L_TOP_AGREE;
 # one --dim 3 --initial 3 cycle pair; one --local-smoothing row at
 # --initial 7 (197,633 dofs)
 L_ANCHORS = [(12545, 0, 8, 0.06868, 1.1102e-4),
@@ -426,8 +441,8 @@ L_ANCHORS = [(12545, 0, 8, 0.06868, 1.1102e-4),
              (24975, 1632, 8, 0.06922, 1.7189e-5),
              (35161, 3764, 8, 0.06910, 6.7952e-6)]
 L_AGREE = 0.01
-L_TOP_INITIAL, L_TOP_DOFS, L_MAX_DOFS = 8, 700_000, 2_000_000
-L_TOP_ROWS = [(8, 0.06933)]
+L_TOP_INITIAL, L_TOP_DOFS, L_MAX_DOFS = 7, 190_000, 2_000_000
+L_TOP_ROWS = [(8, 0.06889)]
 L_TOP_AGREE = 0.03
 L_ITS = 10              # the bar of tests/test_adaptive.py on every row
 L_LOCAL_INITIAL, L_LOCAL_DOFS = 7, 197_633
@@ -917,15 +932,21 @@ def brick(cells, degree):
     return DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, degree)
 
 
-def run(dev: torch.device, card: str, t_start: float) -> int:
-    """Phase 2 on ``dev``: the kernel checks; then the paths."""
+def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
+    """Phase 2 on ``dev``: every kernel against its plain version, each
+    block's wall seconds on its line."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.ops import dg_kernel as dk
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
-    # phase 2: every kernel against its plain version on the card
-    laps = [time.perf_counter()]
     checks = KernelChecks(dev)
+    last = [time.perf_counter()]
+
+    def took() -> str:
+        now = time.perf_counter()
+        s = f"({now - last[0]:.1f} s)"
+        last[0] = now
+        return s
     shapes = [
         ("poisson_cube_mesh(8)", DofGrid(poisson_cube_mesh(8), 3, 4), False),
         ("anisotropic (3,4,5)", brick((3, 4, 5), 4), False),
@@ -937,7 +958,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         checks.operator_checks(grid, timed)
         checks.cg_checks(grid.n_dofs, timed)
         torch.cuda.synchronize()
-        print(f"kernel checks passed at {label}: {grid.shape}")
+        print(f"kernel checks passed at {label}: {grid.shape} {took()}")
     # brick_kron (float and double) at every other degree, a one-cell axis,
     # node counts that do not divide its tile
     for label, grid in (
@@ -953,7 +974,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         for dtype in (torch.float32, torch.float64):
             checks.kron_checks(grid, False, dtype)
         torch.cuda.synchronize()
-        print(f"brick_kron checks passed at {label}: {grid.shape}")
+        print(f"brick_kron checks passed at {label}: {grid.shape} {took()}")
     # p = 8 and 9: small grids (a one-cell axis, ragged tiles), then the
     # cube rows' node grids, timed
     for p, size in HIGH_DEGREE_SIZES.items():
@@ -968,7 +989,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
             for dtype in (torch.float32, torch.float64):
                 checks.kron_checks(grid, timed, dtype, label=f" p={p}")
             torch.cuda.synchronize()
-            print(f"brick_kron checks passed at {label} p={p}: {grid.shape}")
+            print(f"brick_kron checks passed at {label} p={p}: {grid.shape} "
+                  f"{took()}")
         for c in HIGH_DEGREE_COARSE[p]:
             grid = DofGrid(poisson_cube_mesh(c), 0, p)
             for dtype in (torch.float32, torch.float64):
@@ -976,7 +998,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                                    label=f" p={p} {c * p + 1}^3")
             torch.cuda.synchronize()
             print(f"brick_kron checks passed at the coarse grid {c}^3 cells "
-                  f"p={p}: {grid.shape}")
+                  f"p={p}: {grid.shape} {took()}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
     dg_shapes = [
         ("sheared DG (3,2,4) p=3 hermite", dg_grid((3, 2, 4), 3, "hermite"),
@@ -989,7 +1011,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     for label, grid, timed in dg_shapes:
         checks.dg_checks(grid, timed)
         torch.cuda.synchronize()
-        print(f"kernel checks passed at {label}: {grid.shape}")
+        print(f"kernel checks passed at {label}: {grid.shape} {took()}")
     # the DG pencil kernels at every compiled degree, on x axes that are
     # not a multiple of the pencil or have one cell (p = 8, 9: under their
     # own entries, then timed on the size-24 grids of their paths)
@@ -1002,7 +1024,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
             checks.cheb_checks(ops, face=True, label=label)
         torch.cuda.synchronize()
         print(f"dg_apply, dg_residual and dg_cheb checks passed at p={p}: "
-              f"(3,2,5), (2,3,1), (5,4,9)")
+              f"(3,2,5), (2,3,1), (5,4,9) {took()}")
     # no fallback above the kernels' degree: the card refuses such a level
     try:
         dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),
@@ -1019,7 +1041,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         checks.dg_checks(grid, True, label=f" p={p}")
         torch.cuda.synchronize()
         print(f"kernel checks passed at DG poisson_cube_mesh({DG_HIGH_SIZE}) "
-              f"p={p} hermite: {grid.shape}")
+              f"p={p} hermite: {grid.shape} {took()}")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "
@@ -1031,6 +1053,13 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         print(f"  {k} residual mode: kernel {res['ms']:.4f} ms, plain "
               f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.4f} ms "
               f"({res['bound'][1]}) [{card}]")
+    return checks
+
+
+def run(dev: torch.device, card: str, t_start: float) -> int:
+    """Phase 2 on ``dev``: the kernel checks; then the paths."""
+    laps = [time.perf_counter()]
+    checks = kernel_checks(dev, card)
 
     # phases 3 to 16: the paths, each with the counters zeroed just before
     # it and read just after; each phase's wall seconds on its own line
@@ -1078,12 +1107,12 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     lap("poisson_dg_2d")
     launches["poisson_cube_135M"], big_row = utils_path(dev, card)
     lap("poisson_cube_135M")
-    launches["poisson_cube_ranks"] = ranks_path(
+    sym_coef_check(dev, card)
+    lap("SymCoef check")
+    launches["poisson_cube_ranks"], launches["poisson_dg_ranks"] = rank_paths(
         dev, card, {(3, SIZE): cube_row, (3, MEM_SIZE): big_row,
-                    (2, CUBE2_SIZE): cube2_row})
-    lap("poisson_cube_ranks")
-    launches["poisson_dg_ranks"] = dg_ranks_path(dev, card, dg_err)
-    lap("poisson_dg_ranks")
+                    (2, CUBE2_SIZE): cube2_row}, dg_err)
+    lap("poisson_cube_ranks and poisson_dg_ranks")
     for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
         off_path = {k: v for k, v in launches[path].items()
                     if k.startswith(("brick_kron", "cheb_epilogue")) and v}
@@ -1679,7 +1708,7 @@ def l_path(dev, card, checks) -> dict:
     print(f"  card and CPU Kelly marking: "
           f"{'the same meshes through cycle ' + str(len(L_ANCHORS) - 1) if first_diff is None else f'different meshes from cycle {first_diff} on'}")
 
-    # the top rows, adaptive from --initial 8
+    # the top rows, adaptive from --initial L_TOP_INITIAL
     forest = pl.l_forest(L_TOP_INITIAL)
     prev = None
     for k in range(len(L_TOP_ROWS)):
@@ -1830,12 +1859,15 @@ def dg_high_path(dev, card, path: str, p: int, dg_row=None):
         return sol, (frac_its, rate, s.l2_error(sol, s.exact_quad))
 
     for size in DG_HIGH_SMALL:
-        (_, got), (_, cpu) = (row(build(size, where)) for where in (dev, "cpu"))
-        jax_row = DG_HIGH_ANCHORS[key][size]
+        _, got = row(build(size, dev))
+        refs = [(DG_HIGH_ANCHORS[key][size], "JAX")]
+        if size in DG_HIGH_CPU_SMALL:
+            refs.insert(0, (row(build(size, "cpu"))[1], "CPU"))
         print(f"{path} p={p} size {size}: its {got[0]:.4f}, rate "
-              f"{got[1]:.4e}, L2 {got[2]:.6e} (CPU {cpu[0]:.4f}, "
-              f"{cpu[1]:.4e}, {cpu[2]:.6e}; JAX {jax_row})")
-        for ref, what in ((cpu, "CPU"), (jax_row, "JAX")):
+              f"{got[1]:.4e}, L2 {got[2]:.6e} ("
+              + "; ".join(f"{what} {ref[0]:.4f}, {ref[1]:.4e}, {ref[2]:.6e}"
+                          for ref, what in refs) + ")")
+        for ref, what in refs:
             require(abs(math.ceil(got[0]) - math.ceil(ref[0])) <= 1
                     and abs(got[0] / ref[0] - 1) <= DG_HIGH_AGREE
                     and abs(got[2] / ref[2] - 1) <= DG_HIGH_AGREE,
@@ -2173,6 +2205,8 @@ def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
     """Print one poisson_cube rank row (``cube_program``'s output) and hold
     it to the single-device row ``ref`` of this run; removes the saved
     one-device CG solution."""
+    from multigrid_tpu_torch.experiments import time_ranks
+
     label = (f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card), "
              f"{dim}-D size {size}, {out['dofs']} dofs")
     print(f"{label}: levels split {out['levels']}, finest cuts "
@@ -2193,7 +2227,7 @@ def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
           f"{out['cg_repeat_equal']}")
     if dim == 3:
         comm = out["comm"]
-        print(f"  f64 vmult of the finest level: "
+        print(f"  f64 vmult of the finest level, apply then refresh: "
               f"{comm['total'] * 1e3:.3f} ms with the ghost refresh, "
               f"{comm['cell_loop'] * 1e3:.3f} ms without; exchange "
               f"share {comm['comm_fraction']:.3f}; rank 0's refresh: "
@@ -2201,6 +2235,11 @@ def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
                           comm["steps"].items())
               + f"; bytes a refresh by stage {comm['bytes_by_stage']} "
               f"[{card}]")
+        print(f"  f64 vmult of the finest level, overlap schedule: "
+              f"{time_ranks.split_line(comm)} [{card}]")
+        require(comm["overlap"] is not None and comm["overlap"]["equal"],
+                f"{label}: the overlap schedule of the finest level does "
+                "not run or is not apply-then-refresh's bits")
         for k, v in out["apply"].items():
             print(f"  distributed {k} on the owned nodes vs BrickLaplace "
                   f"on the whole grid: bit for bit {v['equal']}, max diff "
@@ -2220,52 +2259,94 @@ def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
     ref["cg_file"].unlink()
 
 
-def ranks_path(dev, card, rows) -> dict:
-    """poisson_cube on several ranks of torch.distributed sharing the card
-    (gloo, the planes staged through pinned host memory): 2 z-slab ranks
-    at size 128, then a 2 x 2 grid at size 64 and a 2-D 2 x 2 grid at size
-    64 in one launch (``RANKS_RUNS``), against the single-device rows of
-    this run (``rows``: (dim, cube size) -> that row); the owned nodes of
-    the distributed 3-D apply (corners included) against ``BrickLaplace``
-    on the whole grid; one rank on nccl against the single-device solver's
-    bits.  Returns the device kernels launched by the solves, summed over
-    the ranks.  (A gloo send of a CUDA tensor aborts the sender: whence
-    the staging.)"""
-    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
-    from multigrid_tpu_torch.parallel.programs import cube_program, programs
-    from multigrid_tpu_torch.parallel.sharding import launch
+def form_check(dev, card) -> None:
+    """The overlap schedule where its sub-boxes run the other form of
+    ``brick_kron``: p = 8, float32, 20 x 16 x 16 cells cut for 2 z ranks.
+    The whole grid (5120 cells) and each rank's box (3072) take the
+    z-slab march, the sub-boxes (at most 2304 cells) the cell form
+    (``laplace_kernel.brick_form``); each rank's split ``vmult``, with no
+    traffic (the owned nodes need none), against the whole grid's and the
+    box's, bit for bit.  One process; its launches are not a path's."""
+    from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+    from multigrid_tpu_torch.parallel.halo import (SplitApply, Slabs,
+                                                   split_cells)
+    from multigrid_tpu_torch.parallel.sharding import Ranks
 
-    total = {}
+    f32 = torch.float32
+    g = DofGrid(BrickMesh((20, 16, 16), (0.0,) * 3, (1.0,) * 3), 0, 8)
+    x = torch.as_tensor(np.random.default_rng(8).standard_normal(g.shape),
+                        dtype=f32, device=dev)
+    want = lk.BrickLaplace(g, f32, dev).vmult(x)
+    require(lk.brick_form(g.shape, 8, f32) == "march",
+            "the p = 8 form check's whole grid is not on the march")
+    for r in range(2):
+        s = Slabs(g, Ranks(2, r, dev, "gloo"), split_cells(g.cells[0], 2))
+        op = lk.BrickLaplace(s.local, f32, dev)
+        sp = SplitApply(op, s)
+        forms = [lk.brick_form(o.shape, 8, f32) for o in sp.ops]
+        box_form = lk.brick_form(op.shape, 8, f32)
+        xs = x[s.stored_index()].contiguous()
+        got = s.own(sp.run(xs, comm=False))
+        same = dict(whole_grid=torch.equal(got, want[s.owned_index()]),
+                    box=torch.equal(got, s.own(op.vmult(xs))))
+        print(f"  p = 8 f32 split vmult on rank {r} of 2 ({s.shape} box, "
+              f"{box_form}; sub-boxes {[o.shape for o in sp.ops]}, "
+              f"{forms}): owned nodes bit for bit {same}")
+        require(box_form == "march" and "cell" in forms,
+                "the p = 8 form check does not mix the forms")
+        require(all(same.values()),
+                f"the p = 8 f32 split differs on rank {r}: {same}")
 
-    def add(launches):
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
 
-    for n, grid, runs in RANKS_RUNS:
-        t0 = time.perf_counter()
-        outs = launch(programs, n, "gloo", "cuda", args=([
-            (cube_program, (poisson_cube_mesh(size, dim),),
-             dict(reps=2, reference=str(rows[dim, size]["cg_file"]),
-                  apply_seed=3 if dim == 3 else None,
-                  comm_reps=10 if dim == 3 else 0, shape=grid))
-            for dim, size in runs],))
-        print(f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card): "
-              f"launch {time.perf_counter() - t0:.1f} s")
-        for (dim, size), out in zip(runs, outs):
-            ranks_row(out, rows[dim, size], n, grid, dim, size, card)
-            add(out["launches"])
-    # one rank on nccl: the single-device solver, bit for bit
-    t0 = time.perf_counter()
-    out = launch(cube_program, 1, "nccl", "cuda",
-                 args=(poisson_cube_mesh(SIZE),), kwargs=dict(single=True))
-    add(out["launches"])
-    print(f"1 rank (nccl), size {SIZE}: FMG bit for bit "
-          f"{out['single']['fmg_equal']}, CG bit for bit "
-          f"{out['single']['cg_equal']} ({out['single']['its']} its); launch "
-          f"{time.perf_counter() - t0:.1f} s")
-    require(out["single"]["fmg_equal"] and out["single"]["cg_equal"],
-            "one rank on nccl differs from the single-device solver")
-    return total
+def sym_coef_check(dev, card) -> None:
+    """``LaplaceOperator`` with a ``SymCoef`` on the card, 3 x 2 x 3 cells
+    at p = 4: the tensor that holds the affine diagonal against the
+    ``DiagCoef`` operator (``vmult`` to 1e-11 of max|y|, the inverse
+    diagonal to 1e-11 relative), a random symmetric positive-definite one
+    against the same operator on the CPU (1e-12 of the largest value)."""
+    from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid
+    from multigrid_tpu_torch.ops.laplace import (LaplaceOperator, SymCoef,
+                                                 make_diag_coef,
+                                                 sym_components)
+
+    f64 = torch.float64
+    g = DofGrid(BrickMesh((3, 2, 3), (-0.3,) * 3, (1.1, 0.8, 1.3)), 0, 4)
+    nq, nsym = g.degree + 1, len(sym_components(3))
+    w = g.basis.quad_weights
+    wq = np.multiply.outer(np.multiply.outer(w, w), w)
+    C = np.zeros(tuple(g.cells) + (nq,) * 3 + (nsym,))
+    diag = make_diag_coef(g)
+    for d in range(3):
+        C[..., d] = diag.values[d] * wq
+    rng = np.random.default_rng(9)
+    m = rng.standard_normal(tuple(g.cells) + (nq,) * 3 + (3, 3))
+    t = m @ np.swapaxes(m, -1, -2) + 3 * np.eye(3)
+    R = np.stack([t[..., a, c] for a, c in sym_components(3)], axis=-1)
+    x = torch.as_tensor(rng.standard_normal(g.shape), dtype=f64)
+    ops = {k: LaplaceOperator(g, f64, c, dev) for k, c in
+           (("diag", diag), ("sym", SymCoef(C)), ("random", SymCoef(R)))}
+    y = {k: op.vmult(x.to(dev)).cpu() for k, op in ops.items()}
+    inv = {k: op.inverse_diagonal().cpu() for k, op in ops.items()}
+    cpu = LaplaceOperator(g, f64, SymCoef(R), "cpu")
+    errs = dict(
+        vmult_vs_diag=float((y["sym"] - y["diag"]).abs().max()
+                            / y["diag"].abs().max()),
+        inv_diag_vs_diag=float(((inv["sym"] - inv["diag"])
+                                / inv["diag"]).abs().max()),
+        random_vmult_vs_cpu=float((y["random"] - cpu.vmult(x)).abs().max()
+                                  / y["random"].abs().max()),
+        random_inv_diag_vs_cpu=float(
+            (inv["random"] - cpu.inverse_diagonal()).abs().max()
+            / inv["random"].abs().max()))
+    print(f"SymCoef on the card, {g.cells} cells, p = {g.degree}: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" [{card}]")
+    require(errs["vmult_vs_diag"] <= 1e-11
+            and errs["inv_diag_vs_diag"] <= 1e-11,
+            f"the SymCoef operator is not the DiagCoef one: {errs}")
+    require(errs["random_vmult_vs_cpu"] <= 1e-12
+            and errs["random_inv_diag_vs_cpu"] <= 1e-12,
+            f"the SymCoef operator on the card is not the CPU's: {errs}")
 
 
 def dg_ranks_row(out: dict, ref: dict, path: str, n: int, grid, size: int,
@@ -2337,38 +2418,56 @@ def halo_row(outs, halo_grid, grid, card: str) -> None:
                 f"HaloDGLaplace2D {wire} wire: off the whole grid")
 
 
-def dg_ranks_path(dev, card, dg_err: float) -> dict:
-    """The DG solvers on ranks of torch.distributed sharing the card (gloo,
-    the cell layers staged through pinned host memory): each run of
-    ``DG_RANKS_RUNS`` against its one-device row of this run
-    (``experiments/time_ranks.py``'s rows and bars), with the slab
-    kernels' owned cells and the exchange split by wire; HaloDGLaplace2D
-    on 2 x 2 ranks against the whole grid; one nccl rank of each solver
-    against the single-device bits.  ``dg_err``: poisson_dg's L2 error at
-    size 48 in this run (the DG-plain guard).  Returns the device kernels
-    launched by the solves, summed over the ranks."""
+def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
+    """poisson_cube and the DG solvers on ranks of torch.distributed
+    sharing the card (gloo, the planes and cell layers staged through
+    pinned host memory), one launch a world size, so that the ranks'
+    start is paid once for both solvers, and one rank on nccl:
+
+    * poisson_cube: 2 z-slab ranks at size 128, then a 2 x 2 grid at size
+      64 and a 2-D 2 x 2 grid at size 64 (``RANKS_RUNS``), against the
+      single-device rows of this run (``rows``: (dim, cube size) -> that
+      row); the owned nodes of the distributed 3-D apply (corners
+      included) against ``BrickLaplace`` on the whole grid; one rank on
+      nccl against the single-device solver's bits;
+    * the DG solvers: each run of ``DG_RANKS_RUNS`` against its one-device
+      row of this run (``experiments/time_ranks.py``'s rows and bars),
+      with the slab kernels' owned cells and the exchange split by wire;
+      HaloDGLaplace2D on 2 x 2 ranks against the whole grid; one nccl rank
+      of each solver against the single-device bits.  ``dg_err``:
+      poisson_dg's L2 error at size 48 in this run (the DG-plain guard).
+
+    Each program zeroes the kernels' counts before its solves and reads
+    them after.  Returns the device kernels launched by the cube solves
+    and by the DG solves, each summed over the ranks.  (A gloo send of a
+    CUDA tensor aborts the sender: whence the staging.)"""
     from multigrid_tpu_torch.experiments import time_ranks
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
-    from multigrid_tpu_torch.parallel.programs import (dg_halo_program,
+    from multigrid_tpu_torch.parallel.programs import (cube_program,
+                                                       dg_halo_program,
                                                        dg_program, dg_programs,
                                                        programs)
     from multigrid_tpu_torch.parallel.sharding import launch
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     SCRATCH.mkdir(parents=True, exist_ok=True)
-    total = {}
+    cube_total, dg_total = {}, {}
 
-    def add(launches):
+    def add(total, launches):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
 
-    # the ('z', 'y') split of the operator at full width, both wires, in
+    form_check(dev, card)
+    # the ('z', 'y') split of the DG operator at full width, both wires, in
     # the 2 x 2 launch
     mesh = poisson_cube_mesh(DG_RANKS_2D)
     halo_grid = dg_grid_from_mesh(mesh, mesh.max_level, 4, "gauss")
-    for n, grid, runs in DG_RANKS_RUNS:
+    for (n, grid, runs), (dg_n, dg_grid_shape, dg_runs) in zip(
+            RANKS_RUNS, DG_RANKS_RUNS):
+        require((n, grid) == (dg_n, dg_grid_shape),
+                "RANKS_RUNS and DG_RANKS_RUNS differ in their launches")
         refs = []
-        for path, size, _ in runs:
+        for path, size, _ in dg_runs:
             ref_file = SCRATCH / f"{path}{size}_cg.npy"
             t0 = time.perf_counter()
             ref = time_ranks.one_device_dg(size, path, dev, ref_file)
@@ -2378,9 +2477,14 @@ def dg_ranks_path(dev, card, dg_err: float) -> dict:
                   f"L2 {ref['L2']:.9e}, CG {ref['cg_time']:.4f} s; "
                   f"{time.perf_counter() - t0:.1f} s with set-up [{card}]")
             refs.append((ref, ref_file))
-        calls = [(dg_program, (poisson_cube_mesh(size),),
-                  time_ranks.dg_kwargs(path, ref_file, shape=grid))
-                 for (path, size, _), (_, ref_file) in zip(runs, refs)]
+        calls = [(cube_program, (poisson_cube_mesh(size, dim),),
+                  dict(reps=2, reference=str(rows[dim, size]["cg_file"]),
+                       apply_seed=3 if dim == 3 else None,
+                       comm_reps=10 if dim == 3 else 0, shape=grid))
+                 for dim, size in runs]
+        calls += [(dg_program, (poisson_cube_mesh(size),),
+                   time_ranks.dg_kwargs(path, ref_file, shape=grid))
+                  for (path, size, _), (_, ref_file) in zip(dg_runs, refs)]
         halo = len(grid) == 2
         if halo:
             calls.append((dg_halo_program, ([(halo_grid, 5, wire, grid)
@@ -2391,21 +2495,32 @@ def dg_ranks_path(dev, card, dg_err: float) -> dict:
         outs = launch(programs, n, "gloo", "cuda", args=(calls,))
         print(f"{n} ranks ({'x'.join(map(str, grid))}, gloo, one card): "
               f"launch {time.perf_counter() - t0:.1f} s")
-        for (path, size, _), (ref, ref_file), out in zip(runs, refs, outs):
+        for (dim, size), out in zip(runs, outs):
+            ranks_row(out, rows[dim, size], n, grid, dim, size, card)
+            add(cube_total, out["launches"])
+        dg_outs = outs[len(runs):]
+        for (path, size, _), (ref, ref_file), out in zip(dg_runs, refs,
+                                                         dg_outs):
             dg_ranks_row(out, ref, path, n, grid, size, dg_err, card)
-            add(out["launches"])
+            add(dg_total, out["launches"])
             ref_file.unlink()
         if halo:
             halo_row(outs[-1], halo_grid, grid, card)
     # one rank on nccl: the single-device solvers, bit for bit
     t0 = time.perf_counter()
-    outs = launch(dg_programs, 1, "nccl", "cuda",
-                  args=(poisson_cube_mesh(DG_RANKS_SINGLE),
-                        [dict(path=path, degree=4, kind=kind, n_pre=3,
-                              single=True)
-                         for path, kind in NCCL_DG]))
-    for (path, _), out in zip(NCCL_DG, outs):
-        add(out["launches"])
+    cube, dgs = launch(programs, 1, "nccl", "cuda", args=([
+        (cube_program, (poisson_cube_mesh(SIZE),), dict(single=True)),
+        (dg_programs, (poisson_cube_mesh(DG_RANKS_SINGLE),
+                       [dict(path=path, degree=4, kind=kind, n_pre=3,
+                             single=True) for path, kind in NCCL_DG]), {})],))
+    add(cube_total, cube["launches"])
+    print(f"1 rank (nccl), size {SIZE}: FMG bit for bit "
+          f"{cube['single']['fmg_equal']}, CG bit for bit "
+          f"{cube['single']['cg_equal']} ({cube['single']['its']} its)")
+    require(cube["single"]["fmg_equal"] and cube["single"]["cg_equal"],
+            "one rank on nccl differs from the single-device solver")
+    for (path, _), out in zip(NCCL_DG, dgs):
+        add(dg_total, out["launches"])
         print(f"1 rank (nccl), {path} size {DG_RANKS_SINGLE}: CG bit for bit "
               f"{out['single']['cg_equal']}, L2 bit for bit "
               f"{out['single']['L2_equal']} (frac its "
@@ -2414,7 +2529,7 @@ def dg_ranks_path(dev, card, dg_err: float) -> dict:
                 f"one nccl rank of {path} differs from the single-device "
                 "solver")
     print(f"  nccl launch {time.perf_counter() - t0:.1f} s")
-    return total
+    return cube_total, dg_total
 
 
 if __name__ == "__main__":

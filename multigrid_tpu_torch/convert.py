@@ -72,7 +72,8 @@ its level meshes), :func:`adaptive_state` reads, as plain numpy:
   state built on another numbering is refused.
 
 :func:`adaptive_forest` turns a JAX ``Forest`` into the port's, so that both
-packages can run on one mesh.
+packages can run on one mesh, and :func:`sym_coef_from_jax` a JAX
+``SymCoef`` array (interleaved cell layout) into the port's (blocked).
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.laplace import make_diag_coef
+from .ops.laplace import SymCoef, make_diag_coef
 from .ops.laplace_dense import element_matrix
 from .mesh.adaptive import Cell, Forest, OctForest, QuadForest
 from .parallel.distributed import DistributedMultigrid, DistributedMultigridDG
@@ -91,6 +92,19 @@ from .solvers.multigrid_general import GeneralMultigridSolver
 GENERAL_KEYS = ("C_sp", "C_dp", "inv_diag", "chebyshev", "rhs", "u_bc",
                 "cell_nodes", "boundary", "jxw")
 ADAPTIVE_LEVEL_KEYS = ("chebyshev", "inv_diag", "gidx", "gw", "boundary")
+
+
+def sym_coef_from_jax(array) -> SymCoef:
+    """A JAX ``SymCoef`` array (numpy), interleaved ``[C0, q, C1, q, ...,
+    n_sym]`` (``multigrid_tpu/ops/laplace.py:84``), as the port's
+    :class:`~.ops.laplace.SymCoef`, blocked ``[C0, C1, ..., q, q, ...,
+    n_sym]`` (numpy; the operator puts it on its device); axes of extent
+    1 (a broadcast) stay so."""
+    a = np.asarray(array)
+    dim = (a.ndim - 1) // 2
+    order = ([2 * d for d in range(dim)] + [2 * d + 1 for d in range(dim)]
+             + [2 * dim])
+    return SymCoef(np.ascontiguousarray(a.transpose(order)))
 
 
 def _validate(solver, state: dict) -> None:

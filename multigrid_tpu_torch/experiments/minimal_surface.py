@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..devices import driver_device, resolve
-from ..mesh.mapped import sym_components
+from ..ops.laplace import sym_components
 from ..mesh.shapes import hyper_ball_2d
 from ..solvers.multigrid_general import GeneralMultigridSolver
 

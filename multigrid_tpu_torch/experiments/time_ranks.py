@@ -14,8 +14,12 @@ reduction, FMG L2, CG its, reduction and wall, the CG solution saved under
 (``parallel.programs.cube_program``: set-up, FMG and CG walls of two
 solves each, the CG solution against the one-device one, two CG solves
 and the owned nodes of the distributed apply bit for bit, the exchange
-split of the f64 vmult, its refresh by step and the bytes a refresh by
-stage, the peak device memory of a rank) for each backend in turn.  The
+split of the f64 vmult in the apply-then-refresh order, its refresh by
+step and the bytes a refresh by stage; on cuts that split, the same vmult
+in the overlap schedule of ``parallel.halo.SplitApply``, ``split_line``:
+with and without its exchange, the refresh alone, the hidden share, the
+plan's overlappable fraction and its box against apply-then-refresh bit
+for bit; the peak device memory of a rank) for each backend in turn.  The
 ranks form the grid ``--grid NZxNY`` (or ``--grid N``, z-slabs; default:
 the experiments' rule, ``parallel.sharding.default_grid``: z-slabs below 4
 ranks, 4 -> 2x2); on a z x y grid a refresh has two stages, the y rows
@@ -94,7 +98,8 @@ def row_ok(out: dict, ref: dict) -> bool:
                     for k in ("cg_reduction", "reduction", "fmg_L2error"))
             and out["cg_ref_diff"] <= SOL_BAR * out["cg_ref_max"]
             and out["cg_repeat_equal"]
-            and all(v["equal"] for v in out["apply"].values()))
+            and all(v["equal"] for v in out["apply"].values())
+            and (out["comm"]["overlap"] or {}).get("equal", True))
 
 
 def one_device_dg(size: int, path: str, dev: torch.device,
@@ -153,6 +158,22 @@ def comm_line(comm: dict) -> str:
             f"share {comm['comm_fraction']:.3f}, refresh "
             + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in comm["steps"].items())
             + f" ms, {comm['bytes']} B{by}")
+
+
+def split_line(comm: dict) -> str:
+    """The f64 vmult in the overlap schedule beside its parts (``overlap``
+    of ``HaloLaplace.comm_split_report``): with and without the exchange,
+    the refresh alone, the hidden share, the plan's overlappable fraction
+    (``utils.overlap``), the cells a pass applies, the box's bits."""
+    sc = comm["overlap"]
+    if sc is None:
+        return "the level does not split (apply then refresh)"
+    return (f"{sc['total'] * 1e3:.3f} / {sc['cell_loop'] * 1e3:.3f} ms, "
+            f"refresh alone {sc['refresh'] * 1e3:.3f} ms, hidden "
+            f"{sc['hidden']:.3f}, overlappable fraction "
+            f"{sc['overlappable_fraction']:.3f}, rank 0 applies "
+            f"{sc['cells']} cells a pass (its box {sc['box_cells']}), the "
+            f"box apply-then-refresh's bit for bit {sc['equal']}")
 
 
 def grid_name(shape) -> str:
@@ -255,11 +276,13 @@ def main(argv=None) -> int:
                   f"{out['cg_reduction']:.6e}, V-cycle reduction "
                   f"{out['reduction']:.6e}, FMG L2 {out['fmg_L2error']:.6e}; "
                   f"CG solution max diff {out['cg_ref_diff']:.3e} of "
-                  f"{out['cg_ref_max']:.4e}; f64 vmult, rank 0's refresh: "
-                  f"{comm_line(comm)}"
+                  f"{out['cg_ref_max']:.4e}; f64 vmult, apply then "
+                  f"refresh, rank 0's refresh: {comm_line(comm)}"
                   + (f"; peak device memory of a rank "
                      f"{int(out['peak_bytes'])} bytes"
                      if "peak_bytes" in out else ""), flush=True)
+            print(f"  f64 vmult, overlap schedule: {split_line(comm)}",
+                  flush=True)
         path.unlink()
     return 1 if failed else 0
 

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from ..devices import resolve
-from ..mesh.mapped import GeneralGrid, sym_components, sym_index
-from .laplace import apply_1d
+from ..mesh.mapped import GeneralGrid
+from .laplace import apply_1d, sym_components, sym_index
 
 
 class NodeScatter:

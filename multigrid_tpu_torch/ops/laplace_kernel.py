@@ -269,7 +269,7 @@ class BrickLaplace:
     def __init__(self, grid: DofGrid, dtype=torch.float32, device="cuda",
                  coefficient: float = 1.0):
         assert grid.dim == 3, "the brick kernels are 3-D"
-        self.grid = grid
+        self.grid, self.coefficient = grid, coefficient
         self.shape = tuple(grid.shape)
         self.dtype = dtype
         self.device = resolve(device)
@@ -292,15 +292,16 @@ class BrickLaplace:
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         return brick_apply(x, self)
 
-    def vmult(self, src: torch.Tensor) -> torch.Tensor:
-        """dst = A src with identity rows on Dirichlet nodes."""
+    def vmult(self, src: torch.Tensor, out=None) -> torch.Tensor:
+        """dst = A src with identity rows on Dirichlet nodes (into ``out``
+        when given, never ``src``)."""
         if self.kron:
-            return brick_kron(src, self, "vmult")
+            return brick_kron(src, self, "vmult", out=out)
         y = self.apply(src)
         for d in range(3):
             for i in (0, -1):
                 y.select(d, i).copy_(src.select(d, i))
-        return y
+        return y if out is None else out.copy_(y)
 
     def vmult_residual(self, rhs: torch.Tensor, lhs: torch.Tensor):
         """rhs - A lhs; Dirichlet rows give rhs - lhs."""

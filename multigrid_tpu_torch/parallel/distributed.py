@@ -129,7 +129,10 @@ class SlabLevel:
     plain operator, on the rank's box) as the smoother, V-cycle and CG
     call it: ``vmult``, ``vmult_residual`` and ``cheb_step``, each
     followed by the ghost refresh.  The Chebyshev step without A x (``x``
-    None) is pointwise and keeps its input's ghosts."""
+    None) is pointwise and keeps its input's ghosts.  The levels do not
+    run the overlap schedule of :class:`~.halo.SplitApply`: on the card
+    its extra launches and copies cost the solves more than the exchange
+    it hides (PERF.md, the overlap rows)."""
 
     def __init__(self, op, slabs: Slabs):
         self.op, self.slabs = op, slabs

@@ -18,6 +18,9 @@ caller's).
   ``dg_cheb<float>`` on the slab against ``DGOperator`` on the whole grid
   and against ``vmult_plain``, the transfers' need of no exchange, the CG
   solution against a saved one, two solves, a world of one);
+* :func:`overlap_program`: the overlap schedule of one FE_Q level
+  (:class:`~.halo.SplitApply`) in both dtypes, against the
+  apply-then-refresh order and the whole grid's ``BrickLaplace``;
 * :func:`programs`: several of these in one launch;
 * :func:`cube_program`: poisson_cube on a
   :class:`~.distributed.DistributedMultigrid` (FMG, V-cycle reduction,
@@ -103,6 +106,50 @@ def halo_program(ranks: Ranks, grid: DofGrid, x: np.ndarray,
         out["cg"] = _np(halo.collect(u))
     if comm_reps:
         out["comm"] = halo.comm_split_report(comm_reps)
+    return out
+
+
+def overlap_program(ranks: Ranks, grid: DofGrid, shape=None, seed: int = 0,
+                    comm_reps: int = 0) -> dict:
+    """The overlap schedule of ``grid`` (3-D) on the z split (``shape``
+    None) or an ``nz x ny`` rank grid: for float32 and float64, on a
+    random box (``seed``), whether the split ``vmult``'s box equals the
+    apply-then-refresh box bit for bit on every rank (every node, ghosts
+    included: both boxes fresh) and its owned nodes the whole grid's
+    ``BrickLaplace`` (``checks[type]``: ``whole_box``, ``single``,
+    ``max_diff``); the collected float64 ``vmult``; the plan's sub-boxes on
+    rank 0 and its ``collective_overlap_report``; with ``comm_reps`` the
+    exchange split (:meth:`~.halo.HaloLaplace.comm_split_report`).
+    ``foreign`` as :func:`halo_program`."""
+    from ..ops.laplace_kernel import BrickLaplace
+    from ..utils.overlap import collective_overlap_report
+
+    x = np.random.default_rng(seed).standard_normal(grid.shape)
+    out = dict(checks={}, foreign=_foreign())
+    for dtype in (torch.float32, torch.float64):
+        if shape is None or len(shape) == 1:
+            h = HaloLaplace(grid, ranks, dtype)
+        else:
+            h = HaloLaplace2D(grid, ranks, tuple(shape), dtype)
+        if h.split is None:
+            raise ValueError(f"{grid.cells} cells on {ranks.world} ranks "
+                             "do not split")
+        xs = h.distribute(x)
+        got = h.vmult(xs)
+        single = BrickLaplace(grid, dtype, ranks.device).vmult(
+            torch.as_tensor(x, dtype=dtype, device=ranks.device))
+        single = single[h.slabs.owned_index()]
+        one = _compare(ranks, h.slabs.own(got), single)
+        out["checks"]["f32" if dtype == torch.float32 else "f64"] = dict(
+            whole_box=_compare(ranks, got, h.vmult_whole(xs))["equal"],
+            single=one["equal"], max_diff=one["max_diff"])
+        if dtype == torch.float64:
+            out["vmult"] = _np(h.collect(got))
+            out["boxes"] = [(b.role, b.cells) for b in h.slabs.plan.boxes]
+            out["overlap"] = collective_overlap_report(h)
+            if comm_reps:
+                out["comm"] = h.comm_split_report(comm_reps)
+        del h, got, single
     return out
 
 
@@ -219,7 +266,8 @@ def cube_program(ranks: Ranks, mesh: BrickMesh, degree: int = 4,
       largest difference (3-D);
     * ``comm_reps``: :meth:`~.halo.HaloLaplace.comm_split_report` of the
       finest level in float64 on the solver's cuts, ``comm_reps`` applies
-      a run;
+      a run (on cuts that split, the overlap schedule's under
+      ``"overlap"``);
     * ``single``: the single-device solver's FMG and CG on the same rank,
       bit for bit against the decomposed ones (a world of one).
 

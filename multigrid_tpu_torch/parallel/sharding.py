@@ -84,6 +84,20 @@ def check_backend(backend: str, n_ranks: int, device="cuda") -> None:
 
 
 @dataclass
+class Posted:
+    """A point-to-point step in flight (:meth:`Ranks.post`): the backend's
+    requests, the tensors it moves (kept alive until it is finished), the
+    staging buffers of the receives, and the clock of a timed step."""
+
+    requests: list
+    sends: list
+    recvs: list
+    recv_t: list
+    clock: Optional[list] = None
+    unpack: list = field(default_factory=list)
+
+
+@dataclass
 class Ranks:
     """This process's place among the ranks, and the communication steps
     of the decomposed solver.  Build it with :func:`init` (or
@@ -118,13 +132,18 @@ class Ranks:
         return buf
 
     # ------------------------------------------------------------ exchange
-    def exchange(self, sends, recvs) -> None:
-        """Point-to-point step: ``sends`` and ``recvs`` are lists of
-        ``(peer, tensor)``; every tensor is contiguous (a z-range of a
-        slab).  All are posted together and waited for, so the order of
-        the lists cannot deadlock; a receive writes into its tensor."""
+    def post(self, sends, recvs) -> Optional["Posted"]:
+        """Start a point-to-point step: ``sends`` and ``recvs`` are lists of
+        ``(peer, tensor)``, every tensor contiguous (a z-range of a slab).
+        Stages the sends (gloo on a card: copied to pinned host buffers,
+        which waits for the current stream) and posts every send and
+        receive together, so that the order of the lists cannot deadlock;
+        returns the step for :meth:`finish` (None when there is nothing to
+        move).  Until then a send must not change and a receive is not
+        written.  On nccl the sends wait for the work queued so far on the
+        current stream, and no longer."""
         if not sends and not recvs:
-            return
+            return None
         self.exchanges += 1
         clock = None
         if self.times is not None:
@@ -144,20 +163,33 @@ class Ranks:
         self._tick(clock, "stage")
         ops = ([dist.P2POp(dist.isend, t, peer) for peer, t in send_t]
                + [dist.P2POp(dist.irecv, t, peer) for peer, t in recv_t])
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        self._tick(clock, "wire")
-        if self.staged:
-            for (_, t), (_, buf) in zip(recvs, recv_t):
-                t.copy_(buf)
-            self._tick(clock, "unstage")
+        return Posted(dist.batch_isend_irecv(ops), sends, recvs, recv_t,
+                      clock)
 
-    def exchange_packed(self, sends, recvs) -> None:
-        """:meth:`exchange` of tensors that need not be contiguous (a y
-        layer of a block, a node plane of a cell layer): each
-        non-contiguous one goes through a contiguous buffer on its device,
-        kept for reuse, packed before the exchange and unpacked after (the
-        steps "pack" and "unpack" of :attr:`times`)."""
+    def finish(self, step: Optional["Posted"]) -> None:
+        """Wait for a step of :meth:`post` and unstage its receives into
+        their tensors (on nccl the current stream waits for the
+        transfers)."""
+        if step is None:
+            return
+        for req in step.requests:
+            req.wait()
+        self._tick(step.clock, "wire")
+        if self.staged:
+            for (_, t), (_, buf) in zip(step.recvs, step.recv_t):
+                t.copy_(buf)
+            self._tick(step.clock, "unstage")
+
+    def exchange(self, sends, recvs) -> None:
+        """:meth:`post` and :meth:`finish` in one call."""
+        self.finish(self.post(sends, recvs))
+
+    def post_packed(self, sends, recvs) -> Optional["Posted"]:
+        """:meth:`post` of tensors that need not be contiguous (a y layer of
+        a block, a node plane of a cell layer): each non-contiguous one
+        goes through a contiguous buffer on its device, kept for reuse,
+        packed here (the step "pack" of :attr:`times`) and unpacked by
+        :meth:`finish_packed` ("unpack")."""
         clock = None
         if self.times is not None:
             if self.device.type == "cuda":
@@ -183,13 +215,29 @@ class Ranks:
         recv_b = [(peer, packed("recv", i, t))
                   for i, (peer, t) in enumerate(recvs)]
         self._tick(clock, "pack")
-        self.exchange(send_b, recv_b)
-        if clock is not None:
-            clock[0] = time.perf_counter()
-        for (_, t), (_, b) in zip(recvs, recv_b):
-            if b is not t:
-                t.copy_(b)
+        step = self.post(send_b, recv_b)
+        if step is None:
+            return None
+        step.unpack = [(t, b) for (_, t), (_, b) in zip(recvs, recv_b)
+                       if b is not t]
+        return step
+
+    def finish_packed(self, step: Optional["Posted"]) -> None:
+        """:meth:`finish` of a step of :meth:`post_packed`, then the
+        unpacking of its receives."""
+        if step is None:
+            return
+        self.finish(step)
+        clock = None
+        if self.times is not None:
+            clock = [time.perf_counter()]
+        for t, b in step.unpack:
+            t.copy_(b)
         self._tick(clock, "unpack")
+
+    def exchange_packed(self, sends, recvs) -> None:
+        """:meth:`post_packed` and :meth:`finish_packed` in one call."""
+        self.finish_packed(self.post_packed(sends, recvs))
 
     def _tick(self, clock, step: str) -> None:
         if clock is None:

@@ -700,6 +700,27 @@ def test_general_solver_on_card_matches_cpu(dev):
         assert cg_kernel.LAUNCHES["cg_update"] == 2 * its[1]   # 2 a call
 
 
+@pytest.mark.parametrize("p", [4, 9])
+def test_jacobi_probe_on_card_matches_cpu(dev, p):
+    """The transformed Jacobi's category probe runs on the
+    preconditioner's device: its inverse diagonal on the card against the
+    CPU's to 1e-13 of max, on a sheared grid and on a slab of it that
+    takes the whole grid's categories."""
+    from multigrid_tpu_torch.ops.dg import DGGrid
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = dg_grid((4, 2, 3), p, "hermite")
+    slab = DGGrid(cells=(2, 2, 3), jacobian=g.jacobian, degree=p,
+                  kind="hermite")
+    for grid, whole in ((g, None), (slab, (g.cells, (1, 0, 0)))):
+        want = JacobiTransformed(grid, torch.float64, "cpu",
+                                 whole=whole).inv_diag
+        got = JacobiTransformed(grid, torch.float64, dev, whole=whole).inv_diag
+        assert got.device.type == "cuda"
+        assert float((got.cpu() - want).abs().max()) <= 1e-13 * float(
+            want.abs().max())
+
+
 def _deform(p):
     return p + (0.08 * np.prod(np.sin(np.pi * p), axis=1))[:, None]
 
@@ -973,6 +994,24 @@ def test_halo2d_vmult_on_card_is_the_whole_grid_bit_for_bit(dev):
         out = launch(halo_program, 4, "gloo", "cuda", args=(g, x, dtype),
                      kwargs=dict(shape=(2, 2), whole=True))
         assert out["whole"]["equal"], (dtype, out["whole"])
+
+
+@pytest.mark.parametrize("cells,shape", [((12, 3, 4), None),
+                                         ((10, 10, 3), (2, 2))])
+def test_overlap_schedule_on_card_is_the_whole_box_bit_for_bit(dev, cells,
+                                                              shape):
+    """The split vmult (send regions first, their exchange in flight while
+    the interior box runs) on gloo ranks sharing the card: in both dtypes
+    the box equals apply-then-refresh bit for bit, and its owned nodes
+    brick_kron on the whole grid."""
+    from multigrid_tpu_torch.parallel.programs import overlap_program
+    from multigrid_tpu_torch.parallel.sharding import launch
+
+    g = DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, 4)
+    out = launch(overlap_program, 4 if shape else 2, "gloo", "cuda",
+                 args=(g, shape))
+    for key, c in out["checks"].items():
+        assert c["whole_box"] and c["single"], (key, c)
 
 
 def test_distributed_solve_on_card_matches_one_device(dev, tmp_path):
