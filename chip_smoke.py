@@ -21,6 +21,13 @@ convergence rows:
   variable-coefficient operator's L2 order at sizes 12 and 24, and one
   small row of each DG benchmark driver (``matvec_dg``,
   ``matvec_dg_cheby``, ``solver_dg``);
+* solver_dg at full width (gauss p = 4, 64^3 cells, 32,768,000 DG dofs, 50
+  CG iterations): the fused row on ``dg_cg<double>`` and
+  ``dg_jacobi_cg<double>`` with the CG scalars on the card and no host
+  sync inside its loop (PyTorch's sync debug mode raises on one), the
+  face-based row and the unfused row, both cell rows against the face row
+  at 1e-9, the fusion speedup, each row's launches an iteration, and each
+  fused kernel timed at this grid beside its bound;
 * the general-geometry path (``GeneralMultigridSolver``: mapped
   multiblock meshes, plain PyTorch operators and transfers, the outer
   f64 CG on the CG kernels): the six shell anchors of
@@ -119,7 +126,12 @@ convergence rows:
   both wires; ``HaloDGLaplace2D`` on a 2 x 2 rank grid at 48^3 cells (p =
   4) against ``DGOperator`` on the whole grid (the traces wire bit for
   bit, the hermite wire within ``DG_HERMITE_BAR`` of max|y| in f64); one
-  nccl rank of each DG solver against the single-device solver's bits.
+  nccl rank of each DG solver against the single-device solver's bits;
+  the 2-D DG solvers (plain levels) on 2 z ranks and on 2 x 2 at the
+  sizes of the one-device 2-D rows of this run (poisson_dg_plain hermite
+  p = 3 at 4,194,304 DG dofs, poisson_dg p = 4 at 2,560,000), each held
+  against that row as the 3-D rows are and to its path's guards, the
+  slab passes within ``time_ranks.PLAIN_ROUTE_BAR`` of the whole grid's.
   The cube and DG rows of one world size share a launch of the ranks, and
   the nccl rank runs both solvers.
 
@@ -132,14 +144,17 @@ pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
 1..9), the DG kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
-(``ops/dg_face.py``).
+(``ops/dg_face.py``); the fused CG's ``dg_cg<double>`` and
+``dg_jacobi_cg<double>`` at p = 1..9 and timed at 13,824,000 DG dofs
+against their plain versions (``vmult_with_cg_update`` and
+``JacobiTransformed.vmult``).
 
 Every phase raises on a miss; there is no CPU path.
 
 Output: the card line (``nvidia-smi``), per-phase numbers, one JSON line
 with the kernels (device kernels launched during the paths' solves, as a
 trace counts them: one brick_kron call 1, one CG reduction 2, one DG
-kernel call 1; ``launches`` sums the paths, ``launches_by_path`` gives
+kernel call 1, one fused CG pass 2; ``launches`` sums the paths, ``launches_by_path`` gives
 each, and brick_kron's by kernel and node grid under "<kernel> ZxYxX";
 the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG kernels at
 those degrees, timed at the cube rows' node grids and the 24^3-cell DG
@@ -313,6 +328,11 @@ CUBE2_CG_REDUCTION, CUBE2_VCYCLE_REDUCTION = 6.784e-2, 0.1508
 # 2,560,000 DG dofs) at the DG bars and the 2-D L2 plateau of the CPU rows
 # (0.136463 at 1,600 to 25,600 DG dofs)
 DG2D_SMALL, DG2D_SIZE, DG2D_L2 = 2, 40, 0.136463
+# solver_dg at full width: gauss p = 4 on 2^(18/3) = 64 cells an axis
+# (32,768,000 DG dofs), 50 CG iterations, the three rows (fused, face,
+# unfused) held against the face row at solver_dg's 1e-9
+SOLVER_DG = dict(degree=4, kind="gauss", n_cell_steps=18, n_iterations=50)
+SOLVER_DG_FUSED = {"dg_cg<double>", "dg_jacobi_cg<double>"}
 # the 135M cube (size 128): the memory report after its set-up, one CG
 # solve, its solution through a checkpoint file and back bit for bit
 MEM_SIZE = 128
@@ -335,6 +355,7 @@ KRON_BARS = {torch.float32: ("float", 2e-6, 3e-6),
 BRICK = "multigrid_tpu_torch/csrc/brick_kron.cuh"
 PENCIL = "multigrid_tpu_torch/csrc/dg_pencil.cuh"
 EPILOGUE = "multigrid_tpu_torch/csrc/cheb_epilogue.cu"
+FUSED_CG = "multigrid_tpu_torch/csrc/dg_cg_f64.cu"
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "brick_kron<double>": (BRICK, "multigrid_tpu/ops/pallas_windowed.py:340"),
@@ -356,6 +377,10 @@ KERNELS = {
     "dg_apply<double>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:639"),
     "dg_apply<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:438"),
     "dg_cheb<float>": (PENCIL, "multigrid_tpu/ops/pallas_dg.py:490"),
+    # solver_dg's fused CG row: the TPU side is XLA's fusion of the whole
+    # CG loop under one jit (the JAX driver's make_cg), no Pallas kernel
+    "dg_cg<double>": (FUSED_CG, "experiments/solver_dg.py:51"),
+    "dg_jacobi_cg<double>": (FUSED_CG, "experiments/solver_dg.py:51"),
 }
 # brick_kron at p = 8 and 9, timed at their cube rows' node grids and
 # their coarse grids, and the DG kernels at p = 8 and 9, timed at the
@@ -393,11 +418,15 @@ DG_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
 DG_PLAIN_KERNELS = ["dg_apply<double>", "dg_apply<float>", "dg_cheb<float>",
                     "cg_update", "cg_dot", "cg_xpay"]
 SHELL_KERNELS = ["cg_update", "cg_dot", "cg_xpay"]
+# solver_dg: the fused row's kernels, the unfused row's A p and CG kernels
+SOLVER_DG_KERNELS = ["dg_cg<double>", "dg_jacobi_cg<double>",
+                     "dg_apply<double>", "cg_update", "cg_dot", "cg_xpay"]
 # the curved DG, poisson_l and 2-D paths: no others
 CG_KERNELS = SHELL_KERNELS
 # the paths that run no brick or DG kernel (plain levels, CG kernels)
 PLAIN_PATHS = ("poisson_shell", "poisson_dg_plain_curved", "poisson_l",
-               "poisson_dg_plain_2d", "poisson_cube_2d", "poisson_dg_2d")
+               "poisson_dg_plain_2d", "poisson_cube_2d", "poisson_dg_2d",
+               "poisson_dg_ranks_2d")
 
 # the curved DG-plain path (poisson_dg_plain --deform 0.05, hermite, n_pre
 # 3): its rows at 512 and 4096 DG dofs, p = 3, rtol 1e-10 -- the JAX
@@ -465,6 +494,13 @@ DG_RANKS_RUNS = ((2, (2,), (("dg", 64, "hermite"),)),
                  (4, (2, 2), (("dg-plain", DG_SIZE, "gauss"),
                               ("dg", 32, "hermite"))))
 DG_RANKS_2D = DG_SIZE
+# the 2-D DG rows on ranks, in both launches of DG_RANKS_RUNS: (solver,
+# size, degree, kind) of the one-device 2-D rows of this run (the top
+# DG-plain row, p = 3, 4,194,304 DG dofs; the DG row, p = 4, 2,560,000),
+# each held against that row; the exchange split on DG2_RANKS_COMM reps
+DG2_RANKS_RUNS = (("dg-plain", DG2_LARGE[-1], DG2_DEGREE, "hermite"),
+                  ("dg", DG2D_SIZE, 4, "hermite"))
+DG2_RANKS_COMM = 5
 DG_RANKS_SINGLE = 24
 NCCL_DG = (("dg", "hermite"), ("dg-plain", "gauss"))
 DG_HERMITE_BAR = 1e-12     # of max|y|, f64: the hermite wire's owned cells
@@ -774,6 +810,92 @@ class KernelChecks:
                           tol)
         return x, b
 
+    def cg_fused_checks(self, ops, timed: bool):
+        """The fused CG's kernels (float64) against their plain versions at
+        dg_apply<double>'s bar, 1e-13 of each output's max and the device
+        scalars to 1e-13 relative: ``dg_cg`` (x, p, q, p . q, alpha) and
+        ``dg_jacobi_cg`` (r, z, beta, rz, rr; also as the first pass); two
+        launches a call, a repeated call bit for bit.  Timed: each kernel
+        and its plain version.  ``ops``: :meth:`dg_ops`'s."""
+        from multigrid_tpu_torch.ops import dg_kernel as dk
+        from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
+
+        f64 = torch.float64
+        op = ops[f64]
+        grid, jac = op.grid, op.jacobi
+        p_old, z, x, r, q = (self.rand(grid.shape, f64, s)
+                             for s in range(40, 45))
+        scal = torch.tensor([0.37, 0.61, 1.7, 0.0, 0.0], dtype=f64,
+                            device=self.dev)
+        partial = dk.cg_partials(grid, self.dev)
+
+        def note(name, got, want):
+            for a, b in zip(got, want):
+                self.note(name, a, b, float(b.abs().max()), 1e-13)
+
+        runs = []
+        for fn in ("kernel", "kernel", "plain"):
+            xs, sc = x.clone(), scal.clone()
+            pp, qq = torch.empty_like(x), torch.empty_like(x)
+            before = dk.LAUNCHES["dg_cg<double>"]
+            if fn == "kernel":
+                dk.dg_cg(p_old, z, xs, sc, pp, qq, op, partial)
+                require(dk.LAUNCHES["dg_cg<double>"] - before == 2,
+                        "dg_cg<double>: not two launches a call")
+            else:
+                dk.dg_cg_plain(p_old, z, xs, sc, pp, qq, op.plain.apply)
+            runs.append((xs, pp, qq, sc))
+        require(all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])),
+                "dg_cg<double>: a repeated call differs")
+        note("dg_cg<double>", runs[0][:3], runs[2][:3])
+        for i in (dk.PQ, dk.ALPHA):
+            self.note("dg_cg<double>", runs[0][3][i], runs[2][3][i],
+                      float(runs[2][3][i].abs()), 1e-13)
+        for first in (False, True):
+            got = []
+            for fn in ("kernel", "plain"):
+                rs, sc, zs = r.clone(), scal.clone(), torch.empty_like(r)
+                if fn == "kernel":
+                    dk.dg_jacobi_cg(rs, None if first else q, sc, zs, op,
+                                    partial, first)
+                else:
+                    dk.dg_jacobi_cg_plain(rs, q, sc, zs, jac.vmult, first)
+                got.append((rs, zs, sc))
+            (rk, zk, sk), (rp, zp, sp) = got
+            note("dg_jacobi_cg<double>", (rk, zk), (rp, zp))
+            for i in (dk.RZ, dk.RR) + (() if first else (dk.BETA,)):
+                self.note("dg_jacobi_cg<double>", sk[i], sp[i],
+                          float(sp[i].abs()), 1e-13)
+            require(not first or (torch.equal(rk, r)
+                                  and float(sk[dk.BETA]) == 0.0),
+                    "dg_jacobi_cg<double>: the first pass moved r or beta")
+        if not timed:
+            return
+        xs, sc = x.clone(), scal.clone()
+        pp, qq = torch.empty_like(x), torch.empty_like(x)
+        rs, zs = r.clone(), torch.empty_like(r)
+        for name, fn, plain in (
+                ("dg_cg<double>",
+                 lambda: dk.dg_cg(p_old, z, xs, sc, pp, qq, op, partial),
+                 lambda: dk.dg_cg_plain(p_old, z, xs, sc, pp, qq,
+                                        op.plain.apply)),
+                ("dg_jacobi_cg<double>",
+                 lambda: dk.dg_jacobi_cg(rs, q, sc, zs, op, partial),
+                 lambda: dk.dg_jacobi_cg_plain(rs, q, sc, zs, jac.vmult))):
+            self.ms[name] = time_ms(fn)
+            self.plain_ms[name] = time_ms(plain)
+        # bytes: x, p_old, z in, x, p, q out (dg_cg); r, q, inv_diag in, r,
+        # z out (dg_jacobi_cg).  Flops: the operator and the two updates
+        # and the dot; the six 1-D sweeps of P^-1, its scaling, the
+        # residual update and two dots
+        n_dofs, n = grid.n_dofs, grid.n
+        flops = dg_matvec_ops(3, grid.degree, int(np.prod(grid.cells)),
+                              grid.kind)
+        self.bound["dg_cg<double>"] = bound(6 * 8 * n_dofs,
+                                            flops + 6 * n_dofs, f64)
+        self.bound["dg_jacobi_cg<double>"] = bound(
+            5 * 8 * n_dofs, (12 * n + 7) * n_dofs, f64)
+
     def dg_checks(self, grid, timed: bool, label: str = ""):
         """The DG kernels against the plain f64 operator (and the
         face-based one on the small grids): dg_apply and dg_residual by
@@ -789,6 +911,8 @@ class KernelChecks:
         x, br = self.apply_checks(ops, face=not timed, label=label)
         x64, br64 = x.double(), br.double()
         b, xc, xo = self.cheb_checks(ops, face=not timed, label=label)
+        if not label:
+            self.cg_fused_checks(ops, timed)
         if not timed:
             return
         for name, fn, plain in (
@@ -866,7 +990,7 @@ def main() -> int:
                     print(f"    {r['kernel']}: {r['registers']} registers, "
                           f"spill stores {r['spill_stores']} B, loads "
                           f"{r['spill_loads']} B")
-        if src in ("dg_pencil.cu", "dg_pencil_f64.cu"):
+        if src in ("dg_pencil.cu", "dg_pencil_f64.cu", "dg_cg_f64.cu"):
             for r in rows:
                 print(f"    {r['kernel']}: {r['registers']} registers, spill "
                       f"stores {r['spill_stores']} B, loads "
@@ -879,7 +1003,9 @@ def main() -> int:
         require(not [k for k in names if "9dg_kernelI" in k],
                 "the cell-per-block dg_kernel is still in the library")
         require(sum("15dg_apply_kernelI" in k for k in names) == 36
-                and sum("14dg_cheb_kernelI" in k for k in names) == 9,
+                and sum("14dg_cheb_kernelI" in k for k in names) == 9
+                and sum("12dg_cg_kernelI" in k for k in names) == 9
+                and sum("19dg_jacobi_cg_kernelI" in k for k in names) == 9,
                 "the DG pencil kernels are not all in the library at p = "
                 "1..9")
         require(sum("17brick_kron_kernelI" in k for k in names) == 64
@@ -1022,9 +1148,10 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
             ops = checks.dg_ops(dg_grid(cells, p, kind))
             checks.apply_checks(ops, face=True, label=label)
             checks.cheb_checks(ops, face=True, label=label)
+            checks.cg_fused_checks(ops, False)
         torch.cuda.synchronize()
-        print(f"dg_apply, dg_residual and dg_cheb checks passed at p={p}: "
-              f"(3,2,5), (2,3,1), (5,4,9) {took()}")
+        print(f"dg_apply, dg_residual, dg_cheb, dg_cg and dg_jacobi_cg "
+              f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9) {took()}")
     # no fallback above the kernels' degree: the card refuses such a level
     try:
         dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),
@@ -1083,6 +1210,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                                                             dg_err)
     del dg_sol
     lap("poisson_dg_plain")
+    launches["solver_dg"] = solver_dg_path(dev, card)
+    lap("solver_dg")
     high = {}
     for path, p in DG_HIGH_PATHS:
         launches[degree_path(p, path)], high[path, p] = dg_high_path(
@@ -1096,23 +1225,25 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     lap("poisson_dg_plain_curved")
     launches["poisson_l"] = l_path(dev, card, checks)
     lap("poisson_l")
-    launches["poisson_dg_plain_2d"] = dg_plain_2d_path(dev, card)
+    launches["poisson_dg_plain_2d"], plain2_ref = dg_plain_2d_path(dev, card)
     lap("poisson_dg_plain_2d")
     launches[degree_path(8, "matvec_dg")], launches["matvec_dg_plain"] = (
         matvec_rows_path(dev))
     lap("matvec_dg rows")
     launches["poisson_cube_2d"], cube2_row = cube_2d_path(dev, card)
     lap("poisson_cube_2d")
-    launches["poisson_dg_2d"] = dg_2d_path(dev, card)
+    launches["poisson_dg_2d"], dg2_ref = dg_2d_path(dev, card)
     lap("poisson_dg_2d")
     launches["poisson_cube_135M"], big_row = utils_path(dev, card)
     lap("poisson_cube_135M")
     sym_coef_check(dev, card)
     lap("SymCoef check")
-    launches["poisson_cube_ranks"], launches["poisson_dg_ranks"] = rank_paths(
+    (launches["poisson_cube_ranks"], launches["poisson_dg_ranks"],
+     launches["poisson_dg_ranks_2d"]) = rank_paths(
         dev, card, {(3, SIZE): cube_row, (3, MEM_SIZE): big_row,
-                    (2, CUBE2_SIZE): cube2_row}, dg_err)
-    lap("poisson_cube_ranks and poisson_dg_ranks")
+                    (2, CUBE2_SIZE): cube2_row}, dg_err,
+        {"dg-plain": plain2_ref, "dg": dg2_ref})
+    lap("poisson_cube_ranks, poisson_dg_ranks and poisson_dg_ranks_2d")
     for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
         off_path = {k: v for k, v in launches[path].items()
                     if k.startswith(("brick_kron", "cheb_epilogue")) and v}
@@ -1128,6 +1259,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                           for p in HIGH_DEGREE_SIZES),
                         ("poisson_dg", DG_KERNELS),
                         ("poisson_dg_plain", DG_PLAIN_KERNELS),
+                        ("solver_dg", SOLVER_DG_KERNELS),
                         *((degree_path(p, path),
                            DG_KERNELS if path == "poisson_dg"
                            else DG_PLAIN_KERNELS)
@@ -1431,6 +1563,67 @@ def dg_plain_path(dev, card, dg_sol, dg_err) -> dict:
     matvec_dg_cheby.run(4, "gauss", 6, dev)
     solver_dg.run(3, "gauss", 6, 50, dev)
     return launches, err
+
+
+def solver_dg_path(dev, card) -> dict:
+    """solver_dg at full width (``SOLVER_DG``): the fused row on the
+    kernels ``dg_cg<double>`` and ``dg_jacobi_cg<double>`` (no host sync
+    inside its loop: solver_dg runs it under PyTorch's sync debug mode,
+    which raises on one), the face row and the unfused row, both cell rows
+    against the face row at 1e-9 (solver_dg raises on a miss); the
+    launches an iteration of both cell rows; then each fused kernel timed
+    on this grid beside its bound.  Returns the device kernels launched by
+    the three rows."""
+    from multigrid_tpu_torch.experiments import solver_dg
+    from multigrid_tpu_torch.experiments.matvec_dg import bench_grid
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+    from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
+
+    reset_launches()
+    row = solver_dg.run(**SOLVER_DG, device=dev)
+    launches = read_launches()
+    per_it = row["launches"]
+    print(f"solver_dg {row['kind']} p={row['degree']}, {row['n_dofs']} DG "
+          f"dofs, {SOLVER_DG['n_iterations']} its: fused "
+          f"{row['fused_s_per_it'] * 1e3:.4f} ms/it, face (plain) "
+          f"{row['face_s_per_it'] * 1e3:.4f}, unfused "
+          f"{row['unfused_s_per_it'] * 1e3:.4f}; fusion speedup "
+          f"{row['unfused_s_per_it'] / row['fused_s_per_it']:.3f}x; "
+          f"against the face row: fused {row['verify_fused']:.2e}, unfused "
+          f"{row['verify_unfused']:.2e} [{card}]")
+    print(f"  launches an iteration (the first pass spread over the "
+          f"iterations): fused {per_it['fused']}, unfused "
+          f"{per_it['unfused']}")
+    require(set(per_it["fused"]) == SOLVER_DG_FUSED,
+            f"solver_dg's fused row launched {per_it['fused']}")
+    # the fused kernels at this grid, one call each beside its bound
+    grid = bench_grid(SOLVER_DG["degree"], SOLVER_DG["kind"],
+                      SOLVER_DG["n_cell_steps"], shear=False)
+    f64 = torch.float64
+    op = dk.DGOperator(grid, f64, dev)
+    op.install_jacobi(JacobiTransformed(grid, f64, dev))
+    rng = np.random.default_rng(5)
+    v = [torch.as_tensor(rng.standard_normal(grid.shape), dtype=f64,
+                         device=dev) for _ in range(5)]
+    p_old, z, x, r, q = v
+    pp, qq = torch.empty_like(x), torch.empty_like(x)
+    scal = torch.tensor([1e-3, 0.5, 1.0, 0.0, 0.0], dtype=f64, device=dev)
+    partial = dk.cg_partials(grid, dev)
+    n_dofs, n = grid.n_dofs, grid.n
+    flops = dg_matvec_ops(3, grid.degree, int(np.prod(grid.cells)), grid.kind)
+    for name, fn, nbytes, ops in (
+            ("dg_cg<double>",
+             lambda: dk.dg_cg(p_old, z, x, scal, pp, qq, op, partial),
+             6 * 8 * n_dofs, flops + 6 * n_dofs),
+            ("dg_jacobi_cg<double>",
+             lambda: dk.dg_jacobi_cg(r, q, scal, qq, op, partial),
+             5 * 8 * n_dofs, (12 * n + 7) * n_dofs)):
+        ms = time_ms(fn)
+        b_ms, by = bound(nbytes, ops, f64)
+        print(f"  {name} at {n_dofs} DG dofs: {ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({by}, {nbytes / 1e9:.3f} GB) [{card}]")
+    return launches
 
 
 def general_path(dev, card) -> dict:
@@ -1916,11 +2109,13 @@ def dg_high_path(dev, card, path: str, p: int, dg_row=None):
     return launches, (sol, err)
 
 
-def dg_plain_2d_path(dev, card) -> dict:
+def dg_plain_2d_path(dev, card) -> tuple[dict, dict]:
     """2-D poisson_dg_plain (the reference program's setting, p = 3): the
     small rows of every kind on the card against the CPU, then the two
     full-width hermite rows; returns the device kernels launched by the
-    full-width solves (the CG kernels only: the 2-D levels are plain)."""
+    full-width solves (the CG kernels only: the 2-D levels are plain) and
+    the top row (:func:`dg_2d_ref`), the one-device row of the 2-D
+    DG-plain rank rows."""
     from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDGPlain
@@ -1981,12 +2176,25 @@ def dg_plain_2d_path(dev, card) -> dict:
                 and bool(torch.isfinite(sol).all()) and rate < PLAIN_RATE,
                 f"2-D DG-plain size {size}: rate {rate:.4e}")
         its_rows.append(its)
+        if size == DG2_LARGE[-1]:
+            ref = dg_2d_ref("dg-plain", size, sol, its, rate, err, min(cg_s))
         del s, sol
         torch.cuda.empty_cache()
     require(abs(its_rows[1] - its_rows[0]) <= 1,
             f"2-D DG-plain full-width frac its {its_rows}")
     print(f"  2-D DG-plain path {time.perf_counter() - t_path:.1f} s")
-    return launches
+    return launches, ref
+
+
+def dg_2d_ref(path: str, size: int, sol, its, rate, err, cg_s) -> dict:
+    """A one-device 2-D DG row as the rank rows read it
+    (``time_ranks.one_device_dg``'s keys), its CG solution saved under
+    ``SCRATCH`` (``file``)."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    f = SCRATCH / f"{path}{size}_2d_cg.npy"
+    np.save(f, sol.cpu().numpy())
+    return dict(frac_its=its, rate=rate, L2=err, cg_time=cg_s,
+                dg_dofs=sol.numel(), file=f)
 
 
 def matvec_rows_path(dev) -> tuple[dict, dict]:
@@ -2059,10 +2267,11 @@ def cube_2d_path(dev, card):
                           fmg_L2error=fmg_l2, cg_its=its, cg_file=cg_file)
 
 
-def dg_2d_path(dev, card) -> dict:
+def dg_2d_path(dev, card) -> tuple[dict, dict]:
     """poisson_dg --dim 2 (hermite p = 4, n_pre 3, rtol 1e-9): size 2 on
     the card against the CPU, then size 40 (2,560,000 DG dofs); returns
-    the device kernels launched by the size-40 solves."""
+    the device kernels launched by the size-40 solves and that row
+    (:func:`dg_2d_ref`), the one-device row of the 2-D DG rank rows."""
     from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDG
@@ -2109,7 +2318,8 @@ def dg_2d_path(dev, card) -> dict:
     require(DG_ITS[0] <= its <= DG_ITS[1] and DG_RATE[0] <= rate <= DG_RATE[1]
             and abs(err - DG2D_L2) <= DG_L2_TOL,
             f"2-D DG size {DG2D_SIZE}: {its}, {rate}, {err}")
-    return launches
+    return launches, dg_2d_ref("dg", DG2D_SIZE, sol, its, rate, err,
+                               min(cg_s))
 
 
 def utils_path(dev, card):
@@ -2350,13 +2560,15 @@ def sym_coef_check(dev, card) -> None:
 
 
 def dg_ranks_row(out: dict, ref: dict, path: str, n: int, grid, size: int,
-                 dg_err: float, card: str) -> None:
+                 dg_err: float, card: str, dim: int = 3) -> None:
     """Print one DG rank row (``dg_program``'s output) and hold it to its
-    one-device row ``ref`` of this run and to the DG guards."""
+    one-device row ``ref`` of this run and to the DG guards (a 2-D row: to
+    those of its one-device 2-D path, on the plain route)."""
     from multigrid_tpu_torch.experiments import time_ranks
 
-    label = (f"{path} on {n} ranks ({'x'.join(map(str, grid))}, gloo, "
-             f"one card), size {size}, {out['dg_dofs']} DG dofs")
+    label = (f"{path}{' (2-D)' if dim == 2 else ''} on {n} ranks "
+             f"({'x'.join(map(str, grid))}, gloo, one card), size {size}, "
+             f"{out['dg_dofs']} DG dofs")
     print(f"{label}: levels split {out['levels']}, finest cuts "
           f"{out['bounds']}")
     print(f"  set-up {out['setup_time']:.2f} s, CG {out['cg_time']:.4f} s"
@@ -2379,7 +2591,15 @@ def dg_ranks_row(out: dict, ref: dict, path: str, n: int, grid, size: int,
               f"{time_ranks.comm_line(comm)} [{card}]")
     require(time_ranks.dg_row_ok(out, ref), f"{label}: off its one-device row")
     require(tuple(out["grid"]) == grid, f"{label}: grid {out['grid']}")
-    if path == "dg" and len(grid) == 2:
+    require(out["plain_route"] == (dim == 2), f"{label}: plain route "
+            f"{out['plain_route']}")
+    if dim == 2:
+        require(out["rate"] < PLAIN_RATE if path == "dg-plain" else
+                DG_ITS[0] <= out["frac_its"] <= DG_ITS[1]
+                and DG_RATE[0] <= out["rate"] <= DG_RATE[1]
+                and abs(out["L2"] - DG2D_L2) <= DG_L2_TOL,
+                f"{label}: outside its one-device path's guard")
+    elif path == "dg" and len(grid) == 2:
         # the FE_Q hierarchy on the rank grid: all but the coarsest two
         # levels split
         fe = out["levels"][1:]
@@ -2418,7 +2638,8 @@ def halo_row(outs, halo_grid, grid, card: str) -> None:
                 f"HaloDGLaplace2D {wire} wire: off the whole grid")
 
 
-def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
+def rank_paths(dev, card, rows, dg_err: float,
+               dg2_refs: dict) -> tuple[dict, dict, dict]:
     """poisson_cube and the DG solvers on ranks of torch.distributed
     sharing the card (gloo, the planes and cell layers staged through
     pinned host memory), one launch a world size, so that the ranks'
@@ -2435,11 +2656,15 @@ def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
       with the slab kernels' owned cells and the exchange split by wire;
       HaloDGLaplace2D on 2 x 2 ranks against the whole grid; one nccl rank
       of each solver against the single-device bits.  ``dg_err``:
-      poisson_dg's L2 error at size 48 in this run (the DG-plain guard).
+      poisson_dg's L2 error at size 48 in this run (the DG-plain guard);
+    * the 2-D DG solvers (``DG2_RANKS_RUNS``, the plain route) in both
+      launches, each against its one-device 2-D row of this run
+      (``dg2_refs``: path -> :func:`dg_2d_ref`).
 
     Each program zeroes the kernels' counts before its solves and reads
-    them after.  Returns the device kernels launched by the cube solves
-    and by the DG solves, each summed over the ranks.  (A gloo send of a
+    them after.  Returns the device kernels launched by the cube solves,
+    by the 3-D DG solves and by the 2-D DG solves, each summed over the
+    ranks.  (A gloo send of a
     CUDA tensor aborts the sender: whence the staging.)"""
     from multigrid_tpu_torch.experiments import time_ranks
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
@@ -2451,7 +2676,7 @@ def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     SCRATCH.mkdir(parents=True, exist_ok=True)
-    cube_total, dg_total = {}, {}
+    cube_total, dg_total, dg2_total = {}, {}, {}
 
     def add(total, launches):
         for k, v in launches.items():
@@ -2485,6 +2710,11 @@ def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
         calls += [(dg_program, (poisson_cube_mesh(size),),
                    time_ranks.dg_kwargs(path, ref_file, shape=grid))
                   for (path, size, _), (_, ref_file) in zip(dg_runs, refs)]
+        calls += [(dg_program, (poisson_cube_mesh(size, 2),),
+                   dict(time_ranks.dg_kwargs(
+                       path, dg2_refs[path]["file"], DG2_RANKS_COMM,
+                       shape=grid), degree=degree, kind=kind))
+                  for path, size, degree, kind in DG2_RANKS_RUNS]
         halo = len(grid) == 2
         if halo:
             calls.append((dg_halo_program, ([(halo_grid, 5, wire, grid)
@@ -2498,12 +2728,17 @@ def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
         for (dim, size), out in zip(runs, outs):
             ranks_row(out, rows[dim, size], n, grid, dim, size, card)
             add(cube_total, out["launches"])
-        dg_outs = outs[len(runs):]
+        dg_outs = outs[len(runs):len(runs) + len(dg_runs)]
         for (path, size, _), (ref, ref_file), out in zip(dg_runs, refs,
                                                          dg_outs):
             dg_ranks_row(out, ref, path, n, grid, size, dg_err, card)
             add(dg_total, out["launches"])
             ref_file.unlink()
+        dg2_outs = outs[len(runs) + len(dg_runs):][:len(DG2_RANKS_RUNS)]
+        for (path, size, _, _), out in zip(DG2_RANKS_RUNS, dg2_outs):
+            dg_ranks_row(out, dg2_refs[path], path, n, grid, size, dg_err,
+                         card, dim=2)
+            add(dg2_total, out["launches"])
         if halo:
             halo_row(outs[-1], halo_grid, grid, card)
     # one rank on nccl: the single-device solvers, bit for bit
@@ -2529,7 +2764,9 @@ def rank_paths(dev, card, rows, dg_err: float) -> tuple[dict, dict]:
                 f"one nccl rank of {path} differs from the single-device "
                 "solver")
     print(f"  nccl launch {time.perf_counter() - t0:.1f} s")
-    return cube_total, dg_total
+    for ref in dg2_refs.values():
+        ref["file"].unlink()
+    return cube_total, dg_total, dg2_total
 
 
 if __name__ == "__main__":

@@ -32,7 +32,8 @@ SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "cheb_epilogue.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil.cu",
-           PACKAGE_DIR / "csrc" / "dg_pencil_f64.cu"]
+           PACKAGE_DIR / "csrc" / "dg_pencil_f64.cu",
+           PACKAGE_DIR / "csrc" / "dg_cg_f64.cu"]
 HEADERS = [PACKAGE_DIR / "csrc" / "brick_kron.cuh",
            PACKAGE_DIR / "csrc" / "dg_pencil.cuh",
            PACKAGE_DIR / "csrc" / "dg_tab.cuh"]
@@ -71,6 +72,14 @@ SIGNATURES = {
     # C2, n, collocation, stream
     "dg_cheb_f32": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _I, _P,
                     _N],
+    # p_old, z, x, p, q, scalars, tables (host), partial, partial length,
+    # C0, C1, C2, n, collocation, stream
+    "dg_cg_f64": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
+                  _N],
+    # r, q, z, inv_diag, scalars, tables (host), partial, partial length,
+    # cells, n, first, stream
+    "dg_jacobi_cg_f64": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P,
+                         _N],
 }
 # partial-sum slots the reductions of cg_vec.cu use (its kMaxBlocks)
 REDUCTION_BLOCKS = 1024

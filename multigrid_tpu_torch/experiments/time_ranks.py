@@ -7,6 +7,8 @@ backend.
         --ranks 4 --backends nccl gloo
     python -m multigrid_tpu_torch.experiments.time_ranks 64 --ranks 4 \\
         --grid 4 --backends gloo
+    python -m multigrid_tpu_torch.experiments.time_ranks 256 --path dg-plain \\
+        --dim 2 --ranks 4 --backends gloo
 
 For each cube size: the one-device row on the first card (FMG, V-cycle
 reduction, FMG L2, CG its, reduction and wall, the CG solution saved under
@@ -43,7 +45,12 @@ algorithm, and the exchange split of the finest level's f32 apply with
 the bytes of a refresh, by wire (both wires for dg-plain).  A DG row is
 ``ok`` when its frac its are within 5%, its rate within 1e-3 and its L2
 within 1e-6 relative of the one-device row, its CG solution within 1e-7
-of max|u|, and the bit for bit checks hold.
+of max|u|, and the bit for bit checks hold.  ``--dim 2`` runs the DG
+paths on the 2-D cube (``poisson_cube_mesh(size, 2)``), whose DG levels
+run the plain operators on every device: there the slab passes are held
+to the whole grid's within ``PLAIN_ROUTE_BAR`` of max|y| (a box and the
+whole grid are tensor contractions of other shapes, whose sums may round
+apart), the kernels of a 3-D row bit for bit.
 """
 
 from __future__ import annotations
@@ -70,6 +77,9 @@ DG_PATHS = {"dg": ("hermite", ("traces",)),
 DG_DEGREE, DG_N_PRE, DG_RTOL = 4, 3, 1e-9
 DG_ITS_TOL, DG_RATE_TOL, DG_L2_TOL = 0.05, 1e-3, 1e-6
 PLAIN_BAR = 1e-12          # the slab apply against the plain algorithm
+# a 2-D row's plain slab passes against the whole grid's, of max|y|, by
+# value type (f32 on the CPU: 4.8e-7 apart on 2 x 2 ranks)
+PLAIN_ROUTE_BAR = {"float": 1e-6, "double": 1e-12}
 
 
 def one_device(size: int, dev: torch.device, path: Path) -> dict:
@@ -103,15 +113,16 @@ def row_ok(out: dict, ref: dict) -> bool:
 
 
 def one_device_dg(size: int, path: str, dev: torch.device,
-                  out: Path) -> dict:
-    """The one-device DG row; its CG solution goes to ``out``."""
+                  out: Path, dim: int = 3) -> dict:
+    """The one-device DG row on the ``dim``-D cube; its CG solution goes to
+    ``out``."""
     from ..solvers.multigrid_dg import MultigridSolverDG, \
         MultigridSolverDGPlain
 
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
     cls = MultigridSolverDG if path == "dg" else MultigridSolverDGPlain
-    s = cls(poisson_cube_mesh(size), DG_DEGREE, exact_fn, rhs_fn,
+    s = cls(poisson_cube_mesh(size, dim), DG_DEGREE, exact_fn, rhs_fn,
             kind=DG_PATHS[path][0], n_pre=DG_N_PRE, n_post=DG_N_PRE,
             device=dev)
     s.solve_cg(tolerance=DG_RTOL)
@@ -125,14 +136,24 @@ def one_device_dg(size: int, path: str, dev: torch.device,
                 cg_time=cg_s, dg_dofs=x.numel())
 
 
+def apply_ok(name: str, check: dict, plain_route: bool) -> bool:
+    """One slab pass of ``dg_program``'s apply check: against the plain
+    algorithm within ``PLAIN_BAR``; against the whole grid bit for bit,
+    or on the plain route within ``PLAIN_ROUTE_BAR``."""
+    if name.endswith("vmult_plain"):
+        return check["max_diff"] <= PLAIN_BAR * check["scale"]
+    bar = PLAIN_ROUTE_BAR["float" if "<float>" in name else "double"]
+    return check["equal"] or (plain_route and check["max_diff"]
+                              <= bar * check["scale"])
+
+
 def dg_row_ok(out: dict, ref: dict) -> bool:
     return (abs(out["frac_its"] / ref["frac_its"] - 1) <= DG_ITS_TOL
             and abs(out["rate"] / ref["rate"] - 1) <= DG_RATE_TOL
             and abs(out["L2"] / ref["L2"] - 1) <= DG_L2_TOL
             and out["cg_ref_diff"] <= SOL_BAR * out["cg_ref_max"]
             and out["cg_repeat_equal"]
-            and all(v["equal"] if not k.endswith("vmult_plain")
-                    else v["max_diff"] <= PLAIN_BAR * v["scale"]
+            and all(apply_ok(k, v, out["plain_route"])
                     for k, v in out["apply"].items()))
 
 
@@ -183,15 +204,16 @@ def grid_name(shape) -> str:
 def run_dg(args, dev) -> int:
     failed = 0
     for size in args.sizes:
-        path = OUT / f"{args.path}{size}_cg.npy"
-        ref = one_device_dg(size, args.path, dev, path)
-        print(f"{args.path} size {size}, one device: {ref['dg_dofs']} DG "
+        path = OUT / f"{args.path}{size}_{args.dim}d_cg.npy"
+        ref = one_device_dg(size, args.path, dev, path, args.dim)
+        print(f"{args.path} size {size} ({args.dim}-D), one device: "
+              f"{ref['dg_dofs']} DG "
               f"dofs, frac its {ref['frac_its']:.6f}, rate {ref['rate']:.6e},"
               f" L2 {ref['L2']:.9e}, CG {ref['cg_time']:.4f} s", flush=True)
         for backend in args.backends:
             t0 = time.perf_counter()
             out = launch(dg_program, args.ranks, backend, args.device,
-                         args=(poisson_cube_mesh(size),),
+                         args=(poisson_cube_mesh(size, args.dim),),
                          kwargs=dg_kwargs(args.path, path, shape=args.grid))
             ok = dg_row_ok(out, ref)
             failed += not ok
@@ -228,7 +250,11 @@ def main(argv=None) -> int:
     ap.add_argument("--backends", nargs="+", default=["nccl", "gloo"],
                     choices=["nccl", "gloo"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--dim", type=int, default=3, choices=[2, 3],
+                    help="the DG paths' cube: 3-D (default) or 2-D")
     args = ap.parse_args(argv)
+    if args.dim != 3 and args.path == "cube":
+        raise SystemExit("--dim 2 takes --path dg or dg-plain")
     if args.grid is None:
         args.grid = default_grid(args.ranks)
     if int(np.prod(args.grid)) != args.ranks:

@@ -19,12 +19,27 @@ in registers, each face inside the pencil evaluated once: the algebra of
   (float32); ``x = None`` reads as zero and skips A·x, ``out`` may be
   ``x_old`` itself.
 
+Two more kernels carry solver_dg's fused CG row, float64, its scalars on
+the device (``csrc/dg_cg_f64.cu``; no Pallas kernel: the JAX row is XLA's
+fusion of the whole loop under one jit):
+
+* ``dg_cg``: the pencil template's cg mode, x += alpha_prev p_old, p = z
+  + beta p_old (formed wherever the pencil loads input), q = A p, then
+  alpha = rz / (p . q) on the device;
+* ``dg_jacobi_cg``: per cell r -= alpha q, z = T3 diag^-1 T3^T r, then
+  beta = (r . z) / rz, rz = r . z, rr = r . r on the device.
+
+Their plain versions compose :func:`~..solvers.fused.vmult_with_cg_update`
+and :meth:`~.dg_precond.JacobiTransformed.vmult`.
+
 The plain versions are :class:`~.dg.DGLaplace` in the kernel's dtype and,
 for ``dg_cheb``, that operator composed with
 :meth:`~.dg_precond.JacobiTransformed.vmult`.  Each wrapper runs the plain
 version for a tensor on the CPU and launches the kernel for a CUDA tensor
 (or raises); there is no fallback.  ``LAUNCHES[name]`` counts device
-kernels launched: one per call (a residual counts under ``dg_apply<T>``).
+kernels launched: one per call (a residual counts under ``dg_apply<T>``),
+two for ``dg_cg`` and ``dg_jacobi_cg`` (the pass, then one block that
+finishes its reduction).
 The TPU kernels' persistent lane layout, bf16 limb stacks and (hi, lo)
 pairs have no counterpart: the H100 has fp64, and the vectors stay in the
 natural block layout end to end.
@@ -37,9 +52,11 @@ import torch
 
 from .. import _build
 from ..devices import resolve
+from ..solvers.fused import vmult_with_cg_update
 from .dg import DGGrid, DGLaplace, dg_geometry
 
-LAUNCHES = {"dg_apply<double>": 0, "dg_apply<float>": 0, "dg_cheb<float>": 0}
+LAUNCHES = {"dg_apply<double>": 0, "dg_apply<float>": 0, "dg_cheb<float>": 0,
+            "dg_cg<double>": 0, "dg_jacobi_cg<double>": 0}
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 MAX_DEGREE = 9     # n = 10 nodes per axis: the largest kernel instantiation,
                    # the reference programs' top degree
@@ -208,6 +225,123 @@ def smoother_iterates(jacobi, seed: int):
          for _ in range(3)]
     return (z[0].float(), jacobi.vmult(z[1]).float(),
             jacobi.vmult(z[2]).float())
+
+
+# ------------------------------------------------------ dg_cg, dg_jacobi_cg
+# the fused CG's device scalars: one float64 vector, in the order of
+# csrc/dg_cg_f64.cu's Scalar
+CG_SCALARS = ("alpha", "beta", "rz", "rr", "pq")
+ALPHA, BETA, RZ, RR, PQ = range(len(CG_SCALARS))
+
+
+def cg_scalars(device) -> torch.Tensor:
+    """The fused CG's scalars (:data:`CG_SCALARS`), zero."""
+    return torch.zeros(len(CG_SCALARS), dtype=torch.float64,
+                       device=resolve(device))
+
+
+def cg_partials(grid: DGGrid, device) -> torch.Tensor:
+    """Scratch for the block partials of ``dg_cg`` and ``dg_jacobi_cg`` on
+    ``grid``: two a cell bound both kernels' grids (a block takes at least
+    one cell)."""
+    return torch.empty(2 * int(np.prod(grid.cells)), dtype=torch.float64,
+                       device=resolve(device))
+
+
+def dg_cg_plain(p_old, z, x, scal, p, q, apply) -> None:
+    """The operator pass of one fused CG iteration, in place:
+    :func:`~..solvers.fused.vmult_with_cg_update` over ``apply`` with
+    alpha_prev = ``scal[ALPHA]`` and beta = ``scal[BETA]`` (x += alpha_prev
+    p_old; p = z + beta p_old; q = A p), then ``scal[PQ]`` = p . q and
+    ``scal[ALPHA]`` = rz / (p . q)."""
+    x_new, p_new, q_new, sums = vmult_with_cg_update(
+        apply, scal[ALPHA], scal[BETA], z, z, p_old, x)
+    x.copy_(x_new)
+    p.copy_(p_new)
+    q.copy_(q_new)
+    scal[PQ] = sums[0]
+    scal[ALPHA] = scal[RZ] / sums[0]
+
+
+def dg_jacobi_cg_plain(r, q, scal, z, precond, first: bool = False) -> None:
+    """The preconditioner pass of one fused CG iteration, in place: r -=
+    ``scal[ALPHA]`` q, z = ``precond(r)``, then ``scal[BETA]`` = (r . z) /
+    rz, ``scal[RZ]`` = r . z, ``scal[RR]`` = r . r.  ``first``: the pass
+    before the loop (q unread, r unchanged, beta = 0)."""
+    if not first:
+        r.sub_(scal[ALPHA] * q)
+    z.copy_(precond(r))
+    rz = torch.dot(r.reshape(-1), z.reshape(-1))
+    scal[BETA] = 0.0 if first else rz / scal[RZ]
+    scal[RZ] = rz
+    scal[RR] = torch.dot(r.reshape(-1), r.reshape(-1))
+
+
+def _cg_check(op: "DGOperator", name: str, tensors, outs) -> None:
+    _kernel_device(tensors[0][0], op, name)
+    if op.dtype != torch.float64:
+        raise ValueError(f"{name}: float64 only")
+    for t, what in tensors + outs:
+        _check(t, op, f"{name}: {what}")
+    ptrs = {t.data_ptr() for t, _ in tensors}
+    for t, what in outs:
+        if t.data_ptr() in ptrs:
+            raise ValueError(f"{name}: {what} must not alias an input")
+
+
+def _scratch(op: "DGOperator", scal, partial):
+    if scal.dtype != torch.float64 or scal.numel() < len(CG_SCALARS) \
+            or scal.device != op.device or not scal.is_contiguous():
+        raise ValueError("the fused CG's scalars: a contiguous float64 "
+                         f"vector of {len(CG_SCALARS)} on {op.device}")
+    if partial is None:
+        partial = cg_partials(op.grid, op.device)
+    if partial.dtype != torch.float64 or partial.device != op.device:
+        raise ValueError(f"partial: float64 on {op.device}")
+    return partial
+
+
+def dg_cg(p_old, z, x, scal, p, q, op: "DGOperator", partial=None) -> None:
+    """The operator pass of one fused CG iteration (float64): x +=
+    alpha_prev p_old, p = z + beta p_old, q = A p, ``scal[PQ]`` = p . q,
+    ``scal[ALPHA]`` = rz / (p . q), the scalars read and written on the
+    device (:data:`CG_SCALARS`).  ``p`` and ``q`` alias none of the
+    inputs; ``partial``: scratch (:func:`cg_partials`)."""
+    if z.device.type == "cpu":
+        return dg_cg_plain(p_old, z, x, scal, p, q, op.plain.apply)
+    _cg_check(op, "dg_cg", [(z, "z"), (p_old, "p_old"), (x, "x")],
+              [(p, "p"), (q, "q")])
+    partial = _scratch(op, scal, partial)
+    LAUNCHES["dg_cg<double>"] += _build.launch(
+        "dg_cg_f64", p_old.data_ptr(), z.data_ptr(), x.data_ptr(),
+        p.data_ptr(), q.data_ptr(), scal.data_ptr(),
+        op.host_tables.ctypes.data, partial.data_ptr(), partial.numel(),
+        *_launch_args(op), _build.stream_handle(z.device))
+
+
+def dg_jacobi_cg(r, q, scal, z, op: "DGOperator", partial=None,
+                 first: bool = False) -> None:
+    """The preconditioner pass of one fused CG iteration (float64) with the
+    transformed Jacobi installed in ``op``: r -= alpha q, z = T3 diag^-1
+    T3^T r, ``scal[BETA]`` = (r . z) / rz, ``scal[RZ]`` = r . z,
+    ``scal[RR]`` = r . r on the device.  ``first``: the pass before the
+    loop (q unread and may be None, r unchanged, beta = 0)."""
+    if op.jacobi is None:
+        raise ValueError("dg_jacobi_cg: install_jacobi first")
+    if r.device.type == "cpu":
+        return dg_jacobi_cg_plain(r, q, scal, z, op.jacobi.vmult, first)
+    ins = [(r, "r"), (op.jacobi.inv_diag, "inv_diag")]
+    if not first:
+        ins.append((q, "q"))
+    _cg_check(op, "dg_jacobi_cg", ins, [(z, "z")])
+    partial = _scratch(op, scal, partial)
+    LAUNCHES["dg_jacobi_cg<double>"] += _build.launch(
+        "dg_jacobi_cg_f64", r.data_ptr(),
+        None if first else q.data_ptr(), z.data_ptr(),
+        op.jacobi.inv_diag.data_ptr(), scal.data_ptr(),
+        op.host_tables.ctypes.data, partial.data_ptr(), partial.numel(),
+        int(np.prod(op.grid.cells)), op.grid.n, int(first),
+        _build.stream_handle(r.device))
 
 
 # ---------------------------------------------------------------- operator

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.dg import DGGrid, DGLaplace, hermite_basis_change
-from ..ops.dg_kernel import DGOperator
+from ..ops.dg_kernel import DGOperator, covers
 from ..ops.laplace import apply_1d
 from .halo import _dot, comm_split, owned_dot, split_cells
 from .sharding import RankGrid, Ranks
@@ -288,7 +288,9 @@ class DGSlabs:
 class HaloDGLaplace:
     """z-slab-distributed SIP-DG ``vmult`` (JAX ``HaloDGLaplace``): each
     rank runs :class:`~..ops.dg_kernel.DGOperator` (the DG kernels on the
-    card, their plain version on the CPU) on its slab, then refreshes the
+    card, their plain version on the CPU; on a 2-D grid the plain
+    ``DGLaplace`` on every device, as ``dg_kernel.covers`` has it) on its
+    slab, then refreshes the
     ghost layer by ``wire``.  ``op``: the whole level's operator (a
     ``DGLaplace`` or ``DGOperator``: its grid and dtype).
     :meth:`vmult_plain` is the JAX algorithm, the plain oracle."""
@@ -303,7 +305,9 @@ class HaloDGLaplace:
     def _setup(self, op, ranks, wire, bounds):
         self.grid, self.dtype, self.wire = op.grid, op.dtype, wire
         self.slabs = DGSlabs(op.grid, ranks, bounds, GHOST_LAYERS, wire)
-        self.op = DGOperator(self.slabs.local, op.dtype, ranks.device)
+        local = self.slabs.local
+        self.op = (DGOperator if covers(local) else DGLaplace)(
+            local, op.dtype, ranks.device)
         self.plain = DGLaplace(self.slabs.owned_grid, op.dtype, ranks.device)
 
     def distribute(self, u) -> torch.Tensor:

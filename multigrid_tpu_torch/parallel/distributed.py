@@ -48,7 +48,8 @@ box, and runs the FE_Q hierarchy on :class:`DistributedMultigrid`.  The
 one-device solvers' V-cycles and outer CG run unchanged; their hooks are
 the outer CG's dot, the smoothers' dot and start vector, and the L2 error
 of the owned cells.  Each rank's DG kernels are ``dg_apply<double>``,
-``dg_apply<float>`` (the residual) and ``dg_cheb<float>``.
+``dg_apply<float>`` (the residual) and ``dg_cheb<float>`` on a 3-D brick;
+a 2-D brick's DG levels run the plain operators, as on one device.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ import torch
 from ..mesh.brick import BrickMesh, DofGrid
 from ..ops.cg_kernel import cg_dot
 from ..ops.dg import DGGrid
-from ..ops.dg_kernel import DGOperator
+from ..ops.dg_kernel import covers
 from ..ops.dg_precond import JacobiTransformed
 from ..ops.dg_transfer import CGDGCoupling, DGTransfer
 from ..ops.laplace import LaplaceOperator, l2_sums_host, make_diag_coef, \
@@ -74,8 +75,8 @@ from ..solvers.fused import PlainLevel
 from ..solvers.multigrid import (_HOST_ASSEMBLY_DOFS, MultigridSolver,
                                  _bc_faces_host, set_full_precision_matmul)
 from ..solvers.multigrid_dg import (MultigridSolverDG, MultigridSolverDGPlain,
-                                    _quad_tensor, dg_grid_from_mesh,
-                                    quad_coords_block)
+                                    _quad_tensor, constant_level,
+                                    dg_grid_from_mesh, quad_coords_block)
 from .dg_halo import GHOST_LAYERS, DGSlabs
 from .halo import GHOST_CELLS, Slabs, axis_cuts, split_cells
 from .sharding import Ranks
@@ -398,8 +399,9 @@ def dg_level_bounds(mesh: BrickMesh, grid, ghost: int = GHOST_LAYERS
 
 
 class SlabDGLevel(SlabLevel):
-    """A split DG level's :class:`~..ops.dg_kernel.DGOperator` on the
-    rank's box (``dg_apply``, ``dg_cheb``): ``vmult`` and a Chebyshev
+    """A split DG level's operator on the rank's box (:func:`_slab_op`: a
+    :class:`~..ops.dg_kernel.DGOperator` in 3-D, ``dg_apply`` and
+    ``dg_cheb``; the plain one in 2-D): ``vmult`` and a Chebyshev
     step with A x end in the ghost refresh.  ``vmult_residual`` does not:
     its output is read only by cell-local passes on the owned cells (the
     restriction, a ``DGTransfer``) or, on a two-layer box, by
@@ -534,19 +536,28 @@ class _OnRanks:
 
 
 def _slab_op(grid, slabs, dtype, dev, jacobi=None):
-    op = DGOperator(grid if slabs is None else slabs.local, dtype, dev)
-    if jacobi is not None:
-        op.install_jacobi(jacobi)
+    """A DG level on the rank's box (the whole level where ``slabs`` is
+    None) by :func:`~..solvers.multigrid_dg.constant_level`'s route: a
+    ``DGOperator`` where ``dg_kernel.covers`` the grid (3-D), else the
+    plain ``DGLaplace`` (2-D; a ``PlainLevel`` over ``jacobi``)."""
+    op = constant_level(grid if slabs is None else slabs.local, dtype, dev,
+                        jacobi)
     return op if slabs is None else SlabDGLevel(op, slabs)
+
+
+def _plain_of(op):
+    """The plain operator of a level built by :func:`_slab_op`."""
+    op = getattr(op, "op", op)
+    return getattr(op, "plain", op)
 
 
 class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
     """:class:`~..solvers.multigrid_dg.MultigridSolverDGPlain` on ranks:
-    every split level a ``DGOperator`` with its transformed Jacobi on the
-    rank's slab (one ghost layer, the traces wire), the levels joined by
-    :class:`SlabDGTransfer`; replicated levels run alike on every rank
-    with rank 0's Chebyshev interval.  The V-cycle and the outer CG are
-    the one-device solver's."""
+    every split level's operator (:func:`_slab_op`) with its transformed
+    Jacobi on the rank's box (one ghost layer, the traces wire), the
+    levels joined by :class:`SlabDGTransfer`; replicated levels run alike
+    on every rank with rank 0's Chebyshev interval.  The V-cycle and the
+    outer CG are the one-device solver's."""
 
     def __init__(self, mesh: BrickMesh, degree: int, exact_fn, rhs_fn,
                  ranks: Ranks, kind: str, n_pre: int, v_dtype, f_dtype,
@@ -569,8 +580,8 @@ class _DGPlainOnRanks(_OnRanks, MultigridSolverDGPlain):
                     in zip(self.grids, self.slabs, self.jacobis)]
         fine = self.slabs[-1]
         self.op_dp = _slab_op(self.grids[-1], fine, f_dtype, dev)   # K9
-        self.op_ref = getattr(self.op_dp, "op", self.op_dp).plain
-        self.plain_route = False
+        self.op_ref = _plain_of(self.op_dp)
+        self.plain_route = not covers(self.grids[-1])
         self.transfers = [None] + [self._transfer(l) for l in range(1, L)]
         self.smoothers = []
         for l, (op, jac, s) in enumerate(zip(self.ops, self.jacobis,
@@ -624,8 +635,8 @@ class _DGOnRanks(_OnRanks, MultigridSolverDG):
         self.op = _slab_op(self.dg_grid, slabs, v_dtype, dev,
                            self.jacobi)                          # K7, K8
         self.op_dp = _slab_op(self.dg_grid, slabs, f_dtype, dev)   # K9
-        self.op_ref = getattr(self.op_dp, "op", self.op_dp).plain
-        self.plain_route = False
+        self.op_ref = _plain_of(self.op_dp)
+        self.plain_route = not covers(self.dg_grid)
         if fe is None:
             self.coupling = CGDGCoupling(self.cg.grids[L], self.dg_grid,
                                          v_dtype, dev)
@@ -653,14 +664,17 @@ class DistributedMultigridDG:
     hierarchy on :class:`DistributedMultigrid`).  Ghost layers travel on
     the traces wire, so that the owned cells of every pass are the
     one-device bits; the hermite wire is the operator's
-    (:class:`~.dg_halo.HaloDGLaplace`).  The
-    same arguments as the one-device solvers (3-D bricks; the device is the
-    rank's; 2-D DG on ranks is not ported).  Entry points: :meth:`solve_cg`, :meth:`l2_error`,
-    :meth:`owned`, :meth:`collect`, :meth:`distributed_levels`; a solution
-    is the rank's slab of the finest level (the whole level where it is
-    replicated).  On the card each rank's kernels are ``dg_apply<double>``,
+    (:class:`~.dg_halo.HaloDGLaplace`).  The same arguments as the
+    one-device solvers, on a 3-D or 2-D brick (the device is the rank's).
+    Entry points: :meth:`solve_cg`, :meth:`l2_error`, :meth:`owned`,
+    :meth:`collect`, :meth:`distributed_levels`; a solution is the rank's
+    slab of the finest level (the whole level where it is replicated).  On
+    the card each rank's kernels are, in 3-D, ``dg_apply<double>``,
     ``dg_apply<float>`` (the residual), ``dg_cheb<float>``, the CG kernels
-    and, for ``"dg"``, F-1's brick kernels."""
+    and, for ``"dg"``, F-1's brick kernels; a 2-D level runs the plain
+    operator on every device (:func:`_slab_op`, as the one-device solvers
+    and the JAX package's XLA), so there the CG kernels alone (and, for
+    ``"dg"``, the CG kernels of the 2-D FE_Q hierarchy)."""
 
     SOLVERS = ("dg-plain", "dg")
 
@@ -669,8 +683,6 @@ class DistributedMultigridDG:
                  kind: Optional[str] = None, n_pre: Optional[int] = None,
                  n_post: Optional[int] = None, v_dtype=torch.float32,
                  f_dtype=torch.float64, shape: Optional[tuple] = None):
-        if mesh.dim != 3:
-            raise ValueError("the rank-decomposed DG solvers run 3-D bricks")
         if solver not in self.SOLVERS:
             raise ValueError(f"solver must be one of {self.SOLVERS}, not "
                              f"{solver!r}")

@@ -488,7 +488,8 @@ def dg_program(ranks: Ranks, mesh: BrickMesh, path: str = "dg-plain",
     cuts = None if dm.slabs is None else dm.slabs.bounds
     out = dict(world=ranks.world, backend=ranks.backend, path=path,
                grid=dm.shape, setup_time=time.perf_counter() - t0,
-               dg_dofs=grid.n_dofs, levels=dm.distributed_levels(),
+               dg_dofs=grid.n_dofs, plain_route=s.plain_route,
+               levels=dm.distributed_levels(),
                bounds=cuts[0] if cuts is not None and len(cuts) == 1
                else cuts, foreign=_foreign())
     _reset_launches()
@@ -546,12 +547,15 @@ def dg_program(ranks: Ranks, mesh: BrickMesh, path: str = "dg-plain",
 
 def _dg_apply_check(ranks: Ranks, dm, grid, seed: int) -> dict:
     """The finest slab's ``dg_apply<double>``, ``dg_residual<float>`` and
-    ``dg_cheb<float>`` (the solver's own operators) against
-    ``DGOperator`` on the whole grid, owned cells; and ``dg_apply<double>``
-    against the plain JAX algorithm (``vmult_plain``)."""
+    ``dg_cheb<float>`` (the solver's own operators) against the whole
+    grid's level of the same route (``constant_level``: ``DGOperator`` in
+    3-D, the plain operator in 2-D), owned cells; and ``dg_apply<double>``
+    against the plain JAX algorithm (``vmult_plain``).  On a 2-D grid the
+    names stand for the plain passes that take the kernels' place."""
     from ..ops.dg import DGLaplace
-    from ..ops.dg_kernel import DGOperator, smoother_iterates
+    from ..ops.dg_kernel import smoother_iterates
     from ..ops.dg_precond import JacobiTransformed
+    from ..solvers.multigrid_dg import constant_level
     from .dg_halo import HaloDGLaplace
 
     s, slabs, dev = dm.solver, dm.slabs, ranks.device
@@ -571,7 +575,7 @@ def _dg_apply_check(ranks: Ranks, dm, grid, seed: int) -> dict:
 
     x = torch.as_tensor(rng.standard_normal(grid.shape), dtype=torch.float64,
                         device=dev)
-    whole = DGOperator(grid, torch.float64, dev)
+    whole = constant_level(grid, torch.float64, dev)
     y_slab = getattr(f64, "op", f64).vmult(part(x))
     res["dg_apply<double>"] = _compare(ranks, own(y_slab), _own_cells(
         whole.vmult(x), slabs))
@@ -583,9 +587,8 @@ def _dg_apply_check(ranks: Ranks, dm, grid, seed: int) -> dict:
             halo.slabs.own(halo.vmult_plain(halo.distribute(x))))
         del halo
     del x, whole, y_slab
-    whole = DGOperator(grid, torch.float32, dev)
-    jac = JacobiTransformed(grid, torch.float32, dev)
-    whole.install_jacobi(jac)
+    whole = constant_level(grid, torch.float32, dev,
+                           JacobiTransformed(grid, torch.float32, dev))
     b, xi, xo = smoother_iterates(JacobiTransformed(grid, torch.float64, dev),
                                   seed)
     inner = getattr(f32, "op", f32)

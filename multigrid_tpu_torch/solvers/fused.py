@@ -6,9 +6,10 @@ updates and reductions into its operator cell loops --
 ``vmult_with_chebyshev_update`` (common/laplace_operator_dg.h:863-976) --
 to save memory passes on a CPU.  Here they are plain compositions over a
 ``vmult`` and a ``precond``, as in the JAX twin.  On the card the fused
-passes that matter are kernels of their own (``dg_cheb``, ``brick_kron``'s
-Chebyshev mode, ``cg_update``); these compositions serve the operators
-that have no kernel (:class:`PlainLevel`).
+passes that matter are kernels of their own (``dg_cheb``, ``dg_cg``,
+``brick_kron``'s Chebyshev mode, ``cg_update``); these compositions are
+their plain versions and serve the operators that have no kernel
+(:class:`PlainLevel`).
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ def vmult_with_cg_update(vmult: Callable, alpha: float, beta: float,
     """One fused CG round: the vector updates folded around ``q = A p``
     plus the four reductions the reference returns
     (laplace_operator.h:655-718): <q,p>, <r,r>, <q,r>, <q,q>.
-    ``alpha == 0`` marks the first iteration (p taken from q).  Kept for
-    API parity with the JAX twin: no solver of the port calls it (their CG
-    runs ``cg_update`` and ``cg_dot``)."""
-    first = alpha == 0.0
+    A float ``alpha == 0`` marks the first iteration (p taken from q); a
+    tensor ``alpha`` (a device scalar, read without a host sync) never
+    does, and its caller starts from p = 0 instead.  The plain version of
+    the fused CG's operator pass (``ops/dg_kernel.dg_cg_plain``, solver_dg's
+    fused row)."""
+    first = not torch.is_tensor(alpha) and alpha == 0.0
     x = x if first else x + alpha * p
     p = q if first else beta * p + q
     q = vmult(p)

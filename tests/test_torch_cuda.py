@@ -444,7 +444,8 @@ def test_dg_kernels_match_plain(dev, kind, p, cells):
     assert dk.dg_cheb(b, x, alias, op32, 0.37, 0.81, out=alias) is alias
     assert torch.equal(alias, out)
     assert dk.LAUNCHES == {"dg_apply<double>": 1, "dg_apply<float>": 1,
-                           "dg_cheb<float>": 6}
+                           "dg_cheb<float>": 6, "dg_cg<double>": 0,
+                           "dg_jacobi_cg<double>": 0}
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9),
@@ -525,6 +526,92 @@ def test_dg_cheb_every_degree(dev, kind, p, cells):
     assert dk.LAUNCHES["dg_cheb<float>"] == 6
 
 
+@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)])
+@pytest.mark.parametrize("p", range(1, 10))
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_cg_kernels_every_degree(dev, kind, p, cells):
+    """The fused CG's kernels at every compiled degree against their plain
+    versions, at dg_apply<double>'s bar (1e-13 of each output's max;
+    the device scalars to 1e-13 relative): dg_cg<double> (x += alpha_prev
+    p_old, p = z + beta p_old, q = A p, alpha = rz / p.q) and
+    dg_jacobi_cg<double> (r -= alpha q, z = P^-1 r, beta, rz, rr), the
+    latter also as the first pass (q unread, r unchanged, beta = 0).  Two
+    launches a call (the pass, the finish); a repeated call bit for
+    bit."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = dg_grid(cells, p, kind)
+    op = dk.DGOperator(g, torch.float64, dev)
+    jac = JacobiTransformed(g, torch.float64, dev)
+    op.install_jacobi(jac)
+    p_old, z, x, r, q = (rand(g.shape, torch.float64, dev, s)
+                         for s in range(5))
+    scal = torch.tensor([0.37, 0.61, 1.7, 0.0, 0.0], dtype=torch.float64,
+                        device=dev)
+
+    def close(got, want):
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert float((a - b).abs().max()) <= 1e-13 * float(
+                b.abs().max()), (kind, p, cells)
+
+    dk.reset_launches()
+    runs = []
+    for _ in range(2):
+        xs, s = x.clone(), scal.clone()
+        pp, qq = torch.empty_like(x), torch.empty_like(x)
+        dk.dg_cg(p_old, z, xs, s, pp, qq, op)
+        runs.append((xs, pp, qq, s))
+    xs, s = x.clone(), scal.clone()
+    pp, qq = torch.empty_like(x), torch.empty_like(x)
+    dk.dg_cg_plain(p_old, z, xs, s, pp, qq, op.plain.apply)
+    close(runs[0][:3], (xs, pp, qq))
+    assert torch.allclose(runs[0][3], s, rtol=1e-13, atol=0)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for first in (False, True):
+        rs, s, zs = r.clone(), scal.clone(), torch.empty_like(r)
+        dk.dg_jacobi_cg(rs, None if first else q, s, zs, op, first=first)
+        rw, sw, zw = r.clone(), scal.clone(), torch.empty_like(r)
+        dk.dg_jacobi_cg_plain(rw, q, sw, zw, jac.vmult, first)
+        close((rs, zs), (rw, zw))
+        assert torch.allclose(s, sw, rtol=1e-13, atol=0)
+        if first:
+            assert torch.equal(rs, r) and float(s[dk.BETA]) == 0.0
+    assert dk.LAUNCHES["dg_cg<double>"] == 4
+    assert dk.LAUNCHES["dg_jacobi_cg<double>"] == 4
+
+
+def test_fused_solver_dg_loop_on_card_matches_cpu(dev):
+    """solver_dg's fused row, 10 iterations on the card's kernels with no
+    host sync inside the loop (PyTorch's sync debug mode raises on one),
+    against the same loop on the CPU (the kernels' plain versions) to
+    1e-11 of max|x|; 2 + 2 launches an iteration and the first pass."""
+    from multigrid_tpu_torch.experiments import solver_dg
+    from multigrid_tpu_torch.experiments.matvec_dg import bench_grid
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    grid = bench_grid(3, "hermite", 6, shear=False)
+    b = np.random.default_rng(0).standard_normal(grid.shape)
+    xs = {}
+    for where in (dev, torch.device("cpu")):
+        op = dk.DGOperator(grid, torch.float64, where)
+        jac = JacobiTransformed(grid, torch.float64, where)
+        op.install_jacobi(jac)
+        passes = solver_dg.fused_passes(op, jac, grid, kernel=True)
+        dk.reset_launches()
+        with solver_dg.no_host_sync(where):
+            x, rn = solver_dg.cg_fused(*passes, torch.as_tensor(
+                b, device=where), 10)
+        xs[where.type] = x.cpu()
+        if where.type == "cuda":
+            assert dk.LAUNCHES["dg_cg<double>"] == 20
+            assert dk.LAUNCHES["dg_jacobi_cg<double>"] == 22
+    scale = float(xs["cpu"].abs().max())
+    assert float((xs["cuda"] - xs["cpu"]).abs().max()) <= 1e-11 * scale
+
+
 def test_dg_solver_on_card_matches_cpu(dev):
     from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
     from multigrid_tpu_torch.solvers.multigrid_dg import MultigridSolverDG
@@ -564,7 +651,9 @@ def test_dg_solvers_at_high_degree_on_card_match_cpu(dev, p, plain):
     assert float((u_gpu - u_cpu).abs().max()) <= 1e-5 * float(u_cpu.abs().max())
     assert its_gpu == pytest.approx(its_cpu, rel=0.01)
     assert l2_gpu == pytest.approx(l2_cpu, rel=0.01)
-    assert all(v > 0 for v in counts.values()), counts
+    # the solvers' DG kernels (the fused CG's are solver_dg's alone)
+    assert all(counts[k] > 0 for k in ("dg_apply<double>", "dg_apply<float>",
+                                       "dg_cheb<float>")), counts
 
 
 def _dg_plain(where):
