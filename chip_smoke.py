@@ -145,9 +145,9 @@ pencil kernels (``dg_apply`` and
 1..9), the DG kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
 (``ops/dg_face.py``); the fused CG's ``dg_cg<double>`` and
-``dg_jacobi_cg<double>`` at p = 1..9 and timed at 13,824,000 DG dofs
-against their plain versions (``vmult_with_cg_update`` and
-``JacobiTransformed.vmult``).
+``dg_jacobi_cg<double>`` at p = 1..9 (also on ``dg_kernel.MARCH_CELLS``,
+the ends of dg_cg's z march) and timed at 13,824,000 DG dofs against their plain
+versions (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``).
 
 Every phase raises on a miss; there is no CPU path.
 
@@ -816,7 +816,8 @@ class KernelChecks:
         scalars to 1e-13 relative: ``dg_cg`` (x, p, q, p . q, alpha) and
         ``dg_jacobi_cg`` (r, z, beta, rz, rr; also as the first pass); two
         launches a call, a repeated call bit for bit.  Timed: each kernel
-        and its plain version.  ``ops``: :meth:`dg_ops`'s."""
+        and its plain version.  ``ops``: :meth:`dg_ops`'s (its float64
+        operator, the Jacobi installed, is all it reads)."""
         from multigrid_tpu_torch.ops import dg_kernel as dk
         from multigrid_tpu_torch.utils.perf_model import dg_matvec_ops
 
@@ -967,6 +968,10 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({_build.library_path().name})")
+    if _build.build_seconds:
+        print("  nvcc seconds: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(_build.build_seconds.items(),
+                                               key=lambda kv: -kv[1])))
     # registers and spills per source (ptxas -v); no brick kernel may
     # spill, nor a DG pencil kernel at p = 4, 8 or 9 (n = 5, 9, 10: the
     # paths' degrees)
@@ -1063,6 +1068,7 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
     block's wall seconds on its line."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
     from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     checks = KernelChecks(dev)
@@ -1149,9 +1155,15 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
             checks.apply_checks(ops, face=True, label=label)
             checks.cheb_checks(ops, face=True, label=label)
             checks.cg_fused_checks(ops, False)
+        for i, cells in enumerate(dk.MARCH_CELLS):
+            grid = dg_grid(cells, p, ("hermite", "gll", "gauss")[(p + i) % 3])
+            op = dk.DGOperator(grid, torch.float64, dev)
+            op.install_jacobi(JacobiTransformed(grid, torch.float64, dev))
+            checks.cg_fused_checks({torch.float64: op}, False)
         torch.cuda.synchronize()
         print(f"dg_apply, dg_residual, dg_cheb, dg_cg and dg_jacobi_cg "
-              f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9) {took()}")
+              f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9), "
+              f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
     # no fallback above the kernels' degree: the card refuses such a level
     try:
         dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),

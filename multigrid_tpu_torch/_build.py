@@ -24,6 +24,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
@@ -80,12 +81,16 @@ SIGNATURES = {
     # cells, n, first, stream
     "dg_jacobi_cg_f64": [_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _P,
                          _N],
+    # n, out[5]: dg_cg's march tile (K, p buffers, shared bytes, threads,
+    # blocks an SM); launches nothing
+    "dg_cg_f64_tile": [_I, _N],
 }
 # partial-sum slots the reductions of cg_vec.cu use (its kMaxBlocks)
 REDUCTION_BLOCKS = 1024
 
 _lib = None
 build_log = ""
+build_seconds: dict[str, float] = {}   # wall seconds of each nvcc, the link
 
 
 def _nvcc() -> str:
@@ -111,32 +116,55 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmgt_kernels_{_digest()}.so"
 
 
+def compile_sources(sources: list[Path], work: Path
+                    ) -> tuple[str, list[str], dict[str, float]]:
+    """``nvcc -c`` of each source into ``work``, all started together, then
+    the link into ``work/lib.so``: the compiler's output, the failed
+    commands and the wall seconds of each nvcc (by source name) and of the
+    link."""
+    nvcc = _nvcc()
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(work / (src.stem + ".o")),
+             str(src)] for src in sources]
+    t0 = time.perf_counter()
+    outs = [open(work / (src.stem + ".log"), "w+") for src in sources]
+    procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT)
+             for c, f in zip(cmds, outs)]
+    seconds: dict[str, float] = {}
+    while len(seconds) < len(procs):
+        for src, p in zip(sources, procs):
+            if src.name not in seconds and p.poll() is not None:
+                seconds[src.name] = time.perf_counter() - t0
+        time.sleep(0.05)
+    logs = []
+    for f in outs:
+        f.seek(0)
+        logs.append(f.read())
+        f.close()
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / "lib.so"),
+            *(c[c.index("-o") + 1] for c in cmds)]
+    failed = [" ".join(c) for c, p in zip(cmds, procs) if p.returncode != 0]
+    if not failed:
+        t1 = time.perf_counter()
+        proc = subprocess.run(link, capture_output=True, text=True)
+        seconds["link"] = time.perf_counter() - t1
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(" ".join(link))
+    log = "\n".join(" ".join(c) + "\n" + lg
+                    for c, lg in zip([*cmds, link], logs))
+    return log, failed, seconds
+
+
 def build() -> Path:
     """Compile the sources into the hashed library unless it exists: one
     ``nvcc -c`` per source in parallel, then one link."""
-    global build_log
+    global build_log, build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
-    nvcc = _nvcc()
-    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(work / (src.stem + ".o")),
-             str(src)] for src in SOURCES]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
-    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / "lib.so"),
-            *(c[c.index("-o") + 1] for c in cmds)]
-    failed = [" ".join(c) for c, p in zip(cmds, procs) if p.returncode != 0]
-    if not failed:
-        proc = subprocess.run(link, capture_output=True, text=True)
-        logs.append(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            failed.append(" ".join(link))
-    build_log = "\n".join(" ".join(c) + "\n" + log
-                           for c, log in zip([*cmds, link], logs))
+    build_log, failed, build_seconds = compile_sources(SOURCES, work)
     (BUILD_DIR / "build.log").write_text(build_log)
     if failed:
         shutil.rmtree(work, ignore_errors=True)
@@ -195,3 +223,37 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def main(argv: list[str]) -> int:
+    """``python -m multigrid_tpu_torch._build [--tree DIR]``: compile the
+    kernel sources of this tree, or of the same files in another tree's
+    ``multigrid_tpu_torch/csrc``, into a scratch directory as
+    :func:`build` does (the library is not kept) and print the wall
+    seconds of each nvcc, the link and the whole build."""
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", type=Path, default=PACKAGE_DIR.parent)
+    args = ap.parse_args(argv)
+    csrc = args.tree.resolve() / "multigrid_tpu_torch" / "csrc"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    t0 = time.perf_counter()
+    log, failed, seconds = compile_sources(
+        [csrc / src.name for src in SOURCES], work)
+    total = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    if failed:
+        print(log)
+        return 1
+    print(f"build of {csrc}: {total:.2f} s; " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in sorted(seconds.items(),
+                                             key=lambda kv: -kv[1])))
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 // The fused CG of solver_dg for Hopper (sm_90a), in double: the two passes
 // of one iteration, with the scalars kept on the device.
-//   dg_cg<double>         dg_cg_kernel<N>, the pencil template's cg mode
-//                         (dg_pencil.cuh), then a one-block finish
+//   dg_cg<double>         dg_cg_kernel<N>: x += alpha_prev p_old,
+//                         p = z + beta p_old, q = A p and per-block
+//                         partials of p . q, then a one-block finish
 //                         alpha = rz / (p . q);
 //   dg_jacobi_cg<double>  dg_jacobi_cg_kernel<N>: per cell r -= alpha q and
 //                         z = T3 diag^-1 T3^T r (the transformed Jacobi,
@@ -24,14 +25,53 @@
 // Reductions as in cg_vec.cu: each block writes one partial, one block sums
 // them in an order fixed by the grid: no atomics, the same bits every run.
 //
-// What bounds them on an H100: dg_cg streams 6 vectors (x, p_old, z in;
-// x, p, q out) beside the operator's ~200 flop a dof at p = 4, the Jacobi
-// pass 5 (r, q, inv_diag in; r, z out) and 12 n + 6 flop a dof: both are
-// bound by HBM bytes.  A simple design first: the operator pass is the
-// apply kernel's, its loads and stores widened (the neighbour reductions
-// form p from p_old and z too); the Jacobi pass takes whole cells, n^2
-// threads a cell, its six 1-D sweeps through shared memory with the
-// residual's line kept in registers for r . z.
+// What bounds them on an H100: dg_cg must move 6 vectors through HBM (x,
+// p_old, z in; x, p, q out: 48 bytes a dof) beside the operator's ~200
+// flop a dof at p = 4, which the DFMA pipes (half the card's 67 TFLOP/s
+// fp64 peak) would do in less time; the Jacobi pass 5 vectors (r, q,
+// inv_diag in; r, z out) and 12 n + 6 flop a dof: both are bound by bytes.
+//
+// dg_cg's design: a z march.  A block owns a pencil of K cells along x
+// (n^2 threads a cell, a thread one line of nodes, as in dg_pencil.cuh)
+// and walks a run of L layers of its column along z.  Layer by layer:
+//   * the own pencil's p_old, z and x of the next layer are staged into
+//     shared memory by cp.async while the current layer runs its phases
+//     (a wait and a barrier at the end of a layer), so each own value comes
+//     from device memory once and the next layer's loads are in flight
+//     during the arithmetic of this one;
+//   * p = fma(beta, p_old, z) is formed wherever it is needed (owner,
+//     neighbour, trace) with that one rounding, so a face sees one set of
+//     bits for p; the owner writes p once and updates x from the p_old it
+//     holds;
+//   * the +-z faces read nothing: the layer above's low-face trace (b = f0
+//     S p, c = f0 D S p along z) comes from its staged values, and this
+//     layer's high-face trace is handed to the next layer in two registers
+//     a thread; the +-y rows and the pencil's two x-end cells are read
+//     from device memory in T0 (mostly L2 hits: their own blocks read them
+//     too);
+//   * p stays on chip for p . q: the thread's line of p (along z, the line
+//     T6 writes q on) in registers, or at n >= 8, where the registers are
+//     scarce, in a second buffer of p in shared memory.
+// Between the loads and the store of q the phases are dg_pencil.cuh's
+// apply arithmetic (T1-T6 there; T0 reads shared memory here), each phase
+// turning its lines in place: a thread reads and writes only its own
+// lines within a phase, so 4 volume buffers a cell do, where the template
+// keeps 7.  T1-T6 below mirror pencil_body's phases operation for
+// operation: a fix to the operator's arithmetic in one goes to the other
+// (ROADMAP.md §2 item 4 would make them one set of device functions).  The warps an SM set the pace: the phases are bound by
+// shared-memory traffic and latency, not by the loads, so the +-y rows are
+// not staged (staging them too leaves room for 2 blocks of 4 warps an SM
+// at n = 5 instead of 3, and measured slower: PERF.md §6).  Shared
+// memory a block, in doubles: 4 n^3 + 34 n^2 a cell for the phases, p (1
+// or 2 n^3) and the staged layer (3 n^3); at n = 5, 5 cells: 74,032 bytes,
+// 3 blocks an SM.  K (cg_pencil): 16, 6, 6, 5 cells at n = 2..5, chosen by
+// measuring (PERF.md §6); above, as many as 256 threads hold and fit the
+// 232,448 bytes a block may have: 7, 5, 4, 3, 2 at n = 6..10.  A column
+// is cut into runs of at least kMinLayers layers so that the grid holds
+// about kWaves times the blocks resident on the card; a run's first block
+// reads the layer below it once, for its trace.
+
+#include <stdint.h>
 
 #include "dg_pencil.cuh"
 
@@ -40,14 +80,581 @@ namespace {
 enum Scalar { ALPHA = 0, BETA = 1, RZ = 2, RR = 3, PQ = 4 };
 
 constexpr int kFinishThreads = 1024;
+constexpr int kSmemBlock = 232448;  // bytes of shared memory a block may have
+constexpr int kStaticSmem = 256;    // block_sum's warp sums
+constexpr int kMinLayers = 8;       // the shortest run of a march
+constexpr int kWaves = 4;           // grids of about 4 x the blocks resident
+
+// The sum of v over the block (blockDim.x a multiple of 32), valid in
+// thread 0, in an order fixed by the block size: no atomics
+template <typename T>
+__device__ __forceinline__ T block_sum(T v) {
+  __shared__ T warp_sums[32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : T(0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr int even(int v) { return (v + 1) & ~1; }
+
+// The march's shared memory, offsets in doubles (each 16-byte aligned):
+// four volume buffers (the phases turn each line in place), the face
+// buffers (dg_pencil.cuh's), p (ring segments) and the staged own layer
+// (p_old, z, x)
+struct MarchLayout {
+  int seg, ring, fe, fo, p, raw, size;
+};
+
+__host__ __device__ constexpr MarchLayout march_layout(int n, int k) {
+  const int n2 = n * n, n3 = n2 * n;
+  const int seg = even(k * n3), ring = n >= 8 ? 2 : 1;
+  const int fe = 4 * k * n3, fo = fe + 16 * k * n2;
+  const int p = even(fo + 18 * k * n2), raw = p + ring * seg;
+  return MarchLayout{seg, ring, fe, fo, p, raw, raw + 3 * seg};
+}
+
+__host__ __device__ constexpr bool march_fits(int n, int k) {
+  return march_layout(n, k).size * 8 + kStaticSmem <= kSmemBlock &&
+         k * n * n <= 1024;
+}
+
+// cells a block (the pencil along x), by points an axis: at n = 2..5 as
+// measured (PERF.md §6), above as many as 256 threads hold and a block's
+// shared memory fits (one block an SM, the registers not capped);
+// DG_CG_PENCIL sets it for every degree when tuning
+// (experiments/time_dg_cheb.py --pencil cg:K), cut to what fits
+template <int N>
+__host__ __device__ constexpr int cg_pencil() {
+#ifdef DG_CG_PENCIL
+  int k = DG_CG_PENCIL;
+#else
+  int k = N == 2 ? 16 : N <= 4 ? 6 : N == 5 ? 5 : 256 / (N * N);
+#endif
+  while (k > 1 && !march_fits(N, k)) --k;
+  return k;
+}
 
 template <int N>
-__global__ void __launch_bounds__(threads<N, CG>(), 1)
+__host__ __device__ constexpr int cg_threads() {
+  return ((cg_pencil<N>() * N * N + 31) / 32) * 32;
+}
+
+template <int N>
+__host__ __device__ constexpr int cg_smem_bytes() {
+  return march_layout(N, cg_pencil<N>()).size * (int)sizeof(double);
+}
+
+// blocks an SM by shared memory (233,472 bytes an SM, 1 KB reserved a
+// block) and threads, the launch bound's floor, so that ptxas fits the
+// registers to them
+template <int N>
+__host__ __device__ constexpr int cg_blocks() {
+  const int b = 233472 / (cg_smem_bytes<N>() + kStaticSmem + 1024);
+  const int t = 2048 / cg_threads<N>();
+  return b < t ? b : t;
+}
+
+// The operator pass (see the note above).  Block b marches layers [z0, z1)
+// of pencil px of row cy: px = b % npx, cy = (b / npx) % C1, z0 = L (b /
+// (npx C1)).  p and q alias none of p_old, z, x.
+template <int N>
+__global__ void __launch_bounds__(cg_threads<N>(), cg_blocks<N>())
 dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
-             const CgArgs<double> cg, double* __restrict__ q, int C0, int C1,
-             int C2, int colloc) {
-  pencil_body<double, N, CG>(tab.v, nullptr, q, nullptr, nullptr, nullptr,
-                             0.0, 0.0, C0, C1, C2, colloc, cg);
+             const double* __restrict__ p_old, const double* __restrict__ zv,
+             double* __restrict__ xv, double* __restrict__ pv,
+             double* __restrict__ qv, const double* __restrict__ scal,
+             double* __restrict__ partial, int C0, int C1, int C2, int L,
+             int colloc) {
+  using LT = Tab<N>;
+  constexpr int N2 = N * N, N3 = N2 * N, K = cg_pencil<N>();
+  constexpr int T = cg_threads<N>();
+  constexpr MarchLayout M = march_layout(N, K);
+  const double* ct = tab.v;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* sm = reinterpret_cast<double*>(smem_raw);
+  double* vol = sm;
+  double* fe = sm + M.fe;
+  double* fo = sm + M.fo;
+  double* RAW = sm + M.raw;  // p_old, z, x of the next layer, SEG apart
+  auto V = [&](int a, int c) { return vol + (a * K + c) * N3; };
+  auto FE = [&](int a, int c, int f) {
+    return fe + ((a * K + c) * 6 + f) * N2;
+  };
+  auto XT = [&](int a, int c, int s) {
+    return fe + 12 * K * N2 + ((a * K + c) * 2 + s) * N2;
+  };
+  auto FO = [&](int a, int c, int f) {
+    return fo + ((a * K + c) * 6 + f) * N2;
+  };
+
+  const int t = threadIdx.x;
+  const bool lane = t < K * N2;            // owns a line slot
+  const int c = lane ? t / N2 : 0;         // cell in the pencil
+  const int pt = t % N2, q1 = pt / N, q2 = pt % N;
+  const int npx = (C2 + K - 1) / K;
+  const int px = blockIdx.x % npx;
+  const int cy = (blockIdx.x / npx) % C1;
+  const int z0 = (blockIdx.x / (npx * C1)) * L;
+  const int z1 = min(C0, z0 + L);
+  const int x0 = px * K;
+  const int cnt = min(K, C2 - x0);         // cells of a ragged pencil
+  const int c_last = cnt - 1;
+  const bool valid = lane && c < cnt;
+  const int len = cnt * N3;                // values of the pencil a layer
+  const double alpha = scal[ALPHA], beta = scal[BETA];
+  // the pencil's first value in layer k, row cy + dy
+  auto at = [&](int k, int dy) {
+    return (((int64_t)k * C1 + cy + dy) * C2 + x0) * N3;
+  };
+  // n values from src to dst (16-byte aligned) by cp.async, in 16-byte
+  // copies where src is aligned too
+  auto stage = [&](double* dst, const double* src, int n) {
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      for (int i = 2 * t; i < n - 1; i += 2 * T) cp_async16(dst + i, src + i);
+      if ((n & 1) && t == T - 1) cp_async8(dst + n - 1, src + n - 1);
+    } else {
+      for (int i = t; i < n; i += T) cp_async8(dst + i, src + i);
+    }
+  };
+  // the own pencil's p_old, z (and x) of layer k, SEG apart from dst
+  auto stage_own = [&](double* dst, int k, bool with_x) {
+    const int64_t g = at(k, 0);
+    stage(dst, p_old + g, len);
+    stage(dst + M.seg, zv + g, len);
+    if (with_x) stage(dst + 2 * M.seg, xv + g, len);
+  };
+  // p of layer k from its staged values (src: p_old, z, x SEG apart) into
+  // the p buffer Pk and to device memory, and x += alpha_prev p_old
+  auto form = [&](const double* src, int k, double* Pk) {
+    const int64_t g = at(k, 0);
+    for (int i = t; i < len; i += T) {
+      const double po = src[i];
+      const double w = fma(beta, po, src[M.seg + i]);
+      Pk[i] = w;
+      pv[g + i] = w;
+      xv[g + i] = fma(alpha, po, src[2 * M.seg + i]);
+    }
+  };
+  // the trace (b, c) = (f_s S p, f_s D S p) along the line of axis d
+  // through this thread's face point of a cell whose p_old is at po and z
+  // at zz (staged, or a neighbour's in device memory)
+  auto trace = [&](const double* po, const double* zz, int d, int s,
+                   double& b, double& cc) {
+    b = 0.0;
+    cc = 0.0;
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const int o = node<N>(d, pt, m);
+      const double v = fma(beta, po[o], zz[o]);
+      b += ct[LT::B + s * N + m] * v;
+      cc += ct[LT::C + s * N + m] * v;
+    }
+  };
+  // the face stages' work: one row or column (r) of a face (f) of a pencil
+  // cell (cc), for the +-z and +-y faces of every cell, then the low x face
+  // of the first cell and the high x face of the last
+  constexpr int FACE_ITEMS = 4 * K * N + 2 * N;
+  auto face_item = [&](int it, int& cc, int& f, int& r) {
+    r = it % N;
+    if (it < 4 * K * N) {
+      cc = it / (4 * N);
+      f = (it / N) % 4;
+    } else {
+      f = 4 + (it - 4 * K * N) / N;
+      cc = f == 4 ? 0 : c_last;
+    }
+  };
+  const double wq1 = pick<N>(ct + LT::W, q1), wq2 = pick<N>(ct + LT::W, q2);
+
+  // ---- prologue: the run's first layer (into the volume and face
+  // buffers, free until T0), the layer below it (for its trace) and the
+  // next layer
+  double* first = vol + 2 * M.seg;
+  if (z0 > 0) {
+    stage(vol, p_old + at(z0 - 1, 0), len);
+    stage(vol + M.seg, zv + at(z0 - 1, 0), len);
+  }
+  stage_own(first, z0, true);
+  if (z0 + 1 < C0) stage_own(RAW, z0 + 1, z0 + 1 < z1);
+  cp_async_wait_all();
+  __syncthreads();
+  form(first, z0, sm + M.p + (M.ring == 2 ? (z0 & 1) * M.seg : 0));
+  double hz_b = 0.0, hz_c = 0.0;  // the high-face trace of the layer below
+  if (valid && z0 > 0) trace(vol + c * N3, vol + M.seg + c * N3, 0, 1, hz_b, hz_c);
+  __syncthreads();
+
+  double pq = 0.0;
+  for (int k = z0; k < z1; ++k) {
+    const double* Pk = sm + M.p + (M.ring == 2 ? (k & 1) * M.seg : 0);
+    double* Pn = sm + M.p + (M.ring == 2 ? ((k + 1) & 1) * M.seg : 0);
+    const bool more = k + 1 < z1;  // this run's next layer
+    // does face f of pencil cell cc have a neighbour cell?
+    auto has_nb = [&](int cc, int f) {
+      switch (f) {
+        case 0: return k > 0;
+        case 1: return k < C0 - 1;
+        case 2: return cy > 0;
+        case 3: return cy < C1 - 1;
+        case 4: return cc == 0 && x0 > 0;
+        default: return cc == c_last && x0 + cc < C2 - 1;
+      }
+    };
+    double u[N], acc[3][N];
+
+    // ---- T0 (lines along 0): S_0 p, DS_0 p; the neighbours' traces
+    if (lane) {
+      double a[N], a2[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m)
+        u[m] = valid ? Pk[c * N3 + m * N2 + pt] : 0.0;
+      interp<double, N>(ct + LT::S, colloc, u, a);
+      mat<double, N>(ct + LT::DS, false, u, a2);
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        V(0, c)[m * N2 + pt] = a[m];
+        V(1, c)[m * N2 + pt] = a2[m];
+      }
+    }
+    if (valid) {
+      // -z: the trace handed up from the layer below; then this layer's
+      // high-face trace for the layer above
+      if (k > 0) {
+        FE(0, c, 0)[pt] = hz_b;
+        FE(1, c, 0)[pt] = hz_c;
+      }
+      hz_b = 0.0;
+      hz_c = 0.0;
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        hz_b += ct[LT::B + N + m] * u[m];
+        hz_c += ct[LT::C + N + m] * u[m];
+      }
+      // +z: the low-face trace of the layer above, from its staged values
+      double b, cc;
+      if (k < C0 - 1) {
+        trace(RAW + c * N3, RAW + M.seg + c * N3, 0, 0, b, cc);
+        FE(0, c, 1)[pt] = b;
+        FE(1, c, 1)[pt] = cc;
+      }
+      // +-y, and x at the pencil's ends: the neighbours' p_old and z from
+      // device memory (mostly L2: their own blocks read them too); at the
+      // domain boundary the own block's, so that the loads issue together
+#pragma unroll
+      for (int f = 2; f < 6; ++f) {
+        const bool nb_f = has_nb(c, f);
+        if (f >= 4 && !nb_f) continue;
+        const int s = f & 1;
+        const int64_t nb =
+            f < 4 ? at(k, nb_f ? 2 * s - 1 : 0) + c * N3
+                  : at(k, 0) + (s ? cnt : -1) * N3;
+        trace(p_old + nb, zv + nb, f >> 1, 1 - s, b, cc);
+        if (nb_f) {
+          FE(0, c, f)[pt] = b;
+          FE(1, c, f)[pt] = cc;
+        }
+      }
+    }
+    __syncthreads();  // 1
+
+    // ---- T1 (lines along 1, in place): S_1 a, DS_1 a, S_1 a'; face stage
+    // 1 (rows)
+    if (lane) {
+      double la[N], lb[N], o[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        la[m] = V(0, c)[node<N>(1, pt, m)];
+        lb[m] = V(1, c)[node<N>(1, pt, m)];
+      }
+      interp<double, N>(ct + LT::S, colloc, la, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(0, c)[node<N>(1, pt, m)] = o[m];
+      mat<double, N>(ct + LT::DS, false, la, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(1, c)[node<N>(1, pt, m)] = o[m];
+      interp<double, N>(ct + LT::S, colloc, lb, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(2, c)[node<N>(1, pt, m)] = o[m];
+    }
+    for (int it = t; it < FACE_ITEMS; it += T) {
+      int cc, f, r;
+      face_item(it, cc, f, r);
+      if (cc >= cnt || !has_nb(cc, f)) continue;
+      double P[N], Q[N], o[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        P[m] = FE(0, cc, f)[r * N + m];
+        Q[m] = FE(1, cc, f)[r * N + m];
+      }
+      interp<double, N>(ct + LT::S, colloc, P, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) FO(0, cc, f)[r * N + m] = o[m];
+      mat<double, N>(ct + LT::DS, false, P, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) FO(1, cc, f)[r * N + m] = o[m];
+      interp<double, N>(ct + LT::S, colloc, Q, o);
+#pragma unroll
+      for (int m = 0; m < N; ++m) FO(2, cc, f)[r * N + m] = o[m];
+    }
+    // p and x of the next layer (its staged values were read in T0 too)
+    if (more) form(RAW, k + 1, Pn);
+    __syncthreads();  // 2
+
+    // ---- T2 (lines along 2, in place: every line read before any is
+    // written): v, g_0..2, the volume term, the x traces; face stage 2
+    // (columns); the layer after next staged
+    if (more && k + 2 < C0) stage_own(RAW, k + 2, k + 2 < z1);
+    if (lane) {
+      double l[N], v[N], g[3][N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) l[m] = V(0, c)[pt * N + m];
+      interp<double, N>(ct + LT::S, colloc, l, v);
+      mat<double, N>(ct + LT::DS, false, l, g[2]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int m = 0; m < N; ++m) l[m] = V(2 - e, c)[pt * N + m];
+        interp<double, N>(ct + LT::S, colloc, l, g[e]);
+      }
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        V(0, c)[pt * N + m] = v[m];
+        const double w3 = wq1 * wq2 * ct[LT::W + m];
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          V(1 + e, c)[pt * N + m] = g[e][m];
+          acc[e][m] = (ct[LT::GSYM + 3 * e] * g[0][m] +
+                       ct[LT::GSYM + 3 * e + 1] * g[1][m] +
+                       ct[LT::GSYM + 3 * e + 2] * g[2][m]) * w3;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        double tu = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          const double fs = ct[LT::F + s * N + m];
+          tu += fs * v[m];
+          t0 += fs * g[0][m];
+          t1 += fs * g[1][m];
+          t2 += fs * g[2][m];
+        }
+        XT(0, c, s)[pt] = tu;
+        XT(1, c, s)[pt] = ct[LT::GVEC + 6] * t0 + ct[LT::GVEC + 7] * t1 +
+                          ct[LT::GVEC + 8] * t2;
+      }
+    }
+    for (int it = t; it < FACE_ITEMS; it += T) {
+      int cc, f, r;
+      face_item(it, cc, f, r);
+      if (cc >= cnt || !has_nb(cc, f)) continue;
+      const int d = f >> 1;
+      const int e1 = d == 0 ? 1 : 0, e2 = d == 2 ? 1 : 2;
+      const double sign = (f & 1) ? 1.0 : -1.0;
+      double A1[N], A2[N], A3[N], uu[N], gq[N], ge1[N], ge2[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        A1[m] = FO(0, cc, f)[m * N + r];
+        A2[m] = FO(1, cc, f)[m * N + r];
+        A3[m] = FO(2, cc, f)[m * N + r];
+      }
+      interp<double, N>(ct + LT::S, colloc, A1, uu);
+      interp<double, N>(ct + LT::S, colloc, A3, gq);
+      interp<double, N>(ct + LT::S, colloc, A2, ge2);
+      mat<double, N>(ct + LT::DS, false, A1, ge1);
+      const double gd = pick<9>(ct + LT::GVEC, 3 * d + d);
+      const double g1 = pick<9>(ct + LT::GVEC, 3 * d + e1);
+      const double g2 = pick<9>(ct + LT::GVEC, 3 * d + e2);
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        FE(0, cc, f)[m * N + r] = uu[m];
+        FE(1, cc, f)[m * N + r] =
+            sign * (gd * gq[m] + g1 * ge1[m] + g2 * ge2[m]);
+      }
+    }
+    __syncthreads();  // 3
+
+    // ---- T3: fluxes; +-z and +-y from lines through this face point
+    if (valid) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        double v[N], g[3][N];
+#pragma unroll
+        for (int m = 0; m < N; ++m) {
+          const int o = node<N>(d, pt, m);
+          v[m] = V(0, c)[o];
+#pragma unroll
+          for (int e = 0; e < 3; ++e) g[e][m] = V(1 + e, c)[o];
+        }
+        const double wf = ct[LT::JXW + d] * wq1 * wq2;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const int f = 2 * d + s;
+          const double sign = s ? 1.0 : -1.0;
+          double u_m = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
+#pragma unroll
+          for (int m = 0; m < N; ++m) {
+            const double fs = ct[LT::F + s * N + m];
+            u_m += fs * v[m];
+            t0 += fs * g[0][m];
+            t1 += fs * g[1][m];
+            t2 += fs * g[2][m];
+          }
+          const double gn_m = sign * (ct[LT::GVEC + 3 * d] * t0 +
+                                      ct[LT::GVEC + 3 * d + 1] * t1 +
+                                      ct[LT::GVEC + 3 * d + 2] * t2);
+          double u_p = -u_m, gn_p = gn_m;  // Dirichlet mirror
+          if (has_nb(c, f)) {
+            u_p = FE(0, c, f)[pt];
+            gn_p = FE(1, c, f)[pt];
+          }
+          flux(u_m, gn_m, u_p, gn_p, ct[LT::SIGMA + d], wf, sign,
+               FO(0, c, f)[pt], FO(1, c, f)[pt]);
+        }
+      }
+      // x faces at point (i, j) = pt
+      const double wf = ct[LT::JXW + 2] * wq1 * wq2;
+      const double sig = ct[LT::SIGMA + 2];
+      auto own_view = [&](int s) {
+        const int f = 4 + s;
+        const double sign = s ? 1.0 : -1.0;
+        const double u_m = XT(0, c, s)[pt], gn_m = sign * XT(1, c, s)[pt];
+        double u_p = -u_m, gn_p = gn_m;
+        if (has_nb(c, f)) {
+          u_p = FE(0, c, f)[pt];
+          gn_p = FE(1, c, f)[pt];
+        }
+        flux(u_m, gn_m, u_p, gn_p, sig, wf, sign, FO(0, c, f)[pt],
+             FO(1, c, f)[pt]);
+      };
+      if (c == 0) {
+        own_view(0);
+      } else {
+        // the face between cells c - 1 (minus) and c (plus), once
+        double tv, tg;
+        flux(XT(0, c - 1, 1)[pt], XT(1, c - 1, 1)[pt], XT(0, c, 0)[pt],
+             XT(1, c, 0)[pt], sig, wf, 1.0, tv, tg);
+        FO(0, c - 1, 5)[pt] = tv;
+        FO(1, c - 1, 5)[pt] = tg;
+        FO(0, c, 4)[pt] = -tv;
+        FO(1, c, 4)[pt] = tg;
+      }
+      if (c == c_last) own_view(1);
+    }
+    __syncthreads();  // 4
+
+    // ---- T4 (lines along 2, through (i, j) = pt): lifts, then S^T_2 and
+    // (DS)^T_2
+    if (lane) {
+      double o[N], vacc[N], y2[N];
+      const double fi[2] = {pick<N>(ct + LT::F, q1),
+                            pick<N>(ct + LT::F + N, q1)};
+      const double fj[2] = {pick<N>(ct + LT::F, q2),
+                            pick<N>(ct + LT::F + N, q2)};
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        // node (i, j, k = m): z face point (j, k), y face point (i, k)
+        double lz = 0.0, ly = 0.0, lx = 0.0;
+        vacc[m] = 0.0;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          const double fk = ct[LT::F + s * N + m];
+          vacc[m] += fi[s] * FO(0, c, s)[q2 * N + m] +
+                     fj[s] * FO(0, c, 2 + s)[q1 * N + m] +
+                     fk * FO(0, c, 4 + s)[pt];
+          lz += fi[s] * FO(1, c, s)[q2 * N + m];
+          ly += fj[s] * FO(1, c, 2 + s)[q1 * N + m];
+          lx += fk * FO(1, c, 4 + s)[pt];
+        }
+#pragma unroll
+        for (int e = 0; e < 3; ++e)
+          acc[e][m] += ct[LT::GVEC + e] * lz + ct[LT::GVEC + 3 + e] * ly +
+                       ct[LT::GVEC + 6 + e] * lx;
+      }
+      interp<double, N>(ct + LT::S, colloc, vacc, o, true);
+      mat<double, N>(ct + LT::DS, true, acc[2], y2);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(0, c)[pt * N + m] = o[m] + y2[m];
+      interp<double, N>(ct + LT::S, colloc, acc[1], o, true);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(1, c)[pt * N + m] = o[m];
+      interp<double, N>(ct + LT::S, colloc, acc[0], o, true);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(2, c)[pt * N + m] = o[m];
+    }
+    __syncthreads();  // 5
+
+    // ---- T5 (lines along 1, in place)
+    if (lane) {
+      double l[N], o[N], l2[N], o2[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        l[m] = V(0, c)[node<N>(1, pt, m)];
+        l2[m] = V(1, c)[node<N>(1, pt, m)];
+      }
+      interp<double, N>(ct + LT::S, colloc, l, o, true);
+      mat<double, N>(ct + LT::DS, true, l2, o2);
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        V(0, c)[node<N>(1, pt, m)] = o[m] + o2[m];
+        l[m] = V(2, c)[node<N>(1, pt, m)];
+      }
+      interp<double, N>(ct + LT::S, colloc, l, o, true);
+#pragma unroll
+      for (int m = 0; m < N; ++m) V(1, c)[node<N>(1, pt, m)] = o[m];
+    }
+    __syncthreads();  // 6
+
+    // ---- T6 (lines along 0): q = S^T_0 V0 + (DS)^T_0 V1, stored; this
+    // thread's share of p . q from the p it holds
+    if (valid) {
+      double l[N], l2[N], o[N], o2[N];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        l[m] = V(0, c)[m * N2 + pt];
+        l2[m] = V(1, c)[m * N2 + pt];
+      }
+      interp<double, N>(ct + LT::S, colloc, l, o, true);
+      mat<double, N>(ct + LT::DS, true, l2, o2);
+      const int64_t cbase = at(k, 0) + c * N3;
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        const double y = o[m] + o2[m];
+        qv[cbase + m * N2 + pt] = y;
+        pq += (M.ring == 2 ? Pk[c * N3 + m * N2 + pt] : u[m]) * y;
+      }
+    }
+    // the next layer's staged values have arrived, for every thread
+    cp_async_wait_all();
+    __syncthreads();  // 7
+  }
+  pq = block_sum(pq);
+  if (t == 0) partial[blockIdx.x] = pq;
 }
 
 // One block: the partials' sums in a fixed order, then the scalars.  cg:
@@ -182,26 +789,76 @@ dg_jacobi_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
   }
 }
 
+// The march's grid: K-cell pencils of every row, each column cut into runs
+// of L >= kMinLayers layers, so that the grid holds about kWaves times the
+// blocks the card keeps resident (slots)
+inline void march_grid(int C0, int C1, int C2, int K, int slots, int& L,
+                       long long& blocks) {
+  const long long columns = (long long)C1 * ((C2 + K - 1) / K);
+  const long long want = ((long long)kWaves * slots + columns - 1) /
+                         columns;
+  L = (int)((C0 + want - 1) / want);
+  L = L < kMinLayers ? kMinLayers : L;
+  L = L > C0 ? C0 : L;
+  blocks = columns * ((C0 + L - 1) / L);
+}
+
+// The march kernel's blocks an SM (the occupancy calculator, after its
+// shared memory is allowed) and the SMs of the current device
 template <int N>
-int launch_cg(const double* tab, const CgArgs<double>& cg, double* scal,
-              double* q, long long partial_len, int C0, int C1, int C2,
-              int colloc, cudaStream_t st, int* launched) {
-  static bool configured = false;
-  unsigned blocks = 0;
-  int err = pencil_grid<double, N, CG>(dg_cg_kernel<N>, configured, C0, C1,
-                                       C2, blocks);
-  if (err) return err;
-  if ((long long)blocks > partial_len) return (int)cudaErrorInvalidValue;
-  dg_cg_kernel<N><<<blocks, threads<N, CG>(), smem_bytes<double, N, CG>(),
-                    st>>>(tab_arg<double, N>(tab), cg, q, C0, C1, C2, colloc);
-  err = (int)cudaGetLastError();
+int cg_occupancy(int& per_sm, int& sms) {
+  int dev = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      dg_cg_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cg_smem_bytes<N>());
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, dg_cg_kernel<N>, cg_threads<N>(), cg_smem_bytes<N>());
+  return (int)err;
+}
+
+template <int N>
+int launch_cg(const double* tab, const double* p_old, const double* z,
+              double* x, double* p, double* q, double* scal, double* partial,
+              long long partial_len, int C0, int C1, int C2, int colloc,
+              cudaStream_t st, int* launched) {
+  static int slots = 0;  // blocks resident on the card, at the first launch
+  constexpr size_t bytes = cg_smem_bytes<N>();
+  if (slots == 0) {
+    int per_sm = 0, sms = 0;
+    if (int err = cg_occupancy<N>(per_sm, sms)) return err;
+    slots = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  int L = 0;
+  long long blocks = 0;
+  march_grid(C0, C1, C2, cg_pencil<N>(), slots, L, blocks);
+  if (blocks >= (1LL << 31) || blocks > partial_len)
+    return (int)cudaErrorInvalidValue;
+  dg_cg_kernel<N><<<(unsigned)blocks, cg_threads<N>(), bytes, st>>>(
+      tab_arg<double, N>(tab), p_old, z, x, p, q, scal, partial, C0, C1, C2,
+      L, colloc);
+  int err = (int)cudaGetLastError();
   if (err) return err;
   *launched = 1;
-  cg_finish_kernel<<<1, kFinishThreads, 0, st>>>(cg.partial, (int)blocks,
-                                                 scal, 0, 0);
+  cg_finish_kernel<<<1, kFinishThreads, 0, st>>>(partial, (int)blocks, scal,
+                                                 0, 0);
   err = (int)cudaGetLastError();
   if (err == 0) *launched = 2;
   return err;
+}
+
+// The march's tile (see dg_cg_f64_tile)
+template <int N>
+int cg_tile(int* out) {
+  int sms = 0;
+  out[0] = cg_pencil<N>();
+  out[1] = march_layout(N, cg_pencil<N>()).ring;
+  out[2] = cg_smem_bytes<N>();
+  out[3] = cg_threads<N>();
+  return cg_occupancy<N>(out[4], sms);
 }
 
 template <int N>
@@ -226,6 +883,7 @@ int launch_jacobi(double* r, const double* q, double* z,
   return err;
 }
 
+
 }  // namespace
 
 extern "C" {
@@ -233,27 +891,21 @@ extern "C" {
 // The operator pass of one fused CG iteration at n = 2..10 points an axis:
 // x += scal[0] p_old; p = z + scal[1] p_old; q = A p; scal[4] = p . q,
 // scal[0] = scal[2] / (p . q).  p and q must alias none of p_old, z, x.
-// partial: partial_len doubles of scratch (one a pencil block).
-// tab: host array of the kernels' table in double (ops/dg_kernel.py).
+// partial: partial_len doubles of scratch (one a block of the march: at
+// most one a cell).  tab: host array of the kernels' table in double
+// (ops/dg_kernel.py).
 int dg_cg_f64(const double* p_old, const double* z, double* x, double* p,
               double* q, double* scal, const double* tab, double* partial,
               long long partial_len, int C0, int C1, int C2, int n,
               int colloc, void* stream, int* launched) {
   *launched = 0;
   if (C0 < 1 || C1 < 1 || C2 < 1) return (int)cudaErrorInvalidValue;
-  CgArgs<double> cg;
-  cg.p_old = p_old;
-  cg.z = z;
-  cg.x = x;
-  cg.p = p;
-  cg.scal = scal;
-  cg.partial = partial;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (n) {
-#define CG_CASE(NN)                                                          \
-  case NN:                                                                   \
-    return launch_cg<NN>(tab, cg, scal, q, partial_len, C0, C1, C2, colloc, \
-                         st, launched);
+#define CG_CASE(NN)                                                         \
+  case NN:                                                                  \
+    return launch_cg<NN>(tab, p_old, z, x, p, q, scal, partial, partial_len, \
+                         C0, C1, C2, colloc, st, launched);
     CG_CASE(2)
     CG_CASE(3)
     CG_CASE(4)
@@ -264,6 +916,29 @@ int dg_cg_f64(const double* p_old, const double* z, double* x, double* p,
     CG_CASE(9)
     CG_CASE(10)
 #undef CG_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The march's tile at n points an axis, for reports: out[0..4] = cells a
+// pencil K, p buffers (1, or a ring of 2), dynamic shared memory bytes a
+// block, threads a block, blocks an SM (the occupancy calculator).
+int dg_cg_f64_tile(int n, int* out) {
+  switch (n) {
+#define TILE_CASE(NN) \
+  case NN:              \
+    return cg_tile<NN>(out);
+    TILE_CASE(2)
+    TILE_CASE(3)
+    TILE_CASE(4)
+    TILE_CASE(5)
+    TILE_CASE(6)
+    TILE_CASE(7)
+    TILE_CASE(8)
+    TILE_CASE(9)
+    TILE_CASE(10)
+#undef TILE_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }

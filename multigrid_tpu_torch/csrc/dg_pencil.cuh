@@ -5,10 +5,6 @@
 //   residual  out = b - A x      dg_apply_kernel<T, N, true>
 //   cheb      out = x + f1 (x - x_old) + f2 T3 diag^-1 T3^T (b - A x)
 //                                dg_cheb_kernel<N> (float only)
-//   cg        the operator pass of the fused CG (double only,
-//             dg_cg_f64.cu): p = z + beta p_old formed wherever the
-//             pencil loads its input, x += alpha_prev p_old, q = A p and
-//             per-block partials of p . q
 // They replace the TPU kernels (multigrid_tpu/ops/pallas_dg.py)
 //   K9  PallasDGOzaki._kernel  f64 A x on f32 hi/lo pairs and bf16 limbs
 //       (p <= 4): dg_apply<double>, dg_pencil_f64.cu;
@@ -16,6 +12,12 @@
 //       dg_pencil.cu;
 //   K8  PallasDGSP.cheb_fused -> _kernel_cheb, the f32 Chebyshev step with
 //       the transformed Jacobi: dg_cheb<float>, dg_pencil.cu.
+// solver_dg's fused CG pass, dg_cg<double>, is a kernel of its own on this
+// header's helpers (dg_cg_f64.cu: a block marches a column of pencils
+// along z, loads each value once and keeps the next layer's loads in
+// flight); the phases below hold one pencil's values for one launch.  Its
+// phases T1-T6 repeat pencil_body's arithmetic (in place): a fix to one
+// goes to the other.
 // The H100 runs fp64 natively: no limbs, no pairs, no degree cap, and the
 // vectors keep the natural block layout [C0, C1, C2, n, n, n] (x fastest)
 // instead of the TPU's [cz + 1, N, F] lane layout.
@@ -53,14 +55,12 @@
 //     flux_val / flux_grad pair, lifted with + into the lower cell and with
 //     -/+ into the upper one.
 // Phases (line axis), separated by block barriers:
-//   T0 (0) load x (cg: form p, store it, update x); S_0 x, DS_0 x;
-//   neighbour reductions
+//   T0 (0) load x; S_0 x, DS_0 x; neighbour reductions
 //   T1 (1) S_1, DS_1; face stage 1     T2 (2) v, g_0..2, the volume term
 //   (kept in registers), the x traces; face stage 2
 //   T3 fluxes: +-z (lines along 0), +-y (along 1), x (face points)
 //   T4 (2) lifts, then the back end along 2    T5 (1) along 1
-//   T6 (0) along 0 and, for apply, residual and cg, the store (cg: and
-//   the block's partial of p . q).
+//   T6 (0) along 0 and, for apply and residual, the store.
 // The back end per axis e is S^T on the two other axes and (D S)^T on e:
 //   apply / residual: y = S3^T (vacc + sum_e D_e^T acc_e) with the tables
 //     S and D S; T6 writes y, or b - y (b read on the same lines); 6
@@ -104,22 +104,7 @@
 
 namespace {
 
-enum Mode { APPLY = 0, RESIDUAL = 1, CHEB = 2, CG = 3 };
-
-// The CG mode's vectors and device scalars: the input p = z + beta p_old
-// (beta = scal[1]) is formed from p_old and z wherever the pencil loads
-// it; the owned p goes to p (never p_old: neighbouring blocks still read
-// it), x += alpha_prev p_old (alpha_prev = scal[0]) in place, and each
-// block writes its partial of p . q to partial[blockIdx.x]
-template <typename T>
-struct CgArgs {
-  const T* p_old = nullptr;
-  const T* z = nullptr;
-  T* x = nullptr;
-  T* p = nullptr;
-  const T* scal = nullptr;
-  T* partial = nullptr;
-};
+enum Mode { APPLY = 0, RESIDUAL = 1, CHEB = 2 };
 
 template <typename T, int N>
 struct TabArg {
@@ -202,24 +187,6 @@ __device__ __forceinline__ void interp(const T* S, int colloc, const T* in,
   }
 }
 
-// The sum of v over the block (blockDim.x a multiple of 32), valid in
-// thread 0, in an order fixed by the block size: no atomics
-template <typename T>
-__device__ __forceinline__ T block_sum(T v) {
-  __shared__ T warp_sums[32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : T(0);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
 // v[i] for a thread-dependent i < M, from static indices only
 template <int M, typename T>
 __device__ __forceinline__ T pick(const T* v, int i) {
@@ -232,13 +199,12 @@ __device__ __forceinline__ T pick(const T* v, int i) {
 
 // The phase body of every mode (see the note above).  x may be null only
 // in the cheb mode (x = 0); x_old, inv_diag, f1, f2 are read only there,
-// b by the residual and cheb modes; the cg mode reads its input through
-// cg (x unread) and writes q to out.
+// b by the residual and cheb modes.
 template <typename T, int N, int MODE>
 __device__ __forceinline__ void pencil_body(
     const T* ct, const T* __restrict__ x, T* out, const T* __restrict__ bvec,
     const T* x_old, const T* __restrict__ inv_diag, T f1, T f2, int C0,
-    int C1, int C2, int colloc, const CgArgs<T> cg = CgArgs<T>()) {
+    int C1, int C2, int colloc) {
   using L = Tab<N>;
   constexpr int N2 = N * N, N3 = N * N * N, K = pencil<N, MODE>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -303,15 +269,6 @@ __device__ __forceinline__ void pencil_body(
   };
   const T wq1 = pick<N>(ct + L::W, q1), wq2 = pick<N>(ct + L::W, q2);
   const bool hx = MODE != CHEB || x != nullptr;
-  // the input at element i: x, or in the cg mode p = z + beta p_old (one
-  // rounding, the same bits for the owned values and a neighbour's)
-  const T beta = MODE == CG ? cg.scal[1] : T(0);
-  auto input = [&](int64_t i) -> T {
-    if constexpr (MODE == CG)
-      return fma(beta, cg.p_old[i], cg.z[i]);
-    else
-      return x[i];
-  };
   // the back end's tables: S and D S for A x, S T and D S T for T3^T A x
   const T* BS = ct + (MODE == CHEB ? L::ST : L::S);
   const T* BDS = ct + (MODE == CHEB ? L::DST : L::DS);
@@ -323,19 +280,7 @@ __device__ __forceinline__ void pencil_body(
     if (lane) {
       T u[N], a[N], a2[N];
 #pragma unroll
-      for (int m = 0; m < N; ++m) u[m] = valid ? input(cbase + m * N2 + p) : T(0);
-      if constexpr (MODE == CG) {
-        // the owned p to its own buffer, and x += alpha_prev p_old
-        if (valid) {
-          const T alpha_prev = cg.scal[0];
-#pragma unroll
-          for (int m = 0; m < N; ++m) {
-            const int64_t gi = cbase + m * N2 + p;
-            cg.p[gi] = u[m];
-            cg.x[gi] = fma(alpha_prev, cg.p_old[gi], cg.x[gi]);
-          }
-        }
-      }
+      for (int m = 0; m < N; ++m) u[m] = valid ? x[cbase + m * N2 + p] : T(0);
       interp<T, N>(ct + L::S, colloc, u, a);
       mat<T, N>(ct + L::DS, false, u, a2);
 #pragma unroll
@@ -353,11 +298,11 @@ __device__ __forceinline__ void pencil_body(
         const bool nb_f = has_nb(c, f);
         if (f >= 4 && !nb_f) continue;
         const int d = f >> 1, s = f & 1;
-        const int64_t nb = cbase + (nb_f ? (s ? nb_off[d] : -nb_off[d]) : 0);
+        const T* nb = x + cbase + (nb_f ? (s ? nb_off[d] : -nb_off[d]) : 0);
         T P = T(0), Q = T(0);
 #pragma unroll
         for (int m = 0; m < N; ++m) {
-          const T w = input(nb + node<N>(d, p, m));
+          const T w = nb[node<N>(d, p, m)];
           P += ct[L::B + (1 - s) * N + m] * w;
           Q += ct[L::C + (1 - s) * N + m] * w;
         }
@@ -636,8 +581,6 @@ __device__ __forceinline__ void pencil_body(
 
   if constexpr (MODE != CHEB) {
     // ---- T6 (lines along 0): y = BS^T_0 V4 + BDS^T_0 V5; out = y or b - y
-    // (cg: q = y, and this thread's share of p . q)
-    T pq = T(0);
     if (valid) {
       T l[N], l2[N], o[N], o2[N];
 #pragma unroll
@@ -652,12 +595,7 @@ __device__ __forceinline__ void pencil_body(
         const int64_t gi = cbase + m * N2 + p;
         const T y = o[m] + o2[m];
         out[gi] = MODE == RESIDUAL ? bvec[gi] - y : y;
-        if constexpr (MODE == CG) pq += cg.p[gi] * y;  // p written in T0
       }
-    }
-    if constexpr (MODE == CG) {
-      pq = block_sum(pq);
-      if (t == 0) cg.partial[blockIdx.x] = pq;
     }
     return;
   }

@@ -1,29 +1,39 @@
 """Time the DG kernels (``ops/dg_kernel.py``) on the card.
 
     python -m multigrid_tpu_torch.experiments.time_dg_cheb [size ...]
-        [--degree P ...] [--pencil TYPE:K ...]
+        [--degree P ...] [--kind KIND ...] [--cg] [--pencil TYPE:K ...]
 
 The poisson_dg grid of each ``size``^3 cells (default 48, hermite, degree
-4: 13,824,000 DG dofs) at each ``--degree``; CUDA events over 50 calls
-after 3 warm-ups, three rounds of: the float32 Chebyshev step
-(``dg_cheb``, on the smoother's iterates), the step with x = 0, and A·x
-and ``b - A x`` (``DGOperator.vmult`` and ``vmult_residual``, on random
-inputs) in float32 and float64.
-Prints the sha256 of the step's output at each size, so that two trees'
-steps can be shown equal bit for bit, and the registers and spills of the
-DG kernels at the degree when this process built the library.
+4: 13,824,000 DG dofs) at each ``--degree`` and ``--kind``; CUDA events
+over 50 calls after 3 warm-ups, three rounds of: the float32 Chebyshev
+step (``dg_cheb``, on the smoother's iterates), the step with x = 0, and
+A·x and ``b - A x`` (``DGOperator.vmult`` and ``vmult_residual``, on
+random inputs) in float32 and float64; with ``--cg`` also solver_dg's
+fused CG passes, ``dg_cg<double>`` and ``dg_jacobi_cg<double>`` (random
+p_old, z, x, r, q and the scalars of ``chip_smoke.py``), and ``dg_cg``'s
+march tile at each degree (cells a pencil, p buffers, shared memory
+bytes, threads and blocks an SM).  solver_dg's grids: ``48 --cg``
+(hermite, 13,824,000 DG dofs) and ``64 --kind gauss --cg`` (32,768,000).
+Prints at each grid the sha256 of the outputs of the step, A·x and
+``b - A x`` in both types, so that two trees' pencil kernels can be shown
+equal bit for bit (``12 --degree 1 2 3 4 5 6 7 8 9 --kind hermite gll
+gauss``), and the registers and spills of the DG kernels at the degree
+when this process built the library.
 
 ``--pencil f32:K`` builds ``csrc/dg_pencil.cu`` alone with K cells per
 block for apply and residual (``-DDG_PENCIL=K``) and times them beside
 the library's; ``f64:K`` does the same for
 ``csrc/dg_pencil_f64.cu``; ``cheb:K`` builds ``dg_pencil.cu`` with K cells
-per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step.  Each
-variant is first checked against the library's output (1e-5·max|out|,
-1e-12 in double: K moves x faces between the in-pencil and the neighbour
-path, which round apart), and its registers and spills at the degree are
-printed.  A variant whose pencil needs more shared memory than a block
-may have at a degree (K (7 n^3 + 34 n^2) values, 232,448 bytes) is not
-launched there and is listed under ``no_fit``.
+per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step;
+``cg:K`` (with ``--cg``) builds ``csrc/dg_cg_f64.cu`` with K cells a
+block of the march (``-DDG_CG_PENCIL=K``, cut to what fits a block) and
+times ``dg_cg``.  Each variant is first checked
+against the library's output (1e-5·max|out|, 1e-12 in double: K moves x
+faces between the in-pencil and the neighbour path, which round apart),
+and its registers and spills at the degree are printed.  A pencil variant
+whose pencil needs more shared memory than a block may have at a degree
+(K (7 n^3 + 34 n^2) values, 232,448 bytes) is not launched there and is
+listed under ``no_fit``.
 
 Run it with another tree's package on ``PYTHONPATH`` to time that tree in
 the same call (``--pencil`` needs this tree's sources).  Prints the card
@@ -62,10 +72,12 @@ SMEM_LIMIT = 232_448     # bytes of shared memory a block may have (H100)
 
 def fits(spec: str, n: int) -> bool:
     """Whether a pencil spec's K cells of ``n`` points an axis fit a block's
-    shared memory (csrc/dg_pencil.cuh:smem_bytes)."""
+    shared memory (csrc/dg_pencil.cuh:smem_bytes); the march of ``cg``
+    cuts K to what fits itself."""
     what, k = spec.split(":")
-    size = 8 if what == "f64" else 4
-    return int(k) * (7 * n ** 3 + 34 * n ** 2) * size <= SMEM_LIMIT
+    size = 8 if what in ("f64", "cg") else 4
+    return what == "cg" or int(k) * (7 * n ** 3 + 34 * n ** 2) * size \
+        <= SMEM_LIMIT
 
 
 def degree_rows(log: str, n: int) -> list[dict]:
@@ -78,20 +90,28 @@ def degree_rows(log: str, n: int) -> list[dict]:
             if "dg_" in r["kernel"] and f"Li{n}E" in r["kernel"]]
 
 
+SOURCES = {"f32": "dg_pencil.cu", "cheb": "dg_pencil.cu",
+           "f64": "dg_pencil_f64.cu", "cg": "dg_cg_f64.cu"}
+ENTRIES = {"f32": "dg_apply_f32", "f64": "dg_apply_f64",
+           "cheb": "dg_cheb_f32", "cg": "dg_cg_f64"}
+
+
 def variants(specs: list[str]) -> dict:
-    """For each pencil spec (``TYPE:K``): the C entry it times, of
-    ``csrc/dg_pencil.cu`` (``f32``, ``cheb``) or ``dg_pencil_f64.cu``
-    (``f64``) built alone with it (one nvcc a spec, all started together),
-    and the compiler's output."""
+    """For each pencil spec (``TYPE:K``): the C entry it
+    times, of ``csrc/dg_pencil.cu`` (``f32``, ``cheb``),
+    ``dg_pencil_f64.cu`` (``f64``) or ``dg_cg_f64.cu`` (``cg``) built alone
+    with it (one nvcc a spec, all started together), and the compiler's
+    output."""
     from multigrid_tpu_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for spec in specs:
         what, k = spec.split(":")
-        src = "dg_pencil_f64.cu" if what == "f64" else "dg_pencil.cu"
-        defs = [f"-D{'DG_CHEB_PENCIL' if what == 'cheb' else 'DG_PENCIL'}="
-                f"{int(k)}"]
+        src = SOURCES[what]
+        macro = dict(cheb="DG_CHEB_PENCIL", cg="DG_CG_PENCIL").get(
+            what, "DG_PENCIL")
+        defs = [f"-D{macro}={int(k)}"]
         out = _build.BUILD_DIR / (f"dg_pencil_{spec.replace(':', '_')}_"
                                   f"{_build._digest()}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-o",
@@ -103,13 +123,25 @@ def variants(specs: list[str]) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
-        name = {"f32": "dg_apply_f32", "f64": "dg_apply_f64",
-                "cheb": "dg_cheb_f32"}[spec.split(":")[0]]
+        name = ENTRIES[spec.split(":")[0]]
         fn = getattr(ctypes.CDLL(str(out)), name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
         built[spec] = (fn, log)
     return built
+
+
+def march_tile(n: int) -> dict:
+    """``dg_cg``'s march tile at ``n`` points an axis, as the library was
+    built (``dg_cg_f64_tile``)."""
+    from multigrid_tpu_torch import _build
+
+    out = (ctypes.c_int * 5)()
+    err = _build.library().dg_cg_f64_tile(n, out)
+    if err:
+        raise RuntimeError(f"dg_cg_f64_tile: cudaError {err}")
+    return dict(zip(("cells", "p_buffers", "smem_bytes", "threads",
+                     "blocks_per_sm"), out))
 
 
 def call(fn, *args) -> None:
@@ -119,7 +151,12 @@ def call(fn, *args) -> None:
         raise RuntimeError(f"cudaError {err}")
 
 
-def size_run(size: int, degree: int, specs: dict, dev) -> dict:
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def size_run(size: int, degree: int, kind: str, specs: dict, dev,
+             cg: bool) -> dict:
     from multigrid_tpu_torch import _build
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.ops import dg_kernel as dk
@@ -127,12 +164,12 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
     from multigrid_tpu_torch.solvers.multigrid_dg import dg_grid_from_mesh
 
     mesh = poisson_cube_mesh(size)
-    grid = dg_grid_from_mesh(mesh, mesh.max_level, degree, "hermite")
+    grid = dg_grid_from_mesh(mesh, mesh.max_level, degree, kind)
     op = dk.DGOperator(grid, torch.float32, dev)
     op.install_jacobi(JacobiTransformed(grid, torch.float32, dev))
     op64 = dk.DGOperator(grid, torch.float64, dev)
-    b, x, xo = dk.smoother_iterates(
-        JacobiTransformed(grid, torch.float64, dev), 22)
+    op64.install_jacobi(JacobiTransformed(grid, torch.float64, dev))
+    b, x, xo = dk.smoother_iterates(op64.jacobi, 22)
     # random inputs for A x and b - A x: on the smooth iterates A x cancels
     # some 1e5-fold, and no bar on it could tell two pencils apart
     rng = np.random.default_rng(23)
@@ -146,14 +183,33 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
                residual_f32=lambda: op.vmult_residual(br, xr),
                apply_f64=lambda: op64.vmult(xr64),
                residual_f64=lambda: op64.vmult_residual(br64, xr64))
-    want = {k: fns[k]() for k in fns if k != "cheb_x0"}
+    want = {k: fns[k]() for k in fns}
+    if cg:
+        # the fused CG's passes on random vectors (chip_smoke.py's scalars)
+        p_old, z, x0, r, q = (torch.as_tensor(
+            rng.standard_normal(grid.shape), device=dev) for _ in range(5))
+        scal = torch.tensor([0.37, 0.61, 1.7, 0.0, 0.0], dtype=torch.float64,
+                            device=dev)
+        partial = dk.cg_partials(grid, dev)
+        cgx, cgs = x0.clone(), scal.clone()
+        cgp, cgq = torch.empty_like(x0), torch.empty_like(x0)
+        jr, jz = r.clone(), torch.empty_like(r)
+        fns["dg_cg"] = lambda: dk.dg_cg(p_old, z, cgx, cgs, cgp, cgq, op64,
+                                        partial)
+        fns["dg_jacobi_cg"] = lambda: dk.dg_jacobi_cg(jr, q, cgs, jz, op64,
+                                                      partial)
+        fns["dg_cg"]()
+        want["dg_cg"] = (cgx.clone(), cgp.clone(), cgq.clone(), cgs.clone())
     torch.cuda.synchronize()
-    digest = hashlib.sha256(want["cheb"].cpu().numpy().tobytes()).hexdigest()
-    args = (*grid.cells, grid.n, 0, _build.stream_handle(dev))
+    digests = {k: digest(want[k]) for k in ("cheb", "cheb_x0", "apply_f32",
+                                            "residual_f32", "apply_f64",
+                                            "residual_f64")}
+    args = (*grid.cells, grid.n, int(op.plain.is_collocation),
+            _build.stream_handle(dev))
     no_fit = [spec for spec in specs if not fits(spec, grid.n)]
     for spec, (entry, _) in specs.items():
         what = spec.split(":")[0]
-        if spec in no_fit:
+        if spec in no_fit or (what == "cg" and not cg):
             continue
         outs, new = {}, {}
         if what == "cheb":
@@ -162,6 +218,15 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
                 entry, b.data_ptr(), x.data_ptr(), xo.data_ptr(),
                 op.jacobi.inv_diag.data_ptr(), op.host_tables.ctypes.data,
                 o.data_ptr(), 0.37, 0.81, *args)
+        elif what == "cg":
+            vx, vs = x0.clone(), scal.clone()
+            vp, vq = torch.empty_like(x0), torch.empty_like(x0)
+            outs["dg_cg"] = (vx, vp, vq, vs)
+            new["dg_cg"] = lambda entry=entry: call(
+                entry, p_old.data_ptr(), z.data_ptr(), vx.data_ptr(),
+                vp.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                op64.host_tables.ctypes.data, partial.data_ptr(),
+                partial.numel(), *args)
         else:
             ops, xs, bs = ((op64, xr64, br64) if what == "f64"
                            else (op, xr, br))
@@ -175,14 +240,18 @@ def size_run(size: int, degree: int, specs: dict, dev) -> dict:
         for key, fn in new.items():
             fn()
             torch.cuda.synchronize()
-            diff = float((outs[key] - want[key]).abs().max())
-            bar = (1e-12 if what == "f64" else 1e-5) * float(
-                want[key].abs().max())
-            if diff > bar:
-                raise AssertionError(f"{spec} {key}: differs by {diff:.3e}")
+            pairs = (zip(outs[key], want[key]) if key == "dg_cg"
+                     else [(outs[key], want[key])])
+            for got, ref in pairs:
+                diff = float((got - ref).abs().max())
+                bar = (1e-12 if what in ("f64", "cg") else 1e-5) * float(
+                    ref.abs().max())
+                if diff > bar:
+                    raise AssertionError(f"{spec} {key}: differs by "
+                                         f"{diff:.3e}")
             fns[f"{key}@{spec}"] = fn
     rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
-    return dict(dofs=grid.n_dofs, sha256_cheb=digest, rounds=rounds,
+    return dict(dofs=grid.n_dofs, kind=kind, sha256=digests, rounds=rounds,
                 best={k: min(r[k] for r in rounds) for k in fns},
                 no_fit=no_fit)
 
@@ -193,8 +262,12 @@ def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("sizes", type=int, nargs="*", default=[48])
     ap.add_argument("--degree", type=int, nargs="+", default=[4])
+    ap.add_argument("--kind", nargs="+", default=["hermite"],
+                    choices=["hermite", "gll", "gauss"])
+    ap.add_argument("--cg", action="store_true",
+                    help="also time dg_cg<double> and dg_jacobi_cg<double>")
     ap.add_argument("--pencil", nargs="*", default=[],
-                    help="TYPE:K, TYPE f32, f64 or cheb")
+                    help="TYPE:K, TYPE f32, f64, cheb or cg")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_dg_cheb: needs a CUDA device")
@@ -212,11 +285,27 @@ def main(argv: list[str]) -> int:
                       variant_ptxas={s: degree_rows(log, n)
                                      for s, (_, log) in specs.items()},
                       sizes={})
-        for size in args.sizes:
-            result["sizes"][size] = size_run(size, degree, specs, dev)
-            torch.cuda.empty_cache()
-            print(f"p={degree} size {size}: sha256 of the f32 step "
-                  f"{result['sizes'][size]['sha256_cheb']}")
+        if args.cg:
+            result["march"] = march_tile(n)
+            rows = [r for r in result["library_ptxas"]
+                    if "dg_cg_kernel" in r["kernel"]]
+            print(f"p={degree} dg_cg march: " + ", ".join(
+                f"{k} {v}" for k, v in result["march"].items()) + "".join(
+                f", registers {r['registers']}, spills {r['spill_stores']} "
+                f"/ {r['spill_loads']} B" for r in rows))
+        for kind in args.kind:
+            for size in args.sizes:
+                run = size_run(size, degree, kind, specs, dev, args.cg)
+                result["sizes"][f"{size} {kind}"] = run
+                torch.cuda.empty_cache()
+                print(f"p={degree} {kind} size {size}: sha256 " + ", ".join(
+                    f"{k} {d}" for k, d in run["sha256"].items()))
+                if args.cg:
+                    print(f"p={degree} {kind} size {size}: dg_cg "
+                          f"{run['best']['dg_cg']:.4f} ms, dg_jacobi_cg "
+                          f"{run['best']['dg_jacobi_cg']:.4f} ms " + " ".join(
+                              f"{k} {v:.4f}" for k, v in run["best"].items()
+                              if k.startswith("dg_cg@")))
         results.append(result)
     print(card)
     print(json.dumps(results))

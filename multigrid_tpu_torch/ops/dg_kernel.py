@@ -23,9 +23,11 @@ Two more kernels carry solver_dg's fused CG row, float64, its scalars on
 the device (``csrc/dg_cg_f64.cu``; no Pallas kernel: the JAX row is XLA's
 fusion of the whole loop under one jit):
 
-* ``dg_cg``: the pencil template's cg mode, x += alpha_prev p_old, p = z
-  + beta p_old (formed wherever the pencil loads input), q = A p, then
-  alpha = rz / (p . q) on the device;
+* ``dg_cg``: x += alpha_prev p_old, p = z + beta p_old, q = A p, then
+  alpha = rz / (p . q) on the device: a z march (a block walks a run of
+  layers of a column of pencils, stages the next layer's p_old, z and x
+  while the current one computes, and hands each +-z face trace to the
+  next layer), so each value is read from device memory once;
 * ``dg_jacobi_cg``: per cell r -= alpha q, z = T3 diag^-1 T3^T r, then
   beta = (r . z) / rz, rz = r . z, rr = r . r on the device.
 
@@ -246,6 +248,14 @@ def cg_partials(grid: DGGrid, device) -> torch.Tensor:
     one cell)."""
     return torch.empty(2 * int(np.prod(grid.cells)), dtype=torch.float64,
                        device=resolve(device))
+
+
+# cell grids (C0, C1, C2) that take dg_cg's z march to its ends: one layer,
+# a column cut into runs (20 layers, runs of at least 8), and at every
+# degree a pencil row longer than the widest pencil (16 cells at p = 1)
+# with a ragged last pencil (37); the card tests and chip_smoke.py hold
+# dg_cg on them
+MARCH_CELLS = ((1, 3, 7), (20, 2, 3), (2, 2, 37))
 
 
 def dg_cg_plain(p_old, z, x, scal, p, q, apply) -> None:

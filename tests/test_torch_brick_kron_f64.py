@@ -136,3 +136,36 @@ def test_ptxas_report_reads_registers_and_spills():
              registers=128, spill_stores=8, spill_loads=16),
         dict(source="cg_vec.cu", kernel="_Z3dotPKd", registers=30,
              spill_stores=0, spill_loads=0)]
+
+
+def test_compile_sources_times_each_nvcc(tmp_path, monkeypatch):
+    """The build starts one nvcc a source together and times each to its
+    own end (a stand-in compiler here: the slow source's time is the
+    longer), then the link; a failed source is named and nothing is
+    linked."""
+    from multigrid_tpu_torch import _build
+
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        "#!/bin/sh\n"
+        "out=''; prev=''\n"
+        "for a in \"$@\"; do [ \"$prev\" = -o ] && out=\"$a\"; prev=\"$a\"; "
+        "done\n"
+        "case \"$*\" in *slow.cu*) sleep 0.4;; *bad.cu*) exit 1;; esac\n"
+        "echo 'ptxas info    : Used 9 registers'\n"
+        "echo built > \"$out\"\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    srcs = [tmp_path / f"{s}.cu" for s in ("fast", "slow", "bad")]
+    for s in srcs:
+        s.write_text("")
+    work = tmp_path / "work"
+    work.mkdir()
+    log, failed, seconds = _build.compile_sources(srcs[:2], work)
+    assert failed == [] and (work / "lib.so").read_text() == "built\n"
+    assert set(seconds) == {"fast.cu", "slow.cu", "link"}
+    assert seconds["slow.cu"] >= 0.4 > seconds["fast.cu"]
+    assert log.count("Used 9 registers") == 3 and " -c " in log
+    log, failed, seconds = _build.compile_sources(srcs, work)
+    assert len(failed) == 1 and failed[0].endswith("bad.cu")
+    assert "link" not in seconds and len(seconds) == 3

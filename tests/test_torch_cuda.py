@@ -50,6 +50,7 @@ import pytest
 import torch
 
 from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid, poisson_cube_mesh
+from multigrid_tpu_torch.ops.dg_kernel import MARCH_CELLS
 
 pytestmark = pytest.mark.cuda
 
@@ -526,7 +527,8 @@ def test_dg_cheb_every_degree(dev, kind, p, cells):
     assert dk.LAUNCHES["dg_cheb<float>"] == 6
 
 
-@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)])
+@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)]
+                         + list(MARCH_CELLS))
 @pytest.mark.parametrize("p", range(1, 10))
 @pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
 def test_dg_cg_kernels_every_degree(dev, kind, p, cells):
@@ -537,7 +539,8 @@ def test_dg_cg_kernels_every_degree(dev, kind, p, cells):
     dg_jacobi_cg<double> (r -= alpha q, z = P^-1 r, beta, rz, rr), the
     latter also as the first pass (q unread, r unchanged, beta = 0).  Two
     launches a call (the pass, the finish); a repeated call bit for
-    bit."""
+    bit.  The cells take dg_cg's march through both ends of a column, runs
+    of it (dg_kernel.MARCH_CELLS) and ragged pencils."""
     from multigrid_tpu_torch.ops import dg_kernel as dk
     from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
 
@@ -600,10 +603,10 @@ def test_fused_solver_dg_loop_on_card_matches_cpu(dev):
         jac = JacobiTransformed(grid, torch.float64, where)
         op.install_jacobi(jac)
         passes = solver_dg.fused_passes(op, jac, grid, kernel=True)
+        bt = torch.as_tensor(b, device=where)  # a copy from the host syncs
         dk.reset_launches()
         with solver_dg.no_host_sync(where):
-            x, rn = solver_dg.cg_fused(*passes, torch.as_tensor(
-                b, device=where), 10)
+            x, rn = solver_dg.cg_fused(*passes, bt, 10)
         xs[where.type] = x.cpu()
         if where.type == "cuda":
             assert dk.LAUNCHES["dg_cg<double>"] == 20
