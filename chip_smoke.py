@@ -104,7 +104,8 @@ convergence rows:
   apply-then-refresh, every node, bit for bit; one rank on nccl against
   the single-device solver's bits.  Before the ranks, in one process:
   the overlap schedule at p = 8 in float32 where the sub-boxes run
-  ``brick_kron``'s cell form and the whole box the march (bit for bit),
+  ``brick_kron``'s cell form and the whole box the layer march (bit for
+  bit),
   and ``LaplaceOperator`` with a ``SymCoef`` on the card against
   ``DiagCoef`` and the CPU.  The kernels' launches are summed over the
   ranks;
@@ -137,8 +138,10 @@ convergence rows:
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
 degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
-picks for each grid: the cell form on the small grids, the z-slab march on
-the large float ones), also at the coarse grids of the p = 8, 9
+picks for each grid: the cell form on the small grids and in double, the
+layer march on the large float ones, whose four modes at the cube rows'
+node grids are also held against ``brick_kron_reference`` and against
+the z-slab march bit for bit), also at the coarse grids of the p = 8, 9
 hierarchies (64^3 and 28^3 nodes at p = 9, 25^3 at p = 8), and the DG
 pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
@@ -685,6 +688,50 @@ class KernelChecks:
                 residual_only=True)),
             bound=bound(3 * size * nodes, flops + nodes, dtype))
 
+    def layer_checks(self, grid, label: str):
+        """The layer march (``brick_form``'s float form on ``grid``) in its
+        four modes against ``brick_kron_reference`` (the plain separable
+        version, float) on the same inputs at the bars of KRON_BARS, and
+        against the z-slab march (the form these grids had before) bit
+        for bit; the march's step and apply timed beside (printed, under
+        no kernel).  The errors go under the float entries of ``label``."""
+        from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+        f32 = torch.float32
+        _, tol, tol_cheb = KRON_BARS[f32]
+        p = grid.degree
+        require(lk.brick_form(grid.shape, p, f32) == "layer",
+                f"p={p} {grid.shape}: the float form is not the layer march")
+        op = lk.BrickLaplace(grid, f32, self.dev)
+        b, x, xo = lk.smoother_iterates(lk.BrickLaplace(
+            grid, torch.float64, self.dev), 7)
+        b, x, xo = b.float(), x.float(), xo.float()
+        args = dict(b=b, x_old=xo, f1=0.37, f2=0.81)
+        auto = lk.brick_form
+
+        def march(mode):
+            lk.brick_form = lambda shape, q, dtype: "march"
+            try:
+                return lk.brick_kron(x, op, mode, **args)
+            finally:
+                lk.brick_form = auto
+        for mode in lk.KRON_MODES:
+            name = (f"brick_kron_cheb<float>{label}" if mode == "cheb"
+                    else f"brick_kron<float>{label}")
+            got = lk.brick_kron(x, op, mode, **args)
+            want = lk.brick_kron_reference(x, op, mode, **args)
+            self.note(name, got.double(), want.double(),
+                      float(want.abs().max()),
+                      tol_cheb if mode == "cheb" else tol)
+            require(torch.equal(got, march(mode)),
+                    f"{name} {mode}: the layer march differs from the "
+                    "z-slab march")
+        ms = {mode: time_ms(lambda: march(mode)) for mode in ("apply", "cheb")}
+        print(f"  layer march p={p} {grid.shape}: four modes within the "
+              f"bars of brick_kron_reference, bit for bit the z-slab "
+              f"march's; the z-slab march apply {ms['apply']:.4f} ms, step "
+              f"{ms['cheb']:.4f} ms")
+
     def cg_checks(self, n: int, timed: bool):
         from multigrid_tpu_torch.ops import cg_kernel as ck
 
@@ -990,7 +1037,8 @@ def main() -> int:
                 f"a brick_kron kernel spills ({src}): {spills}")
         if src.startswith("brick_kron"):
             for r in rows:
-                if "brick_cell_kernelI" in r["kernel"] and any(
+                if ("brick_cell_kernelI" in r["kernel"]
+                        or "brick_layer_kernelI" in r["kernel"]) and any(
                         f"Li{p}ELi" in r["kernel"] for p in HIGH_DEGREE_SIZES):
                     print(f"    {r['kernel']}: {r['registers']} registers, "
                           f"spill stores {r['spill_stores']} B, loads "
@@ -1014,10 +1062,12 @@ def main() -> int:
                 "the DG pencil kernels are not all in the library at p = "
                 "1..9")
         require(sum("17brick_kron_kernelI" in k for k in names) == 64
-                and sum("17brick_cell_kernelI" in k for k in names) == 16,
+                and sum("17brick_cell_kernelI" in k for k in names) == 16
+                and sum("18brick_layer_kernelIf" in k for k in names) == 8,
                 "brick_kron is not in the library at p = 1..9, both types, "
                 "all four modes (the march at p = 1..7 and in float at "
-                "p = 8, 9; the cell form at p = 8, 9)")
+                "p = 8, 9; the cell form at p = 8, 9; the layer march in "
+                "float at p = 8, 9)")
 
     return run(dev, card, t_start)
 
@@ -1120,6 +1170,8 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
                  DofGrid(mesh, mesh.max_level, p), True)):
             for dtype in (torch.float32, torch.float64):
                 checks.kron_checks(grid, timed, dtype, label=f" p={p}")
+            if timed:
+                checks.layer_checks(grid, f" p={p}")
             torch.cuda.synchronize()
             print(f"brick_kron checks passed at {label} p={p}: {grid.shape} "
                   f"{took()}")
@@ -1197,6 +1249,9 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
 
 def run(dev: torch.device, card: str, t_start: float) -> int:
     """Phase 2 on ``dev``: the kernel checks; then the paths."""
+    from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
     laps = [time.perf_counter()]
     checks = kernel_checks(dev, card)
 
@@ -1294,18 +1349,43 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         key = f"brick_kron_cheb<float> {'x'.join([str(cells * p + 1)] * 3)}"
         require(launches[path].get(key, 0) > 0,
                 f"the {path} solves launched no {key}")
+    # the layer march on the p = 8, 9 cube and poisson_dg paths: the float
+    # A x and step at the grids brick_form gives it (the finest levels)
+    for path, p in ((degree_path(8), 8), (degree_path(9), 9),
+                    (degree_path(8, "poisson_dg"), 8),
+                    (degree_path(9, "poisson_dg"), 9)):
+        for name in ("brick_kron<float>", "brick_kron_cheb<float>"):
+            n = sum(v for k, v in launches[path].items()
+                    if k.startswith(name + " ") and lk.brick_form(
+                        tuple(map(int, k.split()[-1].split("x"))), p,
+                        torch.float32) == "layer")
+            require(n > 0, f"the {path} solves launched no {name} in the "
+                           "layer march")
 
     def counted(kernel: str) -> dict:
         """Launches of ``kernel`` by path: an entry of degree p counts the
         paths of that degree (:func:`degree_path`), an unlabelled entry
         every other path; an entry of a node grid ("... p=9 64^3") only
-        the launches at that grid."""
+        the launches at that grid, and a brick_kron entry of degree p
+        without one only those at the grids of the form it was timed in
+        (``brick_form`` at the cube row's node grid: the layer march in
+        float, the cell form in double)."""
         base, _, label = kernel.partition(" p=")
         deg, _, grid = label.partition(" ")
         want = int(deg) if deg else None
         key = f"{base} {'x'.join([grid[:-2]] * 3)}" if grid else base
-        return {p: launches[p].get(key, 0) for p in launches
-                if path_degree(p) == want}
+        if want is None or grid or not base.startswith("brick_kron"):
+            return {p: launches[p].get(key, 0) for p in launches
+                    if path_degree(p) == want}
+        dtype = torch.float32 if "<float>" in base else torch.float64
+        mesh = poisson_cube_mesh(HIGH_DEGREE_SIZES[want])
+        form = lk.brick_form(DofGrid(mesh, mesh.max_level, want).shape, want,
+                             dtype)
+        return {p: sum(n for k, n in launches[p].items()
+                       if k.startswith(base + " ") and lk.brick_form(
+                           tuple(map(int, k.split()[-1].split("x"))), want,
+                           dtype) == form)
+                for p in launches if path_degree(p) == want}
 
     kernels = []
     for k, (src, rep) in KERNELS.items():
@@ -2482,10 +2562,10 @@ def ranks_row(out: dict, ref: dict, n: int, grid, dim: int, size: int,
 
 
 def form_check(dev, card) -> None:
-    """The overlap schedule where its sub-boxes run the other form of
+    """The overlap schedule where its sub-boxes run another form of
     ``brick_kron``: p = 8, float32, 20 x 16 x 16 cells cut for 2 z ranks.
-    The whole grid (5120 cells) and each rank's box (3072) take the
-    z-slab march, the sub-boxes (at most 2304 cells) the cell form
+    The whole grid (5120 cells) and each rank's box (3072) take the layer
+    march, the sub-boxes (at most 2304 cells) the cell form
     (``laplace_kernel.brick_form``); each rank's split ``vmult``, with no
     traffic (the owned nodes need none), against the whole grid's and the
     box's, bit for bit.  One process; its launches are not a path's."""
@@ -2500,8 +2580,8 @@ def form_check(dev, card) -> None:
     x = torch.as_tensor(np.random.default_rng(8).standard_normal(g.shape),
                         dtype=f32, device=dev)
     want = lk.BrickLaplace(g, f32, dev).vmult(x)
-    require(lk.brick_form(g.shape, 8, f32) == "march",
-            "the p = 8 form check's whole grid is not on the march")
+    require(lk.brick_form(g.shape, 8, f32) == "layer",
+            "the p = 8 form check's whole grid is not on the layer march")
     for r in range(2):
         s = Slabs(g, Ranks(2, r, dev, "gloo"), split_cells(g.cells[0], 2))
         op = lk.BrickLaplace(s.local, f32, dev)
@@ -2515,7 +2595,7 @@ def form_check(dev, card) -> None:
         print(f"  p = 8 f32 split vmult on rank {r} of 2 ({s.shape} box, "
               f"{box_form}; sub-boxes {[o.shape for o in sp.ops]}, "
               f"{forms}): owned nodes bit for bit {same}")
-        require(box_form == "march" and "cell" in forms,
+        require(box_form == "layer" and "cell" in forms,
                 "the p = 8 form check does not mix the forms")
         require(all(same.values()),
                 f"the p = 8 f32 split differs on rank {r}: {same}")

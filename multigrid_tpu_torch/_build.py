@@ -29,6 +29,7 @@ from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
+           PACKAGE_DIR / "csrc" / "brick_kron_layer.cu",
            PACKAGE_DIR / "csrc" / "brick_kron_f64.cu",
            PACKAGE_DIR / "csrc" / "cheb_epilogue.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
@@ -55,6 +56,13 @@ SIGNATURES = {
                        _N],
     "brick_kron_f64": [_I, _I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
                        _N],
+    # the same arguments, form 2 (the layer march), p = 8, 9
+    "brick_kron_layer_f32": [_I, _I, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I,
+                             _I, _P, _N],
+    # p, out[7]: the layer march's tile (cells in x, y, planes a group,
+    # threads, shared bytes, blocks an SM) and the z-slab march's shared
+    # bytes at p; launches nothing
+    "brick_kron_layer_f32_tile": [_I, _N],
     # b, y, x, x_old, lines, out, f1, f2, Z, Y, X, residual_only, stream
     "cheb_epilogue_f64": [_P, _P, _P, _P, _P, _P, _D, _D, _I, _I, _I, _I, _P,
                           _N],

@@ -86,9 +86,9 @@
 // 253^3 nodes, PERF.md): float 1 column at p = 8 (Chebyshev step 0.456
 // against 0.523 ms with 2) and 3 at p = 9 (0.686 against 1.081), two
 // blocks an SM; the best double tiles took 1.26 ms (p = 8) and 2.93 ms
-// (p = 9, slower than the dense plain version) for the apply.  The march
-// runs there only on the large float grids; the cell form (below) took
-// its place everywhere else.
+// (p = 9, slower than the dense plain version) for the apply.  No grid
+// takes the march at p = 8, 9 now: the cell form and the layer march
+// (below) run there; it stays the form both are held to bit for bit.
 // BRICK_KRON_F64_CPT and BRICK_KRON_F64_MIN_BLOCKS override both for
 // tuning builds; BRICK_KRON_HIGH_CPT (the columns a thread aimed at
 // above p = 4, in the type a source builds) and
@@ -133,21 +133,52 @@
 // 1.27 at 257^3 (p = 8).  On the large float grids the cell form loses:
 // the step at p = 9, 253^3, 0.80 against 0.68 ms, at p = 8, 257^3, 0.68
 // against 0.47 (a block stages and sweeps 9.4x (p = 9) its owned nodes
-// in x and y, where the march's slab shares its halo).  So the wrapper
-// (laplace_kernel.brick_form) chooses per grid: the cell form in double
-// on every grid and in float up to 3000 cells (p = 9: 127^3, 2744 cells,
-// cell 0.104 / march 0.123 ms; p = 8: 129^3, 4096 cells, 0.093 / 0.081),
-// the march on the larger float grids; double has only the cell form at
-// p = 8, 9.  The cell form's registers: float
-// 53-76, double 114-128 (the launch bound asks for three blocks an SM in
-// float, two in double), no spill.  Rows of P outputs in shared memory
-// are P | 1 apart, so that p = 8's x-sweep stores and y-sweep loads fall
-// on distinct banks; staging a row a warp (19 of 32 lanes) measured
-// slower than a node a thread.
+// in x and y, where the march's slab shares its halo).  The cell form's
+// registers: float 53-76, double 114-128 (the launch bound asks for three
+// blocks an SM in float, two in double), no spill.  Rows of P outputs in
+// shared memory are P | 1 apart, so that p = 8's x-sweep stores and
+// y-sweep loads fall on distinct banks; staging a row a warp (19 of 32
+// lanes) measured slower than a node a thread.
+//
+// p = 8 and 9 in float on the large grids: the layer march
+// (brick_layer_kernel, built in brick_kron_layer.cu).  The march's ring
+// of 2p + 1 z accumulators a column in registers capped its tile; the
+// layer march keeps w1, w23 of p + 1 planes in a ring in shared memory
+// and goes by cell layers.  A block of 384 threads owns a tile of 4 x 3
+// cells at p = 8, 4 x 4 at p = 9 (32 x 24 / 36 x 36 nodes); per group of
+// G = 4 / 3 input planes it stages the planes with their halo (cp.async,
+// double-buffered: the next group loads under this group's sweeps) and
+// runs the x sweep (an item a row, cell and plane: 528 / 552 items) and
+// the y sweep (a column, cell and plane: 384 / 432) over the group; at a
+// layer's top vertex plane the z sweep gathers each column's p outputs
+// (an item a column: 768 / 1296), planes ascending, L then M, the vertex
+// output's lower planes carried in one register a column from the layer
+// before: the march's order, so the same bits.  Staged nodes a plane per
+// owned node 1.76 / 1.63 (the march 2.7 / 2.0); three barriers a group,
+// one more a layer.  Shared memory 138,852 / 204,880 bytes, one block an
+// SM, 119-156 / 136-159 registers, no spill.  The launch is one wave:
+// the (tile, cell layer) units split evenly over the card's block slots,
+// so a block's run may end in one tile and go on in the next; a few
+// blocks in front write the node planes x = X - 1, y = Y - 1 that the
+// tiles end one node short of.  Measured (H100 700 W, device time,
+// time_brick --levels, PERF.md): the step 0.289 ms at 257^3 (p = 8;
+// march 0.455) and 0.382 at 253^3 (p = 9; march 0.689), the apply 0.192
+// / 0.224 (march 0.458 / 0.542); tiles of 4 x 4 cells at 512 threads
+// spilled at p = 8 in the step (128 registers); an L2 prefetch of the
+// epilogue inputs a layer ahead made the step slower (0.343 against
+// 0.282 ms).  What bounds it now: the z sweep's loads of b, x, x_old
+// (the step takes 0.29 ms where the apply takes 0.19), then the
+// instruction rate.
+// The wrapper (laplace_kernel.brick_form) chooses per grid from those
+// measurements: the cell form in double on every grid and in float up to
+// 3000 cells at p = 8 (97^3, 1728 cells: step 0.0424 against the layer
+// march's 0.0430 ms) and 1000 at p = 9 (109^3, 1728 cells: 0.0668
+// against 0.0469), the layer march on the larger float grids.
 //
 // The entry points (brick_kron_f32, brick_kron_f64) take the form (0 the
-// march, 1 the cell form, p >= 8 only) and write the number of kernels
-// they launched (1) to *launched.
+// march, 1 the cell form, p >= 8 only), brick_kron_layer_f32 the layer
+// march (form 2, p = 8, 9); each writes the number of kernels it
+// launched (1) to *launched.
 
 #pragma once
 
@@ -763,6 +794,423 @@ int launch_cell(const T* x, const T* b, const T* x_old, T* out,
   brick_cell_kernel<T, P, MODE><<<grid, kThreads, kSmem, stream>>>(
       x, b, x_old, out, tp, f1, f2, Z, Y, X);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- p >= 8
+// The layer march (the note at the top says when it runs and why): a
+// block owns an x-y tile of TXC x TYC cells and marches along z by cell
+// layers through a run of them.  Per group of G input planes it stages
+// the planes with their x-y halo, runs the x sweeps and the y sweeps over
+// the whole group (one item a row, or column, cell and plane) and keeps
+// w1, w23 in a ring of P + 1 planes in shared memory; once a layer's top
+// vertex plane is in, the z sweep gathers each column's P outputs of that
+// layer from the ring.  Each node adds the taps of brick_kron_kernel in
+// its order: the input planes in ascending order, L then M; a vertex
+// output's planes below its layer are carried in a register (one a
+// column) from the layer before.  Launched in one wave: block i of the
+// work blocks takes the i-th equal run of the (tile, cell layer) units,
+// tile-major, so a run may end in one tile and go on in the next; a few
+// blocks in front write the Dirichlet nodes that no tile holds.
+
+// the tile: cells in x and y, input planes a group, threads, the launch
+// bound's blocks an SM (BRICK_LAYER_VARIANT = P with BRICK_LAYER_TXC,
+// _TYC, _G, _THREADS, _MIN_BLOCKS overrides them at that degree, for
+// tuning builds: time_brick --layer-variant)
+template <int P>
+struct LayerShape {
+  static constexpr int TXC = 4, TYC = P == 9 ? 4 : 3;
+  static constexpr int G = P == 9 ? 3 : 4;
+  static constexpr int THREADS = 384;
+  static constexpr int MIN_BLOCKS = 1;
+};
+#ifdef BRICK_LAYER_VARIANT
+template <>
+struct LayerShape<BRICK_LAYER_VARIANT> {
+  static constexpr int TXC = BRICK_LAYER_TXC, TYC = BRICK_LAYER_TYC;
+  static constexpr int G = BRICK_LAYER_G;
+  static constexpr int THREADS = BRICK_LAYER_THREADS;
+  static constexpr int MIN_BLOCKS = BRICK_LAYER_MIN_BLOCKS;
+};
+#endif
+
+template <typename T, int P>
+struct Layer {
+  using S = LayerShape<P>;
+  static constexpr int K = 2 * P + 1;
+  static constexpr int R = P + 1;  // ring planes: a layer, both vertices
+  static constexpr int TXC = S::TXC, TYC = S::TYC, G = S::G;
+  static constexpr int THREADS = S::THREADS, MIN_BLOCKS = S::MIN_BLOCKS;
+  static constexpr int TX = TXC * P, TY = TYC * P;
+  static constexpr int RY = TY + P + 1;  // staged rows (halo P before, 1 after)
+  static constexpr int WX = TX + P + 1;  // staged row length
+  static constexpr int SU = WX | 1;      // odd: rows on distinct banks
+  static constexpr int SV = TX | 1;
+  static constexpr int NCOL = TX * TY;
+  static constexpr int CPT = (NCOL + THREADS - 1) / THREADS;
+  static constexpr int GU = G * RY * SU;  // a staged group
+  static constexpr int GV = G * RY * SV;  // a group's v1 (or v2)
+  static_assert(P % G == 0, "a cell layer is whole groups of planes");
+};
+
+template <typename T, int P>
+struct LayerSmem {
+  using L = Layer<T, P>;
+  T ring[L::R][2][L::NCOL];  // w1, w23 of plane j in slot j mod (P + 1)
+  T su[2][L::GU];            // staged groups of x (double-buffered)
+  T sv[2][L::GV];            // Mx u, Lx u of a group
+  int soff[L::RY * L::WX];   // staged node -> offset in a plane
+};
+
+// the outputs [c0 P, c1 P) of the tile at (x0, y0) (and the Dirichlet
+// plane Z - 1 if c1 is the last cell): the groups of input planes from
+// the halo below c0 up to plane c1 P, a z sweep at every layer's top
+template <typename T, int P, int MODE>
+__device__ __forceinline__ void layer_run(LayerSmem<T, P>& sm,
+                                          const T* __restrict__ x,
+                                          const T* b, const T* x_old, T* out,
+                                          const Taps<T, P>& tp, T f1, T f2,
+                                          int Z, int Y, int X, int x0, int y0,
+                                          int c0, int c1) {
+  using L = Layer<T, P>;
+  constexpr int K = L::K, R = L::R, G = L::G;
+  const int tid = threadIdx.x;
+  const bool need_x = MODE != kApply;
+  const bool need_b = MODE == kResidual || MODE == kCheb;
+  const bool need_xo = MODE == kCheb && x_old != nullptr;
+  const T zero = T(0);
+  const int64_t plane = (int64_t)Y * X;
+
+  __syncthreads();  // the previous run's reads of soff and the ring are done
+
+  // owned columns: offset in a plane (-1 outside the grid), interior bits,
+  // diagonal factors, the carried partial sum of the next vertex output
+  int coff[L::CPT];
+  unsigned cin = 0;
+  T dg1[L::CPT], dg23[L::CPT], carry[L::CPT];
+#pragma unroll
+  for (int q = 0; q < L::CPT; ++q) {
+    const int col = tid + q * L::THREADS;
+    const int gx = x0 + col % L::TX, gy = y0 + col / L::TX;
+    coff[q] = col < L::NCOL && gx < X && gy < Y ? gy * X + gx : -1;
+    if (gx >= 1 && gx <= X - 2 && gy >= 1 && gy <= Y - 2) cin |= 1u << q;
+    const int rx = (col % L::TX) % P, ry = (col / L::TX) % P;
+    const T mx = centre<T, P>(tp.m, rx), lx = centre<T, P>(tp.l[2], rx);
+    const T my = centre<T, P>(tp.m, ry), ly = centre<T, P>(tp.l[1], ry);
+    dg1[q] = my * mx;
+    dg23[q] = ly * mx + my * lx;
+    carry[q] = zero;
+  }
+  for (int i = tid; i < L::RY * L::WX; i += L::THREADS) {
+    const int row = i / L::WX, c = i - row * L::WX;
+    const int gy = y0 - P + row, gx = x0 - P + c;
+    sm.soff[i] = gy >= 1 && gy <= Y - 2 && gx >= 1 && gx <= X - 2
+                     ? gy * X + gx
+                     : -1;
+  }
+  __syncthreads();
+
+  // groups of G planes from jstart up to c1 P; the first z sweep is at
+  // layer c0 - 1 (no outputs: it starts the carry of output c0 P), or at
+  // layer 0 when c0 = 0 (plane 0 is Dirichlet: nothing to carry)
+  const int o = c0 * P;
+  const int jstart = c0 == 0 ? 1 - G : o - P - G + 1;
+  const int ngroups = (c1 * P - jstart + 1) / G;
+  const int zfirst = c0 == 0 ? 0 : o - P;
+
+  // stage group gi (planes jstart + gi G ..) of x into dst; Dirichlet and
+  // outside nodes (planes outside [1, Z - 2] too) as 0
+  auto stage = [&](int gi, T* dst) {
+    const int jg = jstart + gi * G;
+    for (int i = tid; i < G * L::RY * L::WX; i += L::THREADS) {
+      const int g = i / (L::RY * L::WX), rest = i - g * (L::RY * L::WX);
+      const int row = rest / L::WX, c = rest - row * L::WX;
+      const int jz = jg + g, off = sm.soff[rest];
+      const bool ok = off >= 0 && jz >= 1 && jz <= Z - 2;
+      cp_async(dst + (g * L::RY + row) * L::SU + c,
+               ok ? x + jz * plane + off : x, ok ? (int)sizeof(T) : 0);
+    }
+    cp_async_commit();
+  };
+  stage(0, sm.su[0]);
+  if (ngroups > 1)
+    stage(1, sm.su[1]);
+  else
+    cp_async_commit();
+
+  for (int gi = 0; gi < ngroups; ++gi) {
+    const int jg = jstart + gi * G;
+    cp_async_wait1();
+    __syncthreads();
+
+    // x sweeps: rows of the group's staged planes, one cell per item
+    const T* s_in = sm.su[gi & 1];
+    for (int it = tid; it < G * L::RY * L::TXC; it += L::THREADS) {
+      const int row = it % L::RY, rest = it / L::RY;
+      const int c = rest % L::TXC, g = rest / L::TXC;
+      const T* s = s_in + (g * L::RY + row) * L::SU + c * P;
+      T u[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) u[m] = s[m];
+      T* o1 = sm.sv[0] + (g * L::RY + row) * L::SV + c * P;
+      T* o2 = sm.sv[1] + (g * L::RY + row) * L::SV + c * P;
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        T a1 = zero, a2 = zero;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (in_band<P>(r, k) && r + k < K) {
+            a1 = fma_t(tp.m[r][k], u[r + k], a1);
+            a2 = fma_t(tp.l[2][r][k], u[r + k], a2);
+          }
+        o1[r] = a1;
+        o2[r] = a2;
+      }
+    }
+    __syncthreads();
+    if (gi + 2 < ngroups)
+      stage(gi + 2, sm.su[gi & 1]);
+    else
+      cp_async_commit();
+
+    // y sweeps: columns of the group's planes, one cell per item, into the
+    // ring slots of the planes
+    for (int it = tid; it < G * L::TX * L::TYC; it += L::THREADS) {
+      const int xx = it % L::TX, rest = it / L::TX;
+      const int c = rest % L::TYC, g = rest / L::TYC;
+      const T* s1 = sm.sv[0] + (g * L::RY + c * P) * L::SV + xx;
+      const T* s2 = sm.sv[1] + (g * L::RY + c * P) * L::SV + xx;
+      T a[K], v[K];
+#pragma unroll
+      for (int m = 0; m < K; ++m) {
+        a[m] = s1[m * L::SV];
+        v[m] = s2[m * L::SV];
+      }
+      T* w = sm.ring[(jg + g + 2 * R) % R][0] + c * P * L::TX + xx;
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        T w1 = zero, w23 = zero;
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (in_band<P>(r, k) && r + k < K) {
+            w1 = fma_t(tp.m[r][k], a[r + k], w1);
+            w23 = fma_t(tp.l[1][r][k], a[r + k], w23);
+            w23 = fma_t(tp.m[r][k], v[r + k], w23);
+          }
+        w[r * L::TX] = w1;
+        w[L::NCOL + r * L::TX] = w23;
+      }
+    }
+
+    // a layer's top vertex plane is in: the z sweep of layer [bz, bz + P]
+    const int bz = jg + G - 1 - P;
+    if (gi % (P / G) != 0 || bz < zfirst) continue;  // the same for all
+    __syncthreads();
+    const bool emit = bz >= o;
+    const int slot0 = (bz + 2 * R) % R;
+#pragma unroll
+    for (int q = 0; q < L::CPT; ++q) {
+      const int col = tid + q * L::THREADS;
+      if (col >= L::NCOL) continue;
+      // epilogue inputs of the output planes bz .. bz + P - 1, loaded
+      // ahead of the gather
+      T ex[P], eb[P], eo[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        ex[k] = eb[k] = eo[k] = zero;
+        if (emit && coff[q] >= 0) {
+          const int iz = bz + k;
+          const int64_t g = iz * plane + coff[q];
+          const bool in = iz >= 1 && iz <= Z - 2 && (cin >> q & 1u);
+          if (MODE == kCheb || (need_x && !in)) ex[k] = x[g];
+          if (need_b) eb[k] = b[g];
+          if (need_xo) eo[k] = x_old[g];
+        }
+      }
+      // gather: output bz + k adds plane bz + s (residue s mod P) with tap
+      // k - s + P, planes ascending; output bz has planes up to bz in its
+      // carry, output bz + P starts the next carry
+      T acc[R];
+      acc[0] = carry[q];
+#pragma unroll
+      for (int k = 1; k < R; ++k) acc[k] = zero;
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int sl = slot0 + s < R ? slot0 + s : slot0 + s - R;
+        const T w1 = sm.ring[sl][0][col], w23 = sm.ring[sl][1][col];
+        const int rho = s % P;
+#pragma unroll
+        for (int k = 0; k < R; ++k)
+          if (s > 0 || k > 0) {
+            acc[k] = fma_t(tp.l[0][rho][k - s + P], w1, acc[k]);
+            acc[k] = fma_t(tp.m[rho][k - s + P], w23, acc[k]);
+          }
+      }
+      carry[q] = acc[P];
+      if (!emit || coff[q] < 0) continue;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const int iz = bz + k;
+        const int64_t g = iz * plane + coff[q];
+        const bool in = iz >= 1 && iz <= Z - 2 && (cin >> q & 1u);
+        const T a = acc[k];
+        T val;
+        if (!in) {
+          val = dirichlet<MODE>(ex[k], eb[k], eo[k], f1, f2);
+        } else if (MODE == kApply || MODE == kVmult) {
+          val = a;
+        } else if (MODE == kResidual) {
+          val = eb[k] - a;
+        } else {
+          const T d = tp.l[0][k][P] * dg1[q] + tp.m[k][P] * dg23[q];
+          val = ex[k] + f1 * (ex[k] - eo[k]) + f2 * (eb[k] - a) / d;
+        }
+        out[g] = val;
+      }
+    }
+  }
+  cp_async_wait0();
+
+  // the last node plane, Dirichlet
+  if (c1 == (Z - 1) / P) {
+#pragma unroll
+    for (int q = 0; q < L::CPT; ++q) {
+      if (coff[q] < 0) continue;
+      const int64_t g = (Z - 1) * plane + coff[q];
+      out[g] = dirichlet<MODE>(need_x ? x[g] : zero, need_b ? b[g] : zero,
+                               need_xo ? x_old[g] : zero, f1, f2);
+    }
+  }
+}
+
+template <typename T, int P, int MODE>
+__global__ void __launch_bounds__(Layer<T, P>::THREADS,
+                                  Layer<T, P>::MIN_BLOCKS)
+    brick_layer_kernel(const T* __restrict__ x, const T* b, const T* x_old,
+                       T* out, const __grid_constant__ Taps<T, P> tp, T f1,
+                       T f2, int Z, int Y, int X, int tiles_x, int units,
+                       int ndir) {
+  using L = Layer<T, P>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LayerSmem<T, P>& sm = *reinterpret_cast<LayerSmem<T, P>*>(smem_raw);
+  const int cells_z = (Z - 1) / P;
+
+  if ((int)blockIdx.x < ndir) {
+    // the Dirichlet nodes that no tile holds: the node plane x = X - 1 if
+    // the tiles end one node short of it, and y = Y - 1 likewise
+    const bool need_x = MODE != kApply;
+    const bool need_b = MODE == kResidual || MODE == kCheb;
+    const bool need_xo = MODE == kCheb && x_old != nullptr;
+    const T zero = T(0);
+    const bool xrem = tiles_x * L::TX == X - 1;
+    const bool yrem = ((Y - 2) / L::TY + 1) * L::TY == Y - 1;
+    const int wx = xrem ? X - 1 : X;
+    const int64_t nx = xrem ? (int64_t)Z * Y : 0;
+    const int64_t n = nx + (yrem ? (int64_t)Z * wx : 0);
+    for (int64_t i = (int64_t)blockIdx.x * L::THREADS + threadIdx.x; i < n;
+         i += (int64_t)ndir * L::THREADS) {
+      int64_t g;
+      if (i < nx) {
+        g = i * X + X - 1;
+      } else {
+        const int64_t j = i - nx;
+        g = (j / wx * Y + Y - 1) * X + j % wx;
+      }
+      out[g] = dirichlet<MODE>(need_x ? x[g] : zero, need_b ? b[g] : zero,
+                               need_xo ? x_old[g] : zero, f1, f2);
+    }
+    return;
+  }
+  // this block's run of units (tile-major: unit = tile * cells_z + cell)
+  const int nwork = gridDim.x - ndir, bid = blockIdx.x - ndir;
+  const int u_end = (int)((int64_t)(bid + 1) * units / nwork);
+  for (int u = (int)((int64_t)bid * units / nwork); u < u_end;) {
+    const int tile = u / cells_z, c0 = u - tile * cells_z;
+    const int c1 = min(cells_z, c0 + (u_end - u));
+    u += c1 - c0;
+    layer_run<T, P, MODE>(sm, x, b, x_old, out, tp, f1, f2, Z, Y, X,
+                          tile % tiles_x * L::TX, tile / tiles_x * L::TY, c0,
+                          c1);
+  }
+}
+
+template <typename T, int P, int MODE>
+int launch_layer(const T* x, const T* b, const T* x_old, T* out,
+                 const T* taps, T f1, T f2, int Z, int Y, int X,
+                 cudaStream_t stream) {
+  using L = Layer<T, P>;
+  constexpr int kSmem = (int)sizeof(LayerSmem<T, P>);
+  static_assert(kSmem <= 232448, "the layer tile exceeds a block's shared "
+                                 "memory");
+  const auto kernel = brick_layer_kernel<T, P, MODE>;
+  // one wave: as many work blocks as the card holds at once
+  static int slots = 0;
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kSmem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, L::THREADS,
+                                                  kSmem);
+    slots = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  Taps<T, P> tp;
+  memcpy(&tp, taps, sizeof(tp));
+  const int tiles_x = (X - 2) / L::TX + 1, tiles_y = (Y - 2) / L::TY + 1;
+  const int units = tiles_x * tiles_y * ((Z - 1) / P);
+  const int nwork = min(units, slots);
+  const bool xrem = tiles_x * L::TX == X - 1, yrem = tiles_y * L::TY == Y - 1;
+  const int64_t nd = (xrem ? (int64_t)Z * Y : 0) +
+                     (yrem ? (int64_t)Z * (xrem ? X - 1 : X) : 0);
+  const int ndir = (int)((nd + 16 * L::THREADS - 1) / (16 * L::THREADS));
+  kernel<<<ndir + nwork, L::THREADS, kSmem, stream>>>(
+      x, b, x_old, out, tp, f1, f2, Z, Y, X, tiles_x, units, ndir);
+  return (int)cudaGetLastError();
+}
+
+// the layer march's tile at P (cells in x, y, planes a group, threads,
+// shared bytes, blocks an SM from the occupancy calculator) and the
+// z-slab march's shared bytes, into out[0..6]
+template <typename T, int P>
+int layer_tile(int* out) {
+  using L = Layer<T, P>;
+  constexpr int kSmem = (int)sizeof(LayerSmem<T, P>);
+  const auto kernel = brick_layer_kernel<T, P, kCheb>;
+  out[0] = L::TXC;
+  out[1] = L::TYC;
+  out[2] = L::G;
+  out[3] = L::THREADS;
+  out[4] = kSmem;
+  out[6] = (int)sizeof(Smem<T, P>);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kSmem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[5], kernel, L::THREADS,
+                                                kSmem);
+  return (int)cudaGetLastError();
+}
+
+// the layer march's entry (float, p = 8, 9; brick_kron_layer.cu): the
+// arguments of brick_kron_entry, form 2
+template <typename T>
+int brick_layer_entry(int mode, int form, const T* x, const T* b,
+                      const T* x_old, T* out, const T* taps, double f1,
+                      double f2, int Z, int Y, int X, int p, void* stream,
+                      int* launched) {
+  *launched = 0;
+  if (form != 2 || (p != 8 && p != 9) || mode < kApply || mode > kCheb)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const T g1 = (T)f1, g2 = (T)f2;
+  using Fn = int (*)(const T*, const T*, const T*, T*, const T*, T, T, int,
+                     int, int, cudaStream_t);
+  static const Fn fns[2][4] = {
+      {launch_layer<T, 8, kApply>, launch_layer<T, 8, kVmult>,
+       launch_layer<T, 8, kResidual>, launch_layer<T, 8, kCheb>},
+      {launch_layer<T, 9, kApply>, launch_layer<T, 9, kVmult>,
+       launch_layer<T, 9, kResidual>, launch_layer<T, 9, kCheb>}};
+  const int err = fns[p - 8][mode](x, b, x_old, out, taps, g1, g2, Z, Y, X, s);
+  if (err == cudaSuccess) *launched = 1;
+  return err;
 }
 
 // form 0: the z-slab march (p <= 7, and float at p >= 8); form 1: the

@@ -89,7 +89,8 @@ from .poisson_dg_plain import deform_chart
 # port's own kernels sit in an anonymous namespace)
 CLASSES = (
     ("brick_kron<float>", ("brick_kron_kernel<float,",
-                           "brick_cell_kernel<float,")),
+                           "brick_cell_kernel<float,",
+                           "brick_layer_kernel<float,")),
     ("brick_kron<double>", ("brick_kron_kernel<double,",
                             "brick_cell_kernel<double,")),
     ("cheb_epilogue<float>", ("cheb_epilogue_kernel<float>",)),

@@ -11,9 +11,11 @@ A·u with its residual and Chebyshev epilogues).  Two kernels:
   the epilogue fuses -- ``apply`` (y = A x, 0 on Dirichlet rows),
   ``vmult`` (x on Dirichlet rows), ``residual`` (b - A x; b - x on
   Dirichlet rows) and ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag),
-  one launch each, in one of two forms with the same bits: the z-slab
-  march, or at p >= 8 the cell form (a block a cell), chosen per grid by
-  :func:`brick_form`;
+  one launch each, in one of three forms with the same bits: the z-slab
+  march (p <= 7), and at p = 8, 9 the cell form (a block a cell) and in
+  float the layer march (``brick_kron_layer.cu``: tiles of 4 x 3 / 4 x 4
+  cells marching by cell layers with their z ring in shared memory),
+  chosen per grid by :func:`brick_form`;
 * ``cheb_epilogue`` (``csrc/cheb_epilogue.cu``): the residual ``b - y`` or
   the Chebyshev update ``x + f1 (x - x_old) + f2 (b - y) / diag`` with the
   separable diagonal rebuilt in the kernel, for a given y: the f32 step
@@ -53,11 +55,13 @@ LAUNCHES_BY_GRID: dict = {}
 KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
 MAX_DEGREE = 9     # brick_kron's largest instantiation (the reference's)
 CELL_DEGREE = 8    # brick_kron's cell form: degrees CELL_DEGREE..MAX_DEGREE
-# the float cell form's largest grid, in cells: above it the march is
-# faster (PERF.md, time_brick --levels --form); double runs the cell form
-# on every grid
-F32_CELL_FORM_MAX_CELLS = 3000
-FORMS = {"march": 0, "cell": 1}
+# the float forms at p = 8, 9 by the grid's cell count: the cell form up
+# to F32_CELL_FORM_MAX_CELLS[p] cells, the layer march above (the step's
+# crossover lies between 1728 and 4096 cells at p = 8, between 343 and
+# 1728 at p = 9: PERF.md, time_brick --levels --form); double runs the
+# cell form on every grid
+F32_CELL_FORM_MAX_CELLS = {8: 3000, 9: 1000}
+FORMS = {"march": 0, "cell": 1, "layer": 2}
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 
 
@@ -171,14 +175,14 @@ def brick_form(shape, degree: int, dtype) -> str:
     """The form of ``brick_kron`` on a node grid ``shape`` at ``degree``
     in ``dtype``: "march" (the z-slab march) below CELL_DEGREE; above,
     "cell" (one block a cell) in double and on float grids of at most
-    F32_CELL_FORM_MAX_CELLS cells, else "march".  The two give the same
-    bits."""
+    ``F32_CELL_FORM_MAX_CELLS[degree]`` cells, else "layer" (the layer
+    march).  All give the same bits."""
     if degree < CELL_DEGREE:
         return "march"
     z, y, x = shape   # plain ints: this runs on every launch
     cells = ((z - 1) // degree) * ((y - 1) // degree) * ((x - 1) // degree)
     return ("cell" if dtype != torch.float32
-            or cells <= F32_CELL_FORM_MAX_CELLS else "march")
+            or cells <= F32_CELL_FORM_MAX_CELLS[degree] else "layer")
 
 
 def brick_kron_reference(x, op: "BrickLaplace", mode: str = "apply", b=None,
@@ -231,9 +235,10 @@ def brick_kron(x: torch.Tensor, op: "BrickLaplace", mode: str = "apply",
     ptr = lambda t: None if t is None else t.data_ptr()
     suffix, cname = _SUFFIX[op.dtype]
     name = f"brick_kron_cheb<{cname}>" if mode == "cheb" else f"brick_kron<{cname}>"
-    form = FORMS[brick_form(x.shape, op.grid.degree, op.dtype)]
+    form = brick_form(x.shape, op.grid.degree, op.dtype)
+    entry = "brick_kron_layer_f32" if form == "layer" else f"brick_kron_{suffix}"
     n = _build.launch(
-        f"brick_kron_{suffix}", KRON_MODES[mode], form, x.data_ptr(), ptr(b),
+        entry, KRON_MODES[mode], FORMS[form], x.data_ptr(), ptr(b),
         ptr(x_old if mode == "cheb" else None), out.data_ptr(),
         op.host_taps_ptr, float(f1), float(f2), Z, Y, X,
         op.grid.degree, _build.stream_handle(x.device))

@@ -185,12 +185,99 @@ def test_cell_form_blocks_cover_every_node_once(p, cells):
     assert (hits == 1).all()
 
 
+def layer_launch(shape, p, txc, tyc, g, slots):
+    """The layer march's launch and runs as ``csrc/brick_kron.cuh`` makes
+    them (launch_layer, brick_layer_kernel, layer_run) for a tile of txc x
+    tyc cells and g planes a group on a card of ``slots`` block slots:
+    node hits, and per run its groups' planes and z sweeps (layer base,
+    emits) with the ring slot of every plane each z sweep reads."""
+    Z, Y, X = shape
+    TX, TY, R = txc * p, tyc * p, p + 1
+    tiles_x, tiles_y = (X - 2) // TX + 1, (Y - 2) // TY + 1
+    cells_z = (Z - 1) // p
+    units = tiles_x * tiles_y * cells_z
+    nwork = min(units, slots)
+    hits = np.zeros(shape, dtype=np.int64)
+    # the blocks in front: the node planes x = X - 1, y = Y - 1 where the
+    # tiles end one node short of them
+    xrem, yrem = tiles_x * TX == X - 1, tiles_y * TY == Y - 1
+    if xrem:
+        hits[:, :, X - 1] += 1
+    if yrem:
+        hits[:, Y - 1, :X - 1 if xrem else X] += 1
+    runs = []
+    for bid in range(nwork):
+        u, u_end = bid * units // nwork, (bid + 1) * units // nwork
+        while u < u_end:
+            tile, c0 = divmod(u, cells_z)
+            c1 = min(cells_z, c0 + (u_end - u))
+            u += c1 - c0
+            x0, y0 = tile % tiles_x * TX, tile // tiles_x * TY
+            o = c0 * p
+            jstart = 1 - g if c0 == 0 else o - p - g + 1
+            ngroups = (c1 * p - jstart + 1) // g
+            zfirst = 0 if c0 == 0 else o - p
+            ring, groups, sweeps = [None] * R, [], []
+            for gi in range(ngroups):
+                jg = jstart + gi * g
+                groups.append(list(range(jg, jg + g)))
+                for j in range(jg, jg + g):
+                    ring[(j + 2 * R) % R] = j
+                bz = jg + g - 1 - p
+                if gi % (p // g) or bz < zfirst:
+                    continue
+                slot0 = (bz + 2 * R) % R
+                read = [ring[slot0 + s if slot0 + s < R else slot0 + s - R]
+                        for s in range(R)]
+                sweeps.append((bz, bz >= o, read))
+                if bz >= o:
+                    hits[bz:bz + p, y0:y0 + TY, x0:x0 + TX] += 1
+            if c1 == cells_z:
+                hits[Z - 1, y0:y0 + TY, x0:x0 + TX] += 1
+            runs.append(dict(c0=c0, c1=c1, groups=groups, sweeps=sweeps))
+    return hits, runs
+
+
+@pytest.mark.parametrize("p", [8, 9])
+@pytest.mark.parametrize("cells", [(1, 1, 1), (3, 3, 3), (5, 7, 3), (2, 1, 4),
+                                   (4, 8, 4), (9, 5, 12)])
+def test_layer_march_covers_every_node_once(p, cells):
+    """The layer march's ownership (``csrc/brick_kron.cuh``: launch_layer,
+    brick_layer_kernel, layer_run), for its tile at p = 8, 9 (4 x 3 / 4 x 4
+    cells, 4 / 3 planes a group) and others, on one block slot up to more than
+    there are units: each node of the grid is written exactly once (tiles
+    partial at the x / y ends or ending one node short, a one-cell axis,
+    runs that end in one tile and go on in the next); a run's groups are
+    its planes from the halo below it up to its top vertex plane, each
+    once, in order; its z sweeps are at every layer from the one below
+    it (only to start the carry) or from layer 0, and each reads the
+    layer's planes base .. base + p from the ring, ascending."""
+    shape = tuple(c * p + 1 for c in cells)
+    tile = (4, 4, 3) if p == 9 else (4, 3, 4)   # LayerShape<p>
+    for txc, tyc, g in (tile, (4, 2, p), (1, 3, 1)):
+        for slots in (1, 7, 132, 10**6):
+            hits, runs = layer_launch(shape, p, txc, tyc, g, slots)
+            assert (hits == 1).all(), (txc, tyc, g, slots)
+            for r in runs:
+                c0, c1 = r["c0"], r["c1"]
+                planes = [j for grp in r["groups"] for j in grp]
+                low = (1 - g) if c0 == 0 else c0 * p - p - g + 1
+                assert planes == list(range(low, c1 * p + 1))
+                bases = [bz for bz, _, _ in r["sweeps"]]
+                assert bases == list(range(0 if c0 == 0 else c0 * p - p,
+                                           c1 * p - p + 1, p))
+                for bz, emit, read in r["sweeps"]:
+                    assert emit == (bz >= c0 * p)
+                    assert read == list(range(bz, bz + p + 1))
+
+
 def test_brick_form_follows_degree_type_and_grid():
     """The march below p = 8; at p = 8, 9 the cell form on every double
-    grid and on the float grids up to F32_CELL_FORM_MAX_CELLS cells (the
-    coarse levels, where a V-cycle takes most of its steps), the march on
-    the float grids above; both forms are reached on the p = 8, 9
-    hierarchies."""
+    grid and on the float grids up to F32_CELL_FORM_MAX_CELLS[p] cells
+    (the coarse levels, where a V-cycle takes most of its steps), the
+    layer march on the float grids above; both float forms are reached
+    on the p = 8, 9 hierarchies (the cube rows and poisson_dg's FE_Q(p)
+    ladder at size 24)."""
     f32, f64 = torch.float32, torch.float64
     seen = set()
     for p, sizes in ((8, (32, 24)), (9, (28, 24))):
@@ -200,13 +287,13 @@ def test_brick_form_follows_degree_type_and_grid():
                 shape = DofGrid(mesh, level, p).shape
                 cells = int(np.prod([(n - 1) // p for n in shape]))
                 assert lk.brick_form(shape, p, f64) == "cell"
-                want = ("cell" if cells <= lk.F32_CELL_FORM_MAX_CELLS
-                        else "march")
+                want = ("cell" if cells <= lk.F32_CELL_FORM_MAX_CELLS[p]
+                        else "layer")
                 assert lk.brick_form(shape, p, f32) == want
-                seen.add(want)
+                seen.add((p, want))
         assert lk.brick_form(DofGrid(poisson_cube_mesh(8), 0, p).shape, p,
                              f32) == "cell"
-    assert seen == {"cell", "march"}
+    assert seen == {(p, f) for p in (8, 9) for f in ("cell", "layer")}
     for p in range(1, lk.CELL_DEGREE):
         shape = DofGrid(poisson_cube_mesh(4), 0, p).shape
         assert lk.brick_form(shape, p, f32) == "march"

@@ -303,14 +303,14 @@ def kron_high_digests(dev) -> dict:
     return out
 
 
-@pytest.mark.parametrize("form", ["cell", "march"])
+@pytest.mark.parametrize("form", ["cell", "march", "layer"])
 def test_brick_kron_high_degree_is_the_march_bit_for_bit(dev, form,
                                                          monkeypatch):
     """At p = 8, 9 every mode in both types gives the outputs the z-slab
     march gave, bit for bit, on the hierarchies' coarse grids, grids with
     a one-cell axis and grids of several cells on every axis: float in
-    either form, double in its cell form; the march in double is refused
-    there."""
+    each form (the z-slab march, the cell form, the layer march), double
+    in its cell form; the march in double is refused there."""
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
     auto = lk.brick_form
@@ -322,6 +322,34 @@ def test_brick_kron_high_degree_is_the_march_bit_for_bit(dev, form,
     op = lk.BrickLaplace(g, torch.float64, dev)
     with pytest.raises(RuntimeError, match="cudaError"):
         lk.brick_kron(rand(g.shape, torch.float64, dev, 1), op)
+
+
+@pytest.mark.parametrize("p, cells", [(8, 16), (9, 28)])
+def test_brick_kron_layer_is_the_march_bit_for_bit_on_large_grids(dev, p,
+                                                                  cells):
+    """Above the cell form's grids (129^3 nodes at p = 8, where the tiles
+    leave the node plane x = X - 1 to the Dirichlet blocks; 253^3 at p = 9,
+    x = X - 1 and y = Y - 1) the layer march gives the z-slab march's
+    outputs bit for bit in all four modes, and it is the form
+    ``brick_form`` picks there."""
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    g = DofGrid(poisson_cube_mesh(cells), poisson_cube_mesh(cells).max_level,
+                p)
+    op = lk.BrickLaplace(g, torch.float32, dev)
+    x, b, xo = (rand(g.shape, torch.float32, dev, s) for s in (1, 2, 3))
+    assert lk.brick_form(g.shape, p, torch.float32) == "layer"
+    auto = lk.brick_form
+    try:
+        for mode in lk.KRON_MODES:
+            outs = {}
+            for form in ("march", "layer"):
+                lk.brick_form = lambda shape, q, dtype, form=form: form
+                outs[form] = lk.brick_kron(x, op, mode, b=b, x_old=xo,
+                                           f1=0.37, f2=0.81)
+            assert torch.equal(outs["march"], outs["layer"]), mode
+    finally:
+        lk.brick_form = auto
 
 
 @pytest.mark.parametrize("residual_only", [True, False])

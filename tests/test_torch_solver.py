@@ -190,6 +190,22 @@ def test_profile_classes_of_brick_cell_kernels(p, mode):
         assert kernel_class(name) == f"brick_kron<{t}>"
 
 
+@pytest.mark.parametrize("mode", range(4))
+@pytest.mark.parametrize("p", [8, 9])
+def test_profile_classes_of_brick_layer_kernels(p, mode):
+    """brick_kron's layer march (float, p = 8, 9) falls in the class of
+    its value type, as the other forms do, also inside a grid range."""
+    from multigrid_tpu_torch.experiments.profile_solve import (
+        OWN_CLASSES, kernel_class)
+
+    name = (f"void (anonymous namespace)::brick_layer_kernel<float, {p}, "
+            f"{mode}>(float const*, float const*, float const*, float*, "
+            f"(anonymous namespace)::Taps<float, {p}>, float, float, int, "
+            f"int, int, int, int, int)")
+    assert kernel_class(name) == "brick_kron<float>"
+    assert kernel_class(name).startswith(OWN_CLASSES)
+
+
 def test_profile_breakdown_by_level():
     """With --levels a brick kernel launched inside a node-grid range
     counts under its class and grid in ``brick_levels``; its class share
