@@ -145,7 +145,12 @@ the z-slab march bit for bit), also at the coarse grids of the p = 8, 9
 hierarchies (64^3 and 28^3 nodes at p = 9, 25^3 at p = 8), and the DG
 pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
-1..9), the DG kernels on x axes that do not fill a pencil or have one
+1..9; the step at p = 8, 9 and the double apply at p = 8 are the kernels
+of ``csrc/dg_pencil_high.cu``, whose tile,
+registers and spill are printed after the build, a spill failing the run,
+also on ``dg_kernel.HIGH_CELLS``: one-cell axes, ragged pencils, many
+pencils), the DG
+kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
 (``ops/dg_face.py``); the fused CG's ``dg_cg<double>`` and
 ``dg_jacobi_cg<double>`` at p = 1..9 (also on ``dg_kernel.MARCH_CELLS``,
@@ -162,7 +167,9 @@ each, and brick_kron's by kernel and node grid under "<kernel> ZxYxX";
 the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG kernels at
 those degrees, timed at the cube rows' node grids and the 24^3-cell DG
 grids and counted on the paths of that degree (the cube and DG rows, the
-p = 8 ``matvec_dg`` row), the ``... p=9 64^3`` rows and the like
+p = 8 ``matvec_dg`` row; the p = 8, 9 DG and DG-plain solves must run
+every step and the p = 8 double apply in ``dg_pencil_high.cu``'s kernels,
+"<kernel> high" in their launches, and the p = 4 DG paths none), the ``... p=9 64^3`` rows and the like
 brick_kron at a coarse grid, timed there and counted at that grid on the
 paths of its degree (the p = 9 cube row's and the p = 8, 9 poisson_dg
 rows' coarse steps must be there), the other rows count every other
@@ -357,6 +364,8 @@ KRON_BARS = {torch.float32: ("float", 2e-6, 3e-6),
 
 BRICK = "multigrid_tpu_torch/csrc/brick_kron.cuh"
 PENCIL = "multigrid_tpu_torch/csrc/dg_pencil.cuh"
+# the DG pencils at p = 8, 9: a design of their own
+PENCIL_HIGH = "multigrid_tpu_torch/csrc/dg_pencil_high.cu"
 EPILOGUE = "multigrid_tpu_torch/csrc/cheb_epilogue.cu"
 FUSED_CG = "multigrid_tpu_torch/csrc/dg_cg_f64.cu"
 KERNELS = {
@@ -392,12 +401,18 @@ KERNELS = {
 BRICK_NAMES = ("brick_kron<double>", "brick_kron_cheb<double>",
                "brick_kron<float>", "brick_kron_cheb<float>")
 for _p in HIGH_DEGREE_SIZES:
-    for _name in BRICK_NAMES + ("dg_apply<double>", "dg_apply<float>",
-                                "dg_cheb<float>"):
+    for _name in BRICK_NAMES:
+        KERNELS[f"{_name} p={_p}"] = KERNELS[_name]
+    for _name in ("dg_apply<double>", "dg_apply<float>", "dg_cheb<float>"):
         KERNELS[f"{_name} p={_p}"] = KERNELS[_name]
     for _c in HIGH_DEGREE_COARSE[_p]:
         for _name in BRICK_NAMES:
             KERNELS[f"{_name} p={_p} {_c * _p + 1}^3"] = KERNELS[_name]
+# the DG pencils that run dg_pencil_high.cu (dg_kernel.HIGH_DEGREES)
+for _name, _degrees in (("dg_apply<double>", (8,)),
+                        ("dg_cheb<float>", (8, 9))):
+    for _p in _degrees:
+        KERNELS[f"{_name} p={_p}"] = (PENCIL_HIGH, KERNELS[_name][1])
 
 
 def degree_path(p: int, path: str = "poisson_cube") -> str:
@@ -1043,7 +1058,8 @@ def main() -> int:
                     print(f"    {r['kernel']}: {r['registers']} registers, "
                           f"spill stores {r['spill_stores']} B, loads "
                           f"{r['spill_loads']} B")
-        if src in ("dg_pencil.cu", "dg_pencil_f64.cu", "dg_cg_f64.cu"):
+        if src in ("dg_pencil.cu", "dg_pencil_f64.cu", "dg_cg_f64.cu",
+                   "dg_pencil_high.cu"):
             for r in rows:
                 print(f"    {r['kernel']}: {r['registers']} registers, spill "
                       f"stores {r['spill_stores']} B, loads "
@@ -1051,16 +1067,22 @@ def main() -> int:
             require(not [k for k in spills
                          if any(f"Li{n}E" in k for n in (5, 9, 10))],
                     f"a DG pencil kernel spills at p = 4, 8 or 9: {spills}")
+            require(src != "dg_pencil_high.cu" or not spills,
+                    f"a kernel of dg_pencil_high.cu spills: {spills}")
     if report:
         names = [r["kernel"] for r in report]
         require(not [k for k in names if "9dg_kernelI" in k],
                 "the cell-per-block dg_kernel is still in the library")
-        require(sum("15dg_apply_kernelI" in k for k in names) == 36
-                and sum("14dg_cheb_kernelI" in k for k in names) == 9
+        require(sum("15dg_apply_kernelI" in k for k in names) == 34
+                and sum("14dg_cheb_kernelI" in k for k in names) == 7
+                and sum("20dg_high_apply_kernelI" in k for k in names) == 2
+                and sum("19dg_high_cheb_kernelI" in k for k in names) == 2
                 and sum("12dg_cg_kernelI" in k for k in names) == 9
                 and sum("19dg_jacobi_cg_kernelI" in k for k in names) == 9,
-                "the DG pencil kernels are not all in the library at p = "
-                "1..9")
+                "the DG pencil kernels are not all in the library: the "
+                "template (the step at p = 1..7, the float apply at p = "
+                "1..9, the double one at p = 1..7, 9), dg_pencil_high.cu's "
+                "step at p = 8, 9 and double apply at p = 8")
         require(sum("17brick_kron_kernelI" in k for k in names) == 64
                 and sum("17brick_cell_kernelI" in k for k in names) == 16
                 and sum("18brick_layer_kernelIf" in k for k in names) == 8,
@@ -1069,7 +1091,23 @@ def main() -> int:
                 "p = 8, 9; the cell form at p = 8, 9; the layer march in "
                 "float at p = 8, 9)")
 
+    high_tiles()
     return run(dev, card, t_start)
+
+
+def high_tiles() -> None:
+    """The tile of each DG pencil kernel at p = 8, 9 (``dg_pencil_high.cu``:
+    cells a pencil, shared bytes, threads, blocks an SM from the occupancy
+    calculator, registers and local bytes a thread); fails on a spill
+    (local bytes)."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+
+    for n in dk.HIGH_KERNELS_AT:
+        for name, tile in dk.high_tile(n).items():
+            print(f"  dg_pencil_high p={n - 1} {name}: " + ", ".join(
+                f"{k} {v}" for k, v in tile.items()))
+            require(tile["local_bytes"] == 0,
+                    f"{name} at p = {n - 1} spills: {tile}")
 
 
 def _counters():
@@ -1078,19 +1116,30 @@ def _counters():
     return (laplace_kernel, cg_kernel, dg_kernel)
 
 
+# dg_kernel.high_launches() at the last reset: the C code's own counts of
+# dg_pencil_high.cu's launches, which only grow
+_HIGH_BASE = {}
+
+
 def reset_launches() -> None:
+    from multigrid_tpu_torch.ops import dg_kernel
+
     for mod in _counters():
         mod.reset_launches()
+    _HIGH_BASE.update(dg_kernel.high_launches())
 
 
 def read_launches() -> dict:
-    """The kernels' launch counts, and brick_kron's by node grid under
-    "<kernel> ZxYxX"."""
-    from multigrid_tpu_torch.ops import laplace_kernel
+    """The kernels' launch counts, brick_kron's by node grid under
+    "<kernel> ZxYxX" and, under "<kernel> high", those of the DG pencils
+    that ``dg_pencil_high.cu`` counted where it launched its kernels."""
+    from multigrid_tpu_torch.ops import dg_kernel, laplace_kernel
 
     out = {}
     for mod in _counters():
         out.update(mod.LAUNCHES)
+    out.update({f"{k} high": n - _HIGH_BASE.get(k, 0)
+                for k, n in dg_kernel.high_launches().items()})
     for (name, shape), n in laplace_kernel.LAUNCHES_BY_GRID.items():
         out[f"{name} {'x'.join(map(str, shape))}"] = n
     return out
@@ -1207,6 +1256,14 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
             checks.apply_checks(ops, face=True, label=label)
             checks.cheb_checks(ops, face=True, label=label)
             checks.cg_fused_checks(ops, False)
+        high = dk.HIGH_CELLS if p in HIGH_DEGREE_SIZES else ()
+        for i, cells in enumerate(high):
+            # dg_pencil_high.cu's edges (p = 8, 9): one-cell axes, ragged
+            # pencils, many pencils
+            grid = dg_grid(cells, p, ("hermite", "gll", "gauss")[(p + i) % 3])
+            ops = checks.dg_ops(grid)
+            checks.apply_checks(ops, face=True, label=label)
+            checks.cheb_checks(ops, face=True, label=label)
         for i, cells in enumerate(dk.MARCH_CELLS):
             grid = dg_grid(cells, p, ("hermite", "gll", "gauss")[(p + i) % 3])
             op = dk.DGOperator(grid, torch.float64, dev)
@@ -1215,7 +1272,8 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
         torch.cuda.synchronize()
         print(f"dg_apply, dg_residual, dg_cheb, dg_cg and dg_jacobi_cg "
               f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9), "
-              f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
+              + (f"the high-degree cells {list(high)}, " if high else "")
+              + f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
     # no fallback above the kernels' degree: the card refuses such a level
     try:
         dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),
@@ -1250,6 +1308,7 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
 def run(dev: torch.device, card: str, t_start: float) -> int:
     """Phase 2 on ``dev``: the kernel checks; then the paths."""
     from multigrid_tpu_torch.mesh.brick import DofGrid, poisson_cube_mesh
+    from multigrid_tpu_torch.ops import dg_kernel as dk
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
     laps = [time.perf_counter()]
@@ -1341,6 +1400,21 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         for k in names:
             require(launches[path][k] > 0,
                     f"kernel {k} was not launched by the {path} solves")
+    # the step at p = 8, 9 and the double apply at p = 8 run
+    # dg_pencil_high.cu's kernels (dg_kernel.HIGH_DEGREES); elsewhere the
+    # template
+    for path, p in DG_HIGH_PATHS:
+        for k, degrees in dk.HIGH_DEGREES.items():
+            n = launches[degree_path(p, path)][f"{k} high"]
+            want = launches[degree_path(p, path)][k] if p in degrees else 0
+            require(n == want and (n > 0 or p not in degrees),
+                    f"the {degree_path(p, path)} solves launched {k} "
+                    f"{launches[degree_path(p, path)][k]} times, {n} in "
+                    "dg_pencil_high.cu")
+    for path in ("poisson_dg", "poisson_dg_plain", "solver_dg"):
+        high = {k: v for k, v in launches[path].items()
+                if k.endswith(" high") and v}
+        require(not high, f"the {path} solves ran dg_pencil_high.cu: {high}")
     # the coarse grids' Chebyshev steps: the cube row's at p = 9, the
     # poisson_dg rows' FE_Q(p) coarse level at p = 8, 9
     for path, cells, p in ((degree_path(9), 7, 9),

@@ -35,6 +35,7 @@ SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil_f64.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_high.cu",
            PACKAGE_DIR / "csrc" / "dg_cg_f64.cu"]
 HEADERS = [PACKAGE_DIR / "csrc" / "brick_kron.cuh",
            PACKAGE_DIR / "csrc" / "dg_pencil.cuh",
@@ -92,6 +93,14 @@ SIGNATURES = {
     # n, out[5]: dg_cg's march tile (K, p buffers, shared bytes, threads,
     # blocks an SM); launches nothing
     "dg_cg_f64_tile": [_I, _N],
+    # dg_pencil_high.cu's kernels (dg_apply_f64 at n = 9 and dg_cheb_f32 at
+    # n = 9, 10 launch them): kernel (0 cheb in float; 1 apply, 2 residual
+    # in double), n, out[6]: their tile (cells a pencil, shared bytes,
+    # threads, blocks an SM, registers, local bytes); launches nothing
+    "dg_high_tile": [_I, _I, _N],
+    # out[3]: their launches since the library was loaded, in the order
+    # above; launches nothing
+    "dg_high_launches": [_N],
 }
 # partial-sum slots the reductions of cg_vec.cu use (its kMaxBlocks)
 REDUCTION_BLOCKS = 1024

@@ -71,9 +71,11 @@ int dg_cheb_f32(const float* b, const float* x, const float* x_old,
     CHEB_CASE(6)
     CHEB_CASE(7)
     CHEB_CASE(8)
-    CHEB_CASE(9)
-    CHEB_CASE(10)
 #undef CHEB_CASE
+    case 9:
+    case 10:  // dg_pencil_high.cu
+      return dg_high_cheb_f32(b, x, x_old, inv_diag, tab, out, f1, f2, C0,
+                              C1, C2, n, colloc, stream, launched);
     default:
       return (int)cudaErrorInvalidValue;
   }

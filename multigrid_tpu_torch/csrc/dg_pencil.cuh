@@ -89,9 +89,13 @@
 //
 // Degrees 1 to 9 (n = 2..10), one instantiation each; the three kinds via
 // the tables (S = I for the Gauss kind, whose flag skips the S products).
-// At n = 9, 10 the shared memory caps the pencil (K (7 n^3 + 34 n^2) values
-// within the 232,448 bytes a block may have: K <= 7 / 5 in float, 3 / 2 in
-// double), and the double table (573 / 694 values) passes 4 KB.
+// The float step at p = 8, 9 (n = 9, 10) and the double apply and residual
+// at p = 8 run dg_pencil_high.cu, these pencils (pencil() below: 3 and 2
+// cells, the lengths a sweep of this body chose) with in-place phases in
+// less shared memory; the float apply and residual at p = 8, 9 and the
+// double ones at p = 9 run this body (PERF.md §6, PR 21: no variant of the
+// other was faster there without spilling).  At n = 9, 10 the double table
+// (573 / 694 values) passes 4 KB.
 // An entry reads the table (ops/dg_kernel.py:dg_tables, in T) from host
 // memory, writes the number of kernels it launched (1) to *launched and
 // returns cudaGetLastError().
@@ -101,6 +105,18 @@
 #include <stdint.h>
 
 #include "dg_tab.cuh"
+
+// the double apply and residual at n = 9 and the float step at n = 9, 10
+// (dg_pencil_high.cu)
+extern "C" {
+int dg_high_apply_f64(int mode, const double* x, const double* b,
+                      const double* tab, double* out, int C0, int C1, int C2,
+                      int n, int colloc, void* stream, int* launched);
+int dg_high_cheb_f32(const float* b, const float* x, const float* x_old,
+                     const float* inv_diag, const float* tab, float* out,
+                     double f1, double f2, int C0, int C1, int C2, int n,
+                     int colloc, void* stream, int* launched);
+}
 
 namespace {
 
@@ -114,12 +130,13 @@ struct TabArg {
 // cells per block (pencil length along x), by degree and mode, the same
 // in both value types: measured at p = 4 (n = 5), the path's degree, over
 // 2-12 cells (PERF.md §6): 8 for the step, 5 for apply and residual (one
-// block of 4 warps); at n = 9, 10 over every pencil that fits a block's
-// shared memory (float 1-7 / 1-5, double 1-3 / 1-2 cells) at p = 8, 9 on
-// 24^3 cells: 3 and 2 won in every mode and type, and none of the six
-// kernels spills (PERF.md §6).  DG_PENCIL (apply and residual) and
-// DG_CHEB_PENCIL (cheb) set it for every degree of a translation unit when
-// tuning (experiments/time_dg_cheb.py --pencil)
+// block of 4 warps); at n = 9, 10 (also dg_pencil_high.cu's) the
+// lengths this body won with there (over every pencil that fit
+// a block, at p = 8, 9 on 24^3 cells, PR 12 in PERF.md): 3 and 2 in every
+// mode and type, kept so that each x face takes the same path.
+// DG_PENCIL (apply and residual) and DG_CHEB_PENCIL (cheb) set it for
+// every degree of a translation unit when tuning
+// (experiments/time_dg_cheb.py --pencil)
 template <int N, int MODE>
 __host__ __device__ constexpr int pencil() {
 #ifdef DG_CHEB_PENCIL
@@ -714,7 +731,17 @@ int launch_apply(const T* x, const T* b, const T* tab, T* out, int C0,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int NN>
+int apply_mode(int mode, const T* x, const T* b, const T* tab, T* out,
+               int C0, int C1, int C2, int colloc, cudaStream_t st) {
+  return mode == RESIDUAL
+             ? launch_apply<T, NN, true>(x, b, tab, out, C0, C1, C2, colloc, st)
+             : launch_apply<T, NN, false>(x, b, tab, out, C0, C1, C2, colloc,
+                                          st);
+}
+
 // y = A x (mode 0) or out = b - A x (mode 1) at n = 2..10 points an axis
+// (n = 9 in double: dg_pencil_high.cu)
 template <typename T>
 int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
                    int C0, int C1, int C2, int n, int colloc, void* stream,
@@ -727,11 +754,7 @@ int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
   switch (n) {
 #define APPLY_CASE(NN)                                                     \
   case NN:                                                                 \
-    err = mode == RESIDUAL                                                 \
-              ? launch_apply<T, NN, true>(x, b, tab, out, C0, C1, C2,      \
-                                          colloc, st)                      \
-              : launch_apply<T, NN, false>(x, b, tab, out, C0, C1, C2,     \
-                                           colloc, st);                    \
+    err = apply_mode<T, NN>(mode, x, b, tab, out, C0, C1, C2, colloc, st); \
     break;
     APPLY_CASE(2)
     APPLY_CASE(3)
@@ -740,7 +763,13 @@ int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
     APPLY_CASE(6)
     APPLY_CASE(7)
     APPLY_CASE(8)
-    APPLY_CASE(9)
+    case 9:
+      if constexpr (sizeof(T) == 8)  // dg_pencil_high.cu
+        return dg_high_apply_f64(mode, x, b, tab, out, C0, C1, C2, n, colloc,
+                                 stream, launched);
+      else
+        err = apply_mode<T, 9>(mode, x, b, tab, out, C0, C1, C2, colloc, st);
+      break;
     APPLY_CASE(10)
 #undef APPLY_CASE
     default:

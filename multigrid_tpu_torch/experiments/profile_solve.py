@@ -97,9 +97,9 @@ CLASSES = (
     ("cheb_epilogue<double>", ("cheb_epilogue_kernel<double>",)),
     ("cg kernels", ("cg_update_kernel", "namespace)::dot_kernel",
                     "xpay_kernel", "finish_sum_kernel")),
-    ("dg_apply<double>", ("dg_apply_kernel<double,",)),
+    ("dg_apply<double>", ("dg_apply_kernel<double,", "dg_high_apply_kernel<")),
     ("dg_apply<float>", ("dg_apply_kernel<float,",)),
-    ("dg_cheb<float>", ("dg_cheb_kernel<",)),
+    ("dg_cheb<float>", ("dg_cheb_kernel<", "dg_high_cheb_kernel<")),
     ("matmul", ("gemm", "cutlass")),
     ("fill/copy", ("fill", "copy")),
 )

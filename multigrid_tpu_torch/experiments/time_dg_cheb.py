@@ -20,9 +20,11 @@ equal bit for bit (``12 --degree 1 2 3 4 5 6 7 8 9 --kind hermite gll
 gauss``), and the registers and spills of the DG kernels at the degree
 when this process built the library.
 
-``--pencil f32:K`` builds ``csrc/dg_pencil.cu`` alone with K cells per
-block for apply and residual (``-DDG_PENCIL=K``) and times them beside
-the library's; ``f64:K`` does the same for
+``--pencil f32:K`` builds ``csrc/dg_pencil.cu`` (with
+``dg_pencil_high.cu``, the kernels its step at p = 8, 9 and
+``dg_pencil_f64.cu``'s apply and residual at p = 8 call) with K cells per
+block for apply and
+residual (``-DDG_PENCIL=K``) and times them beside the library's; ``f64:K`` does the same for
 ``csrc/dg_pencil_f64.cu``; ``cheb:K`` builds ``dg_pencil.cu`` with K cells
 per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step;
 ``cg:K`` (with ``--cg``) builds ``csrc/dg_cg_f64.cu`` with K cells a
@@ -32,8 +34,11 @@ against the library's output (1e-5·max|out|, 1e-12 in double: K moves x
 faces between the in-pencil and the neighbour path, which round apart),
 and its registers and spills at the degree are printed.  A pencil variant
 whose pencil needs more shared memory than a block may have at a degree
-(K (7 n^3 + 34 n^2) values, 232,448 bytes) is not launched there and is
-listed under ``no_fit``.
+(K (7 n^3 + 34 n^2) values; in dg_pencil_high.cu's kernels, K (4 n^3 + 22
+n^2); 232,448 bytes) is not launched there and is listed under ``no_fit``.  At p = 8, 9
+each degree also prints the tile of ``dg_pencil_high.cu``'s kernels
+(``dg_kernel.high_tile``: cells, shared bytes, threads, blocks an SM,
+registers, local bytes) of the library and of each variant.
 
 Run it with another tree's package on ``PYTHONPATH`` to time that tree in
 the same call (``--pencil`` needs this tree's sources).  Prints the card
@@ -72,12 +77,17 @@ SMEM_LIMIT = 232_448     # bytes of shared memory a block may have (H100)
 
 def fits(spec: str, n: int) -> bool:
     """Whether a pencil spec's K cells of ``n`` points an axis fit a block's
-    shared memory (csrc/dg_pencil.cuh:smem_bytes); the march of ``cg``
-    cuts K to what fits itself."""
-    what, k = spec.split(":")
-    size = 8 if what in ("f64", "cg") else 4
-    return what == "cg" or int(k) * (7 * n ** 3 + 34 * n ** 2) * size \
-        <= SMEM_LIMIT
+    shared memory (csrc/dg_pencil.cuh:smem_bytes; at n >= 9
+    csrc/dg_pencil_high.cu:HighLayout); the march of ``cg`` cuts K to what
+    fits itself."""
+    what, k = spec.split(":")[:2]
+    if what == "cg":
+        return True
+    size, k = (8 if what == "f64" else 4), int(k)
+    # dg_pencil_high.cu: the step at n = 9, 10, the f64 apply at n = 9
+    high = (what == "cheb" and n >= 9) or (what == "f64" and n == 9)
+    per_cell = 4 * n ** 3 + 22 * n ** 2 if high else 7 * n ** 3 + 34 * n ** 2
+    return k * per_cell * size <= SMEM_LIMIT
 
 
 def degree_rows(log: str, n: int) -> list[dict]:
@@ -97,25 +107,28 @@ ENTRIES = {"f32": "dg_apply_f32", "f64": "dg_apply_f64",
 
 
 def variants(specs: list[str]) -> dict:
-    """For each pencil spec (``TYPE:K``): the C entry it
-    times, of ``csrc/dg_pencil.cu`` (``f32``, ``cheb``),
-    ``dg_pencil_f64.cu`` (``f64``) or ``dg_cg_f64.cu`` (``cg``) built alone
-    with it (one nvcc a spec, all started together), and the compiler's
-    output."""
+    """For each pencil spec (``TYPE:K``): the C entry it times, of
+    ``csrc/dg_pencil.cu`` (``f32``, ``cheb``), ``dg_pencil_f64.cu``
+    (``f64``), each with ``dg_pencil_high.cu``, or ``dg_cg_f64.cu``
+    (``cg``), built with it (one nvcc a spec, all started together), the
+    compiler's output and the library itself (for its tile)."""
     from multigrid_tpu_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    csrc = _build.PACKAGE_DIR / "csrc"
     procs = {}
     for spec in specs:
         what, k = spec.split(":")
-        src = SOURCES[what]
+        srcs = [SOURCES[what]]
+        if what != "cg":
+            srcs.append("dg_pencil_high.cu")
         macro = dict(cheb="DG_CHEB_PENCIL", cg="DG_CG_PENCIL").get(
             what, "DG_PENCIL")
         defs = [f"-D{macro}={int(k)}"]
         out = _build.BUILD_DIR / (f"dg_pencil_{spec.replace(':', '_')}_"
                                   f"{_build._digest()}.so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defs, "-o",
-               str(out), str(_build.PACKAGE_DIR / "csrc" / src)]
+               str(out), *(str(csrc / src) for src in srcs)]
         procs[spec] = (out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
@@ -123,15 +136,16 @@ def variants(specs: list[str]) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
+        lib = ctypes.CDLL(str(out))
         name = ENTRIES[spec.split(":")[0]]
-        fn = getattr(ctypes.CDLL(str(out)), name)
+        fn = getattr(lib, name)
         fn.argtypes = _build.SIGNATURES[name]
         fn.restype = ctypes.c_int
-        built[spec] = (fn, log)
+        built[spec] = (fn, log, lib)
     return built
 
 
-def march_tile(n: int) -> dict:
+def cg_tile(n: int) -> dict:
     """``dg_cg``'s march tile at ``n`` points an axis, as the library was
     built (``dg_cg_f64_tile``)."""
     from multigrid_tpu_torch import _build
@@ -207,7 +221,7 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
     args = (*grid.cells, grid.n, int(op.plain.is_collocation),
             _build.stream_handle(dev))
     no_fit = [spec for spec in specs if not fits(spec, grid.n)]
-    for spec, (entry, _) in specs.items():
+    for spec, (entry, _, _) in specs.items():
         what = spec.split(":")[0]
         if spec in no_fit or (what == "cg" and not cg):
             continue
@@ -244,11 +258,13 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
                      else [(outs[key], want[key])])
             for got, ref in pairs:
                 diff = float((got - ref).abs().max())
-                bar = (1e-12 if what in ("f64", "cg") else 1e-5) * float(
+                bar = (1e-12 if got.dtype == torch.float64 else 1e-5) * float(
                     ref.abs().max())
                 if diff > bar:
                     raise AssertionError(f"{spec} {key}: differs by "
                                          f"{diff:.3e}")
+            if key != "dg_cg":
+                digests[f"{key}@{spec}"] = digest(outs[key])
             fns[f"{key}@{spec}"] = fn
     rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
     return dict(dofs=grid.n_dofs, kind=kind, sha256=digests, rounds=rounds,
@@ -258,6 +274,7 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
 
 def main(argv: list[str]) -> int:
     from multigrid_tpu_torch import _build
+    from multigrid_tpu_torch.ops import dg_kernel as dk
 
     ap = argparse.ArgumentParser()
     ap.add_argument("sizes", type=int, nargs="*", default=[48])
@@ -267,7 +284,7 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--cg", action="store_true",
                     help="also time dg_cg<double> and dg_jacobi_cg<double>")
     ap.add_argument("--pencil", nargs="*", default=[],
-                    help="TYPE:K, TYPE f32, f64, cheb or cg")
+                    help="TYPE:K (TYPE f32, f64, cheb or cg)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_dg_cheb: needs a CUDA device")
@@ -283,10 +300,20 @@ def main(argv: list[str]) -> int:
         result = dict(card=card, degree=degree,
                       library_ptxas=degree_rows(_build.build_log, n),
                       variant_ptxas={s: degree_rows(log, n)
-                                     for s, (_, log) in specs.items()},
+                                     for s, (_, log, _) in specs.items()},
                       sizes={})
+        if n in dk.HIGH_KERNELS_AT:
+            # the tile of the kernels at p = 8, 9, of the library and of
+            # each variant
+            result["high_tiles"] = {"library": dk.high_tile(n), **{
+                s: dk.high_tile(n, lib) for s, (_, _, lib) in specs.items()
+                if s.split(":")[0] != "cg"}}
+            for s, tiles in result["high_tiles"].items():
+                for name, tile in tiles.items():
+                    print(f"p={degree} tile {s} {name}: " + ", ".join(
+                        f"{k} {v}" for k, v in tile.items()))
         if args.cg:
-            result["march"] = march_tile(n)
+            result["march"] = cg_tile(n)
             rows = [r for r in result["library_ptxas"]
                     if "dg_cg_kernel" in r["kernel"]]
             print(f"p={degree} dg_cg march: " + ", ".join(

@@ -29,8 +29,9 @@ traces of a boundary cell layer), :meth:`DGLaplace.boundary_coeff_planes`
 ``apply(u, ext=...)``, whose ghost traces replace the Dirichlet mirror at
 a slab edge.  Together they are the plain version of the distributed
 apply (``parallel/dg_halo.HaloDGLaplace.vmult_plain``); the solvers'
-slabs run the kernels on ghost cell layers instead.  Not ported, for want
-of a caller: the weak Dirichlet data of ``compute_rhs``.
+slabs run the kernels on ghost cell layers instead.  ``compute_rhs`` takes
+the weak Dirichlet data ``g_bc`` as the JAX twin does (the solvers, like
+the reference's, pass none).
 """
 
 from __future__ import annotations
@@ -341,12 +342,48 @@ class DGLaplace:
                                                            self.device)
 
     # ----------------------------------------------------------------- rhs
-    def compute_rhs(self, f_quad: torch.Tensor) -> torch.Tensor:
+    def compute_rhs(self, f_quad: torch.Tensor, g_bc=None) -> torch.Tensor:
         """b = (f, phi) from the values of f at the quadrature points
-        ``[C0, C1, C2, q, q, q]`` (no weak boundary data: the DG solver's
-        right-hand side is the mass integral alone)."""
+        ``[C0, C1, C2, q, q, q]``, plus the weak Dirichlet data ``g``:
+        sum over the boundary faces of (g, sigma phi - n.grad phi), in the
+        coefficient-weighted form (g, sigma c phi - c n.grad phi) on
+        :class:`DGLaplaceVarCoeff`.  ``g_bc``: dict (d, side) -> the values
+        of g at the face quadrature points (face-trace shape ``[C0, C1, C2,
+        q, q]``, or broadcastable to it); only the boundary cell layer of
+        each entry is read.  The DG solvers pass none: their right-hand side
+        is the mass integral alone."""
         b = f_quad.to(self.dtype) * (self.w3d * self.detJ)
-        return b if self.is_collocation else sweep(b, self.St, self.dim)
+        if g_bc is None:
+            return b if self.is_collocation else sweep(b, self.St, self.dim)
+        vacc = b
+        acc = [torch.zeros_like(b) for _ in range(self.dim)]
+        for (d, s), gval in g_bc.items():
+            fd = self.face[d]
+            sign = 1.0 if s == 1 else -1.0
+            wf = fd["jxw"] * self.wperp[d]
+            shape = [1] * (2 * self.dim - 1)
+            shape[d] = self.grid.cells[d]
+            mask = torch.zeros(self.grid.cells[d], dtype=self.dtype,
+                               device=self.device)
+            mask[-1 if s == 1 else 0] = 1.0
+            g = torch.as_tensor(gval, dtype=self.dtype,
+                                device=self.device) * mask.reshape(shape)
+            c_m = self._boundary_coeff(d, s)
+            if c_m is not None:
+                g = c_m * g
+            vacc = vacc + self._lift(2.0 * fd["sigma"] * g * wf, d, s)
+            for e in range(self.dim):
+                acc[e] = acc[e] + self._lift(
+                    -g * wf * (sign * fd["gvec"][e]), d, s)
+        y = vacc
+        for e in range(self.dim):
+            y = y + apply_1d(acc[e], self.Dt, self._node_axis(e))
+        return y if self.is_collocation else sweep(y, self.St, self.dim)
+
+    def _boundary_coeff(self, d: int, s: int):
+        """The coefficient's own trace on the faces (d, s) that weighs the
+        weak Dirichlet data, or None (c = 1)."""
+        return None
 
     # ------------------------------------------------------------ analysis
     def to_quad_values(self, u: torch.Tensor) -> torch.Tensor:
@@ -416,6 +453,9 @@ class DGLaplaceVarCoeff(DGLaplace):
     @property
     def w_vol(self) -> torch.Tensor:
         return self._c_w
+
+    def _boundary_coeff(self, d: int, s: int):
+        return self._c_face[d][s][0]
 
     def _flux(self, d, s, jump, gn_m, gn_p):
         c_m, c_p = self._c_face[d][s]

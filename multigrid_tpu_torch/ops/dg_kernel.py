@@ -19,6 +19,17 @@ in registers, each face inside the pencil evaluated once: the algebra of
   (float32); ``x = None`` reads as zero and skips A·x, ``out`` may be
   ``x_old`` itself.
 
+At the degrees of :data:`HIGH_DEGREES` (``dg_cheb`` at p = 8, 9,
+``dg_apply`` in float64 at p = 8) the same C entries run a design of their
+own, ``csrc/dg_pencil_high.cu``: the template's pencils with each phase
+turning its lines in place (4 n^3 + 22 n^2 shared values a cell instead of
+7 n^3 + 34 n^2), so that two blocks share an SM in double too, with the
+template's bits; :func:`high_launches` reads how many times the library
+launched those kernels, and :func:`high_tile` reports their tile on the
+card.  ``dg_apply`` in float32
+at p = 8, 9 and in float64 at p = 9 keep the template (no variant of the
+other was faster there without spilling).
+
 Two more kernels carry solver_dg's fused CG row, float64, its scalars on
 the device (``csrc/dg_cg_f64.cu``; no Pallas kernel: the JAX row is XLA's
 fusion of the whole loop under one jit):
@@ -49,6 +60,8 @@ natural block layout end to end.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -59,6 +72,8 @@ from .dg import DGGrid, DGLaplace, dg_geometry
 
 LAUNCHES = {"dg_apply<double>": 0, "dg_apply<float>": 0, "dg_cheb<float>": 0,
             "dg_cg<double>": 0, "dg_jacobi_cg<double>": 0}
+# the degrees at which LAUNCHES' pencil kernels run csrc/dg_pencil_high.cu
+HIGH_DEGREES = {"dg_apply<double>": (8,), "dg_cheb<float>": (8, 9)}
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
 MAX_DEGREE = 9     # n = 10 nodes per axis: the largest kernel instantiation,
                    # the reference programs' top degree
@@ -227,6 +242,52 @@ def smoother_iterates(jacobi, seed: int):
          for _ in range(3)]
     return (z[0].float(), jacobi.vmult(z[1]).float(),
             jacobi.vmult(z[2]).float())
+
+
+# --------------------------------------------------- the kernels at p = 8, 9
+# cell grids (C0, C1, C2) at the edges of csrc/dg_pencil_high.cu's kernels:
+# a one-cell column, a one-layer row ragged in x (7 cells: pencils of 3 and
+# 2 leave 1), and many pencils with a ragged last one (40 x 4 rows of 5
+# cells); the card tests and chip_smoke.py hold the pencil kernels on them
+HIGH_CELLS = ((6, 1, 1), (1, 1, 7), (40, 4, 5))
+# the kernels in the order of dg_high_tile's first argument, and those built
+# at n points an axis
+HIGH_KERNELS = ("dg_cheb<float>", "dg_apply<double>", "dg_residual<double>")
+HIGH_KERNELS_AT = {9: HIGH_KERNELS, 10: HIGH_KERNELS[:1]}
+HIGH_TILE = ("cells", "smem_bytes", "threads", "blocks_per_sm", "registers",
+             "local_bytes")
+
+
+def high_tile(n: int, lib=None) -> dict:
+    """The tile of csrc/dg_pencil_high.cu's kernels at ``n`` (9 or 10)
+    points an axis, by kernel (:data:`HIGH_KERNELS_AT`): cells a pencil,
+    dynamic shared bytes a block, threads a block, blocks an SM (the
+    occupancy calculator), registers and local (spilled) bytes a thread;
+    of the port's library, or of ``lib`` (a ``ctypes`` library built with
+    other pencils).  Needs the card."""
+    lib = _build.library() if lib is None else lib
+    fn = lib.dg_high_tile
+    fn.argtypes = _build.SIGNATURES["dg_high_tile"]
+    fn.restype = ctypes.c_int
+    out = {}
+    for name in HIGH_KERNELS_AT[n]:
+        i = HIGH_KERNELS.index(name)
+        vals = (ctypes.c_int * len(HIGH_TILE))()
+        err = fn(i, n, vals)
+        if err:
+            raise RuntimeError(f"dg_high_tile({name}, {n}): cudaError {err}")
+        out[name] = dict(zip(HIGH_TILE, vals))
+    return out
+
+
+def high_launches() -> dict:
+    """How many times the library has launched csrc/dg_pencil_high.cu's
+    kernels since it was loaded, counted by the C code where it launches
+    them, under the names of :data:`LAUNCHES` (the double apply and
+    residual together).  Needs the card."""
+    vals = (ctypes.c_int * len(HIGH_KERNELS))()
+    _build.library().dg_high_launches(vals)
+    return {"dg_cheb<float>": vals[0], "dg_apply<double>": vals[1] + vals[2]}
 
 
 # ------------------------------------------------------ dg_cg, dg_jacobi_cg

@@ -11,7 +11,11 @@ kernels 1e-14; the DG kernels against the plain f64 operator (and the
 face-based one) at 1e-13 (dg_apply<double>, apply and residual), 3e-6
 (dg_apply<float>) of max|A x| and 1e-5 of max|out| (dg_cheb<float>, on
 the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..9 and on
-ragged pencils.  Every compiled degree of brick_kron (p = 1..9) and of
+ragged pencils; at p = 8, 9, where the step (and at p = 8 the double
+apply) are the kernels of ``csrc/dg_pencil_high.cu``, also on one-cell
+axes, ragged pencils and many pencils, every launch of those theirs, none
+spilling.
+Every compiled degree of brick_kron (p = 1..9) and of
 the DG kernels (p = 1..9) is held.  The launch counters count device
 kernels: 1 per brick_kron call, 2 per reduction, 1 per xpay, 1 per DG
 kernel call.  The
@@ -50,7 +54,7 @@ import pytest
 import torch
 
 from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid, poisson_cube_mesh
-from multigrid_tpu_torch.ops.dg_kernel import MARCH_CELLS
+from multigrid_tpu_torch.ops.dg_kernel import HIGH_CELLS, MARCH_CELLS
 
 pytestmark = pytest.mark.cuda
 
@@ -553,6 +557,66 @@ def test_dg_cheb_every_degree(dev, kind, p, cells):
     assert dk.dg_cheb(b, x, alias, op32, 0.37, 0.81, out=alias) is alias
     assert torch.equal(alias, first)
     assert dk.LAUNCHES["dg_cheb<float>"] == 6
+
+
+@pytest.mark.parametrize("cells", HIGH_CELLS)
+@pytest.mark.parametrize("p", [8, 9])
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_high_degree_edges_every_mode(dev, kind, p, cells):
+    """The DG pencil kernels at p = 8, 9 (``csrc/dg_pencil_high.cu``'s at
+    the degrees of ``dg_kernel.HIGH_DEGREES``, else the template) on
+    the cells of ``dg_kernel.HIGH_CELLS`` (a one-cell column, a one-layer
+    ragged row, many pencils with a ragged last one), at the bars of the
+    every-degree tests: dg_apply and dg_residual in double at 1e-13 and in
+    float at 3e-6 of max|A x| against the plain f64 operator, dg_cheb<float>
+    on the smoother's iterates at 1e-5 of max|out| (1e-6 of max|x| with f2
+    = 0) and in place into x_old.  Every launch at those degrees is
+    ``dg_pencil_high.cu``'s, by the counts its C code keeps where it
+    launches them, none of its kernels spills; a repeated call is equal
+    bit for bit."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = dg_grid(cells, p, kind)
+    ops = {}
+    for dtype in (torch.float64, torch.float32):
+        ops[dtype] = dk.DGOperator(g, dtype, dev)
+        ops[dtype].install_jacobi(JacobiTransformed(g, dtype, dev))
+    for name, tile in dk.high_tile(g.n).items():
+        assert tile["local_bytes"] == 0, (name, tile)
+    x, b = (rand(g.shape, torch.float32, dev, s).double() for s in (11, 12))
+    want = ops[torch.float64].plain.apply(x)
+    dk.reset_launches()
+    high_before = dk.high_launches()
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 3e-6)):
+        op = ops[dtype]
+        xt, bt = x.to(dtype), b.to(dtype)
+        y, r = dk.dg_apply(xt, op), dk.dg_residual(bt, xt, op)
+        torch.cuda.synchronize()
+        bar = tol * float(want.abs().max())
+        assert float((y.double() - want).abs().max()) <= bar
+        assert float((r.double() - (b - want)).abs().max()) <= bar
+        assert torch.equal(y, dk.dg_apply(xt, op))
+    op32, op64 = ops[torch.float32], ops[torch.float64]
+    bs, xs, xo = dk.smoother_iterates(op64.jacobi, 7)
+    d = lambda t: None if t is None else t.double()
+    for xa, xoa, f1, f2 in ((xs, xo, 0.37, 0.81), (None, None, 0.0, 0.81),
+                            (xs, None, 0.2, 0.5), (xs, xo, 0.37, 0.0)):
+        got = d(dk.dg_cheb(bs, xa, xoa, op32, f1, f2))
+        ref = dk.dg_cheb_plain(d(bs), d(xa), d(xoa), op64, f1, f2)
+        bar = (1e-5 * float(ref.abs().max()) if f2
+               else 1e-6 * float(xs.abs().max()))
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= bar, (xa is None, f2)
+    first = dk.dg_cheb(bs, xs, xo, op32, 0.37, 0.81)
+    alias = xo.clone()
+    assert dk.dg_cheb(bs, xs, alias, op32, 0.37, 0.81, out=alias) is alias
+    assert torch.equal(alias, first)
+    calls = {"dg_apply<double>": 3, "dg_cheb<float>": 6}
+    assert {k: dk.LAUNCHES[k] for k in calls} == calls
+    high = {k: n - high_before[k] for k, n in dk.high_launches().items()}
+    assert high == {k: n if p in dk.HIGH_DEGREES[k] else 0
+                    for k, n in calls.items()}
 
 
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)]

@@ -38,6 +38,14 @@ KINDS = ("gauss", "hermite")
 Z_CELLS, ZY_CELLS = (16, 4, 4), (8, 4, 4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grids(kind, cells=(8, 4, 4), degree=3):
     return (JDGGrid(cells=cells, jacobian=SHEAR, degree=degree, kind=kind),
             DGGrid(cells=cells, jacobian=SHEAR, degree=degree, kind=kind))

@@ -35,6 +35,14 @@ from multigrid_tpu_torch.parallel.sharding import check_backend, launch
 STATE_WORLD = 4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geo(cls):
     return cls(coarse_cells=(2, 2, 2), origin=(-0.9,) * 3, lengths=(1.9,) * 3,
                n_levels=3)

@@ -49,6 +49,14 @@ SIZE_2D = 8
 REDUCTION_2D = 0.068588      # the JAX package's, 1, 2 and 4 devices
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geo(cls):
     return cls(coarse_cells=(2, 2, 2), origin=(-0.9,) * 3, lengths=(1.9,) * 3,
                n_levels=3)

@@ -60,6 +60,14 @@ RUNS = [(2, "dg-plain", False, None), (4, "dg-plain", True, None),
         (4, "dg", True, GRID)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _key(run):
     """A run's key in ``rank_runs``: (world, path), and the grid."""
     return run[:2] if run[3] is None else run[:2] + (run[3],)

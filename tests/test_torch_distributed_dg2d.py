@@ -43,6 +43,14 @@ KIND = {"dg-plain": "gauss", "dg": "hermite"}
 RUNS = [(2, "dg-plain", None), (4, "dg-plain", (2, 2)), (4, "dg", (2, 2))]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mesh():
     return cube(2, 0.0, 1.0, 3, dim=2)
 

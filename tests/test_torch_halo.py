@@ -37,6 +37,14 @@ WORLDS = (2, 4)
 N_CG = 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geo(cls):
     return cls(coarse_cells=(8, 3, 3), origin=(-0.9,) * 3,
                lengths=(1.9,) * 3, n_levels=2)

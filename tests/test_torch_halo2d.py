@@ -47,6 +47,14 @@ SHAPE = (4, 2)
 N_CG = 5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geo(cls):
     return cls(coarse_cells=(4, 4, 3), origin=(-0.9,) * 3,
                lengths=(1.9,) * 3, n_levels=2)

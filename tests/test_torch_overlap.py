@@ -52,6 +52,14 @@ CASES = {"2ranks": ((12, 3, 3), None), "3ranks": ((15, 3, 3), None),
          "2x2": ((10, 10, 3), (2, 2))}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _geo(cls, cells, n_levels=1):
     return cls(coarse_cells=cells, origin=(-0.9,) * 3, lengths=(1.9,) * 3,
                n_levels=n_levels)

@@ -268,6 +268,28 @@ def test_profile_classes_of_dg_kernels(p, resid):
     assert kernel_class(cheb) == "dg_cheb<float>"
 
 
+@pytest.mark.parametrize("p", [8, 9])
+def test_profile_classes_of_dg_high_kernels(p):
+    """The DG pencil kernels of csrc/dg_pencil_high.cu (p = 8, 9) fall in
+    the class of the function they compute: dg_high_apply_kernel (double)
+    in dg_apply<double>, dg_high_cheb_kernel in dg_cheb<float>."""
+    from multigrid_tpu_torch.experiments.profile_solve import (
+        OWN_CLASSES, kernel_class)
+
+    n = p + 1
+    for resid in ("false", "true"):
+        name = (f"void (anonymous namespace)::dg_high_apply_kernel<{n}, "
+                f"{resid}>((anonymous namespace)::TabArg<double, {n}>, "
+                "double const*, double*, double const*, int, int, int, int)")
+        assert kernel_class(name) == "dg_apply<double>"
+    cheb = (f"void (anonymous namespace)::dg_high_cheb_kernel<{n}>((anonymous "
+            f"namespace)::TabArg<float, {n}>, float const*, float*, float "
+            "const*, float const*, float const*, float, float, int, int, "
+            "int, int)")
+    assert kernel_class(cheb) == "dg_cheb<float>"
+    assert kernel_class(cheb).startswith(OWN_CLASSES)
+
+
 def test_import_loads_no_jax():
     code = ("import sys, multigrid_tpu_torch.solvers.multigrid, "
             "multigrid_tpu_torch.experiments.poisson_cube, "

@@ -36,6 +36,14 @@ CASES = [(2, 4, "gauss"), (2, 4, "hermite"), (3, 3, "gauss"),
 N_IT = 10
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _b(grid):
     return np.random.default_rng(7).standard_normal(grid.shape)
 

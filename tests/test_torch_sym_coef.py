@@ -29,6 +29,14 @@ from multigrid_tpu_torch.ops.laplace import (LaplaceOperator, SymCoef,
 CASES = [((2, 2), 3), ((2, 2, 2), 2)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grids(cells, degree):
     geo = dict(coarse_cells=cells, origin=(-0.3,) * len(cells),
                lengths=(1.1, 0.8, 1.3)[:len(cells)])

@@ -34,6 +34,14 @@ from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid, poisson_cube_mesh
 from multigrid_tpu_torch.utils import checkpoint, memory, profiling, vtk
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grids(cells, degree):
     args = (cells, (-1.0,) * len(cells), (2.0, 1.5, 1.2)[:len(cells)], 1)
     return (JDofGrid(JBrickMesh(*args), 0, degree),
