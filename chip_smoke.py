@@ -155,7 +155,10 @@ cell, against the plain operator and the face-based one
 (``ops/dg_face.py``); the fused CG's ``dg_cg<double>`` and
 ``dg_jacobi_cg<double>`` at p = 1..9 (also on ``dg_kernel.MARCH_CELLS``,
 the ends of dg_cg's z march) and timed at 13,824,000 DG dofs against their plain
-versions (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``).
+versions (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``).  Then
+the DG kernels' bits: ``dg_kernel.kernel_digests`` (every mode of every
+DG kernel at p = 1..9 in every kind, on seeded inputs) must equal
+:data:`DG_DIGESTS` (those of tests/test_torch_cuda.py) key for key.
 
 Every phase raises on a miss; there is no CPU path.
 
@@ -413,6 +416,228 @@ for _name, _degrees in (("dg_apply<double>", (8,)),
                         ("dg_cheb<float>", (8, 9))):
     for _p in _degrees:
         KERNELS[f"{_name} p={_p}"] = (PENCIL_HIGH, KERNELS[_name][1])
+
+
+# dg_kernel.kernel_digests on the card: the DG kernels' outputs on seeded
+# inputs, as tests/test_torch_cuda.py pins them (DG_DIGESTS there)
+DG_DIGESTS = {
+    "p=1 hermite apply<double>": "cbe389b4cdc0a7ed",
+    "p=1 hermite residual<double>": "da4b691d1a04e395",
+    "p=1 hermite apply<float>": "fc0e5c679027ce7d",
+    "p=1 hermite residual<float>": "6645ddf6dea3af39",
+    "p=1 hermite cheb<float>": "ad0f187e19c42082",
+    "p=1 hermite cheb<float> x=0": "96f695e52fdf41bc",
+    "p=1 hermite dg_cg<double>": "7da9ebf46ce0cf63",
+    "p=1 hermite dg_jacobi_cg<double>": "b758e6f723fbf287",
+    "p=1 gll apply<double>": "c95fdb7d6858c591",
+    "p=1 gll residual<double>": "3c4bc3f943c1dbc2",
+    "p=1 gll apply<float>": "fc0e5c679027ce7d",
+    "p=1 gll residual<float>": "6645ddf6dea3af39",
+    "p=1 gll cheb<float>": "ad0f187e19c42082",
+    "p=1 gll cheb<float> x=0": "96f695e52fdf41bc",
+    "p=1 gll dg_cg<double>": "68cc75f274d47298",
+    "p=1 gll dg_jacobi_cg<double>": "a12e94fafdfd9395",
+    "p=1 gauss apply<double>": "e03b6e4844dca226",
+    "p=1 gauss residual<double>": "62e2ae5a7607e0b3",
+    "p=1 gauss apply<float>": "ca32dae2d76f75b3",
+    "p=1 gauss residual<float>": "5492675a84b2ea84",
+    "p=1 gauss cheb<float>": "7729b54e79e874d7",
+    "p=1 gauss cheb<float> x=0": "c1397c116fd1966c",
+    "p=1 gauss dg_cg<double>": "3dd5076b5f0300e0",
+    "p=1 gauss dg_jacobi_cg<double>": "10078d98844cfa97",
+    "p=2 hermite apply<double>": "d09ff99c96a14569",
+    "p=2 hermite residual<double>": "63825632f01c7ce7",
+    "p=2 hermite apply<float>": "891b98c7861cc3ea",
+    "p=2 hermite residual<float>": "7bb339bfccc31f67",
+    "p=2 hermite cheb<float>": "e6f8ac5ece895bbe",
+    "p=2 hermite cheb<float> x=0": "d22d9987929d917d",
+    "p=2 hermite dg_cg<double>": "e24384999fdbf29b",
+    "p=2 hermite dg_jacobi_cg<double>": "a04ea0fa07b6306d",
+    "p=2 gll apply<double>": "72717d49ab849d33",
+    "p=2 gll residual<double>": "b6978377e14b6932",
+    "p=2 gll apply<float>": "891b98c7861cc3ea",
+    "p=2 gll residual<float>": "7bb339bfccc31f67",
+    "p=2 gll cheb<float>": "e6f8ac5ece895bbe",
+    "p=2 gll cheb<float> x=0": "d22d9987929d917d",
+    "p=2 gll dg_cg<double>": "35a1203dd1b7467a",
+    "p=2 gll dg_jacobi_cg<double>": "b81211b36e33daa4",
+    "p=2 gauss apply<double>": "9c51abbeb30c05c2",
+    "p=2 gauss residual<double>": "0bc8ac605cf39905",
+    "p=2 gauss apply<float>": "2f61f96dcf6f6de4",
+    "p=2 gauss residual<float>": "db5b828aabd51832",
+    "p=2 gauss cheb<float>": "1d5e0617772c7fc6",
+    "p=2 gauss cheb<float> x=0": "058df93cc5eaf45d",
+    "p=2 gauss dg_cg<double>": "0a720ec4d79e03b5",
+    "p=2 gauss dg_jacobi_cg<double>": "b3398e162df1c478",
+    "p=3 hermite apply<double>": "ce2d98e8af3cb13f",
+    "p=3 hermite residual<double>": "7088460b96f1b707",
+    "p=3 hermite apply<float>": "237ba209fbdefcd3",
+    "p=3 hermite residual<float>": "dbc82233eca41e2b",
+    "p=3 hermite cheb<float>": "f8cf8010af033aa8",
+    "p=3 hermite cheb<float> x=0": "754f23b44fe5621e",
+    "p=3 hermite dg_cg<double>": "ee50a7cb2e1566ec",
+    "p=3 hermite dg_jacobi_cg<double>": "d771abb08fb7784d",
+    "p=3 gll apply<double>": "ae65adbae01d36d6",
+    "p=3 gll residual<double>": "f26f87d8d419e42e",
+    "p=3 gll apply<float>": "d944f2d2e5c657a7",
+    "p=3 gll residual<float>": "4d4305c1410c861a",
+    "p=3 gll cheb<float>": "891b7eb1ed43ed0f",
+    "p=3 gll cheb<float> x=0": "f734087fa385d963",
+    "p=3 gll dg_cg<double>": "0fae6c960bbcf68b",
+    "p=3 gll dg_jacobi_cg<double>": "ab863e1c07f9be43",
+    "p=3 gauss apply<double>": "873d0c370cc0819a",
+    "p=3 gauss residual<double>": "7ef5fe5f7c1ce546",
+    "p=3 gauss apply<float>": "f20b267f04f8c60b",
+    "p=3 gauss residual<float>": "ce053714bbd35c13",
+    "p=3 gauss cheb<float>": "cbd4bc3b1247643c",
+    "p=3 gauss cheb<float> x=0": "fda9c8507067837e",
+    "p=3 gauss dg_cg<double>": "84fce5a51fc83a8c",
+    "p=3 gauss dg_jacobi_cg<double>": "0d95040563be1715",
+    "p=4 hermite apply<double>": "0e96fdd52f153add",
+    "p=4 hermite residual<double>": "7c9728365943135e",
+    "p=4 hermite apply<float>": "5f4707c8ff24b944",
+    "p=4 hermite residual<float>": "13b6e7186b0d6b60",
+    "p=4 hermite cheb<float>": "0ebb556f8ebcfe59",
+    "p=4 hermite cheb<float> x=0": "f1d0ef9c5bc1c864",
+    "p=4 hermite dg_cg<double>": "2363cef068abf936",
+    "p=4 hermite dg_jacobi_cg<double>": "3eb61a08c22e3b80",
+    "p=4 gll apply<double>": "030c7fb02138d41c",
+    "p=4 gll residual<double>": "3975663287b6fb6c",
+    "p=4 gll apply<float>": "d2f57a890f62a8a4",
+    "p=4 gll residual<float>": "1cca43797b5dabf6",
+    "p=4 gll cheb<float>": "d3ce8099cf937248",
+    "p=4 gll cheb<float> x=0": "e8cc25725a972e5b",
+    "p=4 gll dg_cg<double>": "dd7283a8a26a4272",
+    "p=4 gll dg_jacobi_cg<double>": "45a4bc1185280bc8",
+    "p=4 gauss apply<double>": "a49d571b2030233b",
+    "p=4 gauss residual<double>": "b4a5ea5a5c19219d",
+    "p=4 gauss apply<float>": "59974179f8f05731",
+    "p=4 gauss residual<float>": "524f658933362856",
+    "p=4 gauss cheb<float>": "d1a376ba002b0028",
+    "p=4 gauss cheb<float> x=0": "47d9f441840460e0",
+    "p=4 gauss dg_cg<double>": "c9df4a3f821268c9",
+    "p=4 gauss dg_jacobi_cg<double>": "27dda0cb9e430156",
+    "p=5 hermite apply<double>": "d029de91ff84a443",
+    "p=5 hermite residual<double>": "fe0982b7ca589267",
+    "p=5 hermite apply<float>": "c233a387dbc0e0b0",
+    "p=5 hermite residual<float>": "8ce4630333379677",
+    "p=5 hermite cheb<float>": "6eb229bc5942ef51",
+    "p=5 hermite cheb<float> x=0": "c3b0ecbd2ef0049a",
+    "p=5 hermite dg_cg<double>": "e6a3c6c656fd0e86",
+    "p=5 hermite dg_jacobi_cg<double>": "aba918e5a780e09d",
+    "p=5 gll apply<double>": "6b2b8cf5f8516366",
+    "p=5 gll residual<double>": "fdab6cc2645a044e",
+    "p=5 gll apply<float>": "3c8f0790d0bbb5ed",
+    "p=5 gll residual<float>": "1450e000e639baee",
+    "p=5 gll cheb<float>": "87ef264744ebdabe",
+    "p=5 gll cheb<float> x=0": "091a8244d7df4260",
+    "p=5 gll dg_cg<double>": "9cd6f9695843f94d",
+    "p=5 gll dg_jacobi_cg<double>": "a8fe63d7c73e6db5",
+    "p=5 gauss apply<double>": "92fab143489e6ce9",
+    "p=5 gauss residual<double>": "11809eab31d7116f",
+    "p=5 gauss apply<float>": "25e2e3a3c60587b5",
+    "p=5 gauss residual<float>": "5e405194cb22d812",
+    "p=5 gauss cheb<float>": "1618d9dbdf289694",
+    "p=5 gauss cheb<float> x=0": "b5ce8d4ddabf84b8",
+    "p=5 gauss dg_cg<double>": "6dd2715fb8faf22c",
+    "p=5 gauss dg_jacobi_cg<double>": "a71486b528b31e8c",
+    "p=6 hermite apply<double>": "1353f657b9c2cadc",
+    "p=6 hermite residual<double>": "7e0ee0e90f17249d",
+    "p=6 hermite apply<float>": "7f87525a26e3348a",
+    "p=6 hermite residual<float>": "92d5b25282b89b79",
+    "p=6 hermite cheb<float>": "f6240e8ab5aabba5",
+    "p=6 hermite cheb<float> x=0": "17c17b1be0fd3d6d",
+    "p=6 hermite dg_cg<double>": "8d541bdcbb951b37",
+    "p=6 hermite dg_jacobi_cg<double>": "51355a79173e3c7c",
+    "p=6 gll apply<double>": "3da7114adf5908ce",
+    "p=6 gll residual<double>": "5c89faf44000120d",
+    "p=6 gll apply<float>": "474ab9b494c0aaec",
+    "p=6 gll residual<float>": "962d276c19a64284",
+    "p=6 gll cheb<float>": "023778461c72c198",
+    "p=6 gll cheb<float> x=0": "4358fc677cecf2e1",
+    "p=6 gll dg_cg<double>": "e78db1c354da2613",
+    "p=6 gll dg_jacobi_cg<double>": "5837b6125e4bfdb8",
+    "p=6 gauss apply<double>": "838b27fd2b88f550",
+    "p=6 gauss residual<double>": "79617b2177635903",
+    "p=6 gauss apply<float>": "8ba83d99256542ad",
+    "p=6 gauss residual<float>": "5798efd2372943f6",
+    "p=6 gauss cheb<float>": "1779680b1b3598ad",
+    "p=6 gauss cheb<float> x=0": "63f1a1757c5c62e2",
+    "p=6 gauss dg_cg<double>": "aa134388b920c8e5",
+    "p=6 gauss dg_jacobi_cg<double>": "48204fe54a88f2e2",
+    "p=7 hermite apply<double>": "0764e2cb4541e174",
+    "p=7 hermite residual<double>": "bbb1e612c72e4e88",
+    "p=7 hermite apply<float>": "b7a1b32c9e7fb936",
+    "p=7 hermite residual<float>": "91d33e6f8d88d1d9",
+    "p=7 hermite cheb<float>": "cd973aaa83d41627",
+    "p=7 hermite cheb<float> x=0": "55d83a7c697b6407",
+    "p=7 hermite dg_cg<double>": "72f3ad8cd4740f5e",
+    "p=7 hermite dg_jacobi_cg<double>": "75b63723e03a438c",
+    "p=7 gll apply<double>": "f892b438efd71463",
+    "p=7 gll residual<double>": "26afbfc47c6b6331",
+    "p=7 gll apply<float>": "96861381e8e5287b",
+    "p=7 gll residual<float>": "dfc61af91185be91",
+    "p=7 gll cheb<float>": "934c099b64fe9bf5",
+    "p=7 gll cheb<float> x=0": "35ad4923ca607fba",
+    "p=7 gll dg_cg<double>": "9233112feb9af1f8",
+    "p=7 gll dg_jacobi_cg<double>": "5a923ea81b1acf8f",
+    "p=7 gauss apply<double>": "cd5a95006490cd18",
+    "p=7 gauss residual<double>": "c393f514197ce25c",
+    "p=7 gauss apply<float>": "c4dc9e539b43ef06",
+    "p=7 gauss residual<float>": "fe6066ff4ca75b6b",
+    "p=7 gauss cheb<float>": "7338acd0e51bd948",
+    "p=7 gauss cheb<float> x=0": "1b0944874bd4b325",
+    "p=7 gauss dg_cg<double>": "ed30222af899b09c",
+    "p=7 gauss dg_jacobi_cg<double>": "52b691fd32ed842a",
+    "p=8 hermite apply<double>": "4ea424c4d3f2851e",
+    "p=8 hermite residual<double>": "b6c0f4215fe2433b",
+    "p=8 hermite apply<float>": "03708519182ade47",
+    "p=8 hermite residual<float>": "53736ea5ba000b09",
+    "p=8 hermite cheb<float>": "188010c7fcc243af",
+    "p=8 hermite cheb<float> x=0": "2bf28804cdbf7cd4",
+    "p=8 hermite dg_cg<double>": "f15e0f3e0d6c1346",
+    "p=8 hermite dg_jacobi_cg<double>": "70d280729fcdab08",
+    "p=8 gll apply<double>": "7f2bb7f5bddd19bf",
+    "p=8 gll residual<double>": "1e06912ed8b63dec",
+    "p=8 gll apply<float>": "28007f92af65b02f",
+    "p=8 gll residual<float>": "7051aaaad9ed97ff",
+    "p=8 gll cheb<float>": "e3da41069b599ad9",
+    "p=8 gll cheb<float> x=0": "2622d76840911ee9",
+    "p=8 gll dg_cg<double>": "65e2aa84aec71dfc",
+    "p=8 gll dg_jacobi_cg<double>": "4da2c4f6750e5e83",
+    "p=8 gauss apply<double>": "1ac2c71b96454028",
+    "p=8 gauss residual<double>": "77568340ab6710e2",
+    "p=8 gauss apply<float>": "808ed210c6e8fbf4",
+    "p=8 gauss residual<float>": "f55d88c6e1c90813",
+    "p=8 gauss cheb<float>": "870f95215e4e550f",
+    "p=8 gauss cheb<float> x=0": "22a78c0d3c39b2a0",
+    "p=8 gauss dg_cg<double>": "3ed9cd5f1ee393e5",
+    "p=8 gauss dg_jacobi_cg<double>": "c0fc1d1ef768601c",
+    "p=9 hermite apply<double>": "02756c82dbfa4eac",
+    "p=9 hermite residual<double>": "131d8914eb231026",
+    "p=9 hermite apply<float>": "85dcdf20411ded86",
+    "p=9 hermite residual<float>": "933b2cd06cd5f353",
+    "p=9 hermite cheb<float>": "81e79bddfc96c891",
+    "p=9 hermite cheb<float> x=0": "59af851d163eedc1",
+    "p=9 hermite dg_cg<double>": "0bf8e631f8161e4d",
+    "p=9 hermite dg_jacobi_cg<double>": "6fc7f0d3684c5a49",
+    "p=9 gll apply<double>": "6464c083ae83fe3b",
+    "p=9 gll residual<double>": "80625610349f4374",
+    "p=9 gll apply<float>": "1a481eaf62c7d178",
+    "p=9 gll residual<float>": "1d83e39a11e08145",
+    "p=9 gll cheb<float>": "63179bf30e3f234c",
+    "p=9 gll cheb<float> x=0": "5cfbffc09335ac90",
+    "p=9 gll dg_cg<double>": "3b7c50eb7b56f60d",
+    "p=9 gll dg_jacobi_cg<double>": "81ba547bda4690fe",
+    "p=9 gauss apply<double>": "5bd51644b8aabf08",
+    "p=9 gauss residual<double>": "0452855dd6afab1f",
+    "p=9 gauss apply<float>": "c55309fd03ddb48a",
+    "p=9 gauss residual<float>": "857d96a8f37ff2bd",
+    "p=9 gauss cheb<float>": "379fe76fdb880742",
+    "p=9 gauss cheb<float> x=0": "e90b1107b710eccb",
+    "p=9 gauss dg_cg<double>": "b1632f9637f082ea",
+    "p=9 gauss dg_jacobi_cg<double>": "b9713fbf9d85db0f",
+}
 
 
 def degree_path(p: int, path: str = "poisson_cube") -> str:
@@ -1274,6 +1499,13 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
               f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9), "
               + (f"the high-degree cells {list(high)}, " if high else "")
               + f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
+    # the DG kernels' bits: every mode at every degree and kind, as pinned
+    digests = dk.kernel_digests(dev)
+    differ = sorted(k for k in DG_DIGESTS if digests.get(k) != DG_DIGESTS[k])
+    require(len(digests) == len(DG_DIGESTS) and not differ,
+            f"DG kernel digests differ from the pinned ones: {differ}")
+    print(f"DG kernel digests: all {len(digests)} (p = 1..{dk.MAX_DEGREE}, "
+          f"every kind and mode) equal the pinned ones {took()}")
     # no fallback above the kernels' degree: the card refuses such a level
     try:
         dk.DGOperator(dg_grid((2, 2, 2), dk.MAX_DEGREE + 1, "hermite"),

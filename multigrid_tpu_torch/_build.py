@@ -235,6 +235,39 @@ def ptxas_report(log: str) -> list[dict]:
     return rows
 
 
+def sass_report(objects: list[Path], log: str) -> dict:
+    """Per kernel of the compiled ``objects`` (``cuobjdump -sass``): its
+    source, registers and spill bytes (``log``, the build's ``-Xptxas -v``
+    output), SASS instructions and the sha256 of its SASS, with code
+    addresses and the anonymous namespace's per-file name left out, so
+    that two trees' builds of the same code compare equal.  Keyed by the
+    kernel's name with that namespace cut out."""
+    cuobjdump = Path(_nvcc()).parent / "cuobjdump"
+    anon = re.compile(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}")
+    ptxas = {anon.sub("ANON", r["kernel"]): r for r in ptxas_report(log)}
+    out = {}
+    for obj in objects:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(obj)],
+                              capture_output=True, text=True, check=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name, body = block.split("\n", 1)
+            name = anon.sub("ANON", name.strip())
+            lines = [re.sub(r"/\*[0-9a-f]{4,}\*/", "", ln).strip()
+                     for ln in body.splitlines()]
+            lines = [anon.sub("ANON", ln) for ln in lines
+                     if ln and not ln.startswith("/* 0x")
+                     and not ln.startswith(".")]
+            r = ptxas.get(name, {})
+            out[name] = dict(source=obj.stem + ".cu",
+                             registers=r.get("registers"),
+                             spill_stores=r.get("spill_stores"),
+                             spill_loads=r.get("spill_loads"),
+                             instructions=sum(";" in ln for ln in lines),
+                             sass_sha256=hashlib.sha256(
+                                 "\n".join(lines).encode()).hexdigest()[:16])
+    return out
+
+
 def stream_handle(device) -> int:
     """Raw handle of PyTorch's current stream on ``device``."""
     import torch
@@ -243,15 +276,19 @@ def stream_handle(device) -> int:
 
 
 def main(argv: list[str]) -> int:
-    """``python -m multigrid_tpu_torch._build [--tree DIR]``: compile the
-    kernel sources of this tree, or of the same files in another tree's
-    ``multigrid_tpu_torch/csrc``, into a scratch directory as
-    :func:`build` does (the library is not kept) and print the wall
-    seconds of each nvcc, the link and the whole build."""
+    """``python -m multigrid_tpu_torch._build [--tree DIR] [--kernels
+    PATH]``: compile the kernel sources of this tree, or of the same files
+    in another tree's ``multigrid_tpu_torch/csrc``, into a scratch
+    directory as :func:`build` does (the library is not kept) and print
+    the wall seconds of each nvcc, the link and the whole build; with
+    ``--kernels``, write :func:`sass_report` of every kernel to PATH
+    (JSON) and print the registers and spills of each."""
     import argparse
+    import json
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", type=Path, default=PACKAGE_DIR.parent)
+    ap.add_argument("--kernels", type=Path, default=None)
     args = ap.parse_args(argv)
     csrc = args.tree.resolve() / "multigrid_tpu_torch" / "csrc"
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -260,6 +297,15 @@ def main(argv: list[str]) -> int:
     log, failed, seconds = compile_sources(
         [csrc / src.name for src in SOURCES], work)
     total = time.perf_counter() - t0
+    if not failed and args.kernels is not None:
+        report = sass_report([work / (src.stem + ".o") for src in SOURCES],
+                             log)
+        args.kernels.parent.mkdir(parents=True, exist_ok=True)
+        args.kernels.write_text(json.dumps(report, indent=1))
+        for name, r in report.items():
+            print(f"{r['source']} {name}: {r['registers']} registers, spill "
+                  f"{r['spill_stores']} / {r['spill_loads']} B, "
+                  f"{r['instructions']} instructions, sass {r['sass_sha256']}")
     shutil.rmtree(work, ignore_errors=True)
     if failed:
         print(log)

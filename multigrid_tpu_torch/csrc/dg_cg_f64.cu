@@ -52,24 +52,27 @@
 //   * p stays on chip for p . q: the thread's line of p (along z, the line
 //     T6 writes q on) in registers, or at n >= 8, where the registers are
 //     scarce, in a second buffer of p in shared memory.
-// Between the loads and the store of q the phases are dg_pencil.cuh's
-// apply arithmetic (T1-T6 there; T0 reads shared memory here), each phase
-// turning its lines in place: a thread reads and writes only its own
-// lines within a phase, so 4 volume buffers a cell do, where the template
-// keeps 7.  T1-T6 below mirror pencil_body's phases operation for
-// operation: a fix to the operator's arithmetic in one goes to the other
-// (ROADMAP.md §2 item 4 would make them one set of device functions).  The warps an SM set the pace: the phases are bound by
+// Between the loads and the store of q the kernel calls dg_pencil.cuh's
+// phase functions in the apply mode (T1-T5 and T6's back end; T0 reads
+// shared memory here and hands its reductions to them), over the layout
+// TwoSets<double, N, K, 4>: each phase turns its lines in place (a thread
+// reads and writes only its own lines within a phase), so 4 volume buffers
+// a cell do, where the template keeps 7, and the faces keep the template's
+// two sets. The arithmetic of the operator is there only; what is this
+// kernel's own is the march, the staging, p formed where it is needed, the
+// -z trace handed up, x += alpha p_old, p kept for p . q and the block
+// partials. The warps an SM set the pace: the phases are bound by
 // shared-memory traffic and latency, not by the loads, so the +-y rows are
-// not staged (staging them too leaves room for 2 blocks of 4 warps an SM
-// at n = 5 instead of 3, and measured slower: PERF.md §6).  Shared
-// memory a block, in doubles: 4 n^3 + 34 n^2 a cell for the phases, p (1
-// or 2 n^3) and the staged layer (3 n^3); at n = 5, 5 cells: 74,032 bytes,
-// 3 blocks an SM.  K (cg_pencil): 16, 6, 6, 5 cells at n = 2..5, chosen by
-// measuring (PERF.md §6); above, as many as 256 threads hold and fit the
-// 232,448 bytes a block may have: 7, 5, 4, 3, 2 at n = 6..10.  A column
-// is cut into runs of at least kMinLayers layers so that the grid holds
-// about kWaves times the blocks resident on the card; a run's first block
-// reads the layer below it once, for its trace.
+// not staged (staging them too leaves room for 2 blocks of 4 warps an SM at
+// n = 5 instead of 3, and measured slower: PERF.md §6). Shared memory a
+// block, in doubles: 4 n^3 + 34 n^2 a cell for the phases, p (1 or 2 n^3)
+// and the staged layer (3 n^3); at n = 5, 5 cells: 74,032 bytes, 3 blocks
+// an SM. K (cg_pencil): 16, 6, 6, 5 cells at n = 2..5, chosen by measuring
+// (PERF.md §6); above, as many as 256 threads hold and fit the 232,448
+// bytes a block may have: 7, 5, 4, 3, 2 at n = 6..10. A column is cut into
+// runs of at least kMinLayers layers so that the grid holds about kWaves
+// times the blocks resident on the card; a run's first block reads the
+// layer below it once, for its trace.
 
 #include <stdint.h>
 
@@ -124,19 +127,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __host__ __device__ constexpr int even(int v) { return (v + 1) & ~1; }
 
 // The march's shared memory, offsets in doubles (each 16-byte aligned):
-// four volume buffers (the phases turn each line in place), the face
-// buffers (dg_pencil.cuh's), p (ring segments) and the staged own layer
-// (p_old, z, x)
+// the phases' buffers (dg_pencil.cuh's TwoSets<double, N, K, 4>: four
+// volume buffers, the phases turning each line in place, and the face
+// buffers), p (ring segments) and the staged own layer (p_old, z, x)
 struct MarchLayout {
-  int seg, ring, fe, fo, p, raw, size;
+  int seg, ring, p, raw, size;
 };
 
 __host__ __device__ constexpr MarchLayout march_layout(int n, int k) {
-  const int n2 = n * n, n3 = n2 * n;
-  const int seg = even(k * n3), ring = n >= 8 ? 2 : 1;
-  const int fe = 4 * k * n3, fo = fe + 16 * k * n2;
-  const int p = even(fo + 18 * k * n2), raw = p + ring * seg;
-  return MarchLayout{seg, ring, fe, fo, p, raw, raw + 3 * seg};
+  const int seg = even(k * n * n * n), ring = n >= 8 ? 2 : 1;
+  const int p = even(two_sets_size(n, k, 4)), raw = p + ring * seg;
+  return MarchLayout{seg, ring, p, raw, raw + 3 * seg};
 }
 
 __host__ __device__ constexpr bool march_fits(int n, int k) {
@@ -191,41 +192,20 @@ dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
              double* __restrict__ qv, const double* __restrict__ scal,
              double* __restrict__ partial, int C0, int C1, int C2, int L,
              int colloc) {
-  using LT = Tab<N>;
   constexpr int N2 = N * N, N3 = N2 * N, K = cg_pencil<N>();
   constexpr int T = cg_threads<N>();
   constexpr MarchLayout M = march_layout(N, K);
   const double* ct = tab.v;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* sm = reinterpret_cast<double*>(smem_raw);
-  double* vol = sm;
-  double* fe = sm + M.fe;
-  double* fo = sm + M.fo;
+  const TwoSets<double, N, K, 4> ly{sm};  // the phases' buffers
   double* RAW = sm + M.raw;  // p_old, z, x of the next layer, SEG apart
-  auto V = [&](int a, int c) { return vol + (a * K + c) * N3; };
-  auto FE = [&](int a, int c, int f) {
-    return fe + ((a * K + c) * 6 + f) * N2;
-  };
-  auto XT = [&](int a, int c, int s) {
-    return fe + 12 * K * N2 + ((a * K + c) * 2 + s) * N2;
-  };
-  auto FO = [&](int a, int c, int f) {
-    return fo + ((a * K + c) * 6 + f) * N2;
-  };
-
-  const int t = threadIdx.x;
-  const bool lane = t < K * N2;            // owns a line slot
-  const int c = lane ? t / N2 : 0;         // cell in the pencil
-  const int pt = t % N2, q1 = pt / N, q2 = pt % N;
-  const int npx = (C2 + K - 1) / K;
-  const int px = blockIdx.x % npx;
-  const int cy = (blockIdx.x / npx) % C1;
-  const int z0 = (blockIdx.x / (npx * C1)) * L;
-  const int z1 = min(C0, z0 + L);
-  const int x0 = px * K;
-  const int cnt = min(K, C2 - x0);         // cells of a ragged pencil
-  const int c_last = cnt - 1;
-  const bool valid = lane && c < cnt;
+  // the block's pencil; pl.cz: the layer the march is at
+  Place<double, N, K> pl = place<double, N, K>(ct, blockIdx.x, T, C0, C1, C2);
+  const int t = pl.t, c = pl.c, pt = pl.p;
+  const int z0 = pl.cz * L, z1 = min(C0, z0 + L);
+  const int x0 = pl.x0, cy = pl.cy;
+  const int cnt = pl.c_last + 1;           // cells of a ragged pencil
   const int len = cnt * N3;                // values of the pencil a layer
   const double alpha = scal[ALPHA], beta = scal[BETA];
   // the pencil's first value in layer k, row cy + dy
@@ -266,39 +246,18 @@ dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
   // at zz (staged, or a neighbour's in device memory)
   auto trace = [&](const double* po, const double* zz, int d, int s,
                    double& b, double& cc) {
-    b = 0.0;
-    cc = 0.0;
-#pragma unroll
-    for (int m = 0; m < N; ++m) {
+    reduce_bc<double, N>(ct, s, [&](int m) {
       const int o = node<N>(d, pt, m);
-      const double v = fma(beta, po[o], zz[o]);
-      b += ct[LT::B + s * N + m] * v;
-      cc += ct[LT::C + s * N + m] * v;
-    }
+      return fma(beta, po[o], zz[o]);
+    }, b, cc);
   };
-  // the face stages' work: one row or column (r) of a face (f) of a pencil
-  // cell (cc), for the +-z and +-y faces of every cell, then the low x face
-  // of the first cell and the high x face of the last
-  constexpr int FACE_ITEMS = 4 * K * N + 2 * N;
-  auto face_item = [&](int it, int& cc, int& f, int& r) {
-    r = it % N;
-    if (it < 4 * K * N) {
-      cc = it / (4 * N);
-      f = (it / N) % 4;
-    } else {
-      f = 4 + (it - 4 * K * N) / N;
-      cc = f == 4 ? 0 : c_last;
-    }
-  };
-  const double wq1 = pick<N>(ct + LT::W, q1), wq2 = pick<N>(ct + LT::W, q2);
 
-  // ---- prologue: the run's first layer (into the volume and face
-  // buffers, free until T0), the layer below it (for its trace) and the
-  // next layer
-  double* first = vol + 2 * M.seg;
+  // ---- prologue: the run's first layer (into the phases' buffers, free
+  // until T0), the layer below it (for its trace) and the next layer
+  double* first = sm + 2 * M.seg;
   if (z0 > 0) {
-    stage(vol, p_old + at(z0 - 1, 0), len);
-    stage(vol + M.seg, zv + at(z0 - 1, 0), len);
+    stage(sm, p_old + at(z0 - 1, 0), len);
+    stage(sm + M.seg, zv + at(z0 - 1, 0), len);
   }
   stage_own(first, z0, true);
   if (z0 + 1 < C0) stage_own(RAW, z0 + 1, z0 + 1 < z1);
@@ -306,7 +265,8 @@ dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
   __syncthreads();
   form(first, z0, sm + M.p + (M.ring == 2 ? (z0 & 1) * M.seg : 0));
   double hz_b = 0.0, hz_c = 0.0;  // the high-face trace of the layer below
-  if (valid && z0 > 0) trace(vol + c * N3, vol + M.seg + c * N3, 0, 1, hz_b, hz_c);
+  if (pl.valid && z0 > 0)
+    trace(sm + c * N3, sm + M.seg + c * N3, 0, 1, hz_b, hz_c);
   __syncthreads();
 
   double pq = 0.0;
@@ -314,60 +274,37 @@ dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
     const double* Pk = sm + M.p + (M.ring == 2 ? (k & 1) * M.seg : 0);
     double* Pn = sm + M.p + (M.ring == 2 ? ((k + 1) & 1) * M.seg : 0);
     const bool more = k + 1 < z1;  // this run's next layer
-    // does face f of pencil cell cc have a neighbour cell?
-    auto has_nb = [&](int cc, int f) {
-      switch (f) {
-        case 0: return k > 0;
-        case 1: return k < C0 - 1;
-        case 2: return cy > 0;
-        case 3: return cy < C1 - 1;
-        case 4: return cc == 0 && x0 > 0;
-        default: return cc == c_last && x0 + cc < C2 - 1;
-      }
-    };
+    pl.cz = k;
     double u[N], acc[3][N];
 
     // ---- T0 (lines along 0): S_0 p, DS_0 p; the neighbours' traces
-    if (lane) {
-      double a[N], a2[N];
+    if (pl.lane) {
 #pragma unroll
       for (int m = 0; m < N; ++m)
-        u[m] = valid ? Pk[c * N3 + m * N2 + pt] : 0.0;
-      interp<double, N>(ct + LT::S, colloc, u, a);
-      mat<double, N>(ct + LT::DS, false, u, a2);
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        V(0, c)[m * N2 + pt] = a[m];
-        V(1, c)[m * N2 + pt] = a2[m];
-      }
+        u[m] = pl.valid ? Pk[c * N3 + m * N2 + pt] : 0.0;
+      t0_lines<double, N>(ct, colloc, ly, pl, u);
     }
-    if (valid) {
+    if (pl.valid) {
       // -z: the trace handed up from the layer below; then this layer's
       // high-face trace for the layer above
       if (k > 0) {
-        FE(0, c, 0)[pt] = hz_b;
-        FE(1, c, 0)[pt] = hz_c;
+        ly.nb(0, c, 0)[pt] = hz_b;
+        ly.nb(1, c, 0)[pt] = hz_c;
       }
-      hz_b = 0.0;
-      hz_c = 0.0;
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        hz_b += ct[LT::B + N + m] * u[m];
-        hz_c += ct[LT::C + N + m] * u[m];
-      }
+      reduce_bc<double, N>(ct, 1, [&](int m) { return u[m]; }, hz_b, hz_c);
       // +z: the low-face trace of the layer above, from its staged values
       double b, cc;
       if (k < C0 - 1) {
         trace(RAW + c * N3, RAW + M.seg + c * N3, 0, 0, b, cc);
-        FE(0, c, 1)[pt] = b;
-        FE(1, c, 1)[pt] = cc;
+        ly.nb(0, c, 1)[pt] = b;
+        ly.nb(1, c, 1)[pt] = cc;
       }
       // +-y, and x at the pencil's ends: the neighbours' p_old and z from
       // device memory (mostly L2: their own blocks read them too); at the
       // domain boundary the own block's, so that the loads issue together
 #pragma unroll
       for (int f = 2; f < 6; ++f) {
-        const bool nb_f = has_nb(c, f);
+        const bool nb_f = pl.has_nb(c, f);
         if (f >= 4 && !nb_f) continue;
         const int s = f & 1;
         const int64_t nb =
@@ -375,279 +312,37 @@ dg_cg_kernel(const __grid_constant__ TabArg<double, N> tab,
                   : at(k, 0) + (s ? cnt : -1) * N3;
         trace(p_old + nb, zv + nb, f >> 1, 1 - s, b, cc);
         if (nb_f) {
-          FE(0, c, f)[pt] = b;
-          FE(1, c, f)[pt] = cc;
+          ly.nb(0, c, f)[pt] = b;
+          ly.nb(1, c, f)[pt] = cc;
         }
       }
     }
     __syncthreads();  // 1
 
-    // ---- T1 (lines along 1, in place): S_1 a, DS_1 a, S_1 a'; face stage
-    // 1 (rows)
-    if (lane) {
-      double la[N], lb[N], o[N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        la[m] = V(0, c)[node<N>(1, pt, m)];
-        lb[m] = V(1, c)[node<N>(1, pt, m)];
-      }
-      interp<double, N>(ct + LT::S, colloc, la, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(0, c)[node<N>(1, pt, m)] = o[m];
-      mat<double, N>(ct + LT::DS, false, la, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(1, c)[node<N>(1, pt, m)] = o[m];
-      interp<double, N>(ct + LT::S, colloc, lb, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(2, c)[node<N>(1, pt, m)] = o[m];
-    }
-    for (int it = t; it < FACE_ITEMS; it += T) {
-      int cc, f, r;
-      face_item(it, cc, f, r);
-      if (cc >= cnt || !has_nb(cc, f)) continue;
-      double P[N], Q[N], o[N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        P[m] = FE(0, cc, f)[r * N + m];
-        Q[m] = FE(1, cc, f)[r * N + m];
-      }
-      interp<double, N>(ct + LT::S, colloc, P, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) FO(0, cc, f)[r * N + m] = o[m];
-      mat<double, N>(ct + LT::DS, false, P, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) FO(1, cc, f)[r * N + m] = o[m];
-      interp<double, N>(ct + LT::S, colloc, Q, o);
-#pragma unroll
-      for (int m = 0; m < N; ++m) FO(2, cc, f)[r * N + m] = o[m];
-    }
-    // p and x of the next layer (its staged values were read in T0 too)
+    // ---- T1-T5: dg_pencil.cuh's phases, the apply mode; p and x of the
+    // next layer formed after T1 (its staged values were read in T0 too),
+    // the layer after next staged before T2
+    phase1<double, N>(ct, colloc, ly, pl);
     if (more) form(RAW, k + 1, Pn);
     __syncthreads();  // 2
-
-    // ---- T2 (lines along 2, in place: every line read before any is
-    // written): v, g_0..2, the volume term, the x traces; face stage 2
-    // (columns); the layer after next staged
     if (more && k + 2 < C0) stage_own(RAW, k + 2, k + 2 < z1);
-    if (lane) {
-      double l[N], v[N], g[3][N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) l[m] = V(0, c)[pt * N + m];
-      interp<double, N>(ct + LT::S, colloc, l, v);
-      mat<double, N>(ct + LT::DS, false, l, g[2]);
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-#pragma unroll
-        for (int m = 0; m < N; ++m) l[m] = V(2 - e, c)[pt * N + m];
-        interp<double, N>(ct + LT::S, colloc, l, g[e]);
-      }
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        V(0, c)[pt * N + m] = v[m];
-        const double w3 = wq1 * wq2 * ct[LT::W + m];
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-          V(1 + e, c)[pt * N + m] = g[e][m];
-          acc[e][m] = (ct[LT::GSYM + 3 * e] * g[0][m] +
-                       ct[LT::GSYM + 3 * e + 1] * g[1][m] +
-                       ct[LT::GSYM + 3 * e + 2] * g[2][m]) * w3;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        double tu = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
-#pragma unroll
-        for (int m = 0; m < N; ++m) {
-          const double fs = ct[LT::F + s * N + m];
-          tu += fs * v[m];
-          t0 += fs * g[0][m];
-          t1 += fs * g[1][m];
-          t2 += fs * g[2][m];
-        }
-        XT(0, c, s)[pt] = tu;
-        XT(1, c, s)[pt] = ct[LT::GVEC + 6] * t0 + ct[LT::GVEC + 7] * t1 +
-                          ct[LT::GVEC + 8] * t2;
-      }
-    }
-    for (int it = t; it < FACE_ITEMS; it += T) {
-      int cc, f, r;
-      face_item(it, cc, f, r);
-      if (cc >= cnt || !has_nb(cc, f)) continue;
-      const int d = f >> 1;
-      const int e1 = d == 0 ? 1 : 0, e2 = d == 2 ? 1 : 2;
-      const double sign = (f & 1) ? 1.0 : -1.0;
-      double A1[N], A2[N], A3[N], uu[N], gq[N], ge1[N], ge2[N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        A1[m] = FO(0, cc, f)[m * N + r];
-        A2[m] = FO(1, cc, f)[m * N + r];
-        A3[m] = FO(2, cc, f)[m * N + r];
-      }
-      interp<double, N>(ct + LT::S, colloc, A1, uu);
-      interp<double, N>(ct + LT::S, colloc, A3, gq);
-      interp<double, N>(ct + LT::S, colloc, A2, ge2);
-      mat<double, N>(ct + LT::DS, false, A1, ge1);
-      const double gd = pick<9>(ct + LT::GVEC, 3 * d + d);
-      const double g1 = pick<9>(ct + LT::GVEC, 3 * d + e1);
-      const double g2 = pick<9>(ct + LT::GVEC, 3 * d + e2);
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        FE(0, cc, f)[m * N + r] = uu[m];
-        FE(1, cc, f)[m * N + r] =
-            sign * (gd * gq[m] + g1 * ge1[m] + g2 * ge2[m]);
-      }
-    }
+    phase2<double, N>(ct, colloc, ly, pl, acc);
     __syncthreads();  // 3
-
-    // ---- T3: fluxes; +-z and +-y from lines through this face point
-    if (valid) {
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        double v[N], g[3][N];
-#pragma unroll
-        for (int m = 0; m < N; ++m) {
-          const int o = node<N>(d, pt, m);
-          v[m] = V(0, c)[o];
-#pragma unroll
-          for (int e = 0; e < 3; ++e) g[e][m] = V(1 + e, c)[o];
-        }
-        const double wf = ct[LT::JXW + d] * wq1 * wq2;
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const int f = 2 * d + s;
-          const double sign = s ? 1.0 : -1.0;
-          double u_m = 0.0, t0 = 0.0, t1 = 0.0, t2 = 0.0;
-#pragma unroll
-          for (int m = 0; m < N; ++m) {
-            const double fs = ct[LT::F + s * N + m];
-            u_m += fs * v[m];
-            t0 += fs * g[0][m];
-            t1 += fs * g[1][m];
-            t2 += fs * g[2][m];
-          }
-          const double gn_m = sign * (ct[LT::GVEC + 3 * d] * t0 +
-                                      ct[LT::GVEC + 3 * d + 1] * t1 +
-                                      ct[LT::GVEC + 3 * d + 2] * t2);
-          double u_p = -u_m, gn_p = gn_m;  // Dirichlet mirror
-          if (has_nb(c, f)) {
-            u_p = FE(0, c, f)[pt];
-            gn_p = FE(1, c, f)[pt];
-          }
-          flux(u_m, gn_m, u_p, gn_p, ct[LT::SIGMA + d], wf, sign,
-               FO(0, c, f)[pt], FO(1, c, f)[pt]);
-        }
-      }
-      // x faces at point (i, j) = pt
-      const double wf = ct[LT::JXW + 2] * wq1 * wq2;
-      const double sig = ct[LT::SIGMA + 2];
-      auto own_view = [&](int s) {
-        const int f = 4 + s;
-        const double sign = s ? 1.0 : -1.0;
-        const double u_m = XT(0, c, s)[pt], gn_m = sign * XT(1, c, s)[pt];
-        double u_p = -u_m, gn_p = gn_m;
-        if (has_nb(c, f)) {
-          u_p = FE(0, c, f)[pt];
-          gn_p = FE(1, c, f)[pt];
-        }
-        flux(u_m, gn_m, u_p, gn_p, sig, wf, sign, FO(0, c, f)[pt],
-             FO(1, c, f)[pt]);
-      };
-      if (c == 0) {
-        own_view(0);
-      } else {
-        // the face between cells c - 1 (minus) and c (plus), once
-        double tv, tg;
-        flux(XT(0, c - 1, 1)[pt], XT(1, c - 1, 1)[pt], XT(0, c, 0)[pt],
-             XT(1, c, 0)[pt], sig, wf, 1.0, tv, tg);
-        FO(0, c - 1, 5)[pt] = tv;
-        FO(1, c - 1, 5)[pt] = tg;
-        FO(0, c, 4)[pt] = -tv;
-        FO(1, c, 4)[pt] = tg;
-      }
-      if (c == c_last) own_view(1);
-    }
+    phase3<double, N>(ct, ly, pl);
     __syncthreads();  // 4
-
-    // ---- T4 (lines along 2, through (i, j) = pt): lifts, then S^T_2 and
-    // (DS)^T_2
-    if (lane) {
-      double o[N], vacc[N], y2[N];
-      const double fi[2] = {pick<N>(ct + LT::F, q1),
-                            pick<N>(ct + LT::F + N, q1)};
-      const double fj[2] = {pick<N>(ct + LT::F, q2),
-                            pick<N>(ct + LT::F + N, q2)};
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        // node (i, j, k = m): z face point (j, k), y face point (i, k)
-        double lz = 0.0, ly = 0.0, lx = 0.0;
-        vacc[m] = 0.0;
-#pragma unroll
-        for (int s = 0; s < 2; ++s) {
-          const double fk = ct[LT::F + s * N + m];
-          vacc[m] += fi[s] * FO(0, c, s)[q2 * N + m] +
-                     fj[s] * FO(0, c, 2 + s)[q1 * N + m] +
-                     fk * FO(0, c, 4 + s)[pt];
-          lz += fi[s] * FO(1, c, s)[q2 * N + m];
-          ly += fj[s] * FO(1, c, 2 + s)[q1 * N + m];
-          lx += fk * FO(1, c, 4 + s)[pt];
-        }
-#pragma unroll
-        for (int e = 0; e < 3; ++e)
-          acc[e][m] += ct[LT::GVEC + e] * lz + ct[LT::GVEC + 3 + e] * ly +
-                       ct[LT::GVEC + 6 + e] * lx;
-      }
-      interp<double, N>(ct + LT::S, colloc, vacc, o, true);
-      mat<double, N>(ct + LT::DS, true, acc[2], y2);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(0, c)[pt * N + m] = o[m] + y2[m];
-      interp<double, N>(ct + LT::S, colloc, acc[1], o, true);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(1, c)[pt * N + m] = o[m];
-      interp<double, N>(ct + LT::S, colloc, acc[0], o, true);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(2, c)[pt * N + m] = o[m];
-    }
+    phase4<double, N, APPLY>(ct, colloc, ly, pl, true, acc, nullptr, 0);
     __syncthreads();  // 5
-
-    // ---- T5 (lines along 1, in place)
-    if (lane) {
-      double l[N], o[N], l2[N], o2[N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        l[m] = V(0, c)[node<N>(1, pt, m)];
-        l2[m] = V(1, c)[node<N>(1, pt, m)];
-      }
-      interp<double, N>(ct + LT::S, colloc, l, o, true);
-      mat<double, N>(ct + LT::DS, true, l2, o2);
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        V(0, c)[node<N>(1, pt, m)] = o[m] + o2[m];
-        l[m] = V(2, c)[node<N>(1, pt, m)];
-      }
-      interp<double, N>(ct + LT::S, colloc, l, o, true);
-#pragma unroll
-      for (int m = 0; m < N; ++m) V(1, c)[node<N>(1, pt, m)] = o[m];
-    }
+    phase5<double, N, APPLY>(ct, colloc, ly, pl, true);
     __syncthreads();  // 6
 
     // ---- T6 (lines along 0): q = S^T_0 V0 + (DS)^T_0 V1, stored; this
     // thread's share of p . q from the p it holds
-    if (valid) {
-      double l[N], l2[N], o[N], o2[N];
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        l[m] = V(0, c)[m * N2 + pt];
-        l2[m] = V(1, c)[m * N2 + pt];
-      }
-      interp<double, N>(ct + LT::S, colloc, l, o, true);
-      mat<double, N>(ct + LT::DS, true, l2, o2);
+    if (pl.valid) {
       const int64_t cbase = at(k, 0) + c * N3;
-#pragma unroll
-      for (int m = 0; m < N; ++m) {
-        const double y = o[m] + o2[m];
+      phase6<double, N, APPLY>(ct, colloc, ly, pl, [&](int m, double y) {
         qv[cbase + m * N2 + pt] = y;
         pq += (M.ring == 2 ? Pk[c * N3 + m * N2 + pt] : u[m]) * y;
-      }
+      });
     }
     // the next layer's staged values have arrived, for every thread
     cp_async_wait_all();

@@ -2,6 +2,7 @@
 
     python -m multigrid_tpu_torch.experiments.time_dg_cheb [size ...]
         [--degree P ...] [--kind KIND ...] [--cg] [--pencil TYPE:K ...]
+        [--against DIR ...] [--digests]
 
 The poisson_dg grid of each ``size``^3 cells (default 48, hermite, degree
 4: 13,824,000 DG dofs) at each ``--degree`` and ``--kind``; CUDA events
@@ -15,10 +16,26 @@ march tile at each degree (cells a pencil, p buffers, shared memory
 bytes, threads and blocks an SM).  solver_dg's grids: ``48 --cg``
 (hermite, 13,824,000 DG dofs) and ``64 --kind gauss --cg`` (32,768,000).
 Prints at each grid the sha256 of the outputs of the step, A·x and
-``b - A x`` in both types, so that two trees' pencil kernels can be shown
-equal bit for bit (``12 --degree 1 2 3 4 5 6 7 8 9 --kind hermite gll
-gauss``), and the registers and spills of the DG kernels at the degree
-when this process built the library.
+``b - A x`` in both types and, with ``--cg``, of ``dg_cg``'s x, p, q and
+scalars and ``dg_jacobi_cg``'s r, z and scalars (one call each from the
+same inputs), so that two trees' kernels can be shown equal bit for bit
+(``12 --degree 1 2 3 4 5 6 7 8 9 --kind hermite gll gauss --cg``), and
+the registers and spills of the DG kernels at the degree when this
+process built the library.
+
+``--against DIR ...`` builds the DG sources of other trees
+(``DIR/multigrid_tpu_torch/csrc``: ``dg_pencil.cu``, ``dg_pencil_f64.cu``,
+``dg_pencil_high.cu``, ``dg_cg_f64.cu``, one nvcc each, in parallel) into
+libraries of their own and times their C entries and this tree's, called
+the same way, in the same process, round by round (every mode, ``dg_cg``
+and ``dg_jacobi_cg`` with ``--cg``), under ``<mode>@this`` and
+``<mode>@<DIR's name>``; their outputs' sha256 are printed beside this
+tree's, with the modes whose outputs differ in any bit, and their
+registers and spills at each degree.  ``--digests`` prints instead
+``ops/dg_kernel.kernel_digests`` (every mode at p = 1..9 in every kind,
+the digests ``tests/test_torch_cuda.py`` pins) of this tree's library
+and, with ``--against``, of the first other tree's, and the keys that
+differ.
 
 ``--pencil f32:K`` builds ``csrc/dg_pencil.cu`` (with
 ``dg_pencil_high.cu``, the kernels its step at p = 8, 9 and
@@ -52,8 +69,11 @@ import argparse
 import ctypes
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -102,16 +122,27 @@ def degree_rows(log: str, n: int) -> list[dict]:
 
 SOURCES = {"f32": "dg_pencil.cu", "cheb": "dg_pencil.cu",
            "f64": "dg_pencil_f64.cu", "cg": "dg_cg_f64.cu"}
-ENTRIES = {"f32": "dg_apply_f32", "f64": "dg_apply_f64",
-           "cheb": "dg_cheb_f32", "cg": "dg_cg_f64"}
+
+
+def bind(lib):
+    """``lib`` (a ``ctypes`` library of kernel sources) with the
+    signatures of its C entries bound (``_build.SIGNATURES``)."""
+    from multigrid_tpu_torch import _build
+
+    for name, argtypes in _build.SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
 
 
 def variants(specs: list[str]) -> dict:
-    """For each pencil spec (``TYPE:K``): the C entry it times, of
-    ``csrc/dg_pencil.cu`` (``f32``, ``cheb``), ``dg_pencil_f64.cu``
-    (``f64``), each with ``dg_pencil_high.cu``, or ``dg_cg_f64.cu``
-    (``cg``), built with it (one nvcc a spec, all started together), the
-    compiler's output and the library itself (for its tile)."""
+    """For each pencil spec (``TYPE:K``): the compiler's output and the
+    library of ``csrc/dg_pencil.cu`` (``f32``, ``cheb``),
+    ``dg_pencil_f64.cu`` (``f64``), each with ``dg_pencil_high.cu``, or
+    ``dg_cg_f64.cu`` (``cg``), built with it (one nvcc a spec, all started
+    together)."""
     from multigrid_tpu_torch import _build
 
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -136,13 +167,55 @@ def variants(specs: list[str]) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {spec}:\n{log}")
-        lib = ctypes.CDLL(str(out))
-        name = ENTRIES[spec.split(":")[0]]
-        fn = getattr(lib, name)
-        fn.argtypes = _build.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        built[spec] = (fn, log, lib)
+        built[spec] = (log, bind(ctypes.CDLL(str(out))))
     return built
+
+
+DG_SOURCES = ("dg_pencil.cu", "dg_pencil_f64.cu", "dg_pencil_high.cu",
+              "dg_cg_f64.cu")
+
+
+def against_library(tree: str):
+    """The DG kernels of another tree (``tree/multigrid_tpu_torch/csrc``)
+    built into a library of their own, its C entries' signatures bound
+    (``_build.SIGNATURES``), and the compiler's output."""
+    import tempfile
+
+    from multigrid_tpu_torch import _build
+
+    csrc = Path(tree).resolve() / "multigrid_tpu_torch" / "csrc"
+    key = hashlib.sha256(b"".join(
+        (csrc / f).read_bytes() for f in (*DG_SOURCES, "dg_pencil.cuh",
+                                          "dg_tab.cuh"))).hexdigest()[:16]
+    out = _build.BUILD_DIR / f"against_{key}"   # kept for the next process
+    if not (out / "lib.so").exists():
+        out.mkdir(parents=True, exist_ok=True)
+        work = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
+        log, failed, seconds = _build.compile_sources(
+            [csrc / src for src in DG_SOURCES], work)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {tree}:\n{log}")
+        print(f"built {csrc}'s DG kernels: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in seconds.items()))
+        (out / "build.log").write_text(log)
+        os.replace(work / "lib.so", out / "lib.so")
+        shutil.rmtree(work, ignore_errors=True)
+    log = (out / "build.log").read_text()
+    return bind(ctypes.CDLL(str(out / "lib.so"))), log
+
+
+def digests_of(lib) -> dict:
+    """``dg_kernel.kernel_digests`` with the wrappers calling ``lib``'s
+    entries (None: this tree's library)."""
+    from multigrid_tpu_torch import _build
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+
+    saved = _build.library()
+    _build._lib = saved if lib is None else lib
+    try:
+        return dk.kernel_digests(torch.device("cuda", 0))
+    finally:
+        _build._lib = saved
 
 
 def cg_tile(n: int) -> dict:
@@ -170,7 +243,7 @@ def digest(t: torch.Tensor) -> str:
 
 
 def size_run(size: int, degree: int, kind: str, specs: dict, dev,
-             cg: bool) -> dict:
+             cg: bool, others=None) -> dict:
     from multigrid_tpu_torch import _build
     from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
     from multigrid_tpu_torch.ops import dg_kernel as dk
@@ -214,49 +287,80 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
                                                       partial)
         fns["dg_cg"]()
         want["dg_cg"] = (cgx.clone(), cgp.clone(), cgq.clone(), cgs.clone())
+        # the preconditioner pass once from the same scalars as dg_cg
+        jr0, jz0, js0 = r.clone(), torch.empty_like(r), scal.clone()
+        dk.dg_jacobi_cg(jr0, q, js0, jz0, op64, partial)
+        want["dg_jacobi_cg"] = (jr0, jz0, js0)
     torch.cuda.synchronize()
     digests = {k: digest(want[k]) for k in ("cheb", "cheb_x0", "apply_f32",
                                             "residual_f32", "apply_f64",
                                             "residual_f64")}
+    outs_of = {"dg_cg": ("x", "p", "q", "scalars"),
+               "dg_jacobi_cg": ("r", "z", "scalars")}
+    for key, names in outs_of.items():
+        if key in want:
+            digests.update({f"{key} {n}": digest(t)
+                            for n, t in zip(names, want[key])})
     args = (*grid.cells, grid.n, int(op.plain.is_collocation),
             _build.stream_handle(dev))
+    differ = []
+    ptr = lambda t: t.data_ptr()
+    tabs = {32: op.host_tables.ctypes.data, 64: op64.host_tables.ctypes.data}
+
+    def raw_calls(lib, keys=None) -> dict:
+        """mode -> (fresh outputs, a call of lib's C entry on the inputs
+        above), for the modes ``keys`` (default: all)"""
+        raw = {}
+        keys = keys or ("cheb", "cheb_x0", "apply_f32", "residual_f32",
+                        "apply_f64", "residual_f64", "dg_cg", "dg_jacobi_cg")
+        for key, x_, xo_, f1 in (("cheb", x, xo, 0.37),
+                                 ("cheb_x0", None, None, 0.0)):
+            if key not in keys:
+                continue
+            o = torch.empty_like(b)
+            raw[key] = ((o,), lambda o=o, x_=x_, xo_=xo_, f1=f1: call(
+                lib.dg_cheb_f32, ptr(b), None if x_ is None else ptr(x_),
+                None if xo_ is None else ptr(xo_), ptr(op.jacobi.inv_diag),
+                tabs[32], ptr(o), f1, 0.81, *args))
+        for bits, xs, bs in ((32, xr, br), (64, xr64, br64)):
+            for mode, key in enumerate((f"apply_f{bits}", f"residual_f{bits}")):
+                if key not in keys:
+                    continue
+                entry = getattr(lib, f"dg_apply_f{bits}")
+                o = torch.empty_like(xs)
+                raw[key] = ((o,), lambda o=o, mode=mode, xs=xs, bs=bs,
+                            entry=entry, bits=bits: call(
+                    entry, mode, ptr(xs), ptr(bs), tabs[bits], ptr(o), *args))
+        if cg and "dg_cg" in keys:
+            vx, vs = x0.clone(), scal.clone()
+            vp, vq = torch.empty_like(x0), torch.empty_like(x0)
+            raw["dg_cg"] = ((vx, vp, vq, vs), lambda: call(
+                lib.dg_cg_f64, ptr(p_old), ptr(z), ptr(vx), ptr(vp),
+                ptr(vq), ptr(vs), tabs[64], ptr(partial), partial.numel(),
+                *args))
+        if cg and "dg_jacobi_cg" in keys:
+            wr, wz, ws = r.clone(), torch.empty_like(r), scal.clone()
+            raw["dg_jacobi_cg"] = ((wr, wz, ws), lambda: call(
+                lib.dg_jacobi_cg_f64, ptr(wr), ptr(q), ptr(wz),
+                ptr(op64.jacobi.inv_diag), ptr(ws), tabs[64], ptr(partial),
+                partial.numel(), int(np.prod(grid.cells)), grid.n, 0,
+                args[-1]))
+        return raw
+
     no_fit = [spec for spec in specs if not fits(spec, grid.n)]
-    for spec, (entry, _, _) in specs.items():
+    # the modes a pencil variant times (see variants())
+    spec_keys = {"cheb": ("cheb",), "cg": ("dg_cg",),
+                 "f32": ("apply_f32", "residual_f32"),
+                 "f64": ("apply_f64", "residual_f64")}
+    for spec, (_, lib) in specs.items():
         what = spec.split(":")[0]
         if spec in no_fit or (what == "cg" and not cg):
             continue
-        outs, new = {}, {}
-        if what == "cheb":
-            outs["cheb"] = torch.empty_like(b)
-            new["cheb"] = lambda o=outs["cheb"], entry=entry: call(
-                entry, b.data_ptr(), x.data_ptr(), xo.data_ptr(),
-                op.jacobi.inv_diag.data_ptr(), op.host_tables.ctypes.data,
-                o.data_ptr(), 0.37, 0.81, *args)
-        elif what == "cg":
-            vx, vs = x0.clone(), scal.clone()
-            vp, vq = torch.empty_like(x0), torch.empty_like(x0)
-            outs["dg_cg"] = (vx, vp, vq, vs)
-            new["dg_cg"] = lambda entry=entry: call(
-                entry, p_old.data_ptr(), z.data_ptr(), vx.data_ptr(),
-                vp.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-                op64.host_tables.ctypes.data, partial.data_ptr(),
-                partial.numel(), *args)
-        else:
-            ops, xs, bs = ((op64, xr64, br64) if what == "f64"
-                           else (op, xr, br))
-            for mode, key in enumerate((f"apply_{what}", f"residual_{what}")):
-                outs[key] = torch.empty_like(xs)
-                new[key] = (lambda o=outs[key], mode=mode, ops=ops, xs=xs,
-                            bs=bs, entry=entry:
-                            call(entry, mode, xs.data_ptr(), bs.data_ptr(),
-                                 ops.host_tables.ctypes.data, o.data_ptr(),
-                                 *args))
-        for key, fn in new.items():
+        for key, (outs, fn) in raw_calls(lib, spec_keys[what]).items():
             fn()
             torch.cuda.synchronize()
-            pairs = (zip(outs[key], want[key]) if key == "dg_cg"
-                     else [(outs[key], want[key])])
-            for got, ref in pairs:
+            refs = want[key] if isinstance(want[key], tuple) else (want[key],)
+            for got, ref in zip(outs, refs):
                 diff = float((got - ref).abs().max())
                 bar = (1e-12 if got.dtype == torch.float64 else 1e-5) * float(
                     ref.abs().max())
@@ -264,12 +368,27 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
                     raise AssertionError(f"{spec} {key}: differs by "
                                          f"{diff:.3e}")
             if key != "dg_cg":
-                digests[f"{key}@{spec}"] = digest(outs[key])
+                digests[f"{key}@{spec}"] = digest(outs[0])
             fns[f"{key}@{spec}"] = fn
+    libs = {"this": _build.library(), **(others or {})}
+    for name, lib in (libs.items() if others else ()):
+        # each tree's C entries on the same inputs, fresh outputs
+        for key, (outs, fn) in raw_calls(lib).items():
+            fn()
+            torch.cuda.synchronize()
+            refs = want[key] if isinstance(want[key], tuple) else (want[key],)
+            if not all(torch.equal(a, b_) for a, b_ in zip(outs, refs)):
+                differ.append(f"{key}@{name}")
+            if key in outs_of:
+                digests.update({f"{key} {n}@{name}": digest(t)
+                                for n, t in zip(outs_of[key], outs)})
+            else:
+                digests[f"{key}@{name}"] = digest(outs[0])
+            fns[f"{key}@{name}"] = fn
     rounds = [{k: time_ms(fn) for k, fn in fns.items()} for _ in range(3)]
     return dict(dofs=grid.n_dofs, kind=kind, sha256=digests, rounds=rounds,
                 best={k: min(r[k] for r in rounds) for k in fns},
-                no_fit=no_fit)
+                no_fit=no_fit, differ=differ)
 
 
 def main(argv: list[str]) -> int:
@@ -285,6 +404,10 @@ def main(argv: list[str]) -> int:
                     help="also time dg_cg<double> and dg_jacobi_cg<double>")
     ap.add_argument("--pencil", nargs="*", default=[],
                     help="TYPE:K (TYPE f32, f64, cheb or cg)")
+    ap.add_argument("--against", nargs="*", default=[], metavar="DIR",
+                    help="time and compare other trees' DG kernels")
+    ap.add_argument("--digests", action="store_true",
+                    help="print dg_kernel.kernel_digests instead of timing")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_dg_cheb: needs a CUDA device")
@@ -293,6 +416,20 @@ def main(argv: list[str]) -> int:
                           text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
     _build.library()
+    built = {Path(d).name: against_library(d) for d in args.against}
+    others = {name: lib for name, (lib, _) in built.items()}
+    if args.digests:
+        mine = digests_of(None)
+        out = {"digests": mine}
+        if others:
+            name = next(iter(others))
+            out["against"] = digests_of(others[name])
+            out["differ"] = [k for k in mine if out["against"].get(k) != mine[k]]
+            print(f"digests: {len(mine)}, differing from {name}: "
+                  f"{out['differ'] or 'none'}")
+        print(card)
+        print(json.dumps(out))
+        return 0
     specs = variants(args.pencil)
     results = []
     for degree in args.degree:
@@ -300,13 +437,22 @@ def main(argv: list[str]) -> int:
         result = dict(card=card, degree=degree,
                       library_ptxas=degree_rows(_build.build_log, n),
                       variant_ptxas={s: degree_rows(log, n)
-                                     for s, (_, log, _) in specs.items()},
+                                     for s, (log, _) in specs.items()},
                       sizes={})
+        if others:
+            result["against_ptxas"] = {name: degree_rows(log, n)
+                                       for name, (_, log) in built.items()}
+            for tree, rows in (("library", result["library_ptxas"]),
+                               *result["against_ptxas"].items()):
+                for r in rows:
+                    print(f"p={degree} ptxas {tree} {r['kernel']}: "
+                          f"{r['registers']} registers, spills "
+                          f"{r['spill_stores']} / {r['spill_loads']} B")
         if n in dk.HIGH_KERNELS_AT:
             # the tile of the kernels at p = 8, 9, of the library and of
             # each variant
             result["high_tiles"] = {"library": dk.high_tile(n), **{
-                s: dk.high_tile(n, lib) for s, (_, _, lib) in specs.items()
+                s: dk.high_tile(n, lib) for s, (_, lib) in specs.items()
                 if s.split(":")[0] != "cg"}}
             for s, tiles in result["high_tiles"].items():
                 for name, tile in tiles.items():
@@ -322,11 +468,17 @@ def main(argv: list[str]) -> int:
                 f"/ {r['spill_loads']} B" for r in rows))
         for kind in args.kind:
             for size in args.sizes:
-                run = size_run(size, degree, kind, specs, dev, args.cg)
+                run = size_run(size, degree, kind, specs, dev, args.cg,
+                               others)
                 result["sizes"][f"{size} {kind}"] = run
                 torch.cuda.empty_cache()
                 print(f"p={degree} {kind} size {size}: sha256 " + ", ".join(
                     f"{k} {d}" for k, d in run["sha256"].items()))
+                if others:
+                    print(f"p={degree} {kind} size {size}: outputs differing "
+                          f"from this tree's: {run['differ'] or 'none'}; "
+                          "best ms " + ", ".join(
+                              f"{k} {v:.4f}" for k, v in run["best"].items()))
                 if args.cg:
                     print(f"p={degree} {kind} size {size}: dg_cg "
                           f"{run['best']['dg_cg']:.4f} ms, dg_jacobi_cg "

@@ -415,6 +415,85 @@ def dg_jacobi_cg(r, q, scal, z, op: "DGOperator", partial=None,
         _build.stream_handle(r.device))
 
 
+# ------------------------------------------------------------- digests
+# the cells of kernel_digests: x ragged in every pencil length (7 cells), y
+# with an interior row, z two runs of dg_cg's march (runs of at least 8)
+DIGEST_CELLS = (9, 3, 7)
+DIGEST_MODES = ("apply<double>", "residual<double>", "apply<float>",
+                "residual<float>", "cheb<float>", "cheb<float> x=0",
+                "dg_cg<double>", "dg_jacobi_cg<double>")
+
+
+def kernel_digests(device, degrees=range(1, MAX_DEGREE + 1),
+                   kinds=("hermite", "gll", "gauss")) -> dict:
+    """``"p=<p> <kind> <mode>"`` -> the first 16 hex digits of the sha256
+    of each DG kernel's outputs (:data:`DIGEST_MODES`) on the sheared grid
+    of :data:`DIGEST_CELLS` cells, on seeded inputs: float32 values x (seed
+    1), b (2), x_old (3), held exactly in float64 too; a seeded inv_diag
+    (4, in [0.5, 1.5)) in place of the Jacobi's, so that no digest depends
+    on PyTorch's own kernels; the step with x (f1 = 0.37, f2 = 0.81) and
+    with x = 0; ``dg_cg`` (x, p, q and the scalars, from p_old, z, x of
+    seeds 5, 6, 7) and ``dg_jacobi_cg`` (r, z and the scalars, from r, q of
+    seeds 8, 9), each from the scalars (0.37, 0.61, 1.7, 0, 0).  Pins the
+    kernels' bits (tests/test_torch_cuda.py, chip_smoke.py).  Needs the
+    card."""
+    import hashlib
+    import types
+
+    dev = resolve(device)
+
+    def seeded(shape, seed, dtype=torch.float32):
+        a = np.random.default_rng(seed).standard_normal(shape)
+        return torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype)
+
+    def digest(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    cells = DIGEST_CELLS
+    J = np.diag(1.0 / np.array(cells)) @ (
+        np.eye(3) + 0.08 * np.random.default_rng(0).random((3, 3)))
+    out = {}
+    for p in degrees:
+        for kind in kinds:
+            grid = DGGrid(cells=cells, jacobian=tuple(map(tuple, J)),
+                          degree=p, kind=kind)
+            x, b, xo = (seeded(grid.shape, s) for s in (1, 2, 3))
+            inv = torch.as_tensor(0.5 + np.random.default_rng(4).random(
+                grid.shape), dtype=torch.float32, device=dev)
+            res = {}
+            for dtype in (torch.float64, torch.float32):
+                op = DGOperator(grid, dtype, dev)
+                op.install_jacobi(types.SimpleNamespace(
+                    grid=grid, inv_diag=inv.to(dtype)))
+                xt, bt = x.to(dtype), b.to(dtype)
+                cname = _SUFFIX[dtype][1]
+                res[f"apply<{cname}>"] = digest(dg_apply(xt, op))
+                res[f"residual<{cname}>"] = digest(dg_residual(bt, xt, op))
+                if dtype == torch.float32:
+                    res["cheb<float>"] = digest(
+                        dg_cheb(b, x, xo, op, 0.37, 0.81))
+                    res["cheb<float> x=0"] = digest(
+                        dg_cheb(b, None, None, op, 0.0, 0.81))
+                    continue
+                scal0 = torch.tensor([0.37, 0.61, 1.7, 0.0, 0.0],
+                                     dtype=torch.float64, device=dev)
+                p_old, z, xc = (seeded(grid.shape, s, dtype)
+                                for s in (5, 6, 7))
+                pp, qq, sc = (torch.empty_like(xc), torch.empty_like(xc),
+                              scal0.clone())
+                dg_cg(p_old, z, xc, sc, pp, qq, op)
+                res["dg_cg<double>"] = digest(xc, pp, qq, sc)
+                r, q = (seeded(grid.shape, s, dtype) for s in (8, 9))
+                zj, sc = torch.empty_like(r), scal0.clone()
+                dg_jacobi_cg(r, q, sc, zj, op)
+                res["dg_jacobi_cg<double>"] = digest(r, zj, sc)
+            out.update({f"p={p} {kind} {m}": res[m] for m in DIGEST_MODES})
+    return out
+
+
 # ---------------------------------------------------------------- operator
 class DGOperator:
     """A·u of one DG level in one dtype on one device: the kernels' table
