@@ -70,12 +70,24 @@ convergence rows:
 * poisson_cube at p = 8 (32^3 cells, 257^3 nodes) and p = 9 (28^3 cells,
   253^3 nodes), brick_kron's degrees above the main path's: set-up, FMG
   and CG, the CG its within one of the CPU's on the 4^3 mesh;
+* p = 10 and 16, the top of the JAX package's degree sweep: poisson_cube
+  on 24^3 cells (13,997,521 dofs) and 16^3 (16,974,593), poisson_dg on
+  20^3 cells (10,648,000 DG dofs) and 12^3 (8,489,664), poisson_dg_plain
+  on 20^3 at p = 10, every 3-D level on the hand kernels (brick_kron's
+  z-slab march of ``brick_kron_wide*.cu``, the DG pencils of
+  ``dg_pencil_wide*.cu``): each path's size-2 row on the card against the
+  JAX row pinned in ``WIDE_ANCHORS`` (its within one, frac its and L2 to
+  ``WIDE_AGREE``), then the full-width row (the cube's CG its within one
+  of its size-2 row's, CG L2 below ``L2_BOUND``; the DG rows' frac its
+  within one and rates within a factor of two of the first card run,
+  ``WIDE_DG_CARD``, L2 the DG plateau, DG-plain's solution poisson_dg's
+  to 1e-5);
 * 2-D poisson_dg_plain, the reference program's setting (p = 3; the DG
   kernels are 3-D, so the levels run the plain operator, "(plain)"): the
   4096- and 16,384-dof rows of every kind on the card against the CPU,
   then hermite at 3,211,264 and 4,194,304 DG dofs; ``matvec_dg`` in f64
-  at p = 8 (``dg_apply<double>``) and the "(plain)" rows at p = 10 and 16
-  (above the DG kernels' degree), each checked against the face-based
+  at p = 8, 10 and 16 (``dg_apply<double>``) and the "(plain)" row at p =
+  17 (above the DG kernels' degree), each checked against the face-based
   operator;
 * poisson_cube --dim 2 (the plain operator on the levels): 32^2 cells on
   the card against the CPU, then 512^2 cells (4,198,401 dofs); poisson_dg
@@ -137,7 +149,10 @@ convergence rows:
   the nccl rank runs both solvers.
 
 ``brick_kron`` (float and double, every mode) is held at every compiled
-degree (p = 1..9; at p = 8, 9 in the form ``laplace_kernel.brick_form``
+degree (p = 1..16; at p = 10..16 the z-slab march of
+``brick_kron_wide*.cu``, on small grids, timed at p = 10 and 16 on the
+cube rows' node grids, its outputs bit for bit as ``KRON_WIDE_DIGESTS``
+pins them; at p = 8, 9 in the form ``laplace_kernel.brick_form``
 picks for each grid: the cell form on the small grids and in double, the
 layer march on the large float ones, whose four modes at the cube rows'
 node grids are also held against ``brick_kron_reference`` and against
@@ -145,7 +160,10 @@ the z-slab march bit for bit), also at the coarse grids of the p = 8, 9
 hierarchies (64^3 and 28^3 nodes at p = 9, 25^3 at p = 8), and the DG
 pencil kernels (``dg_apply`` and
 ``dg_residual`` in float and double, ``dg_cheb<float>``) at theirs (p =
-1..9; the step at p = 8, 9 and the double apply at p = 8 are the kernels
+1..16; at p = 10..16 the in-place pencils of ``dg_pencil_wide*.cu``,
+whose tiles are printed after the build, timed at p = 10 and 16 on the
+grids of their paths; the step at p = 8, 9 and the double apply at p = 8
+are the kernels
 of ``csrc/dg_pencil_high.cu``, whose tile,
 registers and spill are printed after the build, a spill failing the run,
 also on ``dg_kernel.HIGH_CELLS``: one-cell axes, ragged pencils, many
@@ -153,12 +171,14 @@ pencils), the DG
 kernels on x axes that do not fill a pencil or have one
 cell, against the plain operator and the face-based one
 (``ops/dg_face.py``); the fused CG's ``dg_cg<double>`` and
-``dg_jacobi_cg<double>`` at p = 1..9 (also on ``dg_kernel.MARCH_CELLS``,
+``dg_jacobi_cg<double>`` at p = 1..9, their degrees (also on
+``dg_kernel.MARCH_CELLS``,
 the ends of dg_cg's z march) and timed at 13,824,000 DG dofs against their plain
 versions (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``).  Then
 the DG kernels' bits: ``dg_kernel.kernel_digests`` (every mode of every
-DG kernel at p = 1..9 in every kind, on seeded inputs) must equal
-:data:`DG_DIGESTS` (those of tests/test_torch_cuda.py) key for key.
+DG kernel at p = 1..16 in every kind, on seeded inputs) must equal
+:data:`DG_DIGESTS` (those of tests/test_torch_cuda.py) key for key, and a
+3-D DG level at p = 17 is refused on the card ("no DG kernel").
 
 Every phase raises on a miss; there is no CPU path.
 
@@ -167,9 +187,10 @@ with the kernels (device kernels launched during the paths' solves, as a
 trace counts them: one brick_kron call 1, one CG reduction 2, one DG
 kernel call 1, one fused CG pass 2; ``launches`` sums the paths, ``launches_by_path`` gives
 each, and brick_kron's by kernel and node grid under "<kernel> ZxYxX";
-the ``... p=8`` and ``... p=9`` rows are brick_kron and the DG kernels at
-those degrees, timed at the cube rows' node grids and the 24^3-cell DG
-grids and counted on the paths of that degree (the cube and DG rows, the
+the ``... p=8``, ``... p=9``, ``... p=10`` and ``... p=16`` rows are
+brick_kron and the DG kernels at those degrees, timed at the cube rows'
+node grids and the DG rows' grids and counted on the paths of that degree
+(the cube and DG rows, the
 p = 8 ``matvec_dg`` row; the p = 8, 9 DG and DG-plain solves must run
 every step and the p = 8 double apply in ``dg_pencil_high.cu``'s kernels,
 "<kernel> high" in their launches, and the p = 4 DG paths none), the ``... p=9 64^3`` rows and the like
@@ -290,12 +311,12 @@ HIGH_DEGREE_SMALL = 4
 # rate below PLAIN_RATE, frac its within one of each other
 DG2_DEGREE, DG2_SMALL, DG2_LARGE = 3, (2, 4), (56, 64)
 DG2_AGREE = 0.01
-# matvec_dg above the DG kernels' degree (p = 10, 16): the plain rows,
-# f64, checked against the face-based operator at matvec_dg's bar
-# (degree -> refinement steps: 2,725,888 and 2,515,456 DG dofs); the p = 8
-# row (2,985,984 DG dofs) runs dg_apply<double> at the same bar
-MATVEC_PLAIN = {10: 11, 16: 9}
-MATVEC_KERNEL = {8: 12}
+# matvec_dg in f64, checked against the face-based operator at matvec_dg's
+# bar (degree -> refinement steps): the kernel rows at p = 8, 10 and 16
+# (2,985,984, 2,725,888 and 2,515,456 DG dofs) run dg_apply<double>; above
+# the DG kernels' degree, p = 17 (2,985,984), the plain row
+MATVEC_PLAIN = {17: 9}
+MATVEC_KERNEL = {8: 12, 10: 11, 16: 9}
 # poisson_dg (DG over the FE_Q(p) hierarchy) and poisson_dg_plain at the DG
 # kernels' degrees above p = 7 (3-D, hermite, n_pre = n_post = 3, rtol
 # 1e-9): the rows of 2^3 and 4^3 cells (sizes 2, 4) on the card against the
@@ -329,6 +350,46 @@ DG_HIGH_CPU = {("poisson_dg", 8): 5.899683, ("poisson_dg", 9): 6.824563,
 DG_HIGH_RATE = {("poisson_dg", 8): (0.01029, 0.05964),
                 ("poisson_dg", 9): (0.01152, 0.09600),
                 ("poisson_dg_plain", 8): (0.08404, 0.4756)}
+# brick_kron and the DG pencils at p = 10..16, the top of the JAX
+# package's degree sweep (tests/test_degree_sweep.py): every degree held
+# against its plain version on small, one-cell-axis and ragged grids, the
+# z-slab march in both types (brick_kron_wide*.cu) and the in-place
+# pencils (dg_pencil_wide*.cu); timed at p = 10 and 16 on the grids of
+# their paths: poisson_cube at size 24 (241^3 nodes) and 16 (257^3),
+# poisson_dg at size 20 (10,648,000 DG dofs) and 12 (8,489,664), and
+# poisson_dg_plain at size 20 (p = 10)
+WIDE_DEGREES = tuple(range(10, 17))
+WIDE_CUBE_SIZES = {10: 24, 16: 16}
+WIDE_DG_SIZES = {10: 20, 16: 12}
+WIDE_DG_PATHS = (("poisson_dg", 10), ("poisson_dg", 16),
+                 ("poisson_dg_plain", 10))
+WIDE_SMALL = 2
+# (path, p) -> the JAX package's row at size 2 on the CPU: poisson_cube
+# (MultigridSolver, n_pre = n_post = 2, 2 V-cycles): (CG its, CG
+# reduction, CG L2); poisson_dg (MultigridSolverDG, dp_impl="native") and
+# poisson_dg_plain (MultigridSolverDGPlain), hermite, n_pre = n_post = 3,
+# rtol 1e-9: (frac its, rate, L2).  The card's size-2 rows meet them with
+# its within one, frac its and L2 to WIDE_AGREE: DG_HIGH_AGREE's 1% at p =
+# 10; 2% at p = 16, where the f32 V-cycle over FE_Q(16) moves the frac its
+# with the order of its sums (the port on the CPU read 9.2142 on four
+# threads, the card 9.1004, JAX 9.2533; the L2 errors agree to 1e-12)
+WIDE_AGREE = {10: DG_HIGH_AGREE, 16: 0.02}
+WIDE_ANCHORS = {
+    ("poisson_cube", 10): {2: (9, 8.154445e-2, 7.166941394e-5)},
+    ("poisson_cube", 16): {2: (13, 1.824618e-1, 1.116605566e-9)},
+    ("poisson_dg", 10): {2: (5.932024, 3.039565e-2, 1.006862210e-1)},
+    ("poisson_dg", 16): {2: (9.253329, 1.065067e-1, 1.006856908e-1)},
+    ("poisson_dg_plain", 10): {2: (12.658460, 1.945419e-1, 1.006862211e-1)},
+}
+# the full-width rows of this script's first run on the card (NVIDIA H100
+# 80GB HBM3, 700 W), a guard against a later change: poisson_cube CG its
+# within one of the size-2 row, CG L2 below L2_BOUND; the DG rows' frac
+# its within one of these, their rates within a factor of two, their L2
+# the DG plateau (DG_L2 +- DG_L2_TOL), poisson_dg_plain's solution and L2
+# poisson_dg's to PLAIN_AGREE
+WIDE_DG_CARD = {("poisson_dg", 10): (6.914969, 4.994312e-2),
+                ("poisson_dg", 16): (10.785524, 1.464024e-1),
+                ("poisson_dg_plain", 10): (24.719500, 4.324291e-1)}
 # the 2-D brick: size 4 (32^2 cells) card against CPU (its exact, V-cycle
 # and CG reductions to 2%), then size 64 (512^2 cells, 4,198,401 dofs):
 # cg_its 8 and the reductions within ROW_TOL of the top row of
@@ -367,6 +428,17 @@ KRON_BARS = {torch.float32: ("float", 2e-6, 3e-6),
 
 BRICK = "multigrid_tpu_torch/csrc/brick_kron.cuh"
 PENCIL = "multigrid_tpu_torch/csrc/dg_pencil.cuh"
+# p = 10..16: the z-slab march's and the in-place pencils' translation
+# units, by type (the DG ones at p = 10..13, then 14..16)
+BRICK_WIDE = {"float": "multigrid_tpu_torch/csrc/brick_kron_wide.cu",
+              "double": "multigrid_tpu_torch/csrc/brick_kron_wide_f64.cu"}
+PENCIL_WIDE = {("float", False): "multigrid_tpu_torch/csrc/dg_pencil_wide.cu",
+               ("float", True):
+                   "multigrid_tpu_torch/csrc/dg_pencil_wide_top.cu",
+               ("double", False):
+                   "multigrid_tpu_torch/csrc/dg_pencil_wide_f64.cu",
+               ("double", True):
+                   "multigrid_tpu_torch/csrc/dg_pencil_wide_top_f64.cu"}
 # the DG pencils at p = 8, 9: a design of their own
 PENCIL_HIGH = "multigrid_tpu_torch/csrc/dg_pencil_high.cu"
 EPILOGUE = "multigrid_tpu_torch/csrc/cheb_epilogue.cu"
@@ -416,10 +488,22 @@ for _name, _degrees in (("dg_apply<double>", (8,)),
                         ("dg_cheb<float>", (8, 9))):
     for _p in _degrees:
         KERNELS[f"{_name} p={_p}"] = (PENCIL_HIGH, KERNELS[_name][1])
+# p = 10 and 16: brick_kron at the cube rows' node grids, the DG pencils
+# at the DG rows' grids, each counted on the paths of its degree
+for _p in WIDE_CUBE_SIZES:
+    for _name in BRICK_NAMES:
+        KERNELS[f"{_name} p={_p}"] = (
+            BRICK_WIDE["float" if "<float>" in _name else "double"],
+            KERNELS[_name][1])
+    for _name in ("dg_apply<double>", "dg_apply<float>", "dg_cheb<float>"):
+        KERNELS[f"{_name} p={_p}"] = (
+            PENCIL_WIDE["float" if "<float>" in _name else "double",
+                        _p + 1 >= 15], KERNELS[_name][1])
 
 
 # dg_kernel.kernel_digests on the card: the DG kernels' outputs on seeded
-# inputs, as tests/test_torch_cuda.py pins them (DG_DIGESTS there)
+# inputs, as tests/test_torch_cuda.py pins them (DG_DIGESTS there); p =
+# 10..16 recorded on an H100 from the kernels of dg_pencil_wide*.cu
 DG_DIGESTS = {
     "p=1 hermite apply<double>": "cbe389b4cdc0a7ed",
     "p=1 hermite residual<double>": "da4b691d1a04e395",
@@ -637,6 +721,192 @@ DG_DIGESTS = {
     "p=9 gauss cheb<float> x=0": "e90b1107b710eccb",
     "p=9 gauss dg_cg<double>": "b1632f9637f082ea",
     "p=9 gauss dg_jacobi_cg<double>": "b9713fbf9d85db0f",
+    "p=10 hermite apply<double>": "40c73de9938d2657",
+    "p=10 hermite residual<double>": "052354a6fe498c36",
+    "p=10 hermite apply<float>": "43b003e6b19af53f",
+    "p=10 hermite residual<float>": "130e342b140ed540",
+    "p=10 hermite cheb<float>": "1d1ed3dea73c9f0c",
+    "p=10 hermite cheb<float> x=0": "4c4f17a95b82bc67",
+    "p=10 gll apply<double>": "17eb8a3a6e5c4ef1",
+    "p=10 gll residual<double>": "416610a675c2717d",
+    "p=10 gll apply<float>": "5914f39f24b4d072",
+    "p=10 gll residual<float>": "c885d3b2766acf97",
+    "p=10 gll cheb<float>": "226b8feef5d901f0",
+    "p=10 gll cheb<float> x=0": "d3fbb9ea2bc7c3bb",
+    "p=10 gauss apply<double>": "663de14476d8a573",
+    "p=10 gauss residual<double>": "90b978e439f4f387",
+    "p=10 gauss apply<float>": "71554e064d9973c0",
+    "p=10 gauss residual<float>": "9dedf515f0c21bff",
+    "p=10 gauss cheb<float>": "8e680c95ebddc741",
+    "p=10 gauss cheb<float> x=0": "ef1b3b11f9aea004",
+    "p=11 hermite apply<double>": "042aa817331db0b2",
+    "p=11 hermite residual<double>": "b81ba66e755dea67",
+    "p=11 hermite apply<float>": "4b6d7adeacdabd28",
+    "p=11 hermite residual<float>": "df1fc9a0a95ba1d2",
+    "p=11 hermite cheb<float>": "d02d90b28b5f6614",
+    "p=11 hermite cheb<float> x=0": "151446fd97a208ce",
+    "p=11 gll apply<double>": "41576f260eb57b24",
+    "p=11 gll residual<double>": "8b3da8affbd52489",
+    "p=11 gll apply<float>": "a70d8cf810b1a7a0",
+    "p=11 gll residual<float>": "614018514e31e7f1",
+    "p=11 gll cheb<float>": "c7ff01b13ca7f117",
+    "p=11 gll cheb<float> x=0": "c7f1a2e63df26eaa",
+    "p=11 gauss apply<double>": "b4b86b566ea4c580",
+    "p=11 gauss residual<double>": "d950eb32a3ef190c",
+    "p=11 gauss apply<float>": "3a78c9263b062156",
+    "p=11 gauss residual<float>": "83c7c437d95b5d32",
+    "p=11 gauss cheb<float>": "e1534f17c1ce813e",
+    "p=11 gauss cheb<float> x=0": "55d51302e7aeea69",
+    "p=12 hermite apply<double>": "1f3aede5686aa2e6",
+    "p=12 hermite residual<double>": "f7e21585c38e3b5a",
+    "p=12 hermite apply<float>": "808cc289093e74ac",
+    "p=12 hermite residual<float>": "fc7585a8d5c5df74",
+    "p=12 hermite cheb<float>": "34387cffebc359af",
+    "p=12 hermite cheb<float> x=0": "a57554b6faafe25b",
+    "p=12 gll apply<double>": "6a173b636ada7048",
+    "p=12 gll residual<double>": "842b30ea50d27a6c",
+    "p=12 gll apply<float>": "21650ff1e438353b",
+    "p=12 gll residual<float>": "26b4aa84424a8b3d",
+    "p=12 gll cheb<float>": "a0a4b9fd66b9169e",
+    "p=12 gll cheb<float> x=0": "354a6298fa647e6c",
+    "p=12 gauss apply<double>": "06846a9069aa2b92",
+    "p=12 gauss residual<double>": "a6c82927a4845bba",
+    "p=12 gauss apply<float>": "0c220fdf53a87eb9",
+    "p=12 gauss residual<float>": "1075a1d7076c10f7",
+    "p=12 gauss cheb<float>": "dfdf2d10113973b6",
+    "p=12 gauss cheb<float> x=0": "967c07bcbc22bd7d",
+    "p=13 hermite apply<double>": "d4c60878efe4d4ea",
+    "p=13 hermite residual<double>": "5d16924c1f7abb3c",
+    "p=13 hermite apply<float>": "672f9b5b09c84eb2",
+    "p=13 hermite residual<float>": "c7af6f903c1523d8",
+    "p=13 hermite cheb<float>": "f6a53c01315c81ac",
+    "p=13 hermite cheb<float> x=0": "e0682a68b5bcd96d",
+    "p=13 gll apply<double>": "c2642f18d77f429d",
+    "p=13 gll residual<double>": "cb4233b29e137575",
+    "p=13 gll apply<float>": "17d38c91acbf39fd",
+    "p=13 gll residual<float>": "5f7032fa255719e3",
+    "p=13 gll cheb<float>": "a82ec8f775eb7507",
+    "p=13 gll cheb<float> x=0": "f3a195ba2c3e7bca",
+    "p=13 gauss apply<double>": "1a70cbad1be52cbc",
+    "p=13 gauss residual<double>": "b774d7632a188f1f",
+    "p=13 gauss apply<float>": "a9952633218cacdd",
+    "p=13 gauss residual<float>": "9c495f4b884eb6ba",
+    "p=13 gauss cheb<float>": "be0ca71964ea2993",
+    "p=13 gauss cheb<float> x=0": "5c26d589e3e83aa5",
+    "p=14 hermite apply<double>": "66387039f3002232",
+    "p=14 hermite residual<double>": "3c552197c0049bd7",
+    "p=14 hermite apply<float>": "90a27a68f51de87f",
+    "p=14 hermite residual<float>": "e236f8a840729f89",
+    "p=14 hermite cheb<float>": "3dcbaa4977ef3b40",
+    "p=14 hermite cheb<float> x=0": "28d6aba5cf2ea174",
+    "p=14 gll apply<double>": "a57cd03a715972cc",
+    "p=14 gll residual<double>": "5c11642d706e953c",
+    "p=14 gll apply<float>": "9df4bae875c66ff1",
+    "p=14 gll residual<float>": "fad7327bee9c3393",
+    "p=14 gll cheb<float>": "c2386a53c694bbbe",
+    "p=14 gll cheb<float> x=0": "b3d37fe61b186bad",
+    "p=14 gauss apply<double>": "910bae73965fe6ee",
+    "p=14 gauss residual<double>": "4e53a8ee667f1c65",
+    "p=14 gauss apply<float>": "24d3490ae7e63bb5",
+    "p=14 gauss residual<float>": "0b08de200f00da65",
+    "p=14 gauss cheb<float>": "c5602b6290af22ae",
+    "p=14 gauss cheb<float> x=0": "0e89c8c6a38cde89",
+    "p=15 hermite apply<double>": "28fcc11d8a21ad98",
+    "p=15 hermite residual<double>": "164dd56516e736b6",
+    "p=15 hermite apply<float>": "918d423fd6a2c3ff",
+    "p=15 hermite residual<float>": "66b62c9b862d586a",
+    "p=15 hermite cheb<float>": "7f16fa2802375229",
+    "p=15 hermite cheb<float> x=0": "759125629cafe4f0",
+    "p=15 gll apply<double>": "f23026788a28cdf5",
+    "p=15 gll residual<double>": "e3f4022595c7a1ec",
+    "p=15 gll apply<float>": "86ee5ddf5f51caaa",
+    "p=15 gll residual<float>": "d234b7b9a6a86216",
+    "p=15 gll cheb<float>": "9a53fe6c062c3116",
+    "p=15 gll cheb<float> x=0": "e29fee20721b2df9",
+    "p=15 gauss apply<double>": "9b9738a7b74966c9",
+    "p=15 gauss residual<double>": "9744f6c99c098074",
+    "p=15 gauss apply<float>": "e07df9dd191b63e5",
+    "p=15 gauss residual<float>": "bf98b374dd30ab2d",
+    "p=15 gauss cheb<float>": "5d8b1e195c791d0e",
+    "p=15 gauss cheb<float> x=0": "2296b880c7415e5a",
+    "p=16 hermite apply<double>": "8e1aa105a52999b5",
+    "p=16 hermite residual<double>": "09917587da2bd00a",
+    "p=16 hermite apply<float>": "3783ba59306c7f04",
+    "p=16 hermite residual<float>": "f7362036a2d44df7",
+    "p=16 hermite cheb<float>": "160abfbb46ab8342",
+    "p=16 hermite cheb<float> x=0": "453d059ccf081a88",
+    "p=16 gll apply<double>": "7ea88fbed9719837",
+    "p=16 gll residual<double>": "966dbced62633051",
+    "p=16 gll apply<float>": "6752710526fd83de",
+    "p=16 gll residual<float>": "f8d969843bf597e6",
+    "p=16 gll cheb<float>": "42662889f4fd542a",
+    "p=16 gll cheb<float> x=0": "a2bf267cfaeb4cbe",
+    "p=16 gauss apply<double>": "7cd14a14b8030702",
+    "p=16 gauss residual<double>": "fca166673cf86ea2",
+    "p=16 gauss apply<float>": "a609d1486f6d2b89",
+    "p=16 gauss residual<float>": "058818b5c242a03c",
+    "p=16 gauss cheb<float>": "7f753442357f8fee",
+    "p=16 gauss cheb<float> x=0": "dcf06f4b2be243f4",
+}
+
+# brick_kron at p = 10..16 on seeded inputs (x seed 1, b 2, x_old 3, f1 =
+# 0.37, f2 = 0.81): sha256 (first 16 hex digits) of each mode's output,
+# recorded on an H100 from the z-slab march of brick_kron_wide*.cu, as
+# tests/test_torch_cuda.py pins them (KRON_WIDE_DIGESTS there); case ->
+# (cells, p) of ``brick``
+KRON_WIDE_CASES = {"cube2_p10": ((2, 2, 2), 10),
+                   "one_cell_axis_p16": ((1, 3, 2), 16),
+                   "tiles_p10": ((3, 4, 7), 10), "tiles_p11": ((2, 3, 5), 11),
+                   "ragged_p13": ((3, 2, 4), 13), "cube2_p16": ((2, 2, 2), 16)}
+KRON_WIDE_DIGESTS = {
+    "cube2_p10 float apply": "d18bfeffe84b9d1a",
+    "cube2_p10 float vmult": "d38a0dc276f38469",
+    "cube2_p10 float residual": "512e7977d6cc7693",
+    "cube2_p10 float cheb": "4c17401b23586f49",
+    "cube2_p10 double apply": "10980282e66a3dd3",
+    "cube2_p10 double vmult": "25f2fcc6853a1f36",
+    "cube2_p10 double residual": "f2db088aa0b3bf5f",
+    "cube2_p10 double cheb": "f42cffda6d16cac0",
+    "one_cell_axis_p16 float apply": "138c913cd63a8382",
+    "one_cell_axis_p16 float vmult": "d2b9da31b361668a",
+    "one_cell_axis_p16 float residual": "8f571344ac399681",
+    "one_cell_axis_p16 float cheb": "ca24f68401914190",
+    "one_cell_axis_p16 double apply": "97a802e2d406a516",
+    "one_cell_axis_p16 double vmult": "9eedc5cdd2a880e0",
+    "one_cell_axis_p16 double residual": "fee2c8d1d1372dc3",
+    "one_cell_axis_p16 double cheb": "84cdd9a2a336aff8",
+    "tiles_p10 float apply": "d6aea056670b3d29",
+    "tiles_p10 float vmult": "be21f2869a66e4e2",
+    "tiles_p10 float residual": "8e7b8d24b6004288",
+    "tiles_p10 float cheb": "5b731a94a904b646",
+    "tiles_p10 double apply": "1dc9460d044683fe",
+    "tiles_p10 double vmult": "7ba25dc59ac330d5",
+    "tiles_p10 double residual": "f08b243f52a1f525",
+    "tiles_p10 double cheb": "a18cb5ca964d65b3",
+    "tiles_p11 float apply": "e39f6c5487c55e86",
+    "tiles_p11 float vmult": "9eada12b52c482a6",
+    "tiles_p11 float residual": "2c9e9b701d6904d0",
+    "tiles_p11 float cheb": "5f05570099aad7c2",
+    "tiles_p11 double apply": "0afa41516346ef1a",
+    "tiles_p11 double vmult": "87d883286efced23",
+    "tiles_p11 double residual": "069e6eadf124c17a",
+    "tiles_p11 double cheb": "997352cdfe032088",
+    "ragged_p13 float apply": "e015aebef2a9621b",
+    "ragged_p13 float vmult": "2ce4fb7e74617230",
+    "ragged_p13 float residual": "7f2b645f981ef7cb",
+    "ragged_p13 float cheb": "a0c110b9d8422a62",
+    "ragged_p13 double apply": "467e1849979d1c82",
+    "ragged_p13 double vmult": "b809a8a7d39947f4",
+    "ragged_p13 double residual": "4ba7a64d47ff9848",
+    "ragged_p13 double cheb": "ea13f8925f52e873",
+    "cube2_p16 float apply": "20bebad61efe7f00",
+    "cube2_p16 float vmult": "07e43775960eea5b",
+    "cube2_p16 float residual": "416aee5be43202ad",
+    "cube2_p16 float cheb": "8c40de7d5e554446",
+    "cube2_p16 double apply": "a6084f199c059e71",
+    "cube2_p16 double vmult": "36eb337778eb49e8",
+    "cube2_p16 double residual": "f2448168aad5a24f",
+    "cube2_p16 double cheb": "ec3a9ea5220fe916",
 }
 
 
@@ -1259,9 +1529,10 @@ def main() -> int:
         print("  nvcc seconds: " + ", ".join(
             f"{k} {v:.2f}" for k, v in sorted(_build.build_seconds.items(),
                                                key=lambda kv: -kv[1])))
-    # registers and spills per source (ptxas -v); no brick kernel may
-    # spill, nor a DG pencil kernel at p = 4, 8 or 9 (n = 5, 9, 10: the
-    # paths' degrees)
+    # registers and spills per source (ptxas -v); no brick kernel at p =
+    # 1..9 may spill, nor a DG pencil kernel at p = 4, 8 or 9 (n = 5, 9,
+    # 10: the paths' degrees); the kernels at p = 10..16 (the *_wide
+    # sources) print theirs, spills included
     report = _build.ptxas_report(_build.build_log)
     if not report:
         print("  ptxas: the library was built before this run; no compiler "
@@ -1273,8 +1544,14 @@ def main() -> int:
                   if r["spill_stores"] or r["spill_loads"]]
         print(f"  ptxas: {src}: {len(rows)} kernels, registers {min(regs)}-"
               f"{max(regs)}, spilling: {spills or 'none'}")
-        require(not src.startswith("brick_kron") or not spills,
+        wide = "_wide" in src
+        require(not src.startswith("brick_kron") or wide or not spills,
                 f"a brick_kron kernel spills ({src}): {spills}")
+        if wide:
+            for r in rows:
+                print(f"    {r['kernel']}: {r['registers']} registers, spill "
+                      f"stores {r['spill_stores']} B, loads "
+                      f"{r['spill_loads']} B")
         if src.startswith("brick_kron"):
             for r in rows:
                 if ("brick_cell_kernelI" in r["kernel"]
@@ -1303,21 +1580,42 @@ def main() -> int:
                 and sum("20dg_high_apply_kernelI" in k for k in names) == 2
                 and sum("19dg_high_cheb_kernelI" in k for k in names) == 2
                 and sum("12dg_cg_kernelI" in k for k in names) == 9
-                and sum("19dg_jacobi_cg_kernelI" in k for k in names) == 9,
+                and sum("19dg_jacobi_cg_kernelI" in k for k in names) == 9
+                and sum("14dg_wide_kernelIf" in k for k in names) == 21
+                and sum("14dg_wide_kernelId" in k for k in names) == 14,
                 "the DG pencil kernels are not all in the library: the "
                 "template (the step at p = 1..7, the float apply at p = "
                 "1..9, the double one at p = 1..7, 9), dg_pencil_high.cu's "
-                "step at p = 8, 9 and double apply at p = 8")
-        require(sum("17brick_kron_kernelI" in k for k in names) == 64
+                "step at p = 8, 9 and double apply at p = 8, the wide "
+                "pencils' every mode at p = 10..16")
+        require(sum("17brick_kron_kernelI" in k for k in names) == 120
                 and sum("17brick_cell_kernelI" in k for k in names) == 16
                 and sum("18brick_layer_kernelIf" in k for k in names) == 8,
-                "brick_kron is not in the library at p = 1..9, both types, "
-                "all four modes (the march at p = 1..7 and in float at "
-                "p = 8, 9; the cell form at p = 8, 9; the layer march in "
-                "float at p = 8, 9)")
+                "brick_kron is not in the library at p = 1..16, both types, "
+                "all four modes (the march at p = 1..7, in float at p = 8, "
+                "9 and in both types at p = 10..16; the cell form at p = 8, "
+                "9; the layer march in float at p = 8, 9)")
 
     high_tiles()
+    wide_tiles()
     return run(dev, card, t_start)
+
+
+def wide_tiles() -> None:
+    """The tile of each DG pencil kernel at p = 10..16
+    (``dg_pencil_wide*.cu``, ``dg_kernel.wide_tile``: cells a pencil,
+    shared bytes, threads, blocks an SM, registers and local bytes a
+    thread); fails on a tile that exceeds a block's shared memory or that
+    no SM holds."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+
+    for p in dk.WIDE_DEGREES:
+        for name, tile in dk.wide_tile(p + 1).items():
+            print(f"  dg_pencil_wide p={p} {name}: " + ", ".join(
+                f"{k} {v}" for k, v in tile.items()))
+            require(tile["smem_bytes"] <= 232448
+                    and tile["blocks_per_sm"] >= 1,
+                    f"{name} at p = {p}: {tile}")
 
 
 def high_tiles() -> None:
@@ -1385,6 +1683,29 @@ def brick(cells, degree):
     from multigrid_tpu_torch.mesh.brick import BrickMesh, DofGrid
 
     return DofGrid(BrickMesh(cells, (-0.9,) * 3, (1.9, 1.3, 1.1)), 0, degree)
+
+
+def kron_wide_digests(dev) -> dict:
+    """``"<case> <type> <mode>"`` -> the digest of brick_kron's output at
+    the cases of :data:`KRON_WIDE_CASES` on the inputs of seeds 1 (x), 2
+    (b), 3 (x_old), f1 = 0.37, f2 = 0.81."""
+    import hashlib
+
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    rand = KernelChecks(dev).rand
+    out = {}
+    for case, (cells, p) in KRON_WIDE_CASES.items():
+        g = brick(cells, p)
+        for dtype in (torch.float32, torch.float64):
+            op = lk.BrickLaplace(g, dtype, dev)
+            x, b, xo = (rand(g.shape, dtype, s) for s in (1, 2, 3))
+            for mode in lk.KRON_MODES:
+                y = lk.brick_kron(x, op, mode, b=b, x_old=xo, f1=0.37,
+                                  f2=0.81)
+                out[f"{case} {KRON_BARS[dtype][0]} {mode}"] = hashlib.sha256(
+                    y.cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
 
 
 def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
@@ -1457,6 +1778,31 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
             torch.cuda.synchronize()
             print(f"brick_kron checks passed at the coarse grid {c}^3 cells "
                   f"p={p}: {grid.shape} {took()}")
+    # p = 10..16 (the z-slab march in both types): a cube of 2^3 cells, a
+    # one-cell axis or a grid ragged against the tile, by turns (the
+    # digests below hold more); then at p = 10 and 16 the cube rows' node
+    # grids, timed; then the pinned bits
+    for p in WIDE_DEGREES:
+        label = f" p={p}" if p in WIDE_CUBE_SIZES else ""
+        cells = ((2, 2, 2), (1, 3, 2), (3, 2, 4))[p % 3]
+        for dtype in (torch.float32, torch.float64):
+            checks.kron_checks(brick(cells, p), False, dtype, label=label)
+        if p in WIDE_CUBE_SIZES:
+            mesh = poisson_cube_mesh(WIDE_CUBE_SIZES[p])
+            grid = DofGrid(mesh, mesh.max_level, p)
+            for dtype in (torch.float32, torch.float64):
+                checks.kron_checks(grid, True, dtype, label=label)
+        torch.cuda.synchronize()
+        print(f"brick_kron checks passed at p={p}: {cells} cells"
+              + (f", poisson_cube_mesh({WIDE_CUBE_SIZES[p]}) timed"
+                 if label else "") + f" {took()}")
+    got = kron_wide_digests(dev)
+    differ = sorted(k for k in KRON_WIDE_DIGESTS
+                    if got.get(k) != KRON_WIDE_DIGESTS[k])
+    require(len(got) == len(KRON_WIDE_DIGESTS) and not differ,
+            f"brick_kron digests at p = 10..16 differ: {differ}")
+    print(f"brick_kron digests: all {len(got)} at p = 10..16 equal the "
+          f"pinned ones {took()}")
     dg_mesh = poisson_cube_mesh(DG_SIZE)
     dg_shapes = [
         ("sheared DG (3,2,4) p=3 hermite", dg_grid((3, 2, 4), 3, "hermite"),
@@ -1471,16 +1817,21 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
         torch.cuda.synchronize()
         print(f"kernel checks passed at {label}: {grid.shape} {took()}")
     # the DG pencil kernels at every compiled degree, on x axes that are
-    # not a multiple of the pencil or have one cell (p = 8, 9: under their
-    # own entries, then timed on the size-24 grids of their paths)
+    # not a multiple of the pencil or have one cell (p = 8, 9, 10, 16:
+    # under their own entries, then timed on the grids of their paths);
+    # the fused CG's kernels at theirs (p = 1..9)
     for p in range(1, dk.MAX_DEGREE + 1):
-        label = f" p={p}" if p in HIGH_DEGREE_SIZES else ""
+        label = (f" p={p}" if p in HIGH_DEGREE_SIZES or p in WIDE_DG_SIZES
+                 else "")
+        cg = p <= dk.CG_MAX_DEGREE
         for cells, kind in (((3, 2, 5), "hermite"), ((2, 3, 1), "gll"),
-                            ((5, 4, 9), "gauss" if p % 2 else "hermite")):
+                            ((5, 4, 9) if cg else (5, 4, 3),
+                             "gauss" if p % 2 else "hermite")):
             ops = checks.dg_ops(dg_grid(cells, p, kind))
             checks.apply_checks(ops, face=True, label=label)
             checks.cheb_checks(ops, face=True, label=label)
-            checks.cg_fused_checks(ops, False)
+            if cg:
+                checks.cg_fused_checks(ops, False)
         high = dk.HIGH_CELLS if p in HIGH_DEGREE_SIZES else ()
         for i, cells in enumerate(high):
             # dg_pencil_high.cu's edges (p = 8, 9): one-cell axes, ragged
@@ -1489,16 +1840,20 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
             ops = checks.dg_ops(grid)
             checks.apply_checks(ops, face=True, label=label)
             checks.cheb_checks(ops, face=True, label=label)
-        for i, cells in enumerate(dk.MARCH_CELLS):
+        for i, cells in enumerate(dk.MARCH_CELLS if cg else ()):
             grid = dg_grid(cells, p, ("hermite", "gll", "gauss")[(p + i) % 3])
             op = dk.DGOperator(grid, torch.float64, dev)
             op.install_jacobi(JacobiTransformed(grid, torch.float64, dev))
             checks.cg_fused_checks({torch.float64: op}, False)
         torch.cuda.synchronize()
-        print(f"dg_apply, dg_residual, dg_cheb, dg_cg and dg_jacobi_cg "
-              f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9), "
-              + (f"the high-degree cells {list(high)}, " if high else "")
-              + f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
+        if cg:
+            print(f"dg_apply, dg_residual, dg_cheb, dg_cg and dg_jacobi_cg "
+                  f"checks passed at p={p}: (3,2,5), (2,3,1), (5,4,9), "
+                  + (f"the high-degree cells {list(high)}, " if high else "")
+                  + f"dg_cg's march cells {list(dk.MARCH_CELLS)} {took()}")
+        else:
+            print(f"dg_apply, dg_residual and dg_cheb checks passed at "
+                  f"p={p}: (3,2,5), (2,3,1), (5,4,3) {took()}")
     # the DG kernels' bits: every mode at every degree and kind, as pinned
     digests = dk.kernel_digests(dev)
     differ = sorted(k for k in DG_DIGESTS if digests.get(k) != DG_DIGESTS[k])
@@ -1523,6 +1878,13 @@ def kernel_checks(dev: torch.device, card: str) -> "KernelChecks":
         torch.cuda.synchronize()
         print(f"kernel checks passed at DG poisson_cube_mesh({DG_HIGH_SIZE}) "
               f"p={p} hermite: {grid.shape} {took()}")
+    for p, size in WIDE_DG_SIZES.items():
+        mesh = poisson_cube_mesh(size)
+        grid = dg_grid_from_mesh(mesh, mesh.max_level, p, "hermite")
+        checks.dg_checks(grid, True, label=f" p={p}")
+        torch.cuda.synchronize()
+        print(f"kernel checks passed at DG poisson_cube_mesh({size}) p={p} "
+              f"hermite: {grid.shape} {took()}")
     for k in KERNELS:
         lib = checks.library_ms[k]
         print(f"  {k}: max|err| {checks.err[k]:.3e} ({checks.rel[k]:.2e} of "
@@ -1562,6 +1924,9 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     for p, size in HIGH_DEGREE_SIZES.items():
         launches[degree_path(p)] = cube_degree_path(dev, card, p, size)
         lap(degree_path(p))
+    for p, size in WIDE_CUBE_SIZES.items():
+        launches[degree_path(p)] = cube_wide_path(dev, card, p, size)
+        lap(degree_path(p))
     launches["poisson_dg"], dg_sol, dg_err = dg_path(dev, card, checks)
     lap("poisson_dg")
     launches["poisson_dg_plain"], plain_err = dg_plain_path(dev, card, dg_sol,
@@ -1576,6 +1941,12 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
             dev, card, path, p, high.get(("poisson_dg", p)))
         lap(degree_path(p, path))
     del high
+    wide = {}
+    for path, p in WIDE_DG_PATHS:
+        launches[degree_path(p, path)], wide[path, p] = dg_wide_path(
+            dev, card, path, p, wide.get(("poisson_dg", p)))
+        lap(degree_path(p, path))
+    del wide
     launches["poisson_shell"] = general_path(dev, card)
     lap("poisson_shell")
     launches["poisson_dg_plain_curved"] = dg_curved_path(dev, card, checks,
@@ -1585,8 +1956,7 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
     lap("poisson_l")
     launches["poisson_dg_plain_2d"], plain2_ref = dg_plain_2d_path(dev, card)
     lap("poisson_dg_plain_2d")
-    launches[degree_path(8, "matvec_dg")], launches["matvec_dg_plain"] = (
-        matvec_rows_path(dev))
+    launches.update(matvec_rows_path(dev))
     lap("matvec_dg rows")
     launches["poisson_cube_2d"], cube2_row = cube_2d_path(dev, card)
     lap("poisson_cube_2d")
@@ -1602,7 +1972,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                     (2, CUBE2_SIZE): cube2_row}, dg_err,
         {"dg-plain": plain2_ref, "dg": dg2_ref})
     lap("poisson_cube_ranks, poisson_dg_ranks and poisson_dg_ranks_2d")
-    for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain")):
+    for path in ("poisson_dg_plain", degree_path(8, "poisson_dg_plain"),
+                 degree_path(10, "poisson_dg_plain")):
         off_path = {k: v for k, v in launches[path].items()
                     if k.startswith(("brick_kron", "cheb_epilogue")) and v}
         require(not off_path, f"the {path} solves launched {off_path}")
@@ -1621,8 +1992,11 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                         *((degree_path(p, path),
                            DG_KERNELS if path == "poisson_dg"
                            else DG_PLAIN_KERNELS)
-                          for path, p in DG_HIGH_PATHS),
-                        (degree_path(8, "matvec_dg"), ["dg_apply<double>"]),
+                          for path, p in DG_HIGH_PATHS + WIDE_DG_PATHS),
+                        *((degree_path(p), CUBE_KERNELS)
+                          for p in WIDE_CUBE_SIZES),
+                        *((degree_path(p, "matvec_dg"), ["dg_apply<double>"])
+                          for p in MATVEC_KERNEL),
                         *((path, CG_KERNELS) for path in PLAIN_PATHS),
                         ("matvec_dg_plain", []),
                         ("poisson_cube_135M", CUBE_KERNELS),
@@ -1643,7 +2017,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
                     f"the {degree_path(p, path)} solves launched {k} "
                     f"{launches[degree_path(p, path)][k]} times, {n} in "
                     "dg_pencil_high.cu")
-    for path in ("poisson_dg", "poisson_dg_plain", "solver_dg"):
+    for path in ("poisson_dg", "poisson_dg_plain", "solver_dg",
+                 *(degree_path(p, path) for path, p in WIDE_DG_PATHS)):
         high = {k: v for k, v in launches[path].items()
                 if k.endswith(" high") and v}
         require(not high, f"the {path} solves ran dg_pencil_high.cu: {high}")
@@ -1680,7 +2055,8 @@ def run(dev: torch.device, card: str, t_start: float) -> int:
         deg, _, grid = label.partition(" ")
         want = int(deg) if deg else None
         key = f"{base} {'x'.join([grid[:-2]] * 3)}" if grid else base
-        if want is None or grid or not base.startswith("brick_kron"):
+        if (want is None or grid or not base.startswith("brick_kron")
+                or want not in HIGH_DEGREE_SIZES):
             return {p: launches[p].get(key, 0) for p in launches
                     if path_degree(p) == want}
         dtype = torch.float32 if "<float>" in base else torch.float64
@@ -2507,6 +2883,134 @@ def dg_high_path(dev, card, path: str, p: int, dg_row=None):
     return launches, (sol, err)
 
 
+def cube_wide_path(dev, card, p: int, size: int) -> dict:
+    """poisson_cube at degree ``p`` (10 or 16, brick_kron's z-slab march
+    in both types): the size-2 row on the card against the JAX row
+    (:data:`WIDE_ANCHORS`: CG its within one, CG L2 to WIDE_AGREE),
+    then ``poisson_cube_mesh(size)``: set-up, FMG and CG (best of 2), its
+    CG its within one of the size-2 row's, every level on the kernels;
+    returns the device kernels launched by the full-width solves."""
+    from multigrid_tpu_torch.experiments.poisson_cube import build_solver
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+
+    small = build_solver(poisson_cube_mesh(WIDE_SMALL), p, device=dev)
+    sol2, its2, red2 = small.solve_cg()
+    l2_2 = small.l2_error(small.maxlevel, sol2)
+    ref = WIDE_ANCHORS["poisson_cube", p][WIDE_SMALL]
+    print(f"poisson_cube p={p} size {WIDE_SMALL}: {its2} its, reduction "
+          f"{red2:.4e}, CG L2 {l2_2:.6e} (JAX {ref[0]}, {ref[1]:.4e}, "
+          f"{ref[2]:.6e})")
+    require(abs(its2 - ref[0]) <= 1 and abs(l2_2 / ref[2] - 1)
+            <= WIDE_AGREE[p], f"poisson_cube p={p} size {WIDE_SMALL}: "
+            f"({its2}, {red2}, {l2_2}) vs JAX {ref}")
+    del small, sol2
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build_solver(poisson_cube_mesh(size), p, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    require(all(op.kron for op in solver.sp_ops + solver.dp_ops),
+            f"poisson_cube p={p}: a level off the kernels")
+    g = solver.grids[solver.maxlevel]
+    reset_launches()
+    fmg_s, cg_s, sol, sol_cg, its, cg_red, reduction = solve_rows(solver)
+    launches = read_launches()
+    fmg_l2 = solver.l2_error(solver.maxlevel, sol)
+    cg_l2 = solver.l2_error(solver.maxlevel, sol_cg)
+    mem = torch.cuda.max_memory_allocated(dev)
+    print(f"poisson_cube p={p} size {size}: {g.n_dofs} dofs ({g.shape} "
+          f"nodes), set-up {setup_s:.2f} s, FMG {fmg_s:.4f} s (L2 "
+          f"{fmg_l2:.4e}, V-cycle reduction {reduction:.4e}), CG {cg_s:.4f} "
+          f"s, {its} its (size {WIDE_SMALL}: {its2}), reduction "
+          f"{cg_red:.4e}, CG L2 {cg_l2:.4e}, max_memory_allocated {mem} "
+          f"bytes [{card}]")
+    require(abs(its - its2) <= 1, f"p={p}: cg_its {its} vs size "
+            f"{WIDE_SMALL}: {its2}")
+    require(sol.shape == g.shape and bool(torch.isfinite(sol).all())
+            and np.isfinite(fmg_l2) and cg_l2 < L2_BOUND,
+            f"p={p}: FMG L2 {fmg_l2}, CG L2 {cg_l2}")
+    return launches
+
+
+def dg_wide_path(dev, card, path: str, p: int, dg_row=None):
+    """``path`` (poisson_dg or poisson_dg_plain) at degree ``p`` (10 or
+    16, the DG pencils of dg_pencil_wide*.cu): the size-2 row on the card
+    against the JAX row (:data:`WIDE_ANCHORS` at WIDE_AGREE), then the
+    row of :data:`WIDE_DG_SIZES` (best of 2 after set-up), every DG level
+    on the kernels, at the bars of :data:`WIDE_DG_CARD`;
+    poisson_dg_plain's also against ``dg_row``, poisson_dg's (solution, L2
+    error) at the same degree.  Returns the device kernels launched by
+    the full-width solves and (solution, L2 error)."""
+    from multigrid_tpu_torch.experiments.poisson_cube import exact_fn, rhs_fn
+    from multigrid_tpu_torch.mesh.brick import poisson_cube_mesh
+    from multigrid_tpu_torch.solvers.multigrid_dg import (
+        MultigridSolverDG, MultigridSolverDGPlain)
+
+    t_path = time.perf_counter()
+    key, plain = (path, p), path == "poisson_dg_plain"
+    cls = MultigridSolverDGPlain if plain else MultigridSolverDG
+
+    def build(size):
+        s = cls(poisson_cube_mesh(size), p, exact_fn, rhs_fn, kind="hermite",
+                n_pre=3, n_post=3, device=dev)
+        require(not s.plain_route, f"{path} p={p}: a plain DG level")
+        return s
+
+    def row(s):
+        sol, frac_its, rate = s.solve_cg(tolerance=DG_RTOL)
+        return sol, (frac_its, rate, s.l2_error(sol, s.exact_quad))
+
+    _, got = row(build(WIDE_SMALL))
+    ref = WIDE_ANCHORS[key][WIDE_SMALL]
+    print(f"{path} p={p} size {WIDE_SMALL}: its {got[0]:.4f}, rate "
+          f"{got[1]:.4e}, L2 {got[2]:.6e} (JAX {ref[0]:.4f}, {ref[1]:.4e}, "
+          f"{ref[2]:.6e})")
+    require(abs(math.ceil(got[0]) - math.ceil(ref[0])) <= 1
+            and abs(got[0] / ref[0] - 1) <= WIDE_AGREE[p]
+            and abs(got[2] / ref[2] - 1) <= WIDE_AGREE[p],
+            f"{path} p={p} size {WIDE_SMALL}: {got} vs JAX {ref}")
+    size = WIDE_DG_SIZES[p]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    solver = build(size)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    reset_launches()
+    cg_s = []
+    sol = None
+    for _ in range(2):
+        sol = None
+        t0 = time.perf_counter()
+        sol, (frac_its, rate, err) = row(solver)
+        torch.cuda.synchronize()
+        cg_s.append(time.perf_counter() - t0)
+    launches = read_launches()
+    mem = torch.cuda.max_memory_allocated(dev)
+    card_its, card_rate = WIDE_DG_CARD[key]
+    print(f"{path} p={p} size {size}: {sol.numel()} DG dofs, set-up "
+          f"{setup_s:.2f} s, CG {min(cg_s):.4f} s (runs "
+          f"{', '.join(f'{t:.4f}' for t in cg_s)}), frac its {frac_its:.4f} "
+          f"(first card run {card_its}), rate {rate:.4e} ({card_rate}), L2 "
+          f"{err:.6e}, max_memory_allocated {mem} bytes [{card}]")
+    require(bool(torch.isfinite(sol).all()), f"{path} p={p}: not finite")
+    require(abs(frac_its - card_its) <= 1,
+            f"{path} p={p}: frac its {frac_its:.4f}")
+    require(card_rate / 2 <= rate <= 2 * card_rate,
+            f"{path} p={p}: rate {rate:.4e}")
+    require(abs(err - DG_L2) <= DG_L2_TOL, f"{path} p={p}: L2 {err:.6e}")
+    if plain:
+        dg_sol, dg_err = dg_row
+        diff = float((sol - dg_sol).abs().max()) / float(dg_sol.abs().max())
+        print(f"  {path} p={p}: L2 {err:.6e} (poisson_dg {dg_err:.6e}), "
+              f"max|u - u_dg| / max|u_dg| {diff:.3e}")
+        require(abs(err / dg_err - 1) <= PLAIN_AGREE
+                and diff <= PLAIN_AGREE,
+                f"{path} p={p} vs poisson_dg: L2 {err:.6e} / {dg_err:.6e}, "
+                f"solution {diff:.3e}")
+    print(f"  {path} p={p} path {time.perf_counter() - t_path:.1f} s")
+    return launches, (sol, err)
+
+
 def dg_plain_2d_path(dev, card) -> tuple[dict, dict]:
     """2-D poisson_dg_plain (the reference program's setting, p = 3): the
     small rows of every kind on the card against the CPU, then the two
@@ -2595,24 +3099,29 @@ def dg_2d_ref(path: str, size: int, sol, its, rate, err, cg_s) -> dict:
                 dg_dofs=sol.numel(), file=f)
 
 
-def matvec_rows_path(dev) -> tuple[dict, dict]:
-    """matvec_dg in f64 at p = 8 (the kernel row, dg_apply<double>) and
-    above the DG kernels' degree (the "(plain)" rows), each verified by the
-    experiment against the face-based operator at its bar (it raises on a
-    miss); returns the device kernels launched by the kernel row and by
-    the plain rows (none)."""
+def matvec_rows_path(dev) -> dict:
+    """matvec_dg in f64 at p = 8, 10, 16 (the kernel rows,
+    dg_apply<double>) and above the DG kernels' degree (the "(plain)" row
+    at p = 17), each verified by the experiment against the face-based
+    operator at its bar (it raises on a miss); returns the device kernels
+    launched by each kernel row (path ``matvec_dg_p<p>``) and by the plain
+    rows (``matvec_dg_plain``: none)."""
     from multigrid_tpu_torch.experiments import matvec_dg
 
-    launches = []
+    launches = {}
     for rows, route in ((MATVEC_KERNEL, "kernel"), (MATVEC_PLAIN, "plain")):
-        reset_launches()
         for p, steps in rows.items():
+            reset_launches()
             row = matvec_dg.run(p, "hermite", steps, torch.float64, dev)
             require(row["route"] == route and row["verify"]
                     < matvec_dg.VERIFY_TOL[torch.float64],
                     f"matvec_dg p={p}: {row}")
-        launches.append(read_launches())
-    return launches[0], launches[1]
+            path = (degree_path(p, "matvec_dg") if route == "kernel"
+                    else "matvec_dg_plain")
+            got = read_launches()
+            launches[path] = {k: launches.get(path, {}).get(k, 0) + v
+                              for k, v in got.items()}
+    return launches
 
 
 def cube_2d_path(dev, card):

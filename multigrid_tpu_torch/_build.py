@@ -31,11 +31,17 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 SOURCES = [PACKAGE_DIR / "csrc" / "brick_kron.cu",
            PACKAGE_DIR / "csrc" / "brick_kron_layer.cu",
            PACKAGE_DIR / "csrc" / "brick_kron_f64.cu",
+           PACKAGE_DIR / "csrc" / "brick_kron_wide.cu",
+           PACKAGE_DIR / "csrc" / "brick_kron_wide_f64.cu",
            PACKAGE_DIR / "csrc" / "cheb_epilogue.cu",
            PACKAGE_DIR / "csrc" / "cg_vec.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil_f64.cu",
            PACKAGE_DIR / "csrc" / "dg_pencil_high.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_wide.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_wide_top.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_wide_f64.cu",
+           PACKAGE_DIR / "csrc" / "dg_pencil_wide_top_f64.cu",
            PACKAGE_DIR / "csrc" / "dg_cg_f64.cu"]
 HEADERS = [PACKAGE_DIR / "csrc" / "brick_kron.cuh",
            PACKAGE_DIR / "csrc" / "dg_pencil.cuh",
@@ -101,6 +107,11 @@ SIGNATURES = {
     # out[3]: their launches since the library was loaded, in the order
     # above; launches nothing
     "dg_high_launches": [_N],
+    # the kernels at n = 11..17 (dg_pencil_wide*.cu; dg_apply_f32/_f64 and
+    # dg_cheb_f32 launch them): mode (0 apply, 1 residual, 2 cheb in
+    # float), n, out[6]: their tile, as dg_high_tile's; launches nothing
+    "dg_wide_tile_f32": [_I, _I, _N],
+    "dg_wide_tile_f64": [_I, _I, _N],
 }
 # partial-sum slots the reductions of cg_vec.cu use (its kMaxBlocks)
 REDUCTION_BLOCKS = 1024
@@ -280,7 +291,8 @@ def main(argv: list[str]) -> int:
     PATH]``: compile the kernel sources of this tree, or of the same files
     in another tree's ``multigrid_tpu_torch/csrc``, into a scratch
     directory as :func:`build` does (the library is not kept) and print
-    the wall seconds of each nvcc, the link and the whole build; with
+    the wall seconds of each nvcc, the link and the whole build (of the
+    sources of this tree that the other tree has); with
     ``--kernels``, write :func:`sass_report` of every kernel to PATH
     (JSON) and print the registers and spills of each."""
     import argparse
@@ -291,14 +303,17 @@ def main(argv: list[str]) -> int:
     ap.add_argument("--kernels", type=Path, default=None)
     args = ap.parse_args(argv)
     csrc = args.tree.resolve() / "multigrid_tpu_torch" / "csrc"
+    # this tree's sources that the other tree has (an older tree may lack
+    # the newer ones)
+    sources = [csrc / src.name for src in SOURCES
+               if (csrc / src.name).exists()]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
-    log, failed, seconds = compile_sources(
-        [csrc / src.name for src in SOURCES], work)
+    log, failed, seconds = compile_sources(sources, work)
     total = time.perf_counter() - t0
     if not failed and args.kernels is not None:
-        report = sass_report([work / (src.stem + ".o") for src in SOURCES],
+        report = sass_report([work / (src.stem + ".o") for src in sources],
                              log)
         args.kernels.parent.mkdir(parents=True, exist_ok=True)
         args.kernels.write_text(json.dumps(report, indent=1))

@@ -21,8 +21,9 @@
 // on i mod p: a vertex row (residue 0) has 2p + 1 taps, the other residues
 // p + 1.  So the kernel needs p rows of taps per matrix and axis; they are
 // kernel parameters (Taps below, built on the host by ops/laplace_kron.py;
-// 5,472 bytes in double at p = 9, above the 4 KB that parameters had before
-// CUDA 12.1), read with static indices.  Seven banded
+// 5,472 bytes in double at p = 9 and 16,896 at p = 16, above the 4 KB that
+// parameters had before CUDA 12.1 and within its 32,764), read with static
+// indices (at p >= 10 the z sweep's with the residue known at run time).  Seven banded
 // sweeps:
 //   v1 = Mx u, v2 = Lx u;  w1 = My v1, w23 = Ly v1 + My v2;
 //   y = Lz w1 + Mz w23     (c_d folded into the L taps).
@@ -175,8 +176,24 @@
 // march's 0.0430 ms) and 1000 at p = 9 (109^3, 1728 cells: 0.0668
 // against 0.0469), the layer march on the larger float grids.
 //
+// p = 10..16: the z-slab march again, in both types (brick_kron_wide.cu,
+// brick_kron_wide_f64.cu, which brick_kron_f32 / brick_kron_f64 hand these
+// degrees to).  The cell form's (2p + 1)^3 neighbourhood outgrows a block
+// there (190,440 B in double at p = 11, 234,484 B in float at p = 15);
+// the march's slab does not (at most 35 KB).  A tile keeps one column a
+// thread (one cell, two in x at p = 10, 11; Tile), so that the ring of 2p
+// + 1 accumulators and the sweeps' lines of 2p + 1 values fit 255
+// registers at one block an SM, and the planes of a cell layer run one a
+// trip (Tile::RHO_UNROLL), the residue read at run time: one copy of the x
+// and y sweeps where p <= 9 unrolls p of them.  Each node adds the same
+// taps in the same order, so the bits are the march's.  The double
+// residual and step spill 8-176 B a thread at p = 15, 16 (PERF.md).  What
+// bounds it: a plane's x and y sweeps have 2p + 1 and p items for 256
+// threads, so the march runs at 1.4-8.2 ms (float apply, p = 10 / 16 at
+// 241^3 / 257^3 nodes, H100 700 W) against a bound of 0.04-0.06 ms.
+//
 // The entry points (brick_kron_f32, brick_kron_f64) take the form (0 the
-// march, 1 the cell form, p >= 8 only), brick_kron_layer_f32 the layer
+// march, 1 the cell form, p = 8, 9 only), brick_kron_layer_f32 the layer
 // march (form 2, p = 8, 9); each writes the number of kernels it
 // launched (1) to *launched.
 
@@ -185,6 +202,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+// the entries of p = 10..16 (brick_kron_wide.cu, brick_kron_wide_f64.cu),
+// which brick_kron_f32 / brick_kron_f64 hand those degrees to
+extern "C" {
+int brick_kron_wide_f32(int mode, int form, const float* x, const float* b,
+                        const float* x_old, float* out, const float* taps,
+                        double f1, double f2, int Z, int Y, int X, int p,
+                        void* stream, int* launched);
+int brick_kron_wide_f64(int mode, int form, const double* x, const double* b,
+                        const double* x_old, double* out, const double* taps,
+                        double f1, double f2, int Z, int Y, int X, int p,
+                        void* stream, int* launched);
+}
 
 #ifndef BRICK_KRON_F64_CPT
 #define BRICK_KRON_F64_CPT 3
@@ -200,6 +230,10 @@ namespace {
 
 constexpr int kThreads = 256;
 enum { kApply = 0, kVmult = 1, kResidual = 2, kCheb = 3 };
+// the first degree of brick_kron_wide.cu / brick_kron_wide_f64.cu (the
+// z-slab march at p = 10..16, in both types)
+constexpr int kWideDegree = 10;
+constexpr int kWideTop = 16;
 
 // taps[r][k] = G[i, i + k - P] for an interior row i = r (mod P)
 template <typename T, int P>
@@ -211,16 +245,22 @@ struct Taps {
 template <typename T, int P>
 struct Tile {
   static constexpr int K = 2 * P + 1;
-  static constexpr int TXC = (32 + P - 1) / P;  // cells per tile in x
+  // cells per tile in x: 32 nodes' worth up to p = 9; above, as many as
+  // leave one column a thread (kThreads / P^2, at least one cell)
+  static constexpr int TXC =
+      P < kWideDegree ? (32 + P - 1) / P
+                      : (kThreads / (P * P) > 1 ? kThreads / (P * P) : 1);
   static constexpr int TX = TXC * P;
   // z columns per thread aimed at: float 4 at p <= 4, 2 at p = 5-7, 1 at
   // p = 8, 3 at p = 9 (the fastest tiles without a spill in time_brick's
-  // sweep, PERF.md); double BRICK_KRON_F64_CPT at p <= 4, 1 at p = 5-7
+  // sweep, PERF.md); double BRICK_KRON_F64_CPT at p <= 4, 1 at p = 5-7;
+  // 1 in both types at p >= 10, where the ring of 2p + 1 accumulators a
+  // column and the sweeps' lines of 2p + 1 values fill the registers
 #ifdef BRICK_KRON_HIGH_CPT
   static constexpr int CPT_HIGH = BRICK_KRON_HIGH_CPT;
 #else
   static constexpr int CPT_HIGH =
-      sizeof(T) == 4 ? (P == 8 ? 1 : P == 9 ? 3 : 2) : 1;
+      sizeof(T) == 4 && P < kWideDegree ? (P == 8 ? 1 : P == 9 ? 3 : 2) : 1;
 #endif
   static constexpr int CPT_AIM = P > 4            ? CPT_HIGH
                                  : sizeof(T) == 4 ? 4
@@ -234,9 +274,16 @@ struct Tile {
   static constexpr int SV = TX | 1;
   static constexpr int NCOL = TX * TY;
   static constexpr int CPT = (NCOL + kThreads - 1) / kThreads;
-  // blocks an SM must hold (the launch bound, which caps the registers)
+  // blocks an SM must hold (the launch bound, which caps the registers;
+  // one at p >= 10, so that ptxas may take up to 255 a thread)
   static constexpr int MIN_BLOCKS =
-      sizeof(T) == 4 ? BRICK_KRON_F32_MIN_BLOCKS : BRICK_KRON_F64_MIN_BLOCKS;
+      P >= kWideDegree ? 1
+      : sizeof(T) == 4 ? BRICK_KRON_F32_MIN_BLOCKS
+                       : BRICK_KRON_F64_MIN_BLOCKS;
+  // the march's planes of a cell layer unrolled (static residues) up to
+  // p = 9; above, one plane a trip, the residue read at run time, so that
+  // the code holds one copy of the x and y sweeps instead of p
+  static constexpr int RHO_UNROLL = P < kWideDegree ? P : 1;
 };
 
 template <typename T, int P>
@@ -295,6 +342,17 @@ __device__ __forceinline__ T centre(const T (&t)[P][2 * P + 1], int r) {
 #pragma unroll
   for (int i = 0; i < P; ++i)
     if (i == r) v = t[i][P];
+  return v;
+}
+
+// r[i] for a residue i known only at run time, from static indices (the
+// ring stays in registers)
+template <typename T, int K>
+__device__ __forceinline__ T ring_at(const T (&r)[K], int i) {
+  T v = r[0];
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    if (k == i) v = r[k];
   return v;
 }
 
@@ -393,7 +451,7 @@ __global__ void __launch_bounds__(kThreads, Tile<T, P>::MIN_BLOCKS)
   int buf = 0;
 
   for (int j0 = zs - P; j0 - P < ze; j0 += P) {
-#pragma unroll
+#pragma unroll (L::RHO_UNROLL)
     for (int rho = 0; rho < P; ++rho) {
       const int jz = j0 + rho, iz = jz - P;
       const bool emit = iz >= zs && iz < ze;
@@ -500,7 +558,11 @@ __global__ void __launch_bounds__(kThreads, Tile<T, P>::MIN_BLOCKS)
           if (coff[q] >= 0) {
             const int64_t g = zoff + coff[q];
             const bool in = zin && (cin >> q & 1u);
-            const T a = acc[q][rho];
+            T a;
+            if constexpr (L::RHO_UNROLL == P)
+              a = acc[q][rho];
+            else
+              a = ring_at<T, K>(acc[q], rho);
             T val;
             if (!in) {
               val = dirichlet<MODE>(ex[q], eb[q], eo[q], f1, f2);
@@ -1213,18 +1275,20 @@ int brick_layer_entry(int mode, int form, const T* x, const T* b,
   return err;
 }
 
-// form 0: the z-slab march (p <= 7, and float at p >= 8); form 1: the
-// cell form (p >= 8; in double the only one there, faster on every grid)
+// form 0: the z-slab march (p <= 7, float at p = 8, 9, and both types at
+// p >= 10, where the cell form's (2p + 1)^3 neighbourhood outgrows a
+// block's shared memory); form 1: the cell form (p = 8, 9; in double the
+// only one there, faster on every grid)
 template <typename T, int P, int MODE>
 int launch_form(int form, const T* x, const T* b, const T* x_old, T* out,
                 const T* taps, T f1, T f2, int Z, int Y, int X,
                 cudaStream_t stream) {
-  if constexpr (P >= kCellDegree) {
+  if constexpr (P >= kCellDegree && P < kWideDegree) {
     if (form == 1)
       return launch_cell<T, P, MODE>(x, b, x_old, out, taps, f1, f2, Z, Y, X,
                                      stream);
   }
-  if constexpr (P < kCellDegree || sizeof(T) == 4) {
+  if constexpr (P < kCellDegree || sizeof(T) == 4 || P >= kWideDegree) {
     if (form == 0)
       return launch_mode<T, P, MODE>(x, b, x_old, out, taps, f1, f2, Z, Y,
                                      X, stream);
@@ -1253,39 +1317,58 @@ int launch_degree(int mode, int form, const T* x, const T* b, const T* x_old,
   return (int)cudaErrorInvalidValue;
 }
 
-// mode: 0 apply, 1 vmult, 2 residual, 3 cheb.  form: 0 the z-slab march,
-// 1 the cell form (p >= 8 only).  taps: host array of 4 * p * (2p + 1)
-// values of T (M, c_z L_z, c_y L_y, c_x L_x; each [p][2p + 1]).
+// degrees LO..HI: launch_degree at p, else cudaErrorInvalidValue
+template <typename T, int LO, int HI>
+int launch_degrees(int p, int mode, int form, const T* x, const T* b,
+                   const T* x_old, T* out, const T* taps, T f1, T f2, int Z,
+                   int Y, int X, cudaStream_t stream) {
+  if constexpr (LO > HI) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (p == LO)
+      return launch_degree<T, LO>(mode, form, x, b, x_old, out, taps, f1, f2,
+                                  Z, Y, X, stream);
+    return launch_degrees<T, LO + 1, HI>(p, mode, form, x, b, x_old, out,
+                                         taps, f1, f2, Z, Y, X, stream);
+  }
+}
+
+// The entry of the degrees LO..HI.  mode: 0 apply, 1 vmult, 2 residual, 3
+// cheb.  form: 0 the z-slab march, 1 the cell form (p = 8, 9 only).
+// taps: host array of 4 * p * (2p + 1) values of T (M, c_z L_z, c_y L_y,
+// c_x L_x; each [p][2p + 1]).
+template <typename T, int LO, int HI>
+int brick_kron_range(int mode, int form, const T* x, const T* b,
+                     const T* x_old, T* out, const T* taps, double f1,
+                     double f2, int Z, int Y, int X, int p, void* stream,
+                     int* launched) {
+  *launched = 0;
+  const int err = launch_degrees<T, LO, HI>(
+      p, mode, form, x, b, x_old, out, taps, (T)f1, (T)f2, Z, Y, X,
+      (cudaStream_t)stream);
+  if (err == cudaSuccess) *launched = 1;
+  return err;
+}
+
+// brick_kron_f32 / brick_kron_f64: p = 1..9 here, p = 10..16 in
+// brick_kron_wide.cu / brick_kron_wide_f64.cu (their own translation
+// units, built in parallel)
 template <typename T>
 int brick_kron_entry(int mode, int form, const T* x, const T* b,
                      const T* x_old, T* out, const T* taps, double f1,
                      double f2, int Z, int Y, int X, int p, void* stream,
                      int* launched) {
-  *launched = 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const T g1 = (T)f1, g2 = (T)f2;
-  int err;
-  switch (p) {
-#define MGT_KRON_CASE(P)                                                     \
-  case P:                                                                    \
-    err = launch_degree<T, P>(mode, form, x, b, x_old, out, taps, g1, g2, Z, \
-                              Y, X, s);                                      \
-    break;
-    MGT_KRON_CASE(1)
-    MGT_KRON_CASE(2)
-    MGT_KRON_CASE(3)
-    MGT_KRON_CASE(4)
-    MGT_KRON_CASE(5)
-    MGT_KRON_CASE(6)
-    MGT_KRON_CASE(7)
-    MGT_KRON_CASE(8)
-    MGT_KRON_CASE(9)
-#undef MGT_KRON_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (p >= kWideDegree) {
+    if constexpr (sizeof(T) == 4)
+      return brick_kron_wide_f32(mode, form, x, b, x_old, out, taps, f1, f2,
+                                 Z, Y, X, p, stream, launched);
+    else
+      return brick_kron_wide_f64(mode, form, x, b, x_old, out, taps, f1, f2,
+                                 Z, Y, X, p, stream, launched);
   }
-  if (err == cudaSuccess) *launched = 1;
-  return err;
+  return brick_kron_range<T, 1, kWideDegree - 1>(
+      mode, form, x, b, x_old, out, taps, f1, f2, Z, Y, X, p, stream,
+      launched);
 }
 
 }  // namespace

@@ -76,8 +76,9 @@ int dg_cheb_f32(const float* b, const float* x, const float* x_old,
     case 10:  // dg_pencil_high.cu
       return dg_high_cheb_f32(b, x, x_old, inv_diag, tab, out, f1, f2, C0,
                               C1, C2, n, colloc, stream, launched);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:  // n = 11..17: dg_pencil_wide.cu
+      return dg_wide_cheb_f32(b, x, x_old, inv_diag, tab, out, f1, f2, C0,
+                              C1, C2, n, colloc, stream, launched);
   }
   if (err == 0) *launched = 1;
   return err;

@@ -104,15 +104,18 @@
 // double, the shared memory a block (7 n^3 + 34 n^2 values a cell), which
 // sets the blocks an SM: 3 blocks of 4 warps at p = 4 (pencil()).
 //
-// Degrees 1 to 9 (n = 2..10), one instantiation each; the three kinds via
+// Degrees 1 to 16 (n = 2..17), one instantiation each; the three kinds via
 // the tables (S = I for the Gauss kind, whose flag skips the S products).
 // The float step at p = 8, 9 (n = 9, 10) and the double apply and residual
 // at p = 8 run dg_pencil_high.cu, these pencils (pencil() below: 3 and 2
 // cells, the lengths a sweep of this body chose) over the in-place layout
 // with two blocks an SM; the float apply and residual at p = 8, 9 and the
 // double ones at p = 9 run the template's layout (PERF.md §6: no
-// variant of the other was faster there without spilling).  At n = 9, 10
-// the double table (573 / 694 values) passes 4 KB.
+// variant of the other was faster there without spilling).  Every mode
+// at p = 10..16 runs the wide pencils (dg_wide_kernel below, built in
+// dg_pencil_wide*.cu), the same body over the in-place layout.  At n = 9,
+// 10 the double table (573 / 694 values) passes 4 KB; at n = 17 it takes
+// 15,016 B, within the 32,764 B of kernel parameters (tab_arg).
 // An entry reads the table (ops/dg_kernel.py:dg_tables, in T) from host
 // memory, writes the number of kernels it launched (1) to *launched and
 // returns cudaGetLastError().
@@ -124,7 +127,8 @@
 #include "dg_tab.cuh"
 
 // the double apply and residual at n = 9 and the float step at n = 9, 10
-// (dg_pencil_high.cu)
+// (dg_pencil_high.cu); every mode at n = 11..17 (dg_pencil_wide.cu,
+// dg_pencil_wide_f64.cu)
 extern "C" {
 int dg_high_apply_f64(int mode, const double* x, const double* b,
                       const double* tab, double* out, int C0, int C1, int C2,
@@ -133,6 +137,32 @@ int dg_high_cheb_f32(const float* b, const float* x, const float* x_old,
                      const float* inv_diag, const float* tab, float* out,
                      double f1, double f2, int C0, int C1, int C2, int n,
                      int colloc, void* stream, int* launched);
+int dg_wide_apply_f32(int mode, const float* x, const float* b,
+                      const float* tab, float* out, int C0, int C1, int C2,
+                      int n, int colloc, void* stream, int* launched);
+int dg_wide_apply_f64(int mode, const double* x, const double* b,
+                      const double* tab, double* out, int C0, int C1, int C2,
+                      int n, int colloc, void* stream, int* launched);
+int dg_wide_cheb_f32(const float* b, const float* x, const float* x_old,
+                     const float* inv_diag, const float* tab, float* out,
+                     double f1, double f2, int C0, int C1, int C2, int n,
+                     int colloc, void* stream, int* launched);
+// n = 15..17, which the entries above hand on (dg_pencil_wide_top.cu,
+// dg_pencil_wide_top_f64.cu)
+int dg_wide_top_apply_f32(int mode, const float* x, const float* b,
+                          const float* tab, float* out, int C0, int C1,
+                          int C2, int n, int colloc, void* stream,
+                          int* launched);
+int dg_wide_top_apply_f64(int mode, const double* x, const double* b,
+                          const double* tab, double* out, int C0, int C1,
+                          int C2, int n, int colloc, void* stream,
+                          int* launched);
+int dg_wide_top_cheb_f32(const float* b, const float* x, const float* x_old,
+                         const float* inv_diag, const float* tab, float* out,
+                         double f1, double f2, int C0, int C1, int C2, int n,
+                         int colloc, void* stream, int* launched);
+int dg_wide_top_tile_f32(int mode, int n, int* out);
+int dg_wide_top_tile_f64(int mode, int n, int* out);
 }
 
 namespace {
@@ -231,6 +261,9 @@ struct InPlace {
 
 template <typename T, int N, int MODE>
 using TemplateLayout = TwoSets<T, N, pencil<N, MODE>(), 7>;
+
+// bytes of shared memory a block may have
+constexpr int kBlockSmemMax = 232448;
 
 template <typename T, int N, int MODE>
 constexpr size_t smem_bytes() {
@@ -895,8 +928,7 @@ __device__ __forceinline__ void pencil_body(
     const T* x_old, const T* __restrict__ inv_diag, T f1, T f2, int C0,
     int C1, int C2, int colloc) {
   using L = Tab<N>;
-  constexpr int N2 = N * N, N3 = N2 * N, K = pencil<N, MODE>();
-  static_assert(LY::CELLS == K, "the layout's pencil is the body's");
+  constexpr int N2 = N * N, N3 = N2 * N, K = LY::CELLS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const LY ly{reinterpret_cast<T*>(smem_raw)};
   const Place<T, N, K> pl =
@@ -981,7 +1013,7 @@ __device__ __forceinline__ void pencil_body(
 
 // The table argument: kernel parameters hold 32,764 bytes since CUDA 12.1
 // (4 KB before), as brick_kron.cuh's taps also rely on; the double table
-// takes 4,584 B at n = 9 and 5,552 B at n = 10
+// takes 4,584 B at n = 9, 5,552 B at n = 10 and 15,016 B at n = 17
 template <typename T, int N>
 TabArg<T, N> tab_arg(const T* tab) {
   static_assert(sizeof(TabArg<T, N>) + 96 <= 32764,
@@ -1047,8 +1079,16 @@ int apply_mode(int mode, const T* x, const T* b, const T* tab, T* out,
                                           st);
 }
 
-// y = A x (mode 0) or out = b - A x (mode 1) at n = 2..10 points an axis
-// (n = 9 in double: dg_pencil_high.cu)
+// the first n of the wide pencils and the last: p = 10..16; n = 11..14 in
+// dg_pencil_wide.cu / dg_pencil_wide_f64.cu, n = 15..17 in
+// dg_pencil_wide_top.cu / dg_pencil_wide_top_f64.cu (four translation
+// units, so that none builds slower than brick_kron.cu)
+constexpr int kWideN = 11;
+constexpr int kWideSplitN = 15;
+constexpr int kWideTopN = 17;
+
+// y = A x (mode 0) or out = b - A x (mode 1) at n = 2..17 points an axis
+// (n = 9 in double: dg_pencil_high.cu; n >= 11: dg_pencil_wide*.cu)
 template <typename T>
 int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
                    int C0, int C1, int C2, int n, int colloc, void* stream,
@@ -1056,6 +1096,14 @@ int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
   *launched = 0;
   if (C0 < 1 || C1 < 1 || C2 < 1 || (mode != APPLY && mode != RESIDUAL))
     return (int)cudaErrorInvalidValue;
+  if (n >= kWideN) {
+    if constexpr (sizeof(T) == 8)
+      return dg_wide_apply_f64(mode, x, b, tab, out, C0, C1, C2, n, colloc,
+                               stream, launched);
+    else
+      return dg_wide_apply_f32(mode, x, b, tab, out, C0, C1, C2, n, colloc,
+                               stream, launched);
+  }
   const cudaStream_t st = (cudaStream_t)stream;
   int err;
   switch (n) {
@@ -1084,6 +1132,183 @@ int dispatch_apply(int mode, const T* x, const T* b, const T* tab, T* out,
   }
   if (err == 0) *launched = 1;
   return err;
+}
+
+// ---- kernels over the in-place layout (dg_pencil_high.cu at n = 9, 10;
+// the wide pencils below at n = 11..17)
+
+// A grid of pencils of K cells (one block each) and, at the first launch
+// of a kernel, its dynamic shared-memory limit raised to ``bytes``
+template <typename Kernel>
+int inplace_grid(Kernel kernel, bool& configured, int bytes, int C0, int C1,
+                 int C2, int K, unsigned& blocks) {
+  if (bytes > kBlockSmemMax) return (int)cudaErrorInvalidValue;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  const long long nb = (long long)C0 * C1 * ((C2 + K - 1) / K);
+  if (nb >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  blocks = (unsigned)nb;
+  return 0;
+}
+
+// The tile of one kernel, for reports: cells a pencil, dynamic shared
+// bytes, threads, blocks an SM (the occupancy calculator, after the
+// kernel's shared memory is allowed), registers, local bytes a thread
+template <typename Kernel>
+int inplace_tile(Kernel kernel, int cells, int bytes, int nthreads,
+                 int* out) {
+  int per_sm = 0;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        nthreads, bytes);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  const int v[6] = {cells, bytes, nthreads, per_sm, attr.numRegs,
+                    (int)attr.localSizeBytes};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// ---- the wide pencils: n = 11..17 points an axis (p = 10..16), every
+// mode, in float (dg_pencil_wide.cu, dg_pencil_wide_top.cu) and double
+// (dg_pencil_wide_f64.cu, dg_pencil_wide_top_f64.cu).
+// The template's layout no longer fits there (2 (7 n^3 + 34 n^2) values a
+// pencil of two cells: 271,872 B in double at n = 12, 250,200 B in float
+// at n = 15); the in-place one (4 n^3 + 22 n^2 a cell) does, with its lean
+// order, over the same pencil body, so the outputs are the template's
+// bits.  A pencil is the longest whose cells fit a block: two cells in
+// float (208,080 B at n = 17) and in double up to n = 13 (200,096 B), one
+// cell in double above (122,304 B at n = 14, 208,080 B at n = 17).  Two
+// cells stay at float n = 16, 17 and double n = 12, which spill 24-184 B a
+// thread: one cell, no spill, measured slower there in every mode but the
+// float step at n = 17 (2.50 against 2.60 ms, 16^3 cells, time_dg_cheb
+// --pencil wide:1 wide_f64:1, PERF.md).  One block an SM (the launch
+// bound), so that ptxas may take 104 registers a thread at 608 threads
+// (two cells at n = 17) and up to 255 at one cell.  DG_WIDE_CELLS sets
+// the cells a pencil aimed at for every degree and type of a translation
+// unit, for tuning builds (cut to what fits).
+template <typename T, int N>
+__host__ __device__ constexpr int wide_cells() {
+#ifdef DG_WIDE_CELLS
+  int k = DG_WIDE_CELLS;
+#else
+  int k = 2;
+#endif
+  while (k > 1 &&
+         k * (4 * N * N * N + 22 * N * N) * (int)sizeof(T) > kBlockSmemMax)
+    --k;
+  return k;
+}
+
+template <typename T, int N>
+using WideLayout = InPlace<T, N, wide_cells<T, N>()>;
+
+template <typename T, int N>
+__host__ __device__ constexpr int wide_threads() {
+  return ((wide_cells<T, N>() * N * N + 31) / 32) * 32;
+}
+
+template <typename T, int N>
+__host__ __device__ constexpr int wide_smem_bytes() {
+  return WideLayout<T, N>::SIZE * (int)sizeof(T);
+}
+
+// One kernel a mode: apply and residual (out = y or b - y), and in float
+// the step (x may be null, out may alias x_old, never x)
+template <typename T, int N, int MODE>
+__global__ void __launch_bounds__(wide_threads<T, N>(), 1)
+dg_wide_kernel(const __grid_constant__ TabArg<T, N> tab,
+               const T* __restrict__ x, T* out, const T* __restrict__ bvec,
+               const T* x_old, const T* __restrict__ inv_diag, T f1, T f2,
+               int C0, int C1, int C2, int colloc) {
+  pencil_body<T, N, MODE, WideLayout<T, N>>(tab.v, x, out, bvec, x_old,
+                                            inv_diag, f1, f2, C0, C1, C2,
+                                            colloc);
+}
+
+template <typename T, int N, int MODE>
+int launch_wide(const T* x, const T* b, const T* x_old, const T* inv_diag,
+                const T* tab, T* out, double f1, double f2, int C0, int C1,
+                int C2, int colloc, cudaStream_t stream) {
+  constexpr int bytes = wide_smem_bytes<T, N>();
+  static_assert(bytes <= kBlockSmemMax, "a wide pencil exceeds a block's "
+                                     "shared memory");
+  static bool configured = false;
+  unsigned blocks = 0;
+  const int err = inplace_grid(dg_wide_kernel<T, N, MODE>, configured, bytes,
+                               C0, C1, C2, wide_cells<T, N>(), blocks);
+  if (err) return err;
+  dg_wide_kernel<T, N, MODE><<<blocks, wide_threads<T, N>(), bytes, stream>>>(
+      tab_arg<T, N>(tab), x, out, b, x_old, inv_diag, (T)f1, (T)f2, C0, C1,
+      C2, colloc);
+  return (int)cudaGetLastError();
+}
+
+// mode (APPLY, RESIDUAL or, in float, CHEB) at n = N..HI, else
+// cudaErrorInvalidValue; *launched = 1 on a launch
+template <typename T, int N, int HI>
+int wide_entry(int mode, const T* x, const T* b, const T* x_old,
+               const T* inv_diag, const T* tab, T* out, double f1, double f2,
+               int C0, int C1, int C2, int n, int colloc, void* stream,
+               int* launched) {
+  if constexpr (N > HI) {
+    *launched = 0;
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (n != N)
+      return wide_entry<T, N + 1, HI>(mode, x, b, x_old, inv_diag, tab, out,
+                                      f1, f2, C0, C1, C2, n, colloc, stream,
+                                      launched);
+    *launched = 0;
+    if (C0 < 1 || C1 < 1 || C2 < 1) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    int err;
+    if (mode == APPLY)
+      err = launch_wide<T, N, APPLY>(x, b, x_old, inv_diag, tab, out, f1, f2,
+                                     C0, C1, C2, colloc, st);
+    else if (mode == RESIDUAL)
+      err = launch_wide<T, N, RESIDUAL>(x, b, x_old, inv_diag, tab, out, f1,
+                                        f2, C0, C1, C2, colloc, st);
+    else if constexpr (sizeof(T) == 4)
+      err = mode == CHEB
+                ? launch_wide<T, N, CHEB>(x, b, x_old, inv_diag, tab, out, f1,
+                                          f2, C0, C1, C2, colloc, st)
+                : (int)cudaErrorInvalidValue;
+    else
+      err = (int)cudaErrorInvalidValue;
+    if (err == 0) *launched = 1;
+    return err;
+  }
+}
+
+// the tile of the wide kernel of mode at n = N..HI (inplace_tile)
+template <typename T, int N, int HI>
+int wide_tile(int mode, int n, int* out) {
+  if constexpr (N > HI) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (n != N) return wide_tile<T, N + 1, HI>(mode, n, out);
+    constexpr int cells = wide_cells<T, N>(), bytes = wide_smem_bytes<T, N>();
+    constexpr int nthreads = wide_threads<T, N>();
+    if (mode == APPLY)
+      return inplace_tile(dg_wide_kernel<T, N, APPLY>, cells, bytes,
+                          nthreads, out);
+    if (mode == RESIDUAL)
+      return inplace_tile(dg_wide_kernel<T, N, RESIDUAL>, cells, bytes,
+                          nthreads, out);
+    if constexpr (sizeof(T) == 4)
+      if (mode == CHEB)
+        return inplace_tile(dg_wide_kernel<T, N, CHEB>, cells, bytes,
+                            nthreads, out);
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

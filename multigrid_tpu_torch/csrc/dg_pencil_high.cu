@@ -56,8 +56,6 @@
 
 namespace {
 
-constexpr int kHighSmemBlock = 232448;  // bytes of shared memory a block may have
-
 template <typename T, int N, int MODE>
 using HighLayout = InPlace<T, N, pencil<N, MODE>()>;
 
@@ -100,24 +98,6 @@ dg_high_cheb_kernel(const __grid_constant__ TabArg<float, N> tab,
 
 // ---- launches
 
-// A grid of pencils (one block each) and, at the first launch of a kernel,
-// its dynamic shared-memory limit raised to what it needs
-template <typename Kernel>
-int high_grid(Kernel kernel, bool& configured, int bytes, int C0, int C1,
-              int C2, int K, unsigned& blocks) {
-  if (bytes > kHighSmemBlock) return (int)cudaErrorInvalidValue;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  const long long nb = (long long)C0 * C1 * ((C2 + K - 1) / K);
-  if (nb >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  blocks = (unsigned)nb;
-  return 0;
-}
-
 template <int N, bool RESID>
 int launch_high_apply(const double* x, const double* b, const double* tab,
                       double* out, int C0, int C1, int C2, int colloc,
@@ -125,8 +105,8 @@ int launch_high_apply(const double* x, const double* b, const double* tab,
   static bool configured = false;
   constexpr int bytes = high_smem_bytes<double, N, APPLY>();
   unsigned blocks = 0;
-  const int err = high_grid(dg_high_apply_kernel<N, RESID>, configured,
-                            bytes, C0, C1, C2, pencil<N, APPLY>(), blocks);
+  const int err = inplace_grid(dg_high_apply_kernel<N, RESID>, configured,
+                               bytes, C0, C1, C2, pencil<N, APPLY>(), blocks);
   if (err) return err;
   dg_high_apply_kernel<N, RESID>
       <<<blocks, threads<N, APPLY>(), bytes, stream>>>(
@@ -144,8 +124,8 @@ int launch_high_cheb(const float* x, const float* tab, float* out,
   static bool configured = false;
   constexpr int bytes = high_smem_bytes<float, N, CHEB>();
   unsigned blocks = 0;
-  const int err = high_grid(dg_high_cheb_kernel<N>, configured, bytes, C0,
-                            C1, C2, pencil<N, CHEB>(), blocks);
+  const int err = inplace_grid(dg_high_cheb_kernel<N>, configured, bytes,
+                               C0, C1, C2, pencil<N, CHEB>(), blocks);
   if (err) return err;
   dg_high_cheb_kernel<N>
       <<<blocks, threads<N, CHEB>(), bytes, stream>>>(
@@ -176,26 +156,11 @@ int high_apply(int mode, const double* x, const double* b, const double* tab,
   return err;
 }
 
-// The tile of one kernel: cells a pencil, shared bytes, threads, blocks an
-// SM (the occupancy calculator, after the kernel's shared memory is
-// allowed), registers, local bytes
+// The tile of one kernel (inplace_tile)
 template <typename T, int N, int MODE, typename Kernel>
 int high_tile(Kernel kernel, int* out) {
-  constexpr int bytes = high_smem_bytes<T, N, MODE>();
-  constexpr int nthreads = threads<N, MODE>();
-  int per_sm = 0;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        nthreads, bytes);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return (int)err;
-  const int v[6] = {pencil<N, MODE>(), bytes, nthreads, per_sm,
-                    attr.numRegs, (int)attr.localSizeBytes};
-  for (int i = 0; i < 6; ++i) out[i] = v[i];
-  return 0;
+  return inplace_tile(kernel, pencil<N, MODE>(), high_smem_bytes<T, N, MODE>(),
+                      threads<N, MODE>(), out);
 }
 
 template <int N>

@@ -10,9 +10,10 @@ program.cc:176-205).  Run as
 
 The device picks the operator: on the card ``dg_apply<double>`` (K9) for
 float64 and ``dg_apply<float>`` (K7) for float32, on the CPU their plain
-PyTorch version.  The kernels stop at p = 9 (``dg_kernel.MAX_DEGREE``);
-above it the plain ``DGLaplace`` runs on every device, as the JAX
-driver's XLA operator does at every degree, and the row says "(plain)".
+PyTorch version.  The kernels stop at p = 16 (``dg_kernel.MAX_DEGREE``,
+the top of the JAX package's degree sweep); above it the plain
+``DGLaplace`` runs on every device, as the JAX twin's XLA operator does
+at every degree, and the row says "(plain)".
 Each row is verified
 against the face-based operator (``ops/dg_face.py``, plain PyTorch, in
 float64 on the same input) as the reference subtracts its reference

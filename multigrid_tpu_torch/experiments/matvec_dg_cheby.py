@@ -9,8 +9,8 @@ matvec_dg_cheby/program.cc).  Run as
         [--degrees 3 4 5] [--steps 12] [--kind gauss]
 
 On the card the step is ``dg_cheb<float>`` (K8), on the CPU its plain
-PyTorch version; above the kernel's degree (``dg_kernel.MAX_DEGREE``) it
-is the step composed over the plain ``DGLaplace`` on every device
+PyTorch version; above the kernel's degree (``dg_kernel.MAX_DEGREE``,
+16) it is the step composed over the plain ``DGLaplace`` on every device
 ("(plain)").  Each is verified against the step composed in float64
 (``solvers/fused.vmult_with_chebyshev_update`` over the plain operator and
 ``JacobiTransformed``) at 1e-5 of its largest value, ``dg_cheb``'s bar.

@@ -15,15 +15,17 @@ Three rows, as the JAX driver's:
   no host sync: ``dg_cg<double>`` (x += alpha_prev p_old, p = z + beta
   p_old, q = A p, alpha = rz / (p . q)) and ``dg_jacobi_cg<double>`` (r -=
   alpha q, z = P^-1 r, beta).  On the card these are the kernels of
-  ``csrc/dg_cg_f64.cu`` where ``dg_kernel.has_kernel`` holds; above p = 9,
-  and for the face row, the same loop runs their plain composition
-  (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``), marked
-  "(plain)";
+  ``csrc/dg_cg_f64.cu`` where ``dg_kernel.has_cg_kernel`` holds (p =
+  1..9); above, and for the face row, the same loop runs their plain
+  composition (``vmult_with_cg_update`` and ``JacobiTransformed.vmult``),
+  marked "(plain)", over the operator of the unfused row;
 * ``face (plain)``: that loop over the face-based operator
   (``ops/dg_face.py``), plain PyTorch on every device, as its XLA twin;
 * ``unfused``: :func:`cg_fixed`, every step its own launch (``dg_apply``,
   ``cg_dot``, ``cg_update``, ``cg_xpay`` and the plain Jacobi) and three
-  host syncs an iteration.
+  host syncs an iteration; ``dg_apply<double>`` where
+  ``dg_kernel.has_kernel`` holds (p = 1..16), else the plain operator,
+  marked "(plain)".
 
 Then the fusion speedup (unfused / fused), and both cell-based solutions
 against the face-based one to 1e-9 of its largest value
@@ -136,7 +138,9 @@ def run(degree: int, kind: str, n_cell_steps: int, n_iterations: int = 50,
     distance from the face-based one (``verify``: the larger)."""
     grid = bench_grid(degree, kind, n_cell_steps, shear=False)
     f64 = torch.float64
-    kernel = dk.has_kernel(grid)
+    # the fused row's route from the fused kernels' gate (p <= 9), the
+    # unfused row's operator from the pencil kernels' (p <= 16)
+    kernel, fused = dk.has_kernel(grid), dk.has_cg_kernel(grid)
     op = constant_level(grid, f64, device, kernel=kernel)
     dev = op.device
     face = DGLaplaceFaceBased(grid, f64, dev)
@@ -146,16 +150,16 @@ def run(degree: int, kind: str, n_cell_steps: int, n_iterations: int = 50,
     b = torch.as_tensor(np.random.default_rng(0).standard_normal(grid.shape),
                         dtype=f64, device=dev)
     on_card = dev.type == "cuda"
-    mark = "" if kernel else " (plain)"
+    mark = lambda k: "" if k else " (plain)"
     rows = {
-        "fused": (f"cell-based (fused){mark}",
-                  partial(cg_fused, *fused_passes(op, jac, grid, kernel)),
-                  kernel and on_card),
+        "fused": (f"cell-based (fused){mark(fused)}",
+                  partial(cg_fused, *fused_passes(op, jac, grid, fused)),
+                  fused and on_card),
         "face": ("face (plain)",
                  partial(cg_fused, *fused_passes(face, jac, grid, False)),
                  False),
-        "unfused": (f"unfused{mark}", partial(cg_fixed, op.vmult, jac.vmult),
-                    False),
+        "unfused": (f"unfused{mark(kernel)}",
+                    partial(cg_fixed, op.vmult, jac.vmult), False),
     }
     results, launches = {}, {}
     for key, (name, solve, sync_free) in rows.items():

@@ -9,7 +9,9 @@
 
 For each poisson_cube size (default 64 and 128: 257^3 and 513^3 nodes at
 the default FE_Q(4); ``--degree 8`` at size 32 and ``--degree 9`` at size
-28 give 257^3 and 253^3 nodes) the float64 ``BrickLaplace`` of the
+28 give 257^3 and 253^3 nodes, ``--degree 10`` at size 24 241^3 and
+``--degree 16`` at size 16 257^3: any degree 1..16 that ``brick_kron``
+is built for) the float64 ``BrickLaplace`` of the
 finest level, on random x and b from a seeded generator: CUDA events over
 50 calls after 3 warm-ups, three rounds of (apply, vmult, vmult_residual,
 and the float32 operator's apply and Chebyshev step beside them; with
@@ -17,7 +19,8 @@ and the float32 operator's apply and Chebyshev step beside them; with
 one call launches (``laplace_kernel.LAUNCHES``) and a digest of each
 output (sha256 of its bytes), so that two trees' results can be compared
 bit for bit.  ``--f64-variant C:B`` also builds
-``csrc/brick_kron_f64.cu`` alone with C z columns a thread at p <= 4 and
+``csrc/brick_kron_f64.cu`` (with ``brick_kron_wide_f64.cu``, which its
+entry hands p = 10..16) alone with C z columns a thread at p <= 4 and
 a launch bound of B blocks an SM (``-DBRICK_KRON_F64_CPT=C
 -DBRICK_KRON_F64_MIN_BLOCKS=B``); ``--high-variant f32:C:B`` (or
 ``f64:C:B``) builds that type's source with C columns a thread aimed at
@@ -256,7 +259,7 @@ def variant_entries(variants: list[str], degree: int) -> dict:
     for v in variants:
         if v.startswith("layer:"):
             fields = v.removeprefix("layer:").split(":")
-            kind, src = "layer", "brick_kron_layer.cu"
+            kind, src = "layer", ("brick_kron_layer.cu",)
             defines = [f"-DBRICK_LAYER_VARIANT={degree}"] + [
                 f"-DBRICK_LAYER_{k}={f}" for k, f in zip(
                     ("TXC", "TYC", "G", "THREADS", "MIN_BLOCKS"), fields,
@@ -268,14 +271,17 @@ def variant_entries(variants: list[str], degree: int) -> dict:
             defines = ([f"-DBRICK_KRON_HIGH_CPT={cpt}"] if high
                        else [f"-DBRICK_KRON_F64_CPT={cpt}"])
             defines.append(f"-DBRICK_KRON_{kind.upper()}_MIN_BLOCKS={blocks}")
-            src = "brick_kron.cu" if kind == "f32" else "brick_kron_f64.cu"
+            # with the type's p = 10..16, which its entry hands on
+            src = (("brick_kron.cu", "brick_kron_wide.cu") if kind == "f32"
+                   else ("brick_kron_f64.cu", "brick_kron_wide_f64.cu"))
             name = f"brick_kron_{kind}_{'h' if high else ''}{cpt}_{blocks}"
         builds[v] = kind
         outs[v] = _build.BUILD_DIR / f"{name}_{_build._digest()}.so"
         if not outs[v].exists():
             procs[v] = subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *defines,
-                 "-o", str(outs[v]), str(_build.PACKAGE_DIR / "csrc" / src)],
+                 "-o", str(outs[v]),
+                 *(str(_build.PACKAGE_DIR / "csrc" / f) for f in src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     entries = {}
     for v in variants:

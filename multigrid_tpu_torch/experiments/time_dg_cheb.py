@@ -32,7 +32,7 @@ and ``dg_jacobi_cg`` with ``--cg``), under ``<mode>@this`` and
 ``<mode>@<DIR's name>``; their outputs' sha256 are printed beside this
 tree's, with the modes whose outputs differ in any bit, and their
 registers and spills at each degree.  ``--digests`` prints instead
-``ops/dg_kernel.kernel_digests`` (every mode at p = 1..9 in every kind,
+``ops/dg_kernel.kernel_digests`` (every mode at p = 1..16 in every kind,
 the digests ``tests/test_torch_cuda.py`` pins) of this tree's library
 and, with ``--against``, of the first other tree's, and the keys that
 differ.
@@ -44,6 +44,12 @@ block for apply and
 residual (``-DDG_PENCIL=K``) and times them beside the library's; ``f64:K`` does the same for
 ``csrc/dg_pencil_f64.cu``; ``cheb:K`` builds ``dg_pencil.cu`` with K cells
 per block for the step (``-DDG_CHEB_PENCIL=K``) and times the step;
+``wide:K`` builds the float sources (``dg_pencil.cu`` with
+``dg_pencil_high.cu``, ``dg_pencil_wide.cu`` and ``dg_pencil_wide_top.cu``)
+with K cells a pencil aimed at p = 10..16 (``-DDG_WIDE_CELLS=K``, cut
+to what fits a block) and times the
+step, the step with x = 0, apply and residual there; ``wide_f64:K`` the
+double sources, apply and residual; at p <= 9 neither is launched;
 ``cg:K`` (with ``--cg``) builds ``csrc/dg_cg_f64.cu`` with K cells a
 block of the march (``-DDG_CG_PENCIL=K``, cut to what fits a block) and
 times ``dg_cg``.  Each variant is first checked
@@ -55,7 +61,10 @@ whose pencil needs more shared memory than a block may have at a degree
 n^2); 232,448 bytes) is not launched there and is listed under ``no_fit``.  At p = 8, 9
 each degree also prints the tile of ``dg_pencil_high.cu``'s kernels
 (``dg_kernel.high_tile``: cells, shared bytes, threads, blocks an SM,
-registers, local bytes) of the library and of each variant.
+registers, local bytes) of the library and of each variant, and at p
+= 10..16 that of ``dg_pencil_wide.cu``'s and ``dg_pencil_wide_f64.cu``'s
+kernels (``dg_kernel.wide_tile``; every degree 1..16 times, ``--cg``
+only up to p = 9, the fused CG's top).
 
 Run it with another tree's package on ``PYTHONPATH`` to time that tree in
 the same call (``--pencil`` needs this tree's sources).  Prints the card
@@ -103,7 +112,9 @@ def fits(spec: str, n: int) -> bool:
     what, k = spec.split(":")[:2]
     if what == "cg":
         return True
-    size, k = (8 if what == "f64" else 4), int(k)
+    size, k = (8 if what.endswith("f64") else 4), int(k)
+    if what.startswith("wide"):   # n = 11..17 only, K cut to what fits
+        return n > 10
     # dg_pencil_high.cu: the step at n = 9, 10, the f64 apply at n = 9
     high = (what == "cheb" and n >= 9) or (what == "f64" and n == 9)
     per_cell = 4 * n ** 3 + 22 * n ** 2 if high else 7 * n ** 3 + 34 * n ** 2
@@ -121,7 +132,8 @@ def degree_rows(log: str, n: int) -> list[dict]:
 
 
 SOURCES = {"f32": "dg_pencil.cu", "cheb": "dg_pencil.cu",
-           "f64": "dg_pencil_f64.cu", "cg": "dg_cg_f64.cu"}
+           "f64": "dg_pencil_f64.cu", "cg": "dg_cg_f64.cu",
+           "wide": "dg_pencil.cu", "wide_f64": "dg_pencil_f64.cu"}
 
 
 def bind(lib):
@@ -151,9 +163,13 @@ def variants(specs: list[str]) -> dict:
     for spec in specs:
         what, k = spec.split(":")
         srcs = [SOURCES[what]]
-        if what != "cg":
-            srcs.append("dg_pencil_high.cu")
-        macro = dict(cheb="DG_CHEB_PENCIL", cg="DG_CG_PENCIL").get(
+        if what != "cg":   # the sources its entries hand n >= 9 to
+            srcs += ["dg_pencil_high.cu", *(
+                ("dg_pencil_wide_f64.cu", "dg_pencil_wide_top_f64.cu")
+                if what.endswith("f64") else
+                ("dg_pencil_wide.cu", "dg_pencil_wide_top.cu"))]
+        macro = dict(cheb="DG_CHEB_PENCIL", cg="DG_CG_PENCIL",
+                     wide="DG_WIDE_CELLS", wide_f64="DG_WIDE_CELLS").get(
             what, "DG_PENCIL")
         defs = [f"-D{macro}={int(k)}"]
         out = _build.BUILD_DIR / (f"dg_pencil_{spec.replace(':', '_')}_"
@@ -173,6 +189,9 @@ def variants(specs: list[str]) -> dict:
 
 DG_SOURCES = ("dg_pencil.cu", "dg_pencil_f64.cu", "dg_pencil_high.cu",
               "dg_cg_f64.cu")
+# the sources of p = 10..16, where a tree has them
+DG_WIDE_SOURCES = ("dg_pencil_wide.cu", "dg_pencil_wide_top.cu",
+                   "dg_pencil_wide_f64.cu", "dg_pencil_wide_top_f64.cu")
 
 
 def against_library(tree: str):
@@ -184,15 +203,17 @@ def against_library(tree: str):
     from multigrid_tpu_torch import _build
 
     csrc = Path(tree).resolve() / "multigrid_tpu_torch" / "csrc"
+    sources = DG_SOURCES + tuple(f for f in DG_WIDE_SOURCES
+                                 if (csrc / f).exists())
     key = hashlib.sha256(b"".join(
-        (csrc / f).read_bytes() for f in (*DG_SOURCES, "dg_pencil.cuh",
+        (csrc / f).read_bytes() for f in (*sources, "dg_pencil.cuh",
                                           "dg_tab.cuh"))).hexdigest()[:16]
     out = _build.BUILD_DIR / f"against_{key}"   # kept for the next process
     if not (out / "lib.so").exists():
         out.mkdir(parents=True, exist_ok=True)
         work = Path(tempfile.mkdtemp(dir=_build.BUILD_DIR))
         log, failed, seconds = _build.compile_sources(
-            [csrc / src for src in DG_SOURCES], work)
+            [csrc / src for src in sources], work)
         if failed:
             raise RuntimeError(f"nvcc failed for {tree}:\n{log}")
         print(f"built {csrc}'s DG kernels: " + ", ".join(
@@ -351,7 +372,9 @@ def size_run(size: int, degree: int, kind: str, specs: dict, dev,
     # the modes a pencil variant times (see variants())
     spec_keys = {"cheb": ("cheb",), "cg": ("dg_cg",),
                  "f32": ("apply_f32", "residual_f32"),
-                 "f64": ("apply_f64", "residual_f64")}
+                 "f64": ("apply_f64", "residual_f64"),
+                 "wide": ("cheb", "cheb_x0", "apply_f32", "residual_f32"),
+                 "wide_f64": ("apply_f64", "residual_f64")}
     for spec, (_, lib) in specs.items():
         what = spec.split(":")[0]
         if spec in no_fit or (what == "cg" and not cg):
@@ -455,6 +478,17 @@ def main(argv: list[str]) -> int:
                 s: dk.high_tile(n, lib) for s, (_, lib) in specs.items()
                 if s.split(":")[0] != "cg"}}
             for s, tiles in result["high_tiles"].items():
+                for name, tile in tiles.items():
+                    print(f"p={degree} tile {s} {name}: " + ", ".join(
+                        f"{k} {v}" for k, v in tile.items()))
+        if degree in dk.WIDE_DEGREES:
+            # the tile of the kernels at p = 10..16 (dg_pencil_wide*.cu), of
+            # the library and of each wide variant
+            result["wide_tiles"] = {"library": dk.wide_tile(n), **{
+                s: dk.wide_tile(n, lib, (torch.float64 if s.startswith(
+                    "wide_f64:") else torch.float32,))
+                for s, (_, lib) in specs.items() if s.startswith("wide")}}
+            for s, tiles in result["wide_tiles"].items():
                 for name, tile in tiles.items():
                     print(f"p={degree} tile {s} {name}: " + ", ".join(
                         f"{k} {v}" for k, v in tile.items()))

@@ -28,7 +28,13 @@ template's bits; :func:`high_launches` reads how many times the library
 launched those kernels, and :func:`high_tile` reports their tile on the
 card.  ``dg_apply`` in float32
 at p = 8, 9 and in float64 at p = 9 keep the template (no variant of the
-other was faster there without spilling).
+other was faster there without spilling).  At p = 10..16
+(:data:`WIDE_DEGREES`, n = 11..17) every mode runs the same body over the
+in-place layout too, in ``csrc/dg_pencil_wide.cu`` (float) and
+``dg_pencil_wide_f64.cu`` (double; p = 14..16 in
+``dg_pencil_wide_top*.cu``), a pencil of two cells (one in double above p
+= 12) and one block an SM, where the template's layout outgrows a block's
+shared memory; :func:`wide_tile` reports their tile.
 
 Two more kernels carry solver_dg's fused CG row, float64, its scalars on
 the device (``csrc/dg_cg_f64.cu``; no Pallas kernel: the JAX row is XLA's
@@ -74,9 +80,14 @@ LAUNCHES = {"dg_apply<double>": 0, "dg_apply<float>": 0, "dg_cheb<float>": 0,
             "dg_cg<double>": 0, "dg_jacobi_cg<double>": 0}
 # the degrees at which LAUNCHES' pencil kernels run csrc/dg_pencil_high.cu
 HIGH_DEGREES = {"dg_apply<double>": (8,), "dg_cheb<float>": (8, 9)}
+# the degrees at which every pencil kernel runs csrc/dg_pencil_wide*.cu
+WIDE_DEGREES = tuple(range(10, 17))
 _SUFFIX = {torch.float64: ("f64", "double"), torch.float32: ("f32", "float")}
-MAX_DEGREE = 9     # n = 10 nodes per axis: the largest kernel instantiation,
-                   # the reference programs' top degree
+MAX_DEGREE = 16    # n = 17 nodes per axis: the largest pencil instantiation,
+                   # the top of the JAX package's degree sweep
+                   # (tests/test_degree_sweep.py) and of the double in-place
+                   # layout a block holds (208,080 B at one cell)
+CG_MAX_DEGREE = 9  # the fused CG's kernels (dg_cg, dg_jacobi_cg): n = 10
 
 
 def reset_launches() -> None:
@@ -122,25 +133,36 @@ def covers(grid: DGGrid) -> bool:
     339``: ``dim == 3``; Pallas K7 and K8 have no degree limit).  The
     solvers choose a level's route by this when they build it; a 2-D level
     runs the plain operator on every device, as the JAX package runs XLA
-    there.  The kernels are built for p = 1..:data:`MAX_DEGREE` (9, the
-    reference programs' top degree, where the FE_Q hierarchy of poisson_dg
-    stops too); a covered level above it has no kernel
-    (:func:`has_kernel`), so :class:`DGOperator` refuses it on the card."""
+    there.  The kernels are built for p = 1..:data:`MAX_DEGREE` (16, the
+    top of the JAX package's own degree sweep); a covered level above it
+    has no kernel (:func:`has_kernel`), so :class:`DGOperator` refuses it
+    on the card."""
     return grid.dim == 3
 
 
 def has_kernel(grid: DGGrid) -> bool:
-    """Whether the kernels are built for ``grid``: covered, degree
-    1..MAX_DEGREE (p = 1..9, n = 2..10 nodes an axis)."""
+    """Whether the pencil kernels (``dg_apply``, ``dg_residual``,
+    ``dg_cheb``) are built for ``grid``: covered, degree 1..MAX_DEGREE (p
+    = 1..16, n = 2..17 nodes an axis)."""
     return covers(grid) and 1 <= grid.degree <= MAX_DEGREE
 
 
-def _kernel_device(t: torch.Tensor, op: "DGOperator", name: str) -> None:
+def has_cg_kernel(grid: DGGrid) -> bool:
+    """Whether the fused CG's kernels (``dg_cg``, ``dg_jacobi_cg``) are
+    built for ``grid``: covered, degree 1..CG_MAX_DEGREE (p = 1..9).
+    ``dg_cg``'s z march holds a column of pencils of 256 / n^2 cells, none
+    at n = 17, and its layer buffers outgrow a block above p = 12."""
+    return covers(grid) and 1 <= grid.degree <= CG_MAX_DEGREE
+
+
+def _kernel_device(t: torch.Tensor, op: "DGOperator", name: str,
+                   gate=has_kernel) -> None:
     if t.device.type != "cuda":
         raise RuntimeError(f"{name}: no kernel for device {t.device}")
-    if op.dtype not in _SUFFIX or not has_kernel(op.grid):
+    if op.dtype not in _SUFFIX or not gate(op.grid):
+        top = MAX_DEGREE if gate is has_kernel else CG_MAX_DEGREE
         raise ValueError(f"{name}: 3-D float32/float64 grids of degree 1.."
-                         f"{MAX_DEGREE} only")
+                         f"{top} only")
     if t.numel() >= 2**31:
         raise ValueError(f"{name}: vector too large for 32-bit indexing")
 
@@ -280,6 +302,35 @@ def high_tile(n: int, lib=None) -> dict:
     return out
 
 
+# the wide kernels in the order of dg_wide_tile's first argument (the
+# modes of the C entries), by dtype
+WIDE_KERNELS = {torch.float32: ("dg_apply<float>", "dg_residual<float>",
+                                "dg_cheb<float>"),
+                torch.float64: ("dg_apply<double>", "dg_residual<double>")}
+
+
+def wide_tile(n: int, lib=None, dtypes=tuple(WIDE_KERNELS)) -> dict:
+    """The tile of csrc/dg_pencil_wide*.cu's kernels at ``n`` (11..17)
+    points an axis, by kernel (:data:`WIDE_KERNELS` of ``dtypes``), with
+    :data:`HIGH_TILE`'s fields; of the port's library or of ``lib``.
+    Needs the card."""
+    lib = _build.library() if lib is None else lib
+    out = {}
+    for dtype in dtypes:
+        names = WIDE_KERNELS[dtype]
+        fn = getattr(lib, f"dg_wide_tile_{_SUFFIX[dtype][0]}")
+        fn.argtypes = _build.SIGNATURES[f"dg_wide_tile_{_SUFFIX[dtype][0]}"]
+        fn.restype = ctypes.c_int
+        for mode, name in enumerate(names):
+            vals = (ctypes.c_int * len(HIGH_TILE))()
+            err = fn(mode, n, vals)
+            if err:
+                raise RuntimeError(f"dg_wide_tile({name}, {n}): cudaError "
+                                   f"{err}")
+            out[name] = dict(zip(HIGH_TILE, vals))
+    return out
+
+
 def high_launches() -> dict:
     """How many times the library has launched csrc/dg_pencil_high.cu's
     kernels since it was loaded, counted by the C code where it launches
@@ -349,7 +400,7 @@ def dg_jacobi_cg_plain(r, q, scal, z, precond, first: bool = False) -> None:
 
 
 def _cg_check(op: "DGOperator", name: str, tensors, outs) -> None:
-    _kernel_device(tensors[0][0], op, name)
+    _kernel_device(tensors[0][0], op, name, has_cg_kernel)
     if op.dtype != torch.float64:
         raise ValueError(f"{name}: float64 only")
     for t, what in tensors + outs:
@@ -434,9 +485,9 @@ def kernel_digests(device, degrees=range(1, MAX_DEGREE + 1),
     on PyTorch's own kernels; the step with x (f1 = 0.37, f2 = 0.81) and
     with x = 0; ``dg_cg`` (x, p, q and the scalars, from p_old, z, x of
     seeds 5, 6, 7) and ``dg_jacobi_cg`` (r, z and the scalars, from r, q of
-    seeds 8, 9), each from the scalars (0.37, 0.61, 1.7, 0, 0).  Pins the
-    kernels' bits (tests/test_torch_cuda.py, chip_smoke.py).  Needs the
-    card."""
+    seeds 8, 9), each from the scalars (0.37, 0.61, 1.7, 0, 0); the fused
+    CG's two only up to :data:`CG_MAX_DEGREE`.  Pins the kernels' bits
+    (tests/test_torch_cuda.py, chip_smoke.py).  Needs the card."""
     import hashlib
     import types
 
@@ -478,6 +529,8 @@ def kernel_digests(device, degrees=range(1, MAX_DEGREE + 1),
                     res["cheb<float> x=0"] = digest(
                         dg_cheb(b, None, None, op, 0.0, 0.81))
                     continue
+                if p > CG_MAX_DEGREE:
+                    continue
                 scal0 = torch.tensor([0.37, 0.61, 1.7, 0.0, 0.0],
                                      dtype=torch.float64, device=dev)
                 p_old, z, xc = (seeded(grid.shape, s, dtype)
@@ -490,7 +543,8 @@ def kernel_digests(device, degrees=range(1, MAX_DEGREE + 1),
                 zj, sc = torch.empty_like(r), scal0.clone()
                 dg_jacobi_cg(r, q, sc, zj, op)
                 res["dg_jacobi_cg<double>"] = digest(r, zj, sc)
-            out.update({f"p={p} {kind} {m}": res[m] for m in DIGEST_MODES})
+            out.update({f"p={p} {kind} {m}": res[m] for m in DIGEST_MODES
+                        if m in res})
     return out
 
 
@@ -500,7 +554,7 @@ class DGOperator:
     (in host memory in the operator's dtype; every kernel takes it as a
     kernel parameter) and the plain operator; ``install_jacobi`` adds the
     preconditioner the fused Chebyshev step applies.  On the card it takes
-    a 3-D grid of degree 1..:data:`MAX_DEGREE` (9) and refuses any other
+    a 3-D grid of degree 1..:data:`MAX_DEGREE` (16) and refuses any other
     ("no DG kernel"); on the CPU any grid."""
 
     def __init__(self, grid: DGGrid, dtype=torch.float32, device="cuda"):

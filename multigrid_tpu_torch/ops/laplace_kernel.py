@@ -12,7 +12,9 @@ A·u with its residual and Chebyshev epilogues).  Two kernels:
   ``vmult`` (x on Dirichlet rows), ``residual`` (b - A x; b - x on
   Dirichlet rows) and ``cheb`` (x + f1 (x - x_old) + f2 (b - A x) / diag),
   one launch each, in one of three forms with the same bits: the z-slab
-  march (p <= 7), and at p = 8, 9 the cell form (a block a cell) and in
+  march (p <= 7, and p = 10..16 in both types, ``brick_kron_wide.cu`` /
+  ``brick_kron_wide_f64.cu``: one column a thread, the planes of a cell
+  layer one a trip), and at p = 8, 9 the cell form (a block a cell) and in
   float the layer march (``brick_kron_layer.cu``: tiles of 4 x 3 / 4 x 4
   cells marching by cell layers with their z ring in shared memory),
   chosen per grid by :func:`brick_form`;
@@ -53,8 +55,12 @@ LAUNCHES = {"brick_kron<float>": 0, "brick_kron_cheb<float>": 0,
             "cheb_epilogue<double>": 0, "cheb_epilogue<float>": 0}
 LAUNCHES_BY_GRID: dict = {}
 KRON_MODES = {"apply": 0, "vmult": 1, "residual": 2, "cheb": 3}
-MAX_DEGREE = 9     # brick_kron's largest instantiation (the reference's)
-CELL_DEGREE = 8    # brick_kron's cell form: degrees CELL_DEGREE..MAX_DEGREE
+MAX_DEGREE = 16    # brick_kron's largest instantiation (the JAX package's
+                   # degree sweep, tests/test_degree_sweep.py)
+CELL_DEGREE = 8    # brick_kron's cell form: p = 8, 9 (CELL_DEGREE up to
+                   # WIDE_DEGREE - 1)
+WIDE_DEGREE = 10   # p >= WIDE_DEGREE: the z-slab march in both types (the
+                   # cell form's neighbourhood outgrows a block there)
 # the float forms at p = 8, 9 by the grid's cell count: the cell form up
 # to F32_CELL_FORM_MAX_CELLS[p] cells, the layer march above (the step's
 # crossover lies between 1728 and 4096 cells at p = 8, between 343 and
@@ -173,11 +179,11 @@ def cheb_epilogue(b: torch.Tensor, y=None, x=None, x_old=None, lines=None,
 # ------------------------------------------------------------- brick_kron
 def brick_form(shape, degree: int, dtype) -> str:
     """The form of ``brick_kron`` on a node grid ``shape`` at ``degree``
-    in ``dtype``: "march" (the z-slab march) below CELL_DEGREE; above,
-    "cell" (one block a cell) in double and on float grids of at most
-    ``F32_CELL_FORM_MAX_CELLS[degree]`` cells, else "layer" (the layer
-    march).  All give the same bits."""
-    if degree < CELL_DEGREE:
+    in ``dtype``: "march" (the z-slab march) below CELL_DEGREE and from
+    WIDE_DEGREE on; at p = 8, 9 "cell" (one block a cell) in double and
+    on float grids of at most ``F32_CELL_FORM_MAX_CELLS[degree]`` cells,
+    else "layer" (the layer march).  All give the same bits."""
+    if degree < CELL_DEGREE or degree >= WIDE_DEGREE:
         return "march"
     z, y, x = shape   # plain ints: this runs on every launch
     cells = ((z - 1) // degree) * ((y - 1) // degree) * ((x - 1) // degree)

@@ -48,9 +48,10 @@ grid (:func:`~..ops.dg_kernel.covers`: 3-D, the JAX gate of
 ``solvers/multigrid_dg.py:139, 339``); a 2-D level is the plain
 ``DGLaplace`` on every device (:func:`constant_level`), and the solver's
 ``plain_route`` says so.  The route is chosen when the level is built,
-from the grid alone.  The kernels stop at p = 9
-(``dg_kernel.MAX_DEGREE``, the reference programs' top degree), and a 3-D
-level above it is refused on the card: the JAX package runs Pallas there.
+from the grid alone.  The kernels stop at p = 16
+(``dg_kernel.MAX_DEGREE``, the top of the JAX package's degree sweep), and
+a 3-D level above it is refused on the card: the JAX package runs Pallas
+there.
 
 ``parallel.distributed.DistributedMultigridDG`` runs both solvers' CG and
 V-cycles on z-slabs over ranks; its hooks here are the outer CG's inner

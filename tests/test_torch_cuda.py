@@ -10,16 +10,19 @@ Chebyshev step on the smoother's iterates at 1e-12 (double) / 3e-6
 kernels 1e-14; the DG kernels against the plain f64 operator (and the
 face-based one) at 1e-13 (dg_apply<double>, apply and residual), 3e-6
 (dg_apply<float>) of max|A x| and 1e-5 of max|out| (dg_cheb<float>, on
-the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..9 and on
+the smoother's iterates; 1e-6 of max|x| with f2 = 0), at p = 1..16 and on
 ragged pencils, and their outputs on seeded inputs bit for bit as
 ``DG_DIGESTS`` pins them; at p = 8, 9, where the step (and at p = 8 the
 double apply) are the kernels of ``csrc/dg_pencil_high.cu``, also on
 one-cell axes, ragged pencils and many pencils, every launch of those
-theirs, none spilling.
-Every compiled degree of brick_kron (p = 1..9) and of
-the DG kernels (p = 1..9) is held.  The launch counters count device
-kernels: 1 per brick_kron call, 2 per reduction, 1 per xpay, 1 per DG
-kernel call.  The
+theirs, none spilling; at p = 10..16, the pencils of
+``csrc/dg_pencil_wide*.cu``, on the same kinds of grids, each kernel's
+tile within a block's shared memory (232,448 B).
+Every compiled degree of brick_kron (p = 1..16; p = 10..16 the z-slab
+march of ``brick_kron_wide*.cu``, bit for bit as ``KRON_WIDE_DIGESTS``
+pins it) and of the DG kernels (p = 1..16) is held.  The launch counters
+count device kernels: 1 per brick_kron call, 2 per reduction, 1 per
+xpay, 1 per DG kernel call.  The
 size-4 FE_Q, DG and pure-DG (DGPlain) solves on the card agree with the
 CPU to 1e-5 of max|u|; the f32 ``DGTransfer`` on the card agrees with the
 f64 one to 1e-6 of max; a DGPlain solve launches K7, K8, K9 and the CG
@@ -30,7 +33,7 @@ on the card are bit for bit equal.  The plain routes of the one-device
 configurations the kernels do not cover: 2-D DG-plain (16^2 cells, p = 3,
 every kind; its within one, frac its and L2 to 1% of the CPU's) and the
 2-D brick (FMG to 1e-5 of max|u|, CG its equal, reduction to 2%) launch
-only the CG kernels; a p = 10 ``matvec_dg`` row runs the plain operator at
+only the CG kernels; a p = 17 ``matvec_dg`` row runs the plain operator at
 the driver's bars; a checkpoint of card tensors reads back bit for bit;
 ``device_memory_stats`` reads the allocator on the card (in use <= peak
 < the card's memory, peak >= the solver's level tensors).  Ranks of
@@ -108,7 +111,18 @@ KRON_GRIDS = dict(GRIDS, **{
     "coarse_dg24_p8": lambda: brick((3, 3, 3), 8),
     "coarse_cube32_p8": lambda: brick((1, 1, 1), 8),
     "ragged_xy_p9": lambda: brick((5, 7, 3), 9),
-    "ragged_xy_p8": lambda: brick((5, 7, 3), 8)})
+    "ragged_xy_p8": lambda: brick((5, 7, 3), 8),
+    # p = 10..16 (the z-slab march in both types): several tiles in x and
+    # y, one-cell axes, grids ragged against the tile, at every degree
+    "cube2_p10": lambda: brick((2, 2, 2), 10),
+    "tiles_p10": lambda: brick((3, 4, 7), 10),
+    "tiles_p11": lambda: brick((2, 3, 5), 11),
+    "ragged_p12": lambda: brick((3, 2, 4), 12),
+    "ragged_p13": lambda: brick((3, 2, 4), 13),
+    "one_cell_axis_p14": lambda: brick((1, 3, 2), 14),
+    "cube2_p15": lambda: brick((2, 2, 2), 15),
+    "one_cell_axis_p16": lambda: brick((1, 3, 2), 16),
+    "cube2_p16": lambda: brick((2, 2, 2), 16)})
 
 
 # value type -> (name in LAUNCHES, bar of apply / vmult / residual, bar of
@@ -287,15 +301,16 @@ KRON_HIGH_DIGESTS = {
 }
 
 
-def kron_high_digests(dev) -> dict:
-    """"<case> <type> <mode>" -> the digest of brick_kron's output on the
-    inputs of seeds 1 (x), 2 (b), 3 (x_old), f1 = 0.37, f2 = 0.81."""
+def kron_high_digests(dev, cases=KRON_HIGH_CASES) -> dict:
+    """"<case> <type> <mode>" -> the digest of brick_kron's output at
+    ``cases`` on the inputs of seeds 1 (x), 2 (b), 3 (x_old), f1 = 0.37,
+    f2 = 0.81."""
     import hashlib
 
     from multigrid_tpu_torch.ops import laplace_kernel as lk
 
     out = {}
-    for case in KRON_HIGH_CASES:
+    for case in cases:
         g = KRON_GRIDS[case]()
         for dtype in (torch.float32, torch.float64):
             op = lk.BrickLaplace(g, dtype, dev)
@@ -327,6 +342,81 @@ def test_brick_kron_high_degree_is_the_march_bit_for_bit(dev, form,
     op = lk.BrickLaplace(g, torch.float64, dev)
     with pytest.raises(RuntimeError, match="cudaError"):
         lk.brick_kron(rand(g.shape, torch.float64, dev, 1), op)
+
+
+# brick_kron at p = 10..16 on the inputs of kron_high_digests: sha256
+# (first 16 hex digits) of each mode's output, recorded on an H100 from the
+# z-slab march of csrc/brick_kron_wide*.cu (chip_smoke.py pins the same)
+KRON_WIDE_CASES = ("cube2_p10", "one_cell_axis_p16", "tiles_p10",
+                   "tiles_p11", "ragged_p13", "cube2_p16")
+KRON_WIDE_DIGESTS = {
+    "cube2_p10 float apply": "d18bfeffe84b9d1a",
+    "cube2_p10 float vmult": "d38a0dc276f38469",
+    "cube2_p10 float residual": "512e7977d6cc7693",
+    "cube2_p10 float cheb": "4c17401b23586f49",
+    "cube2_p10 double apply": "10980282e66a3dd3",
+    "cube2_p10 double vmult": "25f2fcc6853a1f36",
+    "cube2_p10 double residual": "f2db088aa0b3bf5f",
+    "cube2_p10 double cheb": "f42cffda6d16cac0",
+    "one_cell_axis_p16 float apply": "138c913cd63a8382",
+    "one_cell_axis_p16 float vmult": "d2b9da31b361668a",
+    "one_cell_axis_p16 float residual": "8f571344ac399681",
+    "one_cell_axis_p16 float cheb": "ca24f68401914190",
+    "one_cell_axis_p16 double apply": "97a802e2d406a516",
+    "one_cell_axis_p16 double vmult": "9eedc5cdd2a880e0",
+    "one_cell_axis_p16 double residual": "fee2c8d1d1372dc3",
+    "one_cell_axis_p16 double cheb": "84cdd9a2a336aff8",
+    "tiles_p10 float apply": "d6aea056670b3d29",
+    "tiles_p10 float vmult": "be21f2869a66e4e2",
+    "tiles_p10 float residual": "8e7b8d24b6004288",
+    "tiles_p10 float cheb": "5b731a94a904b646",
+    "tiles_p10 double apply": "1dc9460d044683fe",
+    "tiles_p10 double vmult": "7ba25dc59ac330d5",
+    "tiles_p10 double residual": "f08b243f52a1f525",
+    "tiles_p10 double cheb": "a18cb5ca964d65b3",
+    "tiles_p11 float apply": "e39f6c5487c55e86",
+    "tiles_p11 float vmult": "9eada12b52c482a6",
+    "tiles_p11 float residual": "2c9e9b701d6904d0",
+    "tiles_p11 float cheb": "5f05570099aad7c2",
+    "tiles_p11 double apply": "0afa41516346ef1a",
+    "tiles_p11 double vmult": "87d883286efced23",
+    "tiles_p11 double residual": "069e6eadf124c17a",
+    "tiles_p11 double cheb": "997352cdfe032088",
+    "ragged_p13 float apply": "e015aebef2a9621b",
+    "ragged_p13 float vmult": "2ce4fb7e74617230",
+    "ragged_p13 float residual": "7f2b645f981ef7cb",
+    "ragged_p13 float cheb": "a0c110b9d8422a62",
+    "ragged_p13 double apply": "467e1849979d1c82",
+    "ragged_p13 double vmult": "b809a8a7d39947f4",
+    "ragged_p13 double residual": "4ba7a64d47ff9848",
+    "ragged_p13 double cheb": "ea13f8925f52e873",
+    "cube2_p16 float apply": "20bebad61efe7f00",
+    "cube2_p16 float vmult": "07e43775960eea5b",
+    "cube2_p16 float residual": "416aee5be43202ad",
+    "cube2_p16 float cheb": "8c40de7d5e554446",
+    "cube2_p16 double apply": "a6084f199c059e71",
+    "cube2_p16 double vmult": "36eb337778eb49e8",
+    "cube2_p16 double residual": "f2448168aad5a24f",
+    "cube2_p16 double cheb": "ec3a9ea5220fe916",
+}
+
+
+def test_brick_kron_wide_degrees_keep_their_bits(dev):
+    """At p = 10..16 every mode in both types gives the pinned outputs bit
+    for bit, on cubes of 2^3 cells, a one-cell axis and grids of several
+    tiles; the cell form is refused there (its neighbourhood outgrows a
+    block)."""
+    from multigrid_tpu_torch.ops import laplace_kernel as lk
+
+    assert kron_high_digests(dev, KRON_WIDE_CASES) == KRON_WIDE_DIGESTS
+    g = KRON_GRIDS["cube2_p10"]()
+    op = lk.BrickLaplace(g, torch.float64, dev)
+    lk.brick_form, auto = (lambda shape, p, dtype: "cell"), lk.brick_form
+    try:
+        with pytest.raises(RuntimeError, match="cudaError"):
+            lk.brick_kron(rand(g.shape, torch.float64, dev, 1), op)
+    finally:
+        lk.brick_form = auto
 
 
 @pytest.mark.parametrize("p, cells", [(8, 16), (9, 28)])
@@ -620,6 +710,70 @@ def test_dg_high_degree_edges_every_mode(dev, kind, p, cells):
                     for k, n in calls.items()}
 
 
+@pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1)] + list(HIGH_CELLS))
+@pytest.mark.parametrize("p", range(10, 17))
+@pytest.mark.parametrize("kind", ["hermite", "gll", "gauss"])
+def test_dg_wide_degrees_every_mode(dev, kind, p, cells):
+    """The DG pencil kernels at p = 10..16 (``csrc/dg_pencil_wide*.cu``) on
+    pencil rows that do not fill a pencil, one-cell axes, a one-layer
+    ragged row and many pencils, at the bars of the every-degree tests:
+    dg_apply and dg_residual in double at 1e-13 and in float at 3e-6 of
+    max|A x| against the plain f64 operator and the face-based one,
+    dg_cheb<float> on the smoother's iterates at 1e-5 of max|out| (1e-6 of
+    max|x| with f2 = 0) and in place into x_old; one launch a call, none
+    of dg_pencil_high.cu's; each kernel's tile within a block's shared
+    memory (the in-place layout of its pencil) and held by an SM; a
+    repeated call is equal bit for bit."""
+    from multigrid_tpu_torch.ops import dg_kernel as dk
+    from multigrid_tpu_torch.ops.dg_face import DGLaplaceFaceBased
+    from multigrid_tpu_torch.ops.dg_precond import JacobiTransformed
+
+    g = dg_grid(cells, p, kind)
+    n = g.n
+    for name, tile in dk.wide_tile(n).items():
+        size = 8 if "double" in name else 4
+        assert tile["smem_bytes"] == tile["cells"] * (
+            4 * n ** 3 + 22 * n ** 2) * size <= 232448, (name, tile)
+        assert tile["blocks_per_sm"] >= 1 and tile["registers"] <= 255
+    ops = {}
+    for dtype in (torch.float64, torch.float32):
+        ops[dtype] = dk.DGOperator(g, dtype, dev)
+        ops[dtype].install_jacobi(JacobiTransformed(g, dtype, dev))
+    x, b = (rand(g.shape, torch.float32, dev, s).double() for s in (11, 12))
+    wants = [ops[torch.float64].plain.apply(x),
+             DGLaplaceFaceBased(g, torch.float64, dev).apply(x)]
+    dk.reset_launches()
+    high_before = dk.high_launches()
+    for dtype, tol in ((torch.float64, 1e-13), (torch.float32, 3e-6)):
+        op = ops[dtype]
+        xt, bt = x.to(dtype), b.to(dtype)
+        y, r = dk.dg_apply(xt, op), dk.dg_residual(bt, xt, op)
+        torch.cuda.synchronize()
+        for want in wants:
+            bar = tol * float(want.abs().max())
+            assert float((y.double() - want).abs().max()) <= bar
+            assert float((r.double() - (b - want)).abs().max()) <= bar
+        assert torch.equal(y, dk.dg_apply(xt, op))
+    op32, op64 = ops[torch.float32], ops[torch.float64]
+    bs, xs, xo = dk.smoother_iterates(op64.jacobi, 7)
+    d = lambda t: None if t is None else t.double()
+    for xa, xoa, f1, f2 in ((xs, xo, 0.37, 0.81), (None, None, 0.0, 0.81),
+                            (xs, None, 0.2, 0.5), (xs, xo, 0.37, 0.0)):
+        got = d(dk.dg_cheb(bs, xa, xoa, op32, f1, f2))
+        ref = dk.dg_cheb_plain(d(bs), d(xa), d(xoa), op64, f1, f2)
+        bar = (1e-5 * float(ref.abs().max()) if f2
+               else 1e-6 * float(xs.abs().max()))
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= bar, (xa is None, f2)
+    first = dk.dg_cheb(bs, xs, xo, op32, 0.37, 0.81)
+    alias = xo.clone()
+    assert dk.dg_cheb(bs, xs, alias, op32, 0.37, 0.81, out=alias) is alias
+    assert torch.equal(alias, first)
+    calls = {"dg_apply<double>": 3, "dg_apply<float>": 3, "dg_cheb<float>": 6}
+    assert {k: dk.LAUNCHES[k] for k in calls} == calls
+    assert dk.high_launches() == high_before
+
+
 @pytest.mark.parametrize("cells", [(3, 2, 5), (2, 3, 1), (5, 4, 9)]
                          + list(MARCH_CELLS))
 @pytest.mark.parametrize("p", range(1, 10))
@@ -901,19 +1055,146 @@ DG_DIGESTS = {
     "p=9 gauss cheb<float> x=0": "e90b1107b710eccb",
     "p=9 gauss dg_cg<double>": "b1632f9637f082ea",
     "p=9 gauss dg_jacobi_cg<double>": "b9713fbf9d85db0f",
+    "p=10 hermite apply<double>": "40c73de9938d2657",
+    "p=10 hermite residual<double>": "052354a6fe498c36",
+    "p=10 hermite apply<float>": "43b003e6b19af53f",
+    "p=10 hermite residual<float>": "130e342b140ed540",
+    "p=10 hermite cheb<float>": "1d1ed3dea73c9f0c",
+    "p=10 hermite cheb<float> x=0": "4c4f17a95b82bc67",
+    "p=10 gll apply<double>": "17eb8a3a6e5c4ef1",
+    "p=10 gll residual<double>": "416610a675c2717d",
+    "p=10 gll apply<float>": "5914f39f24b4d072",
+    "p=10 gll residual<float>": "c885d3b2766acf97",
+    "p=10 gll cheb<float>": "226b8feef5d901f0",
+    "p=10 gll cheb<float> x=0": "d3fbb9ea2bc7c3bb",
+    "p=10 gauss apply<double>": "663de14476d8a573",
+    "p=10 gauss residual<double>": "90b978e439f4f387",
+    "p=10 gauss apply<float>": "71554e064d9973c0",
+    "p=10 gauss residual<float>": "9dedf515f0c21bff",
+    "p=10 gauss cheb<float>": "8e680c95ebddc741",
+    "p=10 gauss cheb<float> x=0": "ef1b3b11f9aea004",
+    "p=11 hermite apply<double>": "042aa817331db0b2",
+    "p=11 hermite residual<double>": "b81ba66e755dea67",
+    "p=11 hermite apply<float>": "4b6d7adeacdabd28",
+    "p=11 hermite residual<float>": "df1fc9a0a95ba1d2",
+    "p=11 hermite cheb<float>": "d02d90b28b5f6614",
+    "p=11 hermite cheb<float> x=0": "151446fd97a208ce",
+    "p=11 gll apply<double>": "41576f260eb57b24",
+    "p=11 gll residual<double>": "8b3da8affbd52489",
+    "p=11 gll apply<float>": "a70d8cf810b1a7a0",
+    "p=11 gll residual<float>": "614018514e31e7f1",
+    "p=11 gll cheb<float>": "c7ff01b13ca7f117",
+    "p=11 gll cheb<float> x=0": "c7f1a2e63df26eaa",
+    "p=11 gauss apply<double>": "b4b86b566ea4c580",
+    "p=11 gauss residual<double>": "d950eb32a3ef190c",
+    "p=11 gauss apply<float>": "3a78c9263b062156",
+    "p=11 gauss residual<float>": "83c7c437d95b5d32",
+    "p=11 gauss cheb<float>": "e1534f17c1ce813e",
+    "p=11 gauss cheb<float> x=0": "55d51302e7aeea69",
+    "p=12 hermite apply<double>": "1f3aede5686aa2e6",
+    "p=12 hermite residual<double>": "f7e21585c38e3b5a",
+    "p=12 hermite apply<float>": "808cc289093e74ac",
+    "p=12 hermite residual<float>": "fc7585a8d5c5df74",
+    "p=12 hermite cheb<float>": "34387cffebc359af",
+    "p=12 hermite cheb<float> x=0": "a57554b6faafe25b",
+    "p=12 gll apply<double>": "6a173b636ada7048",
+    "p=12 gll residual<double>": "842b30ea50d27a6c",
+    "p=12 gll apply<float>": "21650ff1e438353b",
+    "p=12 gll residual<float>": "26b4aa84424a8b3d",
+    "p=12 gll cheb<float>": "a0a4b9fd66b9169e",
+    "p=12 gll cheb<float> x=0": "354a6298fa647e6c",
+    "p=12 gauss apply<double>": "06846a9069aa2b92",
+    "p=12 gauss residual<double>": "a6c82927a4845bba",
+    "p=12 gauss apply<float>": "0c220fdf53a87eb9",
+    "p=12 gauss residual<float>": "1075a1d7076c10f7",
+    "p=12 gauss cheb<float>": "dfdf2d10113973b6",
+    "p=12 gauss cheb<float> x=0": "967c07bcbc22bd7d",
+    "p=13 hermite apply<double>": "d4c60878efe4d4ea",
+    "p=13 hermite residual<double>": "5d16924c1f7abb3c",
+    "p=13 hermite apply<float>": "672f9b5b09c84eb2",
+    "p=13 hermite residual<float>": "c7af6f903c1523d8",
+    "p=13 hermite cheb<float>": "f6a53c01315c81ac",
+    "p=13 hermite cheb<float> x=0": "e0682a68b5bcd96d",
+    "p=13 gll apply<double>": "c2642f18d77f429d",
+    "p=13 gll residual<double>": "cb4233b29e137575",
+    "p=13 gll apply<float>": "17d38c91acbf39fd",
+    "p=13 gll residual<float>": "5f7032fa255719e3",
+    "p=13 gll cheb<float>": "a82ec8f775eb7507",
+    "p=13 gll cheb<float> x=0": "f3a195ba2c3e7bca",
+    "p=13 gauss apply<double>": "1a70cbad1be52cbc",
+    "p=13 gauss residual<double>": "b774d7632a188f1f",
+    "p=13 gauss apply<float>": "a9952633218cacdd",
+    "p=13 gauss residual<float>": "9c495f4b884eb6ba",
+    "p=13 gauss cheb<float>": "be0ca71964ea2993",
+    "p=13 gauss cheb<float> x=0": "5c26d589e3e83aa5",
+    "p=14 hermite apply<double>": "66387039f3002232",
+    "p=14 hermite residual<double>": "3c552197c0049bd7",
+    "p=14 hermite apply<float>": "90a27a68f51de87f",
+    "p=14 hermite residual<float>": "e236f8a840729f89",
+    "p=14 hermite cheb<float>": "3dcbaa4977ef3b40",
+    "p=14 hermite cheb<float> x=0": "28d6aba5cf2ea174",
+    "p=14 gll apply<double>": "a57cd03a715972cc",
+    "p=14 gll residual<double>": "5c11642d706e953c",
+    "p=14 gll apply<float>": "9df4bae875c66ff1",
+    "p=14 gll residual<float>": "fad7327bee9c3393",
+    "p=14 gll cheb<float>": "c2386a53c694bbbe",
+    "p=14 gll cheb<float> x=0": "b3d37fe61b186bad",
+    "p=14 gauss apply<double>": "910bae73965fe6ee",
+    "p=14 gauss residual<double>": "4e53a8ee667f1c65",
+    "p=14 gauss apply<float>": "24d3490ae7e63bb5",
+    "p=14 gauss residual<float>": "0b08de200f00da65",
+    "p=14 gauss cheb<float>": "c5602b6290af22ae",
+    "p=14 gauss cheb<float> x=0": "0e89c8c6a38cde89",
+    "p=15 hermite apply<double>": "28fcc11d8a21ad98",
+    "p=15 hermite residual<double>": "164dd56516e736b6",
+    "p=15 hermite apply<float>": "918d423fd6a2c3ff",
+    "p=15 hermite residual<float>": "66b62c9b862d586a",
+    "p=15 hermite cheb<float>": "7f16fa2802375229",
+    "p=15 hermite cheb<float> x=0": "759125629cafe4f0",
+    "p=15 gll apply<double>": "f23026788a28cdf5",
+    "p=15 gll residual<double>": "e3f4022595c7a1ec",
+    "p=15 gll apply<float>": "86ee5ddf5f51caaa",
+    "p=15 gll residual<float>": "d234b7b9a6a86216",
+    "p=15 gll cheb<float>": "9a53fe6c062c3116",
+    "p=15 gll cheb<float> x=0": "e29fee20721b2df9",
+    "p=15 gauss apply<double>": "9b9738a7b74966c9",
+    "p=15 gauss residual<double>": "9744f6c99c098074",
+    "p=15 gauss apply<float>": "e07df9dd191b63e5",
+    "p=15 gauss residual<float>": "bf98b374dd30ab2d",
+    "p=15 gauss cheb<float>": "5d8b1e195c791d0e",
+    "p=15 gauss cheb<float> x=0": "2296b880c7415e5a",
+    "p=16 hermite apply<double>": "8e1aa105a52999b5",
+    "p=16 hermite residual<double>": "09917587da2bd00a",
+    "p=16 hermite apply<float>": "3783ba59306c7f04",
+    "p=16 hermite residual<float>": "f7362036a2d44df7",
+    "p=16 hermite cheb<float>": "160abfbb46ab8342",
+    "p=16 hermite cheb<float> x=0": "453d059ccf081a88",
+    "p=16 gll apply<double>": "7ea88fbed9719837",
+    "p=16 gll residual<double>": "966dbced62633051",
+    "p=16 gll apply<float>": "6752710526fd83de",
+    "p=16 gll residual<float>": "f8d969843bf597e6",
+    "p=16 gll cheb<float>": "42662889f4fd542a",
+    "p=16 gll cheb<float> x=0": "a2bf267cfaeb4cbe",
+    "p=16 gauss apply<double>": "7cd14a14b8030702",
+    "p=16 gauss residual<double>": "fca166673cf86ea2",
+    "p=16 gauss apply<float>": "a609d1486f6d2b89",
+    "p=16 gauss residual<float>": "058818b5c242a03c",
+    "p=16 gauss cheb<float>": "7f753442357f8fee",
+    "p=16 gauss cheb<float> x=0": "dcf06f4b2be243f4",
 }
 
 
-@pytest.mark.parametrize("p", range(1, 10))
+@pytest.mark.parametrize("p", range(1, 17))
 def test_dg_kernels_keep_their_bits_every_degree(dev, p):
     """Every DG kernel's outputs at p, in every kind: apply and residual
     in both types, the step with x and with x = 0, dg_cg's x, p, q and
-    scalars, dg_jacobi_cg's r, z and scalars, bit for bit as DG_DIGESTS
-    pins them."""
+    scalars, dg_jacobi_cg's r, z and scalars (p <= 9, the fused CG's
+    degrees), bit for bit as DG_DIGESTS pins them."""
     from multigrid_tpu_torch.ops import dg_kernel as dk
 
     want = {k: v for k, v in DG_DIGESTS.items() if k.startswith(f"p={p} ")}
-    assert len(want) == 3 * len(dk.DIGEST_MODES)
+    assert len(want) == 3 * (len(dk.DIGEST_MODES)
+                             - (0 if p <= dk.CG_MAX_DEGREE else 2))
     assert dk.kernel_digests(dev, degrees=[p]) == want
 
 
@@ -1329,7 +1610,7 @@ def test_brick_2d_solve_on_card_matches_cpu(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_matvec_dg_above_the_kernels_degree_on_card(dev, dtype):
-    """A matvec_dg row above the DG kernels' degree (p = 10) on the card
+    """A matvec_dg row above the DG kernels' degree (p = 17) on the card
     runs the plain operator, says so and meets matvec_dg's bar against
     the face-based operator."""
     from multigrid_tpu_torch.experiments import matvec_dg
@@ -1342,7 +1623,7 @@ def test_matvec_dg_above_the_kernels_degree_on_card(dev, dtype):
 
 
 def test_dg_levels_above_the_kernels_degree_refuse_the_card(dev):
-    """A 3-D constant-coefficient DG level above p = 9 has no kernel: the
+    """A 3-D constant-coefficient DG level above p = 16 has no kernel: the
     JAX DG solvers run Pallas there, so the card refuses it rather than
     run plain PyTorch; a 2-D one is a plain level on the card."""
     from multigrid_tpu_torch.ops import dg_kernel as dk

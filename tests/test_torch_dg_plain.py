@@ -448,6 +448,20 @@ def test_dg_drivers_curved_geometry_run(driver, args, capsys):
 
 
 
+def _unit_probe(monkeypatch):
+    """The transformed Jacobi's diagonal probe (``_transformed_diagonals``:
+    n^3 applies of the operator, minutes on the CPU at the kernels' top
+    degree and above it) replaced by ones, for the tests of routes and of
+    the benchmark programs' composition above the kernels' degree; the
+    diagonal itself is held to JAX in tests/test_torch_dg_ops.py."""
+    from multigrid_tpu_torch.ops import dg_precond
+
+    monkeypatch.setattr(
+        dg_precond, "_transformed_diagonals",
+        lambda op, T3: torch.ones(op.grid.cells + (T3.shape[0],),
+                                  dtype=torch.float64, device=op.device))
+
+
 def test_matvec_dg_above_the_kernels_degree_runs_plain_on_the_card(
         monkeypatch, capsys):
     """On the card a row above dg_kernel.MAX_DEGREE runs the plain
@@ -491,10 +505,12 @@ def test_constant_level_route_follows_dim_and_degree(cells, p, covered,
     the plain DGLaplace in a PlainLevel (not the var-coeff class); the
     outer CG's operator follows the same rule.  Above the kernels' degree
     a 3-D level has no kernel, and DGOperator refuses it on the card
-    (device monkeypatched)."""
+    (device monkeypatched).  The levels' transformed Jacobi takes a unit
+    diagonal (:func:`_unit_probe`)."""
     from multigrid_tpu_torch.solvers.fused import PlainLevel
     from multigrid_tpu_torch.solvers.multigrid_dg import constant_level
 
+    _unit_probe(monkeypatch)
     _, gt = grids(cells, p, "hermite")
     assert dk.covers(gt) is covered
     assert dk.has_kernel(gt) is (covered and p <= dk.MAX_DEGREE)
@@ -539,9 +555,15 @@ def test_dg_plain_experiment_defaults_to_2d(capsys):
 
 
 @pytest.mark.parametrize("driver", ["matvec_dg_cheby", "solver_dg"])
-def test_dg_benchmark_drivers_above_the_kernels_degree(driver, capsys):
-    """p = 10, above the DG kernels: the Chebyshev step and the cell-based
-    CG run over the plain operator ("(plain)") and meet their bars."""
+def test_dg_benchmark_drivers_above_the_kernels_degree(driver, capsys,
+                                                       monkeypatch):
+    """p = 17, above the DG kernels: the Chebyshev step and the cell-based
+    CG run over the plain operator ("(plain)") and meet their bars (the
+    step's transformed Jacobi with a unit diagonal, :func:`_unit_probe`;
+    the CG compares two operators over 50 iterations, which needs the true
+    preconditioner)."""
+    if driver == "matvec_dg_cheby":
+        _unit_probe(monkeypatch)
     main = {"matvec_dg_cheby": matvec_dg_cheby.main,
             "solver_dg": solver_dg.main}[driver]
     p = str(dk.MAX_DEGREE + 1)
